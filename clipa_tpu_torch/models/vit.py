@@ -1,0 +1,181 @@
+"""ViT image tower (eval mode).
+
+Port of ``clipa_tpu/models/vit.py``: conv patch stem, cls token, learned or
+sincos2d position embeddings, optional ``ln_pre``, pre-LN encoder over a flat
+residual stream, pools ``gap`` / ``gap_all`` / ``tok`` / ``0``, and the
+no-bias projection head. Input is NHWC, as in the JAX tower.
+
+Not ported yet: ``map`` pooling, the ``linear`` patch stem, CLIPA's
+``random_masking`` (training) and position-embedding resampling.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from clipa_tpu_torch.models import layers
+
+
+def posemb_sincos_2d(h: int, w: int, width: int, temperature: float = 10_000.,
+                     cls_token: bool = False) -> torch.Tensor:
+    """Fixed 2D sin-cos position embedding, (1, [1 +] h*w, width) fp32:
+    layout [sin x | cos x | sin y | cos y], a zero row for the cls token."""
+    if width % 4:
+        raise ValueError("sincos2d needs width % 4 == 0")
+    y, x = np.mgrid[:h, :w]
+    omega = np.arange(width // 4) / (width // 4 - 1)
+    omega = 1.0 / (temperature ** omega)
+    y = np.einsum("m,d->md", y.flatten(), omega)
+    x = np.einsum("m,d->md", x.flatten(), omega)
+    pe = np.concatenate([np.sin(x), np.cos(x), np.sin(y), np.cos(y)], axis=1)
+    if cls_token:
+        pe = np.concatenate([np.zeros((1, width)), pe], axis=0)
+    return torch.as_tensor(pe, dtype=torch.float32)[None]
+
+
+class PatchEmbed(nn.Module):
+    """The conv stem (``nn.Conv`` with stride = kernel = patch, VALID) as a
+    patchify reshape and one matmul against the (p, p, 3, W) HWIO kernel:
+    exact, and the same product the JAX stem computes outside any kernel."""
+
+    def __init__(self, patch_size: Sequence[int], width: int):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.kernel = nn.Parameter(torch.empty(*self.patch_size, 3, width))
+
+    def init_own_parameters(self, generator):
+        layers.lecun_normal()(self.kernel, tuple(self.kernel.shape),
+                              generator)
+
+    def forward(self, image: torch.Tensor):
+        """(n, H, W, 3) -> ((n, h*w, W) tokens, h, w)."""
+        n, hh, ww, c = image.shape
+        ph, pw = self.patch_size
+        h, w = hh // ph, ww // pw
+        x = image[:, :h * ph, :w * pw].to(self.kernel.dtype)
+        x = x.reshape(n, h, ph, w, pw, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(n, h * w, ph * pw * c)
+        return x @ self.kernel.reshape(-1, self.kernel.shape[-1]), h, w
+
+
+class _Model(nn.Module):
+    """ViT encoder producing a pooled embedding (and optional head logits).
+
+    `image_size` fixes the learned position-embedding grid (flax infers it
+    from the init input).
+    """
+
+    def __init__(self, num_classes: Optional[int] = None, *,
+                 image_size: Any = 224, patch_size: Sequence[int] = (16, 16),
+                 width: int = 768, depth: int = 12,
+                 mlp_dim: Optional[int] = None, num_heads: int = 12,
+                 posemb: str = "learn", dropout: float = 0.0,
+                 drop_path: float = 0.0, pool_type: str = "gap",
+                 patch_embed: str = "conv",
+                 attn_impl: str = "auto", ln_pre: bool = False,
+                 gelu_approx: Any = True, ln_eps: float = 1e-6,
+                 ls_init: Optional[float] = None):
+        super().__init__()
+        if patch_embed != "conv":
+            raise NotImplementedError(f"patch_embed={patch_embed!r} is not "
+                                      "ported yet (only 'conv')")
+        if pool_type not in ("gap", "gap_all", "tok", "0"):
+            raise NotImplementedError(f"pool_type={pool_type!r} is not "
+                                      "ported yet")
+        if posemb not in ("learn", "sincos2d"):
+            raise ValueError(f"Unknown posemb {posemb!r}")
+        size = ((image_size, image_size) if isinstance(image_size, int)
+                else tuple(image_size))
+        self.grid = (size[0] // patch_size[0], size[1] // patch_size[1])
+        n_pos = self.grid[0] * self.grid[1] + 1
+        self.width = width
+        self.pool_type = pool_type
+
+        self.embedding = PatchEmbed(patch_size, width)
+        self.cls = nn.Parameter(torch.empty(1, 1, width))
+        if posemb == "learn":
+            self.pos_embedding = nn.Parameter(torch.empty(1, n_pos, width))
+        else:
+            self.register_buffer("pos_embedding", posemb_sincos_2d(
+                *self.grid, width, cls_token=True), persistent=False)
+        self.dropout = layers.Dropout(dropout)
+        self.ln_pre = layers.LayerNorm(width, eps=ln_eps) if ln_pre else None
+        self.Transformer = layers.Encoder(
+            depth, width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
+            drop_path=drop_path, attn_impl=attn_impl,
+            gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init)
+        self.encoder_norm = (layers.LayerNorm(width, eps=ln_eps)
+                             if pool_type != "0" else None)
+        self.head = None
+        if num_classes:
+            self.head = layers.QuantDense(
+                width, num_classes, kernel_init=layers.normal(width ** -0.5),
+                use_bias=False)
+
+    def init_own_parameters(self, generator):
+        self.cls.zero_()
+        if isinstance(self.pos_embedding, nn.Parameter):
+            layers.normal(self.width ** -0.5)(self.pos_embedding, (),
+                                              generator)
+
+    def forward(self, image: torch.Tensor):
+        """image: (n, H, W, 3) normalized floats. Returns the fp32 (n, C)
+        embedding and a dict of intermediates."""
+        out = {}
+        x, h, w = self.embedding(image)
+        if (h, w) != self.grid:
+            raise ValueError(f"image gives a {h}x{w} patch grid, the model "
+                             f"was built for {self.grid[0]}x{self.grid[1]}")
+        n = x.shape[0]
+        x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
+        x = self.dropout(x + self.pos_embedding.to(x.dtype))
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
+
+        x = self.Transformer(x)
+        out["encoded"] = x
+
+        if self.pool_type == "gap":
+            x = self.encoder_norm(x[:, 1:].mean(dim=1))
+        elif self.pool_type == "gap_all":
+            x = self.encoder_norm(x.mean(dim=1))
+        elif self.pool_type == "tok":
+            x = self.encoder_norm(x)[:, 0]
+        else:  # "0"
+            x = x[:, 0]
+        out["head_input"] = x
+
+        if self.head is not None:
+            x = self.head(x)
+            out["logits"] = x
+        # Embeddings leave the tower in fp32, as in the JAX tower.
+        return x.float(), out
+
+
+def Model(num_classes=None, *, variant=None, **kw):  # noqa: N802
+    """Builds a ViT from a variant string (e.g. "L/16") plus overrides."""
+    return _Model(num_classes, **{**decode_variant(variant), **kw})
+
+
+def decode_variant(variant: Optional[str]) -> dict:
+    """"B/16" -> dims dict. Table 2 of arxiv.org/abs/2106.04560."""
+    if variant is None:
+        return {}
+    v, _, patch = variant.partition("/")
+    cfg = {
+        "width": {"Ti": 192, "S": 384, "M": 512, "B": 768, "L": 1024,
+                  "H": 1280, "g": 1408, "G": 1664, "e": 1792}[v],
+        "depth": {"Ti": 12, "S": 12, "M": 12, "B": 12, "L": 24,
+                  "H": 32, "g": 40, "G": 48, "e": 56}[v],
+        "mlp_dim": {"Ti": 768, "S": 1536, "M": 2048, "B": 3072, "L": 4096,
+                    "H": 5120, "g": 6144, "G": 8192, "e": 15360}[v],
+        "num_heads": {"Ti": 3, "S": 6, "M": 8, "B": 12, "L": 16,
+                      "H": 16, "g": 16, "G": 16, "e": 16}[v],
+    }
+    if patch:
+        cfg["patch_size"] = (int(patch), int(patch))
+    return cfg

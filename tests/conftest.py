@@ -47,3 +47,9 @@ def mesh8():
 def mesh_4x2():
     from clipa_tpu.parallel import create_mesh
     return create_mesh(fsdp=2)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (clipa_tpu_torch kernels); "
+        "skips without one")
