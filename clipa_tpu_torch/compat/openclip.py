@@ -175,7 +175,7 @@ def create_model(model_name: str, pretrained: Optional[str] = None, *,
     tt_cfg["image"]["attn_impl"] = attn_impl
     tt_cfg["text"]["attn_impl"] = attn_impl
     with device:
-        model = two_towers.Model(**tt_cfg)
+        model = two_towers.Model(**tt_cfg, dtype=dtype)
     if pretrained:
         convert.load_jax_params(model, ckpt.load_params(pretrained))
     else:

@@ -1,4 +1,4 @@
-"""Shared transformer building blocks (eval mode).
+"""Shared transformer building blocks.
 
 Port of ``clipa_tpu/models/layers.py``. Module attribute names follow the
 flax module names (``MultiHeadDotProductAttention_0``, ``MlpBlock_0``,
@@ -6,17 +6,21 @@ flax module names (``MultiHeadDotProductAttention_0``, ``MlpBlock_0``,
 is the JAX flat name with "." for "/" (the leaf renames are in
 ``clipa_tpu_torch/convert.py``).
 
-Dtypes follow the JAX towers' mixed precision: matmul weights, biases and
-embeddings are stored in the compute dtype (:func:`cast_params`; JAX casts
-its fp32 params at every use, which rounds the same way), LayerNorm keeps
-fp32 parameters and computes its statistics and affine in fp32.
+Dtypes follow the JAX towers' mixed precision: parameters are fp32 masters
+and every layer casts its weights and biases at use to the dtype of its
+input, which the towers set to their compute dtype (the residual stream
+stays in it, as in flax, where each module casts to ``dtype``). LayerNorm
+computes its statistics and affine in fp32 with fp32 parameters. Serving
+may store the weights in the compute dtype instead (:func:`cast_params`),
+where the cast at use is a no-op and the numbers are the same.
 
 Initializers reproduce the flax initializers' distributions (fans counted
 on the flax parameter shapes), not their random bits: parameters are drawn
 from an explicit ``torch.Generator`` by :func:`init_parameters`.
 
 Not ported: ``remat``, ``quant`` (int8 matmuls) and ``stream="ref3d"``.
-Dropout and DropPath are identities in eval mode and refuse to train.
+Dropout and DropPath are identities at rate 0 and in eval mode, and refuse
+to train at a rate above 0.
 """
 
 from __future__ import annotations
@@ -79,12 +83,24 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> None:
-    """Stores every parameter in `dtype`, except LayerNorm's (fp32)."""
+    """Stores every parameter in `dtype`, except LayerNorm's (fp32): the
+    serving layout, whose casts at use are then no-ops."""
     for m in module.modules():
         if isinstance(m, nn.LayerNorm):
             continue
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
+
+
+def check_remat(policy: Optional[str]) -> None:
+    """Activation rematerialization is not ported: only "none" is taken."""
+    if policy not in (None, "none"):
+        raise NotImplementedError(
+            f"remat_policy={policy!r} is not ported yet (ROADMAP.md A3)")
+
+
+def _cast(x: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if x is None else x.to(dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -97,7 +113,8 @@ class LayerNorm(nn.LayerNorm):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth. Identity in eval mode; training is not ported."""
+    """Stochastic depth. Identity at rate 0 and in eval mode; training at a
+    rate above 0 is not ported."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -111,14 +128,16 @@ class DropPath(nn.Module):
 
 
 class Dropout(DropPath):
-    """Dropout. Identity in eval mode; training is not ported."""
+    """Dropout. Identity at rate 0 and in eval mode; training at a rate
+    above 0 is not ported."""
 
 
 class _ProjIn(nn.Module):
     """Input projection to packed (..., heads * head_dim).
 
-    Returns ``(y, bias)`` with the bias not added (None without bias): the
-    attention core adds it, inside the kernel on the fused path.
+    Returns ``(y, bias)`` with the bias not added (None without bias),
+    both in x's dtype: the attention core adds it, inside the kernel on the
+    fused path.
     """
 
     def __init__(self, d_in: int, num_heads: int, head_dim: int,
@@ -136,7 +155,8 @@ class _ProjIn(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor):
-        return F.linear(x, self.weight), self.bias
+        return (F.linear(x, self.weight.to(x.dtype)),
+                _cast(self.bias, x.dtype))
 
 
 class _ProjOut(nn.Module):
@@ -156,7 +176,7 @@ class _ProjOut(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
 class QuantDense(nn.Module):
@@ -177,7 +197,7 @@ class QuantDense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
 class MultiHeadAttention(nn.Module):

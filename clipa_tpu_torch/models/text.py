@@ -1,13 +1,15 @@
-"""Text transformer tower (eval mode).
+"""Text transformer tower.
 
 Port of ``clipa_tpu/models/text.py``: token embedding (std 0.02), learned
 (std 0.01) position embeddings sliced to the input length,
 encoder blocks with the CLIP-paper init scales, optional causal mask (the
 masked einsum attention path), final ``encoder_norm``, pools
-``last`` / ``tok`` / ``gap`` / ``eot``, and the no-bias head.
+``last`` / ``tok`` / ``gap`` / ``eot``, and the no-bias head. Parameters are
+fp32; `dtype` is the compute dtype (None: fp32, as in flax), to which the
+embedded tokens, posemb and every layer cast at use.
 
-Not ported yet: the CoCa ``embed_cls`` variant and sincos1d position
-embeddings.
+Not ported yet: the CoCa ``embed_cls`` variant, sincos1d position
+embeddings and remat.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.models import layers
 
 
@@ -33,8 +36,11 @@ class _Model(nn.Module):
                  dropout: float = 0.0, drop_path: float = 0.0,
                  pool_type: str = "last", vocab_size: int = 32000,
                  attn_impl: str = "auto", causal_mask: bool = False,
-                 gelu_approx: Any = True, ln_eps: float = 1e-6):
+                 gelu_approx: Any = True, ln_eps: float = 1e-6,
+                 dtype: Any = None, remat_policy: Optional[str] = "none"):
         super().__init__()
+        layers.check_remat(remat_policy)
+        self.dtype = u.resolve_dtype(dtype) or torch.float32
         if pool_type not in ("last", "tok", "gap", "eot"):
             raise ValueError(f"Unknown pool_type {pool_type!r}")
         self.pool_type = pool_type
@@ -72,7 +78,8 @@ class _Model(nn.Module):
         """text: (n, l) int token ids. Returns the fp32 (n, C) embedding and
         a dict of intermediates."""
         out = {}
-        x = self.Embed_0(text)
+        # take then cast: the same values as flax's cast-then-take
+        x = self.Embed_0(text).to(self.dtype)
         n, l, _ = x.shape
         if l > self.num_pos:
             raise ValueError(f"input length {l} exceeds positional capacity "

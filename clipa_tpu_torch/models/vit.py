@@ -1,12 +1,16 @@
-"""ViT image tower (eval mode).
+"""ViT image tower.
 
 Port of ``clipa_tpu/models/vit.py``: conv patch stem, cls token, learned or
 sincos2d position embeddings, optional ``ln_pre``, pre-LN encoder over a flat
 residual stream, pools ``gap`` / ``gap_all`` / ``tok`` / ``0``, and the
-no-bias projection head. Input is NHWC, as in the JAX tower.
+no-bias projection head. Input is NHWC, as in the JAX tower. Parameters are
+fp32; `dtype` is the compute dtype (None: the image's), to which the stem,
+cls, posemb and every layer cast at use. Gradients flow in ``train()`` mode
+as in ``eval()`` mode (no dropout is ported at a rate above 0).
 
-Not ported yet: ``map`` pooling, the ``linear`` patch stem, CLIPA's
-``random_masking`` (training) and position-embedding resampling.
+Not ported yet: ``map`` pooling, the ``linear`` patch stem, remat, CLIPA's
+``random_masking`` (``mask_ratio > 0``, ROADMAP.md A9) and position-embedding
+resampling.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.models import layers
 
 
@@ -51,15 +56,16 @@ class PatchEmbed(nn.Module):
         layers.lecun_normal()(self.kernel, tuple(self.kernel.shape),
                               generator)
 
-    def forward(self, image: torch.Tensor):
-        """(n, H, W, 3) -> ((n, h*w, W) tokens, h, w)."""
+    def forward(self, image: torch.Tensor, dtype: torch.dtype):
+        """(n, H, W, 3) -> ((n, h*w, W) tokens in `dtype`, h, w)."""
         n, hh, ww, c = image.shape
         ph, pw = self.patch_size
         h, w = hh // ph, ww // pw
-        x = image[:, :h * ph, :w * pw].to(self.kernel.dtype)
+        x = image[:, :h * ph, :w * pw].to(dtype)
         x = x.reshape(n, h, ph, w, pw, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, h * w, ph * pw * c)
-        return x @ self.kernel.reshape(-1, self.kernel.shape[-1]), h, w
+        kernel = self.kernel.reshape(-1, self.kernel.shape[-1]).to(dtype)
+        return x @ kernel, h, w
 
 
 class _Model(nn.Module):
@@ -78,8 +84,10 @@ class _Model(nn.Module):
                  patch_embed: str = "conv",
                  attn_impl: str = "auto", ln_pre: bool = False,
                  gelu_approx: Any = True, ln_eps: float = 1e-6,
-                 ls_init: Optional[float] = None):
+                 ls_init: Optional[float] = None, dtype: Any = None,
+                 remat_policy: Optional[str] = "none"):
         super().__init__()
+        layers.check_remat(remat_policy)
         if patch_embed != "conv":
             raise NotImplementedError(f"patch_embed={patch_embed!r} is not "
                                       "ported yet (only 'conv')")
@@ -94,6 +102,7 @@ class _Model(nn.Module):
         n_pos = self.grid[0] * self.grid[1] + 1
         self.width = width
         self.pool_type = pool_type
+        self.dtype = u.resolve_dtype(dtype)
 
         self.embedding = PatchEmbed(patch_size, width)
         self.cls = nn.Parameter(torch.empty(1, 1, width))
@@ -122,11 +131,15 @@ class _Model(nn.Module):
             layers.normal(self.width ** -0.5)(self.pos_embedding, (),
                                               generator)
 
-    def forward(self, image: torch.Tensor):
+    def forward(self, image: torch.Tensor, mask_ratio: float = 0.0):
         """image: (n, H, W, 3) normalized floats. Returns the fp32 (n, C)
         embedding and a dict of intermediates."""
+        if mask_ratio > 0:
+            raise NotImplementedError(
+                "mask_ratio > 0 (CLIPA's random_masking for unmask-tuning) "
+                "is not ported yet (ROADMAP.md A9)")
         out = {}
-        x, h, w = self.embedding(image)
+        x, h, w = self.embedding(image, self.dtype or image.dtype)
         if (h, w) != self.grid:
             raise ValueError(f"image gives a {h}x{w} patch grid, the model "
                              f"was built for {self.grid[0]}x{self.grid[1]}")

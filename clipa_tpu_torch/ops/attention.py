@@ -6,16 +6,19 @@ packed (B, L, D) or flat (B*L, D) operands, as the JAX version does.
 Dispatch (``impl="auto"``) is keyed on the sequence length and the mask; the
 device decides only what the fused path runs:
   * ``fused``  -- unmasked self-attention with L >= 33 and a head dim the
-                  kernel takes: the CUDA kernel for a CUDA tensor, its plain
-                  version for a CPU tensor (ops/block_attention.py). Covers
-                  every CLIPA image tower (50/257/577 tokens).
-  * ``einsum`` -- einsum + fp32 softmax with ``finfo.min`` masking: masked
-                  attention and short sequences, including the 32-token
-                  text towers (the JAX version's ``xla`` path).
+                  kernel takes: the CUDA kernels (forward and backward) for
+                  a CUDA tensor, their plain versions for a CPU tensor
+                  (ops/block_attention.py). Covers every CLIPA image tower
+                  (50/257/577 tokens).
+  * ``einsum`` -- einsum + fp32 softmax with ``finfo.min`` masking, autograd
+                  gradients: masked attention and short sequences, including
+                  the 8- and 32-token text towers (the JAX version's ``xla``
+                  path).
 Explicit choices: ``fused_exact`` (the fused path with the row-max softmax)
-and ``plain`` (the fused path's plain PyTorch version on any device, the
-reference the kernel is held against). ``pallas``, the tiled flash kernel
-the JAX version takes from 1024 tokens on, is not ported.
+and ``plain`` (the fused path's plain PyTorch versions, forward and
+backward, on any device: the reference the kernels are held against).
+``pallas``, the tiled flash kernel the JAX version takes from 1024 tokens
+on, is not ported.
 """
 
 from __future__ import annotations
@@ -81,13 +84,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if mask is not None:
             raise ValueError(f"impl={impl!r} does not support masks; use "
                              "impl='einsum' (or 'auto') for masked attention")
-        if impl == "plain":
-            out = block_attention.attention_plain(q, k, v, num_heads,
-                                                  seq_len, biases)
-        else:
-            out = block_attention.fused_attention(q, k, v, num_heads,
-                                                  seq_len, biases,
-                                                  exact=impl == "fused_exact")
+        out = block_attention.fused_attention(
+            q, k, v, num_heads, seq_len, biases,
+            exact=impl == "fused_exact", plain=impl == "plain")
         return out.reshape(shape)
 
     if biases is not None:

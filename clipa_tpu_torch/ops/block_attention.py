@@ -1,29 +1,38 @@
-"""Fused multi-head self-attention forward: CUDA kernel and plain version.
+"""Fused multi-head self-attention: CUDA kernels and plain versions.
 
-Port of the forward half of ``clipa_tpu/ops/block_attention.py``. The three
-Pallas forwards there (``_fwd_kernel`` over (B, L, D), ``_fwd2d_kernel`` and
-``_fwd2d_bias_kernel`` over flat (B*L, D) rows) compute one function, and on
-Hopper one hand-written kernel serves all three:
-``csrc/fused_attention_fwd.cu``, launched by :func:`fused_attention`. The
-TPU kernels' VMEM plans, sample groups and block-diagonal masks suited
-Mosaic only; the CUDA kernel runs one block per (sample, head, q-tile).
-bf16 operands go through the tensor cores; fp32 operands (the service at
-precision float32) through a scalar fp32 twin in the same source.
+Port of ``clipa_tpu/ops/block_attention.py``. The three Pallas forwards
+there (``_fwd_kernel`` over (B, L, D), ``_fwd2d_kernel`` and
+``_fwd2d_bias_kernel`` over flat (B*L, D) rows) compute one function, and
+so do the three backwards (``_bwd_kernel``, ``_bwd2d_kernel``,
+``_bwd2d_bias_kernel``). On Hopper one hand-written kernel family serves
+each direction: ``csrc/fused_attention_fwd.cu`` (:func:`fused_attention`)
+and ``csrc/fused_attention_bwd.cu`` (:func:`fused_attention_bwd`). The TPU
+kernels' VMEM plans, sample groups and block-diagonal masks suited Mosaic
+only; the CUDA kernels run one block per (sample, head, 64-row tile). bf16
+operands go through the tensor cores; fp32 operands (the service at
+precision float32, the fp32 smoke configs) through scalar fp32 twins in the
+same sources.
 
-:func:`attention_plain` is the same function in plain PyTorch. It is what
-the wrapper runs for a tensor on the CPU (the tests), and what the kernel is
-held against on the card. It reproduces the Pallas math:
+:class:`FusedAttentionFn` ties the two directions into autograd, on every
+device: the kernels for CUDA tensors, the plain versions for CPU tensors
+and for ``plain=True``.
+
+:func:`attention_plain` and :func:`attention_plain_bwd` are the same
+functions in plain PyTorch: what the wrappers run for a tensor on the CPU
+(the tests), and what the kernels are held against on the card. They
+reproduce the Pallas math, not autograd's:
 
   * fp32 scores from the operand dtype, the scale applied to the fp32
     scores;
   * ``exp(clip(s, +-70))`` with no row max (``_EXP_CLIP``), or the row-max
     form when ``exact``;
-  * deferred normalization O = (E.V) / rowsum(E), E cast to the operand
-    dtype before the product;
+  * forward: deferred normalization O = (E.V) / rowsum(E), E cast to the
+    operand dtype before the product;
+  * backward: P recomputed and normalized in fp32, dS = P*(dP - rowsum(dP*P))
+    zeroed where |s| >= 70 in clip mode (``_clip_grad_mask``), dS*scale and
+    P rounded to the operand dtype before the three products, bias grads
+    the fp32 column sums of dq/dk/dv taken before those are rounded;
   * per-sample attention only: row i belongs to sample i // seq_len.
-
-The backward kernels (the JAX custom VJPs) are not ported yet; see
-ROADMAP.md queue B.
 """
 
 from __future__ import annotations
@@ -39,11 +48,11 @@ from clipa_tpu_torch.ops import cuda_build
 # for why the clip is 70 and what the clipped softmax gives up.
 _EXP_CLIP = 70.0
 
-# The kernel's limits: head_dim a multiple of 8 (16-byte row chunks) up to
-# 128 (the largest register tile it instantiates).
+# The kernels' limits: head_dim a multiple of 8 (16-byte row chunks) up to
+# 128 (the largest register tile they instantiate).
 MAX_HEAD_DIM = 128
 
-# Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.
+# Forward kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.
 # bf16 operands: both round E to bf16 and the output to bf16, so what remains
 # is the fp32 summation order, the hardware exp, and in exact mode the online
 # row max (E rounded against the running max, not the final one). Each moves
@@ -57,18 +66,65 @@ KERNEL_RTOL = 1e-2
 KERNEL_F32_ATOL = 2e-5
 KERNEL_F32_RTOL = 2e-5
 
-# Operand dtype -> the C entry point of csrc/fused_attention_fwd.cu.
+# Backward kernel vs plain backward, per output x in (dq, dk, dv, dbq, dbk,
+# dbv): |kernel - plain| <= BWD_RTOL * (|plain| + max|plain|). Gradients are
+# sums of terms of either sign, so an element can be far smaller than its
+# terms; the absolute part is scaled by the tensor's largest element. bf16:
+# dS*scale and P are rounded to bf16 in both, and an fp32 difference of a
+# few ulps (summation order, hardware exp) can round one of them to the
+# neighbouring bf16 value; the outputs are then rounded to bf16 once more:
+# about one bf16 ulp (2^-8) of the largest term. fp32: summation order only.
+BWD_RTOL = 1e-2
+BWD_F32_RTOL = 2e-5
+
+# Operand dtype -> the C entry points of the two sources.
 _ENTRY = {torch.bfloat16: "clipa_fused_attention_fwd",
           torch.float32: "clipa_fused_attention_fwd_f32"}
+_BWD_ENTRY = {torch.bfloat16: "clipa_fused_attention_bwd",
+              torch.float32: "clipa_fused_attention_bwd_f32"}
 
 _SOURCE = "fused_attention_fwd.cu"
+_BWD_SOURCE = "fused_attention_bwd.cu"
+
+# Rows per tile of the bf16 backward kernels (bias-grad partials per tile).
+_BWD_TILE = 64
 
 
 def tolerance(dtype: torch.dtype) -> tuple[float, float]:
-    """(atol, rtol) of the kernel against :func:`attention_plain`."""
+    """(atol, rtol) of the forward kernel against :func:`attention_plain`."""
     if dtype == torch.float32:
         return KERNEL_F32_ATOL, KERNEL_F32_RTOL
     return KERNEL_ATOL, KERNEL_RTOL
+
+
+def bwd_tolerance(dtype: torch.dtype) -> float:
+    """rtol of the backward kernel against :func:`attention_plain_bwd`:
+    |kernel - plain| <= rtol * (|plain| + scale), per output."""
+    return BWD_F32_RTOL if dtype == torch.float32 else BWD_RTOL
+
+
+def bwd_errors(grads, ref, dtype: torch.dtype) -> list[tuple[float, bool]]:
+    """(max abs error, within tolerance) of each present output of a
+    backward against the reference `ref` (same order: dq, dk, dv, dbq, dbk,
+    dbv). The scale of dq/dk/dv is the tensor's largest element; a bias
+    grad is a column sum over B*L rows (dbk is 0 in exact arithmetic: the
+    rows of dS sum to 0), so its scale is the largest column sum of
+    magnitudes of the matching reference grad."""
+    rtol = bwd_tolerance(dtype)
+    out = []
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        if r is None:
+            continue
+        g, r = g.float(), r.float()
+        if i < 3:
+            scale = r.abs().max()
+        else:
+            scale = ref[i - 3].float().abs().sum(dim=0).max()
+        err = (g - r).abs()
+        ok = bool(torch.isfinite(g).all()
+                  and (err <= rtol * (r.abs() + scale)).all())
+        out.append((err.max().item(), ok))
+    return out
 
 
 def _head_error(d_model: int, num_heads: int) -> Optional[str]:
@@ -87,11 +143,22 @@ def eligible(d_model: int, num_heads: int, mask) -> bool:
     return mask is None and _head_error(d_model, num_heads) is None
 
 
+def _heads(x: torch.Tensor, b: int, seq_len: int, num_heads: int):
+    """(B*L, D) -> (B, H, L, hd) in fp32."""
+    return x.reshape(b, seq_len, num_heads, -1).transpose(1, 2).float()
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, hd) -> (B*L, D)."""
+    b, h, l, hd = x.shape
+    return x.transpose(1, 2).reshape(b * l, h * hd)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, seq_len: int,
                     biases: Optional[Sequence[torch.Tensor]] = None,
                     exact: bool = False) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, on any device.
+    """The forward kernel's function in plain PyTorch, on any device.
 
     q, k, v: (B*L, D) with L = seq_len; biases: optional three (D,) tensors
     added to q/k/v in the operand dtype (one rounding). Returns (B*L, D) in
@@ -104,8 +171,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bq, bk, bv = biases
         q, k, v = q + bq, k + bk, v + bv
 
-    def heads(x):  # (B*L, D) -> (B, H, L, hd) in fp32
-        return x.reshape(b, seq_len, num_heads, hd).transpose(1, 2).float()
+    def heads(x):
+        return _heads(x, b, seq_len, num_heads)
 
     s = heads(q) @ heads(k).transpose(-1, -2) * (hd ** -0.5)
     if exact:
@@ -114,34 +181,145 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         e = s.clamp_(-_EXP_CLIP, _EXP_CLIP).exp_()
     r = e.sum(dim=-1, keepdim=True)
     o = (e.to(q.dtype).float() @ heads(v)) / r
-    return o.to(q.dtype).transpose(1, 2).reshape(rows, d)
+    return _flat(o.to(q.dtype))
+
+
+def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, num_heads: int, seq_len: int,
+                        biases: Optional[Sequence[torch.Tensor]] = None,
+                        exact: bool = False):
+    """The backward kernel's function in plain PyTorch, on any device.
+
+    The Pallas backward (``_bwd2d_bias_kernel``, ``_call_bwd_2d_b``), not
+    autograd's: see the module docstring. Returns (dq, dk, dv, dbq, dbk,
+    dbv); dq/dk/dv in q's dtype, the bias grads in the biases' dtype (None
+    without biases).
+    """
+    rows, d = q.shape
+    hd = d // num_heads
+    b = rows // seq_len
+    dtype = q.dtype
+    scale = hd ** -0.5
+    if biases is not None:
+        bq, bk, bv = biases
+        q, k, v = q + bq, k + bk, v + bv
+    qh, kh, vh, doh = (_heads(x, b, seq_len, num_heads) for x in (q, k, v, do))
+
+    s = qh @ kh.transpose(-1, -2) * scale
+    if exact:
+        e = (s - s.amax(dim=-1, keepdim=True)).exp()
+    else:
+        e = s.clamp(-_EXP_CLIP, _EXP_CLIP).exp()
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = doh @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if not exact:
+        # d(clip)/ds is 0 where the clip saturates, boundary included
+        ds = torch.where(s.abs() >= _EXP_CLIP, 0.0, ds)
+    dsb = (ds * scale).to(dtype).float()
+    pb = p.to(dtype).float()
+    dq = _flat(dsb @ kh)
+    dk = _flat(dsb.transpose(-1, -2) @ qh)
+    dv = _flat(pb.transpose(-1, -2) @ doh)
+    dbias = (None, None, None)
+    if biases is not None:
+        dbias = tuple(g.sum(dim=0).to(bias.dtype)
+                      for g, bias in zip((dq, dk, dv), biases))
+    return (dq.to(dtype), dk.to(dtype), dv.to(dtype), *dbias)
+
+
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """Whether a tensor on x's device goes to the CUDA kernel (True) or to
+    the plain version (False, CPU tensors); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if not x.is_cuda:
+        raise ValueError(f"fused attention runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    return True
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """Fused attention with its backward, for autograd.
+
+    ``apply(q, k, v, bq, bk, bv, num_heads, seq_len, exact, plain)``; the
+    biases may be None (all three). The kernels run for CUDA tensors, the
+    plain versions for CPU tensors and whenever `plain` is set. The forward
+    saves only (q, k, v, bq, bk, bv), as the JAX custom VJP does: the
+    backward recomputes the scores and the softmax statistics.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, bq, bk, bv, num_heads, seq_len, exact, plain):
+        biases = None if bq is None else (bq, bk, bv)
+        if plain or not _uses_kernel(q):
+            out = attention_plain(q, k, v, num_heads, seq_len, biases, exact)
+        else:
+            out = _launch(q, k, v, num_heads, seq_len, biases, exact)
+            fused_attention.launches += 1
+        ctx.save_for_backward(q, k, v, bq, bk, bv)
+        ctx.attrs = (num_heads, seq_len, exact, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bq, bk, bv = ctx.saved_tensors
+        num_heads, seq_len, exact, plain = ctx.attrs
+        biases = None if bq is None else (bq, bk, bv)
+        # a .sum().backward() hands in a stride-0 gradient
+        do = do.contiguous()
+        bwd = attention_plain_bwd if plain else fused_attention_bwd
+        grads = bwd(q, k, v, do, num_heads, seq_len, biases, exact)
+        return (*grads, None, None, None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, seq_len: int,
                     biases: Optional[Sequence[torch.Tensor]] = None,
-                    exact: bool = False) -> torch.Tensor:
-    """Multi-head self-attention over flat (B*L, D) rows.
+                    exact: bool = False, plain: bool = False) -> torch.Tensor:
+    """Multi-head self-attention over flat (B*L, D) rows, differentiable.
 
-    On a CUDA tensor this launches the CUDA kernel (bf16 or fp32 operands);
-    on a CPU tensor it runs :func:`attention_plain`. On either it raises on
-    a shape the kernel does not take. `biases`: optional (bq, bk, bv), each
-    (D,), added inside the kernel. `exact` selects the row-max softmax.
+    On a CUDA tensor this launches the CUDA kernels (bf16 or fp32 operands)
+    in both directions; on a CPU tensor, or with `plain`, it runs the plain
+    versions. On either device it raises on a shape the kernel does not
+    take. `biases`: optional (bq, bk, bv), each (D,), added inside the
+    kernel. `exact` selects the row-max softmax.
     """
     _check_shapes(q, k, v, num_heads, seq_len, biases)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, num_heads, seq_len, biases, exact)
-    if not q.is_cuda:
-        raise ValueError(f"fused_attention runs on CUDA or CPU tensors, "
-                         f"got {q.device}")
-    out = _launch(q, k, v, num_heads, seq_len, biases, exact)
-    fused_attention.launches += 1
-    return out
+    bq, bk, bv = biases if biases is not None else (None, None, None)
+    return FusedAttentionFn.apply(q, k, v, bq, bk, bv, num_heads, seq_len,
+                                  exact, plain)
 
 
-# Kernel launches made through fused_attention (a plain counter: callers
-# reset it to 0 and read it back to prove a run went through the kernel).
+# Forward kernel launches (a plain counter: callers reset it to 0 and read it
+# back to prove a run went through the kernel).
 fused_attention.launches = 0
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, num_heads: int, seq_len: int,
+                        biases: Optional[Sequence[torch.Tensor]] = None,
+                        exact: bool = False):
+    """The backward of :func:`fused_attention`: (dq, dk, dv, dbq, dbk, dbv).
+
+    On a CUDA tensor this launches ``csrc/fused_attention_bwd.cu``; on a CPU
+    tensor it runs :func:`attention_plain_bwd`. The bias grads are None
+    without biases.
+    """
+    _check_shapes(q, k, v, num_heads, seq_len, biases)
+    if do.shape != q.shape:
+        raise ValueError(f"do has shape {tuple(do.shape)}, expected "
+                         f"{tuple(q.shape)}")
+    if not _uses_kernel(q):
+        return attention_plain_bwd(q, k, v, do, num_heads, seq_len, biases,
+                                   exact)
+    grads = _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact)
+    fused_attention_bwd.launches += 1
+    return grads
+
+
+# Backward kernel launches (one per call; counted like the forward's).
+fused_attention_bwd.launches = 0
 
 
 def _check_shapes(q, k, v, num_heads, seq_len, biases) -> None:
@@ -178,39 +356,95 @@ def _check_memory(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load_library(_SOURCE)
+def _bias_pointers(biases, like) -> list:
+    ptrs = [None, None, None]
+    if biases is not None:
+        for i, (name, b) in enumerate(zip(("bq", "bk", "bv"), biases)):
+            _check_memory(name, b, like)
+            ptrs[i] = b.data_ptr()
+    return ptrs
+
+
+def _library(source: str, entries: dict, n_ptrs: int, n_ints: int
+             ) -> ctypes.CDLL:
+    """Loads `source`, typing its entries as (n_ptrs pointers, n_ints ints,
+    scale, exact, stream)."""
+    lib = cuda_build.load_library(source)
     if lib.clipa_cuda_error_string.argtypes is None:
-        for entry in _ENTRY.values():
+        for entry in entries.values():
             fn = getattr(lib, entry)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.clipa_cuda_error_string.restype = ctypes.c_char_p
         lib.clipa_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def fwd_library() -> ctypes.CDLL:
+    return _library(_SOURCE, _ENTRY, 7, 4)
+
+
+def bwd_library() -> ctypes.CDLL:
+    return _library(_BWD_SOURCE, _BWD_ENTRY, 13, 4)
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.clipa_cuda_error_string(err).decode()} (cudaError {err})")
+
+
 def _launch(q, k, v, num_heads, seq_len, biases, exact):
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_memory(name, x, q)
-    ptrs = [None, None, None]
-    if biases is not None:
-        for i, (name, b) in enumerate(zip(("bq", "bk", "bv"), biases)):
-            _check_memory(name, b, q)
-            ptrs[i] = b.data_ptr()
+    ptrs = _bias_pointers(biases, q)
     hd = d // num_heads
     out = torch.empty_like(q)
-    lib = _library()
+    lib = fwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, _ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
             rows // seq_len, seq_len, num_heads, hd, hd ** -0.5,
             int(bool(exact)), stream)
-    if err:
-        raise RuntimeError(
-            "fused attention kernel launch failed: "
-            f"{lib.clipa_cuda_error_string(err).decode()} (cudaError {err})")
+    _raise_on(err, lib, "fused attention kernel")
     return out
+
+
+def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact):
+    rows, d = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_memory(name, x, q)
+    ptrs = _bias_pointers(biases, q)
+    batch, hd = rows // seq_len, d // num_heads
+    grads = torch.empty((3, rows, d), dtype=q.dtype, device=q.device)
+    # per (row, head): the softmax max (0 in clip mode), sum and rowsum(dP*P)
+    stats = torch.empty((3, rows * num_heads), dtype=torch.float32,
+                        device=q.device)
+    partial = dbias = None
+    if biases is not None:
+        dbias = torch.empty((3, d), dtype=torch.float32, device=q.device)
+        if q.dtype == torch.bfloat16:
+            # fp32 column sums of dq/dk/dv per 64-row tile, before rounding
+            tiles = batch * -(-seq_len // _BWD_TILE)
+            partial = torch.empty((3, tiles, d), dtype=torch.float32,
+                                  device=q.device)
+    lib = bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, _BWD_ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
+            grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+            stats.data_ptr(), None if partial is None else partial.data_ptr(),
+            None if dbias is None else dbias.data_ptr(),
+            batch, seq_len, num_heads, hd, hd ** -0.5, int(bool(exact)),
+            stream)
+    _raise_on(err, lib, "fused attention backward kernel")
+    dq, dk, dv = grads.unbind(0)
+    if dbias is None:
+        return dq, dk, dv, None, None, None
+    return (dq, dk, dv,
+            *(g.to(bias.dtype) for g, bias in zip(dbias.unbind(0), biases)))

@@ -26,7 +26,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+# One lock per source: different sources build in parallel (one nvcc each).
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # Per source: seconds nvcc took in this process (0.0: a cached .so was used).
 build_seconds: dict[str, float] = {}
@@ -54,8 +56,11 @@ def library_path(source: str) -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compiles csrc/`source` if its hashed library is missing, loads it."""
-    with _lock:
+    """Compiles csrc/`source` if its hashed library is missing, loads it.
+    Thread-safe; calls for different sources build concurrently."""
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _libs:
             return _libs[source]
         out = library_path(source)

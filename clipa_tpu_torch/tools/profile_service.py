@@ -35,6 +35,7 @@ import torch
 # Op families by kernel name, first match wins.
 FAMILIES = (
     ("attention kernel", r"fused_attention_fwd"),
+    ("attention bwd kernel", r"attention_bwd_|column_sum_kernel"),
     ("gemm", r"gemm|nvjet|cutlass|xmma|cublas|s16816|s1688"),
     ("layernorm", r"layer_norm"),
     ("gelu", r"[Gg]elu"),

@@ -1,14 +1,17 @@
 """Flat-name helpers for parameter trees.
 
-Port of the naming half of ``clipa_tpu/utils.py``. Parameters are addressed
-by slash-joined names (``img/Transformer/encoderblock_0/LayerNorm_0/scale``);
-npz checkpoints store them under those keys, and ``convert.py`` maps them to
-``state_dict`` names. A tree here is a nested dict of arrays or tensors.
+Port of the naming and masking half of ``clipa_tpu/utils.py``. Parameters
+are addressed by slash-joined names
+(``img/Transformer/encoderblock_0/LayerNorm_0/scale``); npz checkpoints store
+them under those keys, ``convert.py`` maps them to ``state_dict`` names, and
+the optimizer's regexes select them. A tree here is a nested dict of arrays
+or tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import re
+from typing import Any, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -57,3 +60,52 @@ def recover_dtype(a: np.ndarray) -> torch.Tensor:
             raise ValueError(f"Unknown dtype to recover: {a.dtype}")
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def resolve_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """A dtype as configs give it ("bfloat16", "float32", a torch dtype or
+    None) -> a torch dtype or None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    names = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    if str(dtype) not in names:
+        raise ValueError(f"unknown dtype {dtype!r} (configs name bfloat16 "
+                         f"or float32)")
+    return names[str(dtype)]
+
+
+def make_mask_trees(names: Iterable[str],
+                    patterns: Sequence[Union[str, re.Pattern]]
+                    ) -> list[dict[str, bool]]:
+    """One {name: matched} mask per pattern over flat parameter names.
+
+    Port of ``clipa_tpu.utils.make_mask_trees`` on flat names instead of a
+    pytree: each name is claimed by the FIRST pattern that ``fullmatch``-es
+    it, so a name is True in at most one mask. With the JAX names of
+    ``convert.to_jax_names`` the masks equal the JAX package's leaf for leaf:
+
+    ===================================  ==========================  =======
+    pattern (first match wins)           name                        mask
+    ===================================  ==========================  =======
+    ``.*/kernel$``                       ``img/head/kernel``         True
+    ``.*/kernel$``                       ``txt/Embed_0/embedding``   False
+    ``.*/kernel$``                       ``img/encoder_norm/scale``  False
+    ``img/.*``, then ``.*``              ``img/cls``                 first
+    ===================================  ==========================  =======
+    """
+    compiled = []
+    for p in patterns:
+        if isinstance(p, str):
+            compiled.append(re.compile(p))
+        elif isinstance(p, re.Pattern):
+            compiled.append(p)
+        else:
+            raise TypeError(f"Pattern must be str or re.Pattern, got "
+                            f"{type(p)}")
+    masks: list[dict[str, bool]] = [{} for _ in compiled]
+    for name in names:
+        hit = False
+        for pat, mask in zip(compiled, masks):
+            mask[name] = not hit and bool(pat.fullmatch(name))
+            hit = hit or mask[name]
+    return masks

@@ -1,13 +1,15 @@
-"""clipa_tpu_torch on a CUDA device: the kernel against its plain version.
+"""clipa_tpu_torch on a CUDA device: the kernels against their plain versions.
 
 These tests need a card (a CUDA kernel has no CPU mode) and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The tolerance is the kernel's stated one (``block_attention.tolerance``:
-about one bf16 ulp for bf16 operands, 2e-5 for fp32 ones), the reference the
-plain version in fp32 from the same operands with TF32 off.
+The tolerances are the kernels' stated ones (``block_attention.tolerance``
+for the forward: about one bf16 ulp for bf16 operands, 2e-5 for fp32 ones;
+``block_attention.bwd_errors`` for the backward: 1e-2 resp. 2e-5 of each
+gradient's scale), the reference the plain versions in fp32 from the same
+operands with TF32 off.
 """
 
 import json
@@ -124,3 +126,152 @@ def test_service_goes_through_the_kernel(cuda, tmp_path, precision):
         np.testing.assert_allclose(z, zp, atol=1e-4, rtol=0)
     else:
         assert ((z * zp).sum(1)).min() >= 0.999
+
+
+# The backward at the shapes chip_smoke.py checks: the pretrain shape (K6),
+# H/14 @224 (several q-tiles, hd 80: K2's function), L = 577 unbiased
+# (K4/K2), clip mode past the clip with and without bias, exact mode; plus
+# small ragged ones (L = 37 and 65 across tile edges, hd 40 zero-padded).
+BWD_CASES = [
+    (384, 50, 1024, 16, True, False, 1.0),
+    (8, 257, 1280, 16, True, False, 1.0),
+    (2, 577, 1024, 16, False, False, 1.0),
+    (8, 50, 1024, 16, True, False, 40.0),
+    (2, 40, 256, 4, False, False, 40.0),
+    (2, 40, 256, 4, True, True, 40.0),
+    (3, 37, 80, 2, True, False, 1.0),
+    (2, 65, 256, 8, False, True, 1.0),
+    (1, 129, 512, 4, True, False, 1.0),
+]
+
+
+def _bwd_operands(cuda, dtype, b, l, d, bias, q_scale, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, device=cuda, generator=gen)
+                * scale).to(dtype)
+
+    q, k, v, do = mk(b * l, d, scale=q_scale), mk(b * l, d), mk(b * l, d), \
+        mk(b * l, d)
+    biases = (mk(d), mk(d), mk(d)) if bias else None
+    return q, k, v, do, biases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", BWD_CASES)
+def test_bwd_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale,
+                                  dtype):
+    if dtype == torch.float32 and b * l > 4096:
+        b = max(1, 4096 // l)   # the scalar fp32 twin is slow; same tiles
+    q, k, v, do, biases = _bwd_operands(cuda, dtype, b, l, d, bias, q_scale)
+    before = block_attention.fused_attention_bwd.launches
+    grads = block_attention.fused_attention_bwd(q, k, v, do, h, l, biases,
+                                                exact)
+    torch.cuda.synchronize()
+    assert block_attention.fused_attention_bwd.launches == before + 1
+    ref = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
+                                              exact)
+    for g, r in zip(grads, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.dtype == r.dtype and g.shape == r.shape
+    errors = block_attention.bwd_errors(grads, ref, dtype)
+    assert len(errors) == (6 if bias else 3)
+    assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(2 * 40, 64, device=cuda, dtype=torch.bfloat16)
+    bwd = block_attention.fused_attention_bwd
+    with pytest.raises(TypeError, match="bfloat16"):
+        bwd(x, x, x, x.half(), 4, 40)
+    with pytest.raises(TypeError, match="all float32"):
+        bwd(x.float(), x.float(), x.float(), x, 4, 40)
+    with pytest.raises(ValueError, match="do has shape"):
+        bwd(x, x, x, x[:40], 4, 40)
+    with pytest.raises(ValueError, match="head_dim"):
+        bwd(x[:, :60], x[:, :60], x[:, :60], x[:, :60], 5, 40)
+    transposed = torch.zeros(64, 2 * 40, device=cuda,
+                             dtype=torch.bfloat16).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(x, x, x, transposed, 4, 40)
+    with pytest.raises(ValueError, match="on cpu"):
+        bwd(x, x, x, x, 4, 40, (x[0].cpu(), x[0], x[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_gradients_through_the_kernels_equal_the_plain_path(cuda, dtype,
+                                                            bias):
+    """FusedAttentionFn on the card: the kernel path's gradients reach q, k,
+    v and the biases and match the plain path's (the same autograd.Function
+    with plain=True)."""
+    b, l, d, h = 16, 50, 256, 4
+    ops = _bwd_operands(cuda, dtype, b, l, d, bias, 1.0, seed=3)
+    do = ops[3]
+    leaves = [x for x in (*ops[:3], *(ops[4] or ()))]
+
+    def grads(plain):
+        xs = [x.detach().clone().requires_grad_() for x in leaves]
+        out = block_attention.fused_attention(
+            *xs[:3], h, l, tuple(xs[3:]) if bias else None, plain=plain)
+        (out.float() * do.float()).sum().backward()
+        return [x.grad for x in xs]
+
+    fwd0 = block_attention.fused_attention.launches
+    bwd0 = block_attention.fused_attention_bwd.launches
+    kernel = grads(False)
+    assert block_attention.fused_attention.launches == fwd0 + 1
+    assert block_attention.fused_attention_bwd.launches == bwd0 + 1
+    plain = grads(True)
+    assert block_attention.fused_attention_bwd.launches == bwd0 + 1
+    assert all(g is not None for g in kernel)
+    padded = plain[:3] + (plain[3:] if bias else [None] * 3)
+    errors = block_attention.bwd_errors(kernel + [None] * (6 - len(kernel)),
+                                        padded, dtype)
+    assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+def test_tiny_training_step_on_the_card(cuda):
+    """A Ti/16 two-tower model of depth 2 at 96 px (L = 37: the kernels'
+    path) trains on the card: every step launches each kernel once per image
+    layer and none for the 8-token text tower, the measurements are finite,
+    and 10 steps on one batch lower the loss."""
+    from clipa_tpu.configs import clipa_pretrain
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.train import step
+
+    config = clipa_pretrain.get_config(
+        "img=Ti/16,res=96,token_len=8,batchsize=16")
+    config.model.image.update(depth=2)
+    config.model.text.update(depth=2)
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.lr = 1e-4
+    model = step.create_model(config, device=cuda)
+    state = step.init_train_state(
+        model, config, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tx, _ = optim.make(config, model, sched_kw=dict(total_steps=10))
+    update = step.make_update_fn(model, tx, config, total_steps=10)
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (16, 96, 96, 3), dtype=np.uint8)).to(cuda),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (16, 8)).astype(np.int32)).to(cuda)}
+    losses = []
+    for _ in range(10):
+        block_attention.fused_attention.launches = 0
+        block_attention.fused_attention_bwd.launches = 0
+        state, meas = update(state, batch)
+        torch.cuda.synchronize()
+        assert block_attention.fused_attention.launches == 2
+        assert block_attention.fused_attention_bwd.launches == 2
+        assert all(bool(torch.isfinite(v)) for v in meas.values())
+        losses.append(float(meas["training_loss"]))
+    assert losses[-1] < 0.9 * losses[0], losses

@@ -19,6 +19,10 @@ def test_union_of_device_intervals(intervals, total):
 @pytest.mark.parametrize("name,fam", [
     ("void (anonymous namespace)::fused_attention_fwd_kernel<80, 96>",
      "attention kernel"),
+    ("void (anonymous namespace)::attention_bwd_dkv_kernel<64>(...)",
+     "attention bwd kernel"),
+    ("void (anonymous namespace)::column_sum_kernel(...)",
+     "attention bwd kernel"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "gemm"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm>", "gemm"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel"
