@@ -2,21 +2,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width (seeded random weights: no
-CLIPA checkpoint is in the repository) through the hand-written attention
-kernels: the embedding service at ViT-H-14-CL32-GAP-BigVision, and the
-CLIPA pre-training step of ``clipa_tpu/configs/clipa_pretrain.py`` at
-``img=L/16,res=112,token_len=8,batchsize=384``.
+Drives the port's three main paths at full width (seeded random weights:
+no CLIPA checkpoint is in the repository) through the hand-written attention
+kernels: the embedding service at ViT-H-14-CL32-GAP-BigVision, the CLIPA
+pre-training step of ``clipa_tpu_torch/configs/clipa_pretrain.py`` at
+``img=L/16,res=112,token_len=8,batchsize=384``, and CLIPA's unmask-tuning
+step of ``clipa_tpu_torch/configs/clipa_finetune.py`` at
+``img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128`` with the
+image tower on the flash route (``attn_impl="pallas"``), initialized from
+the pre-training state by ``masked_init``.
 
-  1. the card, torch/CUDA versions, and both kernels built from
+  1. the card, torch/CUDA versions, and the four kernels built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel (build times
      printed);
   2. the forward kernel against its plain PyTorch version (fp32 from the
      same operands, TF32 off) at the serving shapes: H/14 @224, L/16 @112,
      the unbiased flat form, clip and exact mode past the clip (logits >>
      70), the fp32 twin at H/14 @224, and the bucket-256 H/14 shape; errors,
-     kernel and plain times per case (at the small shapes the times are
-     mostly the wrapper's host-side launch path, not the kernel);
+     kernel and plain times per case, and SDPA's time where it computes the
+     same function (exact mode without biases) (at the small shapes the
+     times are mostly the wrapper's host-side launch path, not the kernel);
   3. the backward kernel against the plain backward: dq, dk, dv and the
      bias grads at the pretrain shape (B=384 L=50 D=1024 H=16, bias), H/14
      @224 (several q-tiles, hd 80), L=577 without bias, clip mode past the
@@ -34,10 +39,33 @@ CLIPA pre-training step of ``clipa_tpu/configs/clipa_pretrain.py`` at
      steps on one fixed batch with a const schedule at LEARN_LR lower the
      loss below 0.9x its start; pairs/s of both paths (host clock around
      synchronous steps after warm-up, best of two) and the step's peak
-     device memory.
+     device memory;
+  6. the flash kernels (forward K7, backward K8), driven through the public
+     wrapper under autograd as the towers call it, against their plain
+     versions: errors on O, LSE, dq, dk and dv, and kernel, plain and SDPA
+     times (``F.scaled_dot_product_attention``, the library yardstick;
+     the port never calls it) at the unmask-tuning shape (B=128 L=138
+     H=16 hd 64), H/14 @224 mask 0.3 (L=180, hd 80), H/14 @336 mask 0.4
+     (L=346), L=1025 at G/14's width (hd 104: the auto route), cross-
+     attention (77 queries, 257 keys), q x 40 (logits far past 70: exact,
+     no clip) and the fp32 twin;
+  7. the masked_init transition: phase 5's trained parameters saved with
+     ``save_params``, the fine-tune model initialized from the file: every
+     parameter bit for bit, except ``txt/pos_embedding``, resampled from 8
+     to 32 positions and held against a numpy linear interpolation;
+  8. the unmask-tuning step: launches per step (flash forward 24 x 2, the
+     forward and remat's recompute; backward 24; fused kernels 0, text
+     tower none); from the same state and mask noise, the kernel path's
+     loss and gradients against the ``pallas_plain`` path's (rtol 1e-2,
+     cosine >= 0.99) and remat on against off (rtol 1e-5, cosine >=
+     0.9999); 20 steps on one batch lower the loss below 0.9x its start;
+     pairs/s on the flash route and on the config's ``auto`` route (the
+     fused kernels), best of two, and peak device memory.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
-non-zero without one. The last line is the result JSON.
+non-zero without one. The last line is the result JSON; the line before it
+lists every kernel with its launches, error, time, plain and library time
+and the least time the card could take for the same work.
 """
 
 import json
@@ -67,6 +95,25 @@ KEY_BIAS_NOISE = 5e-2
 LEARN_LR = 3e-5
 LEARN_STEPS = 20
 LEARN_FACTOR = 0.9
+
+FINETUNE = "img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128"
+# Flash forward launches per fine-tune step: each image layer's forward and
+# remat's recompute of it in the backward.
+FINETUNE_FWD_LAUNCHES = 2 * TRAIN_IMAGE_LAYERS
+# Remat on vs off from the same state and noise: the forward is the same
+# computation, and remat's recompute repeats the saved values bit for bit;
+# only the order in which atomics sum in the gather and embedding backwards
+# may differ from run to run.
+REMAT_LOSS_RTOL = 1e-5
+REMAT_MIN_COSINE = 0.9999
+# The resampled text posemb against numpy's linear interpolation (fp32).
+POSEMB_ATOL = 1e-6
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the peak
+# of their type (bf16 on the tensor cores; fp32 twins on the fp32 units).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def _time_ms(fn, iters):
@@ -113,10 +160,18 @@ def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None):
         "plain_ms": _time_ms(lambda: ba.attention_plain(q, k, v, h, l,
                                                         biases, exact), 5),
     }
+    library = ""
+    if exact and not bias:   # SDPA computes this function: time it beside
+        import torch.nn.functional as F
+        qt, kt, vt = (x.reshape(b, l, h, d // h).transpose(1, 2)
+                      for x in (q, k, v))
+        res["library_ms"] = _time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        library = f" sdpa {res['library_ms']:.4f} ms"
     print(f"kernel vs plain {res['shape']}: max_abs_err "
           f"{res['max_abs_err']:.3e} mean_abs_err {res['mean_abs_err']:.3e} "
-          f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms",
-          flush=True)
+          f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms"
+          f"{library}", flush=True)
     if not (res["finite"] and res["within_tol"]):
         raise RuntimeError(f"kernel disagrees with its plain version at "
                            f"{res['shape']} (tolerance atol {atol} + "
@@ -186,19 +241,47 @@ def _set_attn_impl(tower, impl):
             m.attn_impl = impl
 
 
-def _grads(model, params, batch):
-    """(loss, {name: fp32 grad}) of the training loss at the current state."""
+def _grads(model, params, batch, mask_ratio=0.0, generator=None):
+    """(loss, {name: fp32 grad}) of the training loss at the current state;
+    image tokens masked at `mask_ratio` with noise from `generator`."""
     import torch
     from clipa_tpu_torch import losses
     from clipa_tpu_torch.ops import preprocess
     model.train()
     zi, zt, out = model(preprocess.normalize_uint8(batch["image"]),
-                        batch["labels"])
+                        batch["labels"], mask_ratio=mask_ratio,
+                        generator=generator)
     loss, _ = losses.bidirectional_contrastive_loss(zi, zt, out["t"],
                                                     reduction=True)
     names = list(params)
     found = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.item(), {n: g.float() for n, g in zip(names, found)}
+
+
+def _compare(loss_a, grads_a, loss_b, grads_b, key_bias_noise=True):
+    """How two steps' loss and gradients agree: the loss's relative gap and
+    each gradient's cosine. With `key_bias_noise` the key biases are left
+    out of the cosines: they get no gradient in exact arithmetic (a bias
+    added to every key shifts a softmax row by a constant), so both sides
+    hold rounding noise there, whose direction means nothing; their norm is
+    reported instead, as a share of the query bias's."""
+    import numpy as np
+    import torch
+    key_bias = ([n for n in grads_a if n.endswith("/key/bias")]
+                if key_bias_noise else [])
+    cosines = {n: torch.nn.functional.cosine_similarity(
+        grads_a[n].flatten(), grads_b[n].flatten(), dim=0, eps=1e-30).item()
+        for n in grads_a if n not in key_bias}
+    noise = max((max(g[n].norm().item() / g[n.replace("/key/", "/query/")]
+                     .norm().item() for g in (grads_a, grads_b))
+                 for n in key_bias), default=0.0)
+    worst = min(cosines, key=cosines.get)
+    return {"loss_rel": abs(loss_a - loss_b) / abs(loss_b),
+            "worst": worst, "min_cosine": cosines[worst],
+            "median_cosine": float(np.median(list(cosines.values()))),
+            "n": len(cosines), "n_key_bias": len(key_bias), "noise": noise,
+            "max_abs_gap": max((grads_a[n] - grads_b[n]).abs().max().item()
+                               for n in grads_a)}
 
 
 def _steps_per_s(update, state, batch, steps):
@@ -217,7 +300,7 @@ def _training(card):
     """Phase 5: the CLIPA pre-training step at the bench shape."""
     import numpy as np
     import torch
-    from clipa_tpu.configs import clipa_pretrain
+    from clipa_tpu_torch.configs import clipa_pretrain
     from clipa_tpu_torch import optim
     from clipa_tpu_torch.ops import block_attention as ba
     from clipa_tpu_torch.train import step
@@ -255,29 +338,14 @@ def _training(card):
     _set_attn_impl(model.img, "auto")
     if ba.fused_attention_bwd.launches != bwd_before:
         raise RuntimeError("the plain path launched the backward kernel")
-    # The key biases get no gradient in exact arithmetic (a bias added to
-    # every key shifts a softmax row by a constant): both paths hold bf16
-    # rounding noise there, whose direction means nothing. They are held to
-    # noise level instead (KEY_BIAS_NOISE of the query bias's norm).
-    key_bias = [n for n in grads_k if n.endswith("/key/bias")]
-    cosines = {n: torch.nn.functional.cosine_similarity(
-        grads_k[n].flatten(), grads_p[n].flatten(), dim=0, eps=1e-30).item()
-        for n in grads_k if n not in key_bias}
-    noise = max(max(g[n].norm().item() / g[n.replace("/key/", "/query/")]
-                    .norm().item() for g in (grads_k, grads_p))
-                for n in key_bias)
-    worst = min(cosines, key=cosines.get)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"training step, kernel vs plain path: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (rel {loss_rel:.2e}, tolerance {LOSS_RTOL}); "
-          f"gradient cosine over {len(cosines)} tensors min "
-          f"{cosines[worst]:.6f} at {worst}, median "
-          f"{float(np.median(list(cosines.values()))):.6f}; "
-          f"{len(key_bias)} key-bias grads at most {noise:.2e} of the query "
-          f"bias's norm", flush=True)
+    # The key biases are held to noise level (KEY_BIAS_NOISE of the query
+    # bias's norm), not to a cosine: see _compare.
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("training step, kernel vs plain path", loss_k, loss_p,
+                   cmp, LOSS_RTOL)
     del grads_k, grads_p
-    if (loss_rel > LOSS_RTOL or cosines[worst] < MIN_GRAD_COSINE
-            or noise > KEY_BIAS_NOISE):
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
         raise RuntimeError("the kernel path's step differs from the plain "
                            "path's")
 
@@ -332,7 +400,18 @@ def _training(card):
         raise RuntimeError(f"the loss did not fall below {LEARN_FACTOR}x "
                            f"its start: {curve}")
     return {"launches": launches, "pairs_per_s": rates, "peak_gb": peak_gb,
-            "loss_rel": loss_rel, "min_cosine": cosines[worst]}
+            "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
+            "params": state["params"]}
+
+
+def _print_compare(what, loss_a, loss_b, cmp, loss_rtol):
+    print(f"{what}: loss {loss_a:.6f} vs {loss_b:.6f} (rel "
+          f"{cmp['loss_rel']:.2e}, tolerance {loss_rtol}); gradient cosine "
+          f"over {cmp['n']} tensors min {cmp['min_cosine']:.7f} at "
+          f"{cmp['worst']}, median {cmp['median_cosine']:.7f}; largest "
+          f"gradient gap {cmp['max_abs_gap']:.3e}; {cmp['n_key_bias']} "
+          f"key-bias grads at most {cmp['noise']:.2e} of the query bias's "
+          f"norm", flush=True)
 
 
 def _check_embeddings(z, n, dim, what):
@@ -357,6 +436,294 @@ def _rate(fn, n_items, repeats=2):
     return best
 
 
+def _bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    work that must move `nbytes` and do `flops` operations of `dtype`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_case(b, lq, lk, h, hd, q_scale, gen, dtype=None, iters=20):
+    """Phase 6: the flash kernels against their plain versions at one
+    shape, with kernel, plain and SDPA times for each direction."""
+    import torch
+    import torch.nn.functional as F
+    from clipa_tpu_torch.ops import flash_attention as fa
+    dtype = dtype or torch.bfloat16
+
+    def mk(l, scale=1.0):
+        return (torch.randn(b, l, h, hd, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    q, k, v, do = mk(lq, q_scale), mk(lk), mk(lk), mk(lq)
+    # the public wrapper under autograd, as the towers call it: the forward
+    # kernel, then the backward kernel from the residuals it saved
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    lse = out.grad_fn.saved_tensors[4]   # residuals (q, k, v, out, lse)
+    out.backward(do)
+    torch.cuda.synchronize()
+    grads = [x.grad for x in leaves]
+    out = out.detach()
+    ref, ref_lse = fa.flash_plain_fwd(q, k, v)
+    o_err = (out.float() - ref.float()).abs()
+    atol, rtol = fa.tolerance(dtype)
+    lse_err = (lse - ref_lse).abs().max().item()
+    # the plain backward from the same residuals as the kernel's
+    errors = fa.bwd_errors(grads, fa.flash_plain_bwd(q, k, v, out, lse, do),
+                           dtype)
+    # the library yardstick: SDPA over (B, H, L, hd) views, both directions
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves)
+    e = q.element_size()
+    nq, nk = b * lq * h * hd, b * lk * h * hd
+    stats = 4 * b * h * lq
+    res = {
+        "shape": (f"{str(dtype).split('.')[-1]} B={b} Lq={lq} Lk={lk} H={h} "
+                  f"hd={hd} q_scale={q_scale}"),
+        "errors": {"o": o_err.max().item(), "lse": lse_err,
+                   **dict(zip(("dq", "dk", "dv"), (x for x, _ in errors)))},
+        "ok": bool(torch.isfinite(out).all()
+                   and (o_err <= atol + rtol * ref.float().abs()).all()
+                   and lse_err <= fa.LSE_ATOL
+                   and all(ok for _, ok in errors)),
+        "ms": _time_ms(lambda: fa.flash_attention(q, k, v), iters),
+        "plain_ms": _time_ms(lambda: fa.flash_plain_fwd(q, k, v),
+                             max(2, iters // 4)),
+        "library_ms": _time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), iters),
+        "bwd_ms": _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do), iters),
+        "bwd_plain_ms": _time_ms(lambda: fa.flash_plain_bwd(
+            q, k, v, out, lse, do), max(2, iters // 4)),
+        "bwd_library_ms": _time_ms(lambda: torch.autograd.grad(
+            o_lib, leaves, dot, retain_graph=True), iters),
+        "bound": _bound(e * 2 * (nq + nk) + stats, 4 * b * h * lq * lk * hd,
+                        dtype),
+        "bwd_bound": _bound(e * 4 * (nq + nk) + stats,
+                            10 * b * h * lq * lk * hd, dtype),
+    }
+    res["max_abs_err"] = max(res["errors"].values())
+    errs = " ".join(f"{n} {x:.3e}" for n, x in res["errors"].items())
+    bwd_rtol = fa.BWD_F32_RTOL if dtype == torch.float32 else fa.BWD_RTOL
+    print(f"flash kernels vs plain {res['shape']}: max abs err {errs} "
+          f"(tolerance: O atol {atol} + rtol {rtol}, LSE {fa.LSE_ATOL}, "
+          f"grads rtol {bwd_rtol} of each one's scale); fwd kernel {res['ms']:.4f} ms plain "
+          f"{res['plain_ms']:.4f} sdpa {res['library_ms']:.4f} bound "
+          f"{res['bound'][0]:.4f} ({res['bound'][1]}); bwd kernel "
+          f"{res['bwd_ms']:.4f} ms plain {res['bwd_plain_ms']:.4f} sdpa "
+          f"{res['bwd_library_ms']:.4f} bound {res['bwd_bound'][0]:.4f} "
+          f"({res['bwd_bound'][1]})", flush=True)
+    if not res["ok"]:
+        raise RuntimeError(f"flash kernels disagree with their plain "
+                           f"versions at {res['shape']}: {res['errors']}")
+    return res
+
+
+def _finetune_batch(config):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 1)
+    b = config.input.batch_size
+    res, tokens = config.init_shapes[0][1], config.init_shapes[1][1]
+    return {"image": torch.from_numpy(rng.randint(
+        0, 255, (b, res, res, 3), dtype=np.uint8)).cuda(),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (b, tokens)).astype(np.int32)).cuda()}
+
+
+def _transition(pretrained):
+    """Phase 7: the fine-tune model initialized by masked_init from the
+    pretrain parameters `pretrained` ({JAX name: tensor}) written to npz."""
+    import tempfile
+    import numpy as np
+    import torch
+    from clipa_tpu_torch.configs import clipa_finetune
+    from clipa_tpu_torch.ops import cuda_build
+    from clipa_tpu_torch.train import checkpoint, step
+
+    config = clipa_finetune.get_config(FINETUNE)
+    config.model.image.attn_impl = "pallas"
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED + 1),
+        "cuda")
+    params = state["params"]
+    t0 = time.perf_counter()
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "pretrain_params.npz")
+        checkpoint.save_params(pretrained, path)
+        saved_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(path) / 2 ** 30
+        checkpoint.masked_init(params, path)
+    torch.cuda.synchronize()
+    copied = [n for n in params if n != "txt/pos_embedding"]
+    differ = [n for n in copied if not torch.equal(params[n], pretrained[n])]
+    old = pretrained["txt/pos_embedding"].detach().cpu().numpy()
+    new = params["txt/pos_embedding"].detach().cpu().numpy()
+    # plain linear interpolation at half-pixel centres (np.interp clamps at
+    # the ends): jax.image.resize's upsampling
+    n_old, n_new = old.shape[1], new.shape[1]
+    at = (np.arange(n_new) + 0.5) * n_old / n_new - 0.5
+    want = np.stack([np.interp(at, np.arange(n_old), old[0, :, c])
+                     for c in range(old.shape[2])], axis=1)[None]
+    posemb_err = float(np.abs(new - want).max())
+    print(f"masked_init: {len(params)} tensors from a {size_gb:.2f} GiB npz "
+          f"(saved in {saved_s:.2f} s, loaded in "
+          f"{time.perf_counter() - t0 - saved_s:.2f} s); {len(copied)} copied"
+          f", {len(differ)} differ from the saved ones; txt/pos_embedding "
+          f"{old.shape} -> {new.shape}, max abs err against linear "
+          f"interpolation {posemb_err:.3e} (tolerance {POSEMB_ATOL})",
+          flush=True)
+    if differ or new.shape != (1, 32, old.shape[2]) \
+            or posemb_err > POSEMB_ATOL:
+        raise RuntimeError(f"masked_init did not carry the pretrain state "
+                           f"over: differ {differ[:5]}, posemb err "
+                           f"{posemb_err}")
+    return model, state, config
+
+
+def _finetune(card, model, state, config):
+    """Phase 8: the unmask-tuning step at B = 128 from the masked_init
+    state."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.ops import flash_attention as fa
+    from clipa_tpu_torch.train import step
+
+    counters = {"flash_fwd": fa.flash_attention,
+                "flash_bwd": fa.flash_attention_bwd,
+                "fused_fwd": ba.fused_attention,
+                "fused_bwd": ba.fused_attention_bwd}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    batch_size = config.input.batch_size
+    batch = _finetune_batch(config)
+    params = state["params"]
+    encoder = model.img.Transformer
+    tokens = 1 + int(model.img.grid[0] * model.img.grid[1]
+                     * (1 - config.mask_ratio))
+    print(f"fine-tune: clipa_finetune.py:{FINETUNE}, image attn_impl "
+          f"{encoder.encoderblock_0.MultiHeadDotProductAttention_0.attn_impl}"
+          f", remat {encoder.remat_policy}, image tokens {tokens}",
+          flush=True)
+
+    def grads():   # the same mask noise every time: step 0's generator
+        return _grads(model, params, batch, config.mask_ratio,
+                      step.mask_generator(config, 0, "cuda"))
+
+    # kernel path vs plain path, and remat on vs off, from the same state
+    loss_k, grads_k = grads()
+    before = read()
+    _set_attn_impl(model.img, "pallas_plain")
+    loss_p, grads_p = grads()
+    _set_attn_impl(model.img, "pallas")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("fine-tune step, flash kernels vs pallas_plain", loss_k,
+                   loss_p, cmp, LOSS_RTOL)
+    del grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the flash kernel path's step differs from the "
+                           "plain path's")
+    model.img.Transformer.remat_policy = "none"
+    loss_n, grads_n = grads()
+    model.img.Transformer.remat_policy = "minimal"
+    remat = _compare(loss_k, grads_k, loss_n, grads_n, key_bias_noise=False)
+    _print_compare("fine-tune step, remat minimal vs none", loss_k, loss_n,
+                   remat, REMAT_LOSS_RTOL)
+    del grads_k, grads_n
+    if (remat["loss_rel"] > REMAT_LOSS_RTOL
+            or remat["min_cosine"] < REMAT_MIN_COSINE):
+        raise RuntimeError("remat changed the step beyond atomics' noise")
+
+    # the main path: one update step, counters read around it
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=batch_size))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    state, meas = update(state, batch)
+    torch.cuda.synchronize()
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_fwd": FINETUNE_FWD_LAUNCHES,
+            "flash_bwd": TRAIN_IMAGE_LAYERS, "fused_fwd": 0, "fused_bwd": 0}
+    print(f"fine-tune step: loss {float(meas['training_loss']):.6f}; kernel "
+          f"launches {launches} (expected {want}: the flash forward once "
+          f"per image layer and once more in remat's recompute, the text "
+          f"tower on the einsum path); peak device memory {peak_gb:.2f} GiB",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"fine-tune step launched {launches}, expected "
+                           f"{want}")
+    if not all(bool(torch.isfinite(v)) for v in meas.values()):
+        raise RuntimeError(f"non-finite measurements {meas}")
+
+    # pairs/s on the flash route and on the config's auto route (at L = 138
+    # the fused kernels), in turns, best of two each
+    rates = {"flash": 0.0, "auto": 0.0}
+    auto_launches = None
+    for impl in ("flash", "auto", "flash", "auto"):
+        _set_attn_impl(model.img, "pallas" if impl == "flash" else "auto")
+        if rates[impl] == 0.0:   # warm-up of this route
+            reset()
+            update(state, batch)
+            torch.cuda.synchronize()
+            if impl == "auto":
+                auto_launches = read()
+        rates[impl] = max(rates[impl], batch_size * _steps_per_s(
+            update, state, batch, 5))
+    _set_attn_impl(model.img, "pallas")
+    print(f"{card}: fine-tune pairs/s at B={batch_size}, flash route "
+          f"{rates['flash']:.2f}; auto route (fused kernels) "
+          f"{rates['auto']:.2f}; auto-route launches per step "
+          f"{auto_launches}", flush=True)
+    if auto_launches != {"flash_fwd": 0, "flash_bwd": 0,
+                         "fused_fwd": FINETUNE_FWD_LAUNCHES,
+                         "fused_bwd": TRAIN_IMAGE_LAYERS}:
+        raise RuntimeError(f"the auto route launched {auto_launches}")
+
+    # learning check: a fresh optimizer, const schedule, lr override
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.lr = LEARN_LR
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=LEARN_STEPS, batch_size=batch_size))
+    update = step.make_update_fn(model, tx, config, LEARN_STEPS)
+    curve = []
+    for _ in range(LEARN_STEPS):
+        state, meas = update(state, batch)
+        curve.append(float(meas["training_loss"]))
+    print(f"fine-tune learning check, {LEARN_STEPS} steps on one batch "
+          f"(a new mask each step), const lr {LEARN_LR}: loss "
+          f"{curve[0]:.4f} -> {curve[-1]:.4f} "
+          f"({' '.join(f'{x:.3f}' for x in curve)})", flush=True)
+    if not (np.isfinite(curve).all()
+            and curve[-1] < LEARN_FACTOR * curve[0]):
+        raise RuntimeError(f"the loss did not fall below {LEARN_FACTOR}x "
+                           f"its start: {curve}")
+    return {"launches": launches, "auto_launches": auto_launches,
+            "pairs_per_s": rates, "peak_gb": peak_gb,
+            "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
+            "remat_loss_rel": remat["loss_rel"],
+            "remat_min_cosine": remat["min_cosine"],
+            "remat_max_abs_gap": remat["max_abs_gap"],
+            "learning": [curve[0], curve[-1]]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -366,6 +733,7 @@ def main() -> int:
     sys.path.insert(0, here)
     import numpy as np
     from clipa_tpu_torch.ops import block_attention as ba, cuda_build
+    from clipa_tpu_torch.ops import flash_attention as fa
     from clipa_tpu_torch.serving import EmbeddingService
 
     card = subprocess.run(
@@ -381,7 +749,9 @@ def main() -> int:
 
     # 1. build: one nvcc per source, started together
     sources = {"fused_attention_fwd.cu": ba.fwd_library,
-               "fused_attention_bwd.cu": ba.bwd_library}
+               "fused_attention_bwd.cu": ba.bwd_library,
+               "flash_attention_fwd.cu": fa.fwd_library,
+               "flash_attention_bwd.cu": fa.bwd_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(load) for load in sources.values()]:
@@ -390,8 +760,8 @@ def main() -> int:
         print(f"kernel built from clipa_tpu_torch/csrc/{source} in "
               f"{cuda_build.build_seconds[source]:.2f} s -> "
               f"{cuda_build.library_path(source)}", flush=True)
-    print(f"both kernels built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"{len(sources)} kernel sources built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 2. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -487,29 +857,99 @@ def main() -> int:
 
     # 5. the training step
     train = _training(card)
+    del svc, plain   # the services' weights stay out of the later peaks
 
+    # 6. the flash kernels vs their plain versions
+    flash_main = _flash_case(128, 138, 138, 16, 64, 1.0, gen=gen)
+    flash_cases = [flash_main] + [_flash_case(*c, gen=gen) for c in (
+        (64, 180, 180, 16, 80, 1.0),    # H/14 @224, mask 0.3
+        (16, 346, 346, 16, 80, 1.0),    # H/14 @336, mask 0.4
+        (2, 1025, 1025, 16, 104, 1.0),  # G/14 @448: the auto route
+        (16, 77, 257, 16, 64, 1.0),     # cross-attention
+        (32, 138, 138, 16, 64, 40.0),   # logits far past 70
+    )]
+    flash_cases.append(_flash_case(2, 138, 138, 4, 64, 1.0, gen=gen,
+                                   dtype=torch.float32, iters=2))
+
+    # 7. masked_init from the pretrain state, 8. the unmask-tuning step
+    model, state, config = _transition(train.pop("params"))
+    tune = _finetune(card, model, state, config)
+
+    # bounds of the fused kernels' timed cases: the K1 bucket-256 forward
+    # (q, k, v, out and the three biases) and the K6 pretrain backward
+    # (q, k, v, do, biases in; dq, dk, dv and the bias grads out), 4 resp.
+    # 10 L^2 hd products per head and sample, bf16
+    b, l, d = 256, 257, 1280
+    fwd_bound = _bound(2 * (4 * b * l * d + 3 * d), 4 * b * l * l * d,
+                       torch.bfloat16)
+    b, l, d = 384, 50, 1024
+    bwd_bound = _bound(2 * (7 * b * l * d + 6 * d), 10 * b * l * l * d,
+                       torch.bfloat16)
+    print(json.dumps({"finetune": {
+        "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
+        "image_attn_impl": "pallas",
+        **{k: tune[k] for k in ("pairs_per_s", "peak_gb", "loss_rel",
+                                "min_cosine", "remat_loss_rel",
+                                "remat_min_cosine", "remat_max_abs_gap",
+                                "learning")},
+    }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "clipa_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "clipa_tpu/ops/block_attention.py:165",
         "launches": launches + train["launches"]["fwd"],
-        "launches_by_path": {"serving": launches,
-                             "training_step": train["launches"]["fwd"]},
+        "launches_by_path": {
+            "serving": launches, "training_step": train["launches"]["fwd"],
+            "finetune_step_auto": tune["auto_launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases + [main_case]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1],
+        "library_ms": None,   # clip-mode softmax: no one PyTorch call
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
         "source": "clipa_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "clipa_tpu/ops/block_attention.py:672",
         "launches": train["launches"]["bwd"],
+        "launches_by_path": {
+            "training_step": train["launches"]["bwd"],
+            "finetune_step_auto": tune["auto_launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1],
+        "library_ms": None,   # clip-mode softmax: no one PyTorch call
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "clipa_tpu/ops/flash_attention.py:57",
+        "launches": tune["launches"]["flash_fwd"],
+        "max_abs_err": max(c["errors"]["o"] for c in flash_cases),
+        "ms": flash_main["ms"],
+        "plain_ms": flash_main["plain_ms"],
+        "bound_ms": flash_main["bound"][0],
+        "bound_by": flash_main["bound"][1],
+        "library_ms": flash_main["library_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "clipa_tpu/ops/flash_attention.py:125",
+        "launches": tune["launches"]["flash_bwd"],
+        "max_abs_err": max(max(c["errors"][n] for n in ("dq", "dk", "dv"))
+                           for c in flash_cases),
+        "ms": flash_main["bwd_ms"],
+        "plain_ms": flash_main["bwd_plain_ms"],
+        "bound_ms": flash_main["bwd_bound"][0],
+        "bound_by": flash_main["bwd_bound"][1],
+        "library_ms": flash_main["bwd_library_ms"],
     }], "training": {
-        "config": f"clipa_tpu/configs/clipa_pretrain.py:{PRETRAIN}",
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],
         "peak_gb": train["peak_gb"],
     }}))

@@ -1,9 +1,13 @@
-"""clipa_tpu_torch: the CLIPA embedding service in PyTorch on an NVIDIA GPU.
+"""clipa_tpu_torch: CLIPA in PyTorch on an NVIDIA GPU.
 
 A port of ``clipa_tpu`` (JAX, TPU), which stays in the repository as the
-reference. Modules keep the JAX package's names, so each one's counterpart
-is at the same path under ``clipa_tpu/``. The attention core runs a
-hand-written CUDA kernel (``csrc/``, built at first use); everything else is
-plain PyTorch. Host-only modules of ``clipa_tpu`` that import no JAX (the
-WordPiece tokenizer, ``registry``, ``pathio``) are reused as they are.
+reference: the embedding service, the CLIPA pre-training step and the
+unmask-tuning step. Modules keep the JAX package's names, so each one's
+counterpart is at the same path under ``clipa_tpu/``. The attention cores
+run hand-written CUDA kernels (``csrc/``, built at first use); everything
+else is plain PyTorch. The port imports nothing of ``clipa_tpu``: what it
+needs of the JAX package's host-only modules (the config system and the
+experiment configs, the WordPiece tokenizer, the open_clip model JSON
+files) it keeps as its own copy (``config.py``, ``configs/``,
+``tokenizer.py``, ``compat/model_configs/``).
 """

@@ -1,9 +1,10 @@
 """open_clip-style factory for the ported CLIPA models.
 
 Port of the JAX-free parts of ``clipa_tpu/compat/openclip.py``: model
-configs by name or ``.json`` path (the JSON files of
-``clipa_tpu/compat/model_configs/`` are read as data, by path), their
-translation to two-tower kwargs for the ViT/text towers, ``create_model``,
+configs by name or ``.json`` path (``model_configs/`` beside this module
+holds the ViT + text-transformer JSON files of
+``clipa_tpu/compat/model_configs/``), their translation to two-tower kwargs
+for the ViT/text towers, ``create_model``,
 ``CLIPModel.encode_image/encode_text`` and the WordPiece branch of
 ``get_tokenizer``.
 
@@ -21,9 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-import clipa_tpu
-
-_CONFIG_DIR = os.path.join(os.path.dirname(clipa_tpu.__file__), "compat",
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "model_configs")
 
 
@@ -192,9 +191,11 @@ def get_tokenizer(model_name: str, *, vocab_path: Optional[str] = None,
                   context_length: Optional[int] = None) -> Callable:
     """Returns texts -> (B, context_length) int32 token array.
 
-    BERT-tokenizer configs (all CLIPA-v2 BigVision models) use the JAX
-    package's host-side WordPiece stack (``clipa_tpu.pp``, free of JAX).
+    BERT-tokenizer configs (all CLIPA-v2 BigVision models) tokenize with
+    the port's WordPiece stack (:mod:`clipa_tpu_torch.tokenizer`).
     """
+    from clipa_tpu_torch import tokenizer
+
     cfg = get_model_config(model_name)["text_cfg"]
     ctx = context_length or cfg.get("context_length", 77)
     vocab_path = vocab_path or os.environ.get("CLIPA_VOCAB_PATH")
@@ -202,24 +203,20 @@ def get_tokenizer(model_name: str, *, vocab_path: Optional[str] = None,
                                       and cfg.get("vocab_size") == 49408):
         raise NotImplementedError("only the WordPiece (BERT) tokenizer is "
                                   "ported to clipa_tpu_torch")
+    if cfg.get("text_mask") == "syntax":
+        raise NotImplementedError("syntax-priority sampling is not ported "
+                                  "to clipa_tpu_torch yet")
     if not vocab_path:
         raise ValueError("vocab_path (or CLIPA_VOCAB_PATH) is required")
 
-    import clipa_tpu.pp  # noqa: F401  (registers the pp ops)
-    from clipa_tpu.registry import get_preprocess_fn
-    op_name = ("syntax_tokenize" if cfg.get("text_mask") == "syntax"
-               else "bert_tokenize")
-    pp = get_preprocess_fn(
-        f'{op_name}(inkey="texts", max_len={ctx}, vocab_path="{vocab_path}", '
-        f'sample_if_multi=False)')
+    tok = tokenizer.get_wordpiece(vocab_path)
 
-    def tokenize(texts, rng=None):
+    def tokenize(texts):
         if isinstance(texts, (str, bytes)):
             texts = [texts]
-        rng = rng or np.random.default_rng(0)
-        return np.stack([pp({"texts": t, "_rng": rng})["labels"]
-                         for t in texts])
+        return np.stack([tokenizer.bert_tokenize(
+            t.decode("utf-8", "replace") if isinstance(t, bytes) else t,
+            tok, ctx) for t in texts])
 
     tokenize.context_length = ctx
     return tokenize
-

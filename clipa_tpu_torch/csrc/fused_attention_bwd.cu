@@ -57,43 +57,18 @@
 // fp32 FMA throughout, no TF32, nothing rounded to a narrower type. They are
 // written to be right, not fast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
+
+using namespace attn;
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = kWarps * 16;  // rows per block tile, 16 per warp
 constexpr float kExpClip = 70.f;    // block_attention._EXP_CLIP
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A.B for one 16x8x16 tile: A 16x16 row-major, B 16x8 column-major.
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Copies rows [row0, row0 + 64) of one head's columns into shared memory
 // (row stride kHdp + 8), adding the bias in fp32 with one rounding. Rows at
@@ -123,65 +98,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
       }
     }
     *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
-
-// acc[nt] (16 x 8 per n-tile, 8 n-tiles = 64 columns) = A . B^T, A the
-// warp's 16 rows of `a_rows`, B the 64 rows of `b_rows` (both row-major,
-// stride kHdp + 8, contracted over the head dim). Element i of tile nt is
-// (row g + 8 * (i >> 1), column nt * 8 + 2t + (i & 1)).
-template <int kHdp>
-__device__ __forceinline__ void scores(float acc[kTile / 8][4],
-                                       const bf16* a_rows,
-                                       const bf16* b_rows) {
-  constexpr int kStride = kHdp + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int kc = 0; kc < kHdp / 16; ++kc) {
-    const bf16* ar = a_rows + g * kStride + kc * 16 + 2 * t;
-    uint32_t a[4];
-    a[0] = load_u32(ar);
-    a[1] = load_u32(ar + 8 * kStride);
-    a[2] = load_u32(ar + 8);
-    a[3] = load_u32(ar + 8 * kStride + 8);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const bf16* br = b_rows + (nt * 8 + g) * kStride + kc * 16 + 2 * t;
-      mma_16816(acc[nt], a, load_u32(br), load_u32(br + 8));
-    }
-  }
-}
-
-// out[nt] += X . M, X the 16 x 64 fp32 tile `x` (layout of scores(), rounded
-// to bf16 here) and M the 64 rows of `m_rows` (row-major, stride kHdp + 8,
-// contracted over its rows).
-template <int kHdp>
-__device__ __forceinline__ void accumulate(float out[kHdp / 8][4],
-                                           float x[kTile / 8][4],
-                                           const bf16* m_rows) {
-  constexpr int kStride = kHdp + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_floats(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_floats(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_floats(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_floats(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const bf16* mr = m_rows + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-    for (int nt = 0; nt < kHdp / 8; ++nt) {
-      const bf16* p = mr + nt * 8;
-      const uint32_t b0 = pack_bf16(p[0], p[kStride]);
-      const uint32_t b1 = pack_bf16(p[8 * kStride], p[9 * kStride]);
-      mma_16816(out[nt], a, b0, b1);
-    }
   }
 }
 
@@ -287,8 +203,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
     __syncthreads();
     if (!active) continue;
-    scores<kHdp>(s, sqw, sk);
-    scores<kHdp>(dp, sdow, sv);
+    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
+    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
     if (exact) {
       float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -365,8 +281,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
     __syncthreads();
     if (!active) continue;
-    scores<kHdp>(s, sqw, sk);
-    scores<kHdp>(dp, sdow, sv);
+    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
+    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
@@ -384,7 +300,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[nt][i] = ds * scale;
       }
     }
-    accumulate<kHdp>(acc, s, sk);
+    warp_accumulate<kHdp, kTile / 16>(acc, s, sk);
   }
   const int n_tiles = (seq + kTile - 1) / kTile;
   store_tile<kHdp>(acc, dq + base, partial ? partial +
@@ -461,8 +377,8 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     if (!active) continue;
-    scores<kHdp>(st, skw, sq);
-    scores<kHdp>(dpt, svw, sdo);
+    warp_scores<kHdp, kTile / 8>(st, skw, sq);
+    warp_scores<kHdp, kTile / 8>(dpt, svw, sdo);
 #pragma unroll
     for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
@@ -480,8 +396,8 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
         dpt[nt][i] = ds * scale;
       }
     }
-    accumulate<kHdp>(dv_acc, st, sdo);
-    accumulate<kHdp>(dk_acc, dpt, sq);
+    warp_accumulate<kHdp, kTile / 16>(dv_acc, st, sdo);
+    warp_accumulate<kHdp, kTile / 16>(dk_acc, dpt, sq);
   }
   __syncthreads();
   const int n_tiles = (seq + kTile - 1) / kTile;
@@ -564,24 +480,6 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 constexpr int kF32Threads = 128;
 constexpr int kF32MaxHd = 128;
 
-// Block-wide sum (or max) of one value per thread, in a fixed order.
-__device__ __forceinline__ float block_reduce(float x, bool is_max,
-                                              float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = is_max ? fmaxf(x, y) : x + y;
-  }
-  __syncthreads();  // scratch free from the previous reduction
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < kF32Threads / 32; ++w) {
-    r = is_max ? fmaxf(r, scratch[w]) : r + scratch[w];
-  }
-  return r;
-}
-
 // dq of one query row and its statistics.
 __global__ void __launch_bounds__(kF32Threads)
 attention_bwd_dq_f32_kernel(const float* __restrict__ q,
@@ -628,7 +526,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,
       score(j, &x);
       local = fmaxf(local, x);
     }
-    m = block_reduce(local, true, scratch);
+    m = block_reduce<kF32Threads>(local, true, scratch);
   }
   float sum = 0.f, u = 0.f;
   for (int j = tid; j < seq; j += kF32Threads) {
@@ -639,8 +537,8 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,
     sum += e;
     u += e * dp;
   }
-  sum = block_reduce(sum, false, scratch);
-  u = block_reduce(u, false, scratch);
+  sum = block_reduce<kF32Threads>(sum, false, scratch);
+  u = block_reduce<kF32Threads>(u, false, scratch);
   const float delta = u / sum;
 
   float acc = 0.f;  // dq[c] for c = tid (hd <= 128 = threads)
@@ -734,12 +632,6 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
     dk[base + (size_t)key * d_model + tid] = dk_acc;
     dv[base + (size_t)key * d_model + tid] = dv_acc;
   }
-}
-
-bool bad_shape(int batch, int seq, int num_heads, int head_dim) {
-  return batch <= 0 || seq <= 0 || num_heads <= 0 || head_dim % 8 != 0 ||
-         head_dim <= 0 || head_dim > 128 || batch > 65535 ||
-         num_heads > 65535;
 }
 
 }  // namespace

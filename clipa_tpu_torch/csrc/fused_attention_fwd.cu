@@ -45,44 +45,19 @@
 // sit in shared memory. It is written to be right, not fast: serving runs
 // bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
+
+using namespace attn;
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // query rows per block, 16 per warp
 constexpr int kBlockK = 64;           // key rows per shared-memory tile
 constexpr float kExpClip = 70.f;      // block_attention._EXP_CLIP
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A.B for one 16x8x16 tile: A 16x16 row-major, B 16x8 column-major.
-__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Copies rows [row0, row0 + 64) of one head's columns into shared memory
 // (row stride kHdp + 8), adding the bias in fp32 with one rounding. Rows at
@@ -422,12 +397,6 @@ fused_attention_fwd_f32_kernel(const float* __restrict__ q,
       }
     }
   }
-}
-
-bool bad_shape(int batch, int seq, int num_heads, int head_dim) {
-  return batch <= 0 || seq <= 0 || num_heads <= 0 || head_dim % 8 != 0 ||
-         head_dim <= 0 || head_dim > 128 || batch > 65535 ||
-         num_heads > 65535;
 }
 
 }  // namespace

@@ -18,13 +18,22 @@ Initializers reproduce the flax initializers' distributions (fans counted
 on the flax parameter shapes), not their random bits: parameters are drawn
 from an explicit ``torch.Generator`` by :func:`init_parameters`.
 
-Not ported: ``remat``, ``quant`` (int8 matmuls) and ``stream="ref3d"``.
-Dropout and DropPath are identities at rate 0 and in eval mode, and refuse
-to train at a rate above 0.
+Remat: ``remat_policy="minimal"`` is the JAX package's
+``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: each encoder
+block runs under non-reentrant ``torch.utils.checkpoint`` with a selective
+policy that keeps the outputs of the 2D products (the projections over the
+flat stream: ``aten.mm`` / ``aten.addmm``) and recomputes everything else in
+the backward, attention included (its custom Function is not a dot, as the
+``pallas_call`` is not under the JAX policy). It changes no number.
+
+Not ported: ``quant`` (int8 matmuls), ``stream="ref3d"`` and the other remat
+policies. Dropout and DropPath are identities at rate 0 and in eval mode,
+and refuse to train at a rate above 0.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Optional
 
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from clipa_tpu_torch.ops.attention import multi_head_attention
 
@@ -93,10 +103,23 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> None:
 
 
 def check_remat(policy: Optional[str]) -> None:
-    """Activation rematerialization is not ported: only "none" is taken."""
-    if policy not in (None, "none"):
+    """The remat policies the port takes: "none" and "minimal"."""
+    if policy not in (None, "none", "minimal"):
         raise NotImplementedError(
-            f"remat_policy={policy!r} is not ported yet (ROADMAP.md A3)")
+            f"remat_policy={policy!r} is not ported (only 'none' and "
+            "'minimal')")
+
+
+def _save_2d_products(ctx, op, *args, **kwargs):
+    """The "minimal" policy: keep what checkpoint_dots_with_no_batch_dims
+    keeps, the outputs of products without batch dims."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_minimal_remat = functools.partial(
+    checkpoint.create_selective_checkpoint_contexts, _save_2d_products)
 
 
 def _cast(x: Optional[torch.Tensor], dtype: torch.dtype):
@@ -317,16 +340,21 @@ class Encoder(nn.Module):
     Unmasked input runs the residual stream flat, (B*L, D), as the JAX
     encoder does: every block op is token-wise except attention, which
     takes `seq_len`. `block_inits` are initializer overrides for every
-    block (the text tower's CLIP-paper scales).
+    block (the text tower's CLIP-paper scales). `remat_policy` "minimal"
+    recomputes each block in the backward, keeping its 2D products (module
+    docstring); it may be switched on a built encoder.
     """
 
     def __init__(self, depth: int, width: int, num_heads: int,
                  mlp_dim: Optional[int] = None, dropout: float = 0.0,
                  drop_path: float = 0.0, block_inits: Optional[dict] = None,
                  attn_impl: str = "auto", gelu_approx: Any = True,
-                 ln_eps: float = 1e-6, ls_init: Optional[float] = None):
+                 ln_eps: float = 1e-6, ls_init: Optional[float] = None,
+                 remat_policy: Optional[str] = "none"):
         super().__init__()
+        check_remat(remat_policy)
         self.depth = depth
+        self.remat_policy = remat_policy
         dpr = np.linspace(0.0, drop_path, depth)
         for i in range(depth):
             self.add_module(f"encoderblock_{i}", EncoderBlock(
@@ -342,6 +370,13 @@ class Encoder(nn.Module):
         if mask is None and x.dim() == 3:
             n, seq, d = shape
             x = x.reshape(n * seq, d)
+        remat = self.remat_policy == "minimal" and torch.is_grad_enabled()
         for i in range(self.depth):
-            x = getattr(self, f"encoderblock_{i}")(x, mask=mask, seq_len=seq)
+            block = getattr(self, f"encoderblock_{i}")
+            if remat:
+                x = checkpoint.checkpoint(block, x, mask, seq,
+                                          use_reentrant=False,
+                                          context_fn=_minimal_remat)
+            else:
+                x = block(x, mask=mask, seq_len=seq)
         return x.reshape(shape)

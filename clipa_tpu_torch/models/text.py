@@ -8,8 +8,8 @@ masked einsum attention path), final ``encoder_norm``, pools
 fp32; `dtype` is the compute dtype (None: fp32, as in flax), to which the
 embedded tokens, posemb and every layer cast at use.
 
-Not ported yet: the CoCa ``embed_cls`` variant, sincos1d position
-embeddings and remat.
+Not ported yet: the CoCa ``embed_cls`` variant and sincos1d position
+embeddings. ``remat_policy`` "minimal" is the encoder's (models/layers.py).
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ class _Model(nn.Module):
                  gelu_approx: Any = True, ln_eps: float = 1e-6,
                  dtype: Any = None, remat_policy: Optional[str] = "none"):
         super().__init__()
-        layers.check_remat(remat_policy)
         self.dtype = u.resolve_dtype(dtype) or torch.float32
         if pool_type not in ("last", "tok", "gap", "eot"):
             raise ValueError(f"Unknown pool_type {pool_type!r}")
@@ -62,7 +61,8 @@ class _Model(nn.Module):
         self.Transformer = layers.Encoder(
             depth, width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
             drop_path=drop_path, block_inits=block_inits,
-            attn_impl=attn_impl, gelu_approx=gelu_approx, ln_eps=ln_eps)
+            attn_impl=attn_impl, gelu_approx=gelu_approx, ln_eps=ln_eps,
+            remat_policy=remat_policy)
         self.encoder_norm = layers.LayerNorm(width, eps=ln_eps)
         self.head = None
         if num_classes:

@@ -52,9 +52,11 @@ class Model(nn.Module):
 
     def forward(self, image: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None,
-                mask_ratio: float = 0.0):
+                mask_ratio: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         """Returns (zimg, ztxt, out) with L2-normalized (B, C) embeddings.
-        `mask_ratio` > 0 (unmask-tuning) raises: not ported yet."""
+        `mask_ratio` > 0 masks image tokens (unmask-tuning) with noise from
+        `generator`, on the image's device."""
         out: dict[str, Any] = {}
         zimg = ztxt = None
         if text is not None:
@@ -63,7 +65,8 @@ class Model(nn.Module):
             out["txt/normalized"] = ztxt = ztxt / (out["txt/norm"] + 1e-8)
             out.update({f"txt/{k}": v for k, v in out_txt.items()})
         if image is not None:
-            zimg, out_img = self.img(image, mask_ratio=mask_ratio)
+            zimg, out_img = self.img(image, mask_ratio=mask_ratio,
+                                     generator=generator)
             out["img/norm"] = torch.linalg.norm(zimg, dim=1, keepdim=True)
             out["img/normalized"] = zimg = zimg / (out["img/norm"] + 1e-8)
             out.update({f"img/{k}": v for k, v in out_img.items()})

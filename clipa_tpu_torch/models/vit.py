@@ -1,16 +1,18 @@
 """ViT image tower.
 
 Port of ``clipa_tpu/models/vit.py``: conv patch stem, cls token, learned or
-sincos2d position embeddings, optional ``ln_pre``, pre-LN encoder over a flat
-residual stream, pools ``gap`` / ``gap_all`` / ``tok`` / ``0``, and the
-no-bias projection head. Input is NHWC, as in the JAX tower. Parameters are
-fp32; `dtype` is the compute dtype (None: the image's), to which the stem,
-cls, posemb and every layer cast at use. Gradients flow in ``train()`` mode
-as in ``eval()`` mode (no dropout is ported at a rate above 0).
+sincos2d position embeddings, CLIPA's random token masking for
+unmask-tuning (:func:`random_masking`, ``mask_ratio > 0``), optional
+``ln_pre``, pre-LN encoder over a flat residual stream (``remat_policy``
+"minimal" as in models/layers.py), pools ``gap`` / ``gap_all`` / ``tok`` /
+``0``, the no-bias projection head, and position-embedding resampling for
+checkpoints of another resolution (:func:`resample_posemb`, :func:`load`).
+Input is NHWC, as in the JAX tower. Parameters are fp32; `dtype` is the
+compute dtype (None: the image's), to which the stem, cls, posemb and every
+layer cast at use. Gradients flow in ``train()`` mode as in ``eval()`` mode
+(no dropout is ported at a rate above 0).
 
-Not ported yet: ``map`` pooling, the ``linear`` patch stem, remat, CLIPA's
-``random_masking`` (``mask_ratio > 0``, ROADMAP.md A9) and position-embedding
-resampling.
+Not ported yet: ``map`` pooling and the ``linear`` patch stem.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from clipa_tpu_torch import utils as u
-from clipa_tpu_torch.models import layers
+from clipa_tpu_torch.models import common, layers
 
 
 def posemb_sincos_2d(h: int, w: int, width: int, temperature: float = 10_000.,
@@ -40,6 +42,31 @@ def posemb_sincos_2d(h: int, w: int, width: int, temperature: float = 10_000.,
     if cls_token:
         pe = np.concatenate([np.zeros((1, width)), pe], axis=0)
     return torch.as_tensor(pe, dtype=torch.float32)[None]
+
+
+def random_masking(x: torch.Tensor, mask_ratio: float,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None):
+    """Keeps a random (1 - mask_ratio) subset of the tokens of each sample.
+
+    CLIPA-v2's image-token reduction for unmask-tuning: iid uniform noise
+    per token (`noise`, (n, l), or drawn from `generator`, which must live
+    on x's device), keep the ``int(l * (1 - mask_ratio))`` tokens of least
+    noise (a stable argsort, as ``jnp.argsort``). Returns (kept tokens
+    (n, len_keep, d), the fp32 mask (n, l) in the original order with 1 =
+    removed, and the restore indices (n, l)).
+    """
+    n, l, d = x.shape
+    len_keep = int(l * (1 - mask_ratio))
+    if noise is None:
+        noise = torch.rand(n, l, generator=generator, device=x.device)
+    ids_shuffle = torch.argsort(noise, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+    ids_keep = ids_shuffle[:, :len_keep]
+    kept = torch.gather(x, 1, ids_keep[:, :, None].expand(-1, -1, d))
+    mask = torch.ones(n, l, device=x.device)
+    mask[:, :len_keep] = 0
+    return kept, torch.gather(mask, 1, ids_restore), ids_restore
 
 
 class PatchEmbed(nn.Module):
@@ -87,7 +114,6 @@ class _Model(nn.Module):
                  ls_init: Optional[float] = None, dtype: Any = None,
                  remat_policy: Optional[str] = "none"):
         super().__init__()
-        layers.check_remat(remat_policy)
         if patch_embed != "conv":
             raise NotImplementedError(f"patch_embed={patch_embed!r} is not "
                                       "ported yet (only 'conv')")
@@ -116,7 +142,8 @@ class _Model(nn.Module):
         self.Transformer = layers.Encoder(
             depth, width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
             drop_path=drop_path, attn_impl=attn_impl,
-            gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init)
+            gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init,
+            remat_policy=remat_policy)
         self.encoder_norm = (layers.LayerNorm(width, eps=ln_eps)
                              if pool_type != "0" else None)
         self.head = None
@@ -131,13 +158,13 @@ class _Model(nn.Module):
             layers.normal(self.width ** -0.5)(self.pos_embedding, (),
                                               generator)
 
-    def forward(self, image: torch.Tensor, mask_ratio: float = 0.0):
-        """image: (n, H, W, 3) normalized floats. Returns the fp32 (n, C)
-        embedding and a dict of intermediates."""
-        if mask_ratio > 0:
-            raise NotImplementedError(
-                "mask_ratio > 0 (CLIPA's random_masking for unmask-tuning) "
-                "is not ported yet (ROADMAP.md A9)")
+    def forward(self, image: torch.Tensor, mask_ratio: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        """image: (n, H, W, 3) normalized floats. With `mask_ratio` > 0 the
+        patch tokens are masked by :func:`random_masking` with noise from
+        `generator` (on the image's device), after the position embedding;
+        cls stays in front. Returns the fp32 (n, C) embedding and a dict of
+        intermediates (``mask`` among them when masking)."""
         out = {}
         x, h, w = self.embedding(image, self.dtype or image.dtype)
         if (h, w) != self.grid:
@@ -146,6 +173,10 @@ class _Model(nn.Module):
         n = x.shape[0]
         x = torch.cat([self.cls.to(x.dtype).expand(n, -1, -1), x], dim=1)
         x = self.dropout(x + self.pos_embedding.to(x.dtype))
+        if mask_ratio > 0:
+            kept, out["mask"], _ = random_masking(x[:, 1:], mask_ratio,
+                                                  generator)
+            x = torch.cat([x[:, :1], kept], dim=1)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
 
@@ -192,3 +223,33 @@ def decode_variant(variant: Optional[str]) -> dict:
     if patch:
         cfg["patch_size"] = (int(patch), int(patch))
     return cfg
+
+
+def resample_posemb(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Bilinearly resizes a (1, N, C) posemb grid of N = g*g tokens to
+    `new`'s token count (``jax.image.resize`` semantics)."""
+    if old.shape == new.shape:
+        return old
+    gs_old = int(np.sqrt(old.shape[1]))
+    gs_new = int(np.sqrt(new.shape[1]))
+    grid = common.resize_bilinear(old.reshape(gs_old, gs_old, -1),
+                                  (gs_new, gs_new))
+    return grid.reshape(1, gs_new * gs_new, -1).to(old.dtype)
+
+
+def load(init_params, init_file, model_cfg=None, dont_load=()):
+    """Loads tower params from an npz checkpoint, merging with `init_params`
+    (a tree of the tower's tensors) under `dont_load`."""
+    del model_cfg
+    from clipa_tpu_torch.train import checkpoint
+    restored = checkpoint.load_params(init_file)
+    restored = common.merge_params(restored, init_params, dont_load)
+    if init_params and "pos_embedding" in init_params \
+            and "pos_embedding" in restored:
+        restored["pos_embedding"] = resample_posemb(
+            old=restored["pos_embedding"], new=init_params["pos_embedding"])
+    if "pos_embedding" in dont_load and init_params:
+        _, l, c = init_params["pos_embedding"].shape
+        g = int(round((l - 1) ** 0.5))
+        restored["pos_embedding"] = posemb_sincos_2d(g, g, c, cls_token=True)
+    return restored

@@ -365,35 +365,21 @@ def _bias_pointers(biases, like) -> list:
     return ptrs
 
 
-def _library(source: str, entries: dict, n_ptrs: int, n_ints: int
-             ) -> ctypes.CDLL:
-    """Loads `source`, typing its entries as (n_ptrs pointers, n_ints ints,
-    scale, exact, stream)."""
-    lib = cuda_build.load_library(source)
-    if lib.clipa_cuda_error_string.argtypes is None:
-        for entry in entries.values():
-            fn = getattr(lib, entry)
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.clipa_cuda_error_string.restype = ctypes.c_char_p
-        lib.clipa_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+def _library(source: str, entries: dict, n_ptrs: int) -> ctypes.CDLL:
+    """Loads `source`, typing its entries as (n_ptrs pointers, batch, seq,
+    num_heads, head_dim, scale, exact, stream)."""
+    return cuda_build.load_entries(
+        source, entries.values(),
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def fwd_library() -> ctypes.CDLL:
-    return _library(_SOURCE, _ENTRY, 7, 4)
+    return _library(_SOURCE, _ENTRY, 7)
 
 
 def bwd_library() -> ctypes.CDLL:
-    return _library(_BWD_SOURCE, _BWD_ENTRY, 13, 4)
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err:
-        raise RuntimeError(
-            f"{what} launch failed: "
-            f"{lib.clipa_cuda_error_string(err).decode()} (cudaError {err})")
+    return _library(_BWD_SOURCE, _BWD_ENTRY, 13)
 
 
 def _launch(q, k, v, num_heads, seq_len, biases, exact):
@@ -410,7 +396,7 @@ def _launch(q, k, v, num_heads, seq_len, biases, exact):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
             rows // seq_len, seq_len, num_heads, hd, hd ** -0.5,
             int(bool(exact)), stream)
-    _raise_on(err, lib, "fused attention kernel")
+    cuda_build.raise_on(err, lib, "fused attention kernel")
     return out
 
 
@@ -442,7 +428,7 @@ def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact):
             None if dbias is None else dbias.data_ptr(),
             batch, seq_len, num_heads, hd, hd ** -0.5, int(bool(exact)),
             stream)
-    _raise_on(err, lib, "fused attention backward kernel")
+    cuda_build.raise_on(err, lib, "fused attention backward kernel")
     dq, dk, dv = grads.unbind(0)
     if dbias is None:
         return dq, dk, dv, None, None, None

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` into ``clipa_tpu_torch/build/<stem>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds), then loaded with
+source, the csrc headers it includes and the flags, so an edited source or
+header rebuilds), then loaded with
 ``ctypes``. Nothing here runs at import time: a module that owns a kernel
 calls :func:`load_library` from the function that launches it. A missing
 ``nvcc`` or a failed compile raises; there is no fallback.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,11 +48,30 @@ def _nvcc() -> str:
                        "use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[str]:
+    """csrc/`source` and the csrc headers it includes with #include "...",
+    transitively, each once, in the order first reached."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def library_path(source: str) -> str:
-    """Path of the shared library built from csrc/`source`."""
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the shared library built from csrc/`source`; the hash covers
+    the source, the csrc headers it includes and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _sources(source):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
@@ -86,3 +107,26 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(out)
         _libs[source] = lib
         return lib
+
+
+def load_entries(source: str, entries, argtypes) -> ctypes.CDLL:
+    """:func:`load_library`, with the C entry points named in `entries`
+    typed as ``int f(*argtypes)`` and ``clipa_cuda_error_string`` (which
+    every source exports) as ``const char* f(int)``."""
+    lib = load_library(source)
+    if lib.clipa_cuda_error_string.argtypes is None:
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+        lib.clipa_cuda_error_string.restype = ctypes.c_char_p
+        lib.clipa_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    """Raises if an entry point returned a cudaError_t other than 0."""
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.clipa_cuda_error_string(err).decode()} (cudaError {err})")

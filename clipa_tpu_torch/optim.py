@@ -40,8 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from clipa_tpu.config import steps
 from clipa_tpu_torch import convert, utils as u
+from clipa_tpu_torch.config import steps
 
 # --------------------------------------------------------------------------
 # Learning-rate schedules (clipa_tpu/optim.py:39-140): each decay family is

@@ -29,6 +29,7 @@ import argparse
 import collections
 import contextlib
 import glob
+import io
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence, Tuple
@@ -241,15 +242,27 @@ class EmbeddingService:
         return np.stack(list(mapper(self._load_image, images)))
 
     def _load_image(self, item) -> np.ndarray:
-        import clipa_tpu.pp  # noqa: F401  (registers the pp ops)
-        from clipa_tpu.registry import get_preprocess_fn
-        pp = get_preprocess_fn(
-            f'decode|resize_small({self.image_size}, method="bilinear")|'
-            f'central_crop({self.image_size})')
-        if isinstance(item, (str, os.PathLike)):
-            with open(item, "rb") as f:
-                item = f.read()
-        return pp({"image": item})["image"]
+        return load_image(item, self.image_size)
+
+
+def load_image(item, size: int) -> np.ndarray:
+    """An image path, encoded bytes or HWC uint8 array -> the (size, size, 3)
+    uint8 centre crop after a bilinear resize of its shorter side to size:
+    the JAX package's ``decode|resize_small(size, method="bilinear")|
+    central_crop(size)`` pipeline, through PIL."""
+    from PIL import Image
+    if isinstance(item, (str, os.PathLike)):
+        with open(item, "rb") as f:
+            item = f.read()
+    if isinstance(item, np.ndarray) and item.ndim == 3:
+        img = Image.fromarray(item)
+    else:
+        img = Image.open(io.BytesIO(bytes(item))).convert("RGB")
+    ratio = size / min(img.height, img.width)
+    img = img.resize((round(img.width * ratio), round(img.height * ratio)),
+                     Image.Resampling.BILINEAR)
+    top, left = (img.height - size) // 2, (img.width - size) // 2
+    return np.asarray(img)[top:top + size, left:left + size]
 
 
 class _LazyImageLoader:

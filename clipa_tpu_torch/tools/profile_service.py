@@ -11,7 +11,7 @@ it reports:
   * the device busy share: the union of the kernel and copy intervals in
     the trace over the window's host span (host and device timestamps share
     the profiler's clock);
-  * device ms per op family (attention kernel, GEMMs, LayerNorm, GELU,
+  * device ms per op family (attention kernels, GEMMs, LayerNorm, GELU,
     dtype copies, adds, host<->device copies, the rest), read from the
     kernels' full names;
   * the window's items/s on the host clock (the profiler slows the host, so
@@ -34,6 +34,8 @@ import torch
 
 # Op families by kernel name, first match wins.
 FAMILIES = (
+    ("flash attention kernel", r"flash_attention_fwd"),
+    ("flash attention bwd kernel", r"flash_attention_(dq|dkv)"),
     ("attention kernel", r"fused_attention_fwd"),
     ("attention bwd kernel", r"attention_bwd_|column_sum_kernel"),
     ("gemm", r"gemm|nvjet|cutlass|xmma|cublas|s16816|s1688"),

@@ -9,7 +9,9 @@ parameters from a seeded ``torch.Generator`` on the device, and
 measurements)``:
 
   uint8 images normalized on the device (``config.cpu_unit8``) -> train-mode
-  forward in the config's compute dtype over fp32 parameters -> the loss
+  forward in the config's compute dtype over fp32 parameters, with CLIPA's
+  random image-token masking at ``config.mask_ratio`` (unmask-tuning) and
+  the towers' ``remat_policy`` and ``attn_impl`` -> the loss
   (``config.loss``; only "softmax", the global InfoNCE, is ported) ->
   autograd, through the attention kernels' backward on a card -> the optax
   chain of ``optim.py``, applied in place -> the temperature clamp.
@@ -21,9 +23,14 @@ The measurements are the JAX step's: ``training_loss``, ``t``,
 computed on the first, the last and every ``log_training_steps``-th step and
 are 0 on the others. Values are 0-d tensors on the device (no host sync).
 
+The masking noise of step s comes from a ``torch.Generator`` on the
+device seeded from ``(config.seed, s)``: the counterpart of the JAX step's
+``fold_in(rng, step)``. The two give different streams of the same
+distribution.
+
 Not ported yet (they raise): the sigmoid, chunked, ring and CoCa losses,
-two-pass gradient accumulation (``grad_accum_steps > 1``), distillation,
-``mask_ratio > 0`` (ROADMAP.md A9) and the per-block gradient norms.
+two-pass gradient accumulation (``grad_accum_steps > 1``), distillation and
+the per-block gradient norms.
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ from clipa_tpu_torch.ops import preprocess
 
 
 def create_model(config, device=None) -> torch.nn.Module:
-    """The model of ``config.model`` (a two-tower config), on `device`."""
+    """The model of ``config.model`` (a two-tower config), on `device`, with
+    the towers' options as the config sets them (``remat_policy``,
+    ``attn_impl``, ...)."""
     name = config.get("model_name", "two_towers")
     if name != "two_towers":
         raise NotImplementedError(f"model_name={name!r} is not ported to "
@@ -66,6 +75,14 @@ def init_train_state(model: torch.nn.Module, config, generator:
     layers.init_parameters(model, generator)
     model.train()
     return {"params": optim.named_parameters(model), "step": 0}
+
+
+def mask_generator(config, step: int, device) -> torch.Generator:
+    """The masking noise's generator of step `step`, seeded from
+    ``(config.seed, step)``."""
+    seed = np.random.SeedSequence([int(config.get("seed", 0)), int(step)])
+    return torch.Generator(device=device).manual_seed(
+        int(seed.generate_state(1, np.uint64)[0]))
 
 
 def _sqsum(tensors) -> torch.Tensor:
@@ -102,9 +119,6 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                                   "ported yet")
     if teacher_model is not None:
         raise NotImplementedError("distillation is not ported yet")
-    if mask_ratio > 0:
-        raise NotImplementedError("mask_ratio > 0 (random_masking) is not "
-                                  "ported yet (ROADMAP.md A9)")
     if config.get("log_block_norms"):
         raise NotImplementedError("log_block_norms is not ported yet")
     if norm_metrics not in ("log", "always", "never"):
@@ -117,7 +131,10 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
             images = preprocess.normalize_uint8(images)
 
         model.train()
-        zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio)
+        generator = (mask_generator(config, state["step"], images.device)
+                     if mask_ratio > 0 else None)
+        zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio,
+                                   generator=generator)
         loss, l_extras = losses_lib.bidirectional_contrastive_loss(
             zimg, ztxt, extras["t"], reduction=True)
         measurements = {

@@ -74,6 +74,21 @@ def resolve_dtype(dtype: Any) -> Optional[torch.dtype]:
     return names[str(dtype)]
 
 
+def check_and_compile_patterns(patterns: Sequence[Union[str, re.Pattern]]
+                               ) -> list[re.Pattern]:
+    """Validates and compiles regex patterns (str or compiled)."""
+    compiled = []
+    for p in patterns:
+        if isinstance(p, str):
+            compiled.append(re.compile(p))
+        elif isinstance(p, re.Pattern):
+            compiled.append(p)
+        else:
+            raise TypeError(f"Pattern must be str or re.Pattern, got "
+                            f"{type(p)}")
+    return compiled
+
+
 def make_mask_trees(names: Iterable[str],
                     patterns: Sequence[Union[str, re.Pattern]]
                     ) -> list[dict[str, bool]]:
@@ -93,15 +108,7 @@ def make_mask_trees(names: Iterable[str],
     ``img/.*``, then ``.*``              ``img/cls``                 first
     ===================================  ==========================  =======
     """
-    compiled = []
-    for p in patterns:
-        if isinstance(p, str):
-            compiled.append(re.compile(p))
-        elif isinstance(p, re.Pattern):
-            compiled.append(p)
-        else:
-            raise TypeError(f"Pattern must be str or re.Pattern, got "
-                            f"{type(p)}")
+    compiled = check_and_compile_patterns(patterns)
     masks: list[dict[str, bool]] = [{} for _ in compiled]
     for name in names:
         hit = False

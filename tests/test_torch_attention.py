@@ -154,8 +154,8 @@ def test_fused_exact_impl_matches_jax_exact_kernel():
 def test_dispatch_refusals():
     x = torch.zeros(2, 40, 64)
     mask = torch.ones(1, 1, 40, 40, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="flash"):
-        attention.multi_head_attention(x, x, x, 4, impl="pallas")
+    with pytest.raises(NotImplementedError, match="unmasked"):
+        attention.multi_head_attention(x, x, x, 4, mask=mask, impl="pallas")
     with pytest.raises(ValueError, match="mask"):
         attention.multi_head_attention(x, x, x, 4, mask=mask, impl="fused")
     with pytest.raises(ValueError, match="head_dim 12"):

@@ -6,10 +6,11 @@ one. The file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The tolerances are the kernels' stated ones (``block_attention.tolerance``
-for the forward: about one bf16 ulp for bf16 operands, 2e-5 for fp32 ones;
-``block_attention.bwd_errors`` for the backward: 1e-2 resp. 2e-5 of each
-gradient's scale), the reference the plain versions in fp32 from the same
-operands with TF32 off.
+and ``flash_attention.tolerance`` for the forwards: about one bf16 ulp for
+bf16 operands, 2e-5 for fp32 ones, and ``flash_attention.LSE_ATOL`` on the
+flash forward's LSE; ``bwd_errors`` of either module for the backwards:
+1e-2 resp. 2e-5 of each gradient's scale), the reference the plain versions
+in fp32 from the same operands with TF32 off.
 """
 
 import json
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from clipa_tpu_torch.ops import block_attention
+from clipa_tpu_torch.ops import block_attention, flash_attention
 from clipa_tpu_torch.serving import EmbeddingService
 
 
@@ -244,7 +245,7 @@ def test_tiny_training_step_on_the_card(cuda):
     path) trains on the card: every step launches each kernel once per image
     layer and none for the 8-token text tower, the measurements are finite,
     and 10 steps on one batch lower the loss."""
-    from clipa_tpu.configs import clipa_pretrain
+    from clipa_tpu_torch.configs import clipa_pretrain
     from clipa_tpu_torch import optim
     from clipa_tpu_torch.train import step
 
@@ -272,6 +273,158 @@ def test_tiny_training_step_on_the_card(cuda):
         torch.cuda.synchronize()
         assert block_attention.fused_attention.launches == 2
         assert block_attention.fused_attention_bwd.launches == 2
+        assert all(bool(torch.isfinite(v)) for v in meas.values())
+        losses.append(float(meas["training_loss"]))
+    assert losses[-1] < 0.9 * losses[0], losses
+
+
+# The flash kernels (K7/K8) at the shapes chip_smoke.py checks: the
+# unmask-tuning shape (L/16 @224, mask 0.3: L = 138, hd 64), H/14 @224 and
+# @336 masked (hd 80), G/14 at 448 px (L = 1025, hd 104: the auto route),
+# cross-attention, logits far past 70 (q x 40: exact, no clip); plus hd 112
+# (e/14), hd 128, hd 16 and a single query row (a pooling probe).
+# (b, lq, lk, h, hd, q_scale)
+FLASH_CASES = [
+    (16, 138, 138, 16, 64, 1.0),
+    (8, 180, 180, 16, 80, 1.0),
+    (4, 346, 346, 16, 80, 1.0),
+    (2, 1025, 1025, 16, 104, 1.0),
+    (8, 77, 257, 16, 64, 1.0),
+    (8, 138, 138, 16, 64, 40.0),
+    (2, 50, 50, 16, 112, 1.0),
+    (2, 129, 129, 8, 128, 1.0),
+    (3, 1, 37, 2, 16, 1.0),
+]
+
+
+def _flash_operands(cuda, dtype, b, lq, lk, h, hd, q_scale, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def mk(l, scale=1.0):
+        return (torch.randn(b, l, h, hd, device=cuda, generator=gen)
+                * scale).to(dtype)
+
+    return mk(lq, q_scale), mk(lk), mk(lk), mk(lq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,lq,lk,h,hd,q_scale", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, b, lq, lk, h, hd, q_scale, dtype):
+    if dtype == torch.float32:
+        b = 1   # the scalar fp32 twins are slow; the same tiles
+    q, k, v, do = _flash_operands(cuda, dtype, b, lq, lk, h, hd, q_scale)
+    fwd0 = flash_attention.flash_attention.launches
+    bwd0 = flash_attention.flash_attention_bwd.launches
+    out, lse = flash_attention._launch(q, k, v)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention.flash_plain_fwd(q, k, v)
+    atol, rtol = flash_attention.tolerance(dtype)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=flash_attention.LSE_ATOL,
+                               rtol=0)
+    # the backward from the same residuals
+    grads = flash_attention.flash_attention_bwd(q, k, v, ref, ref_lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.launches == bwd0 + 1
+    assert flash_attention.flash_attention.launches == fwd0
+    want = flash_attention.flash_plain_bwd(q, k, v, ref, ref_lse, do)
+    for g, r in zip(grads, want):
+        assert g.dtype == r.dtype and g.shape == r.shape
+    errors = flash_attention.bwd_errors(grads, want, dtype)
+    assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 40, 4, 64, device=cuda, dtype=torch.bfloat16)
+    fa = flash_attention.flash_attention
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="float32"):
+        fa(x.float(), x, x)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa(x[..., :60], x[..., :60], x[..., :60])
+    wide = torch.zeros(2, 40, 1, 136, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 128"):
+        fa(wide, wide, wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))
+    with pytest.raises(NotImplementedError, match="unmasked"):
+        fa(x, x, x, mask=torch.ones(2, 1, 40, 40, dtype=torch.bool,
+                                    device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_gradients_through_the_flash_kernels_equal_the_plain_path(cuda,
+                                                                  dtype):
+    """FlashAttentionFn on the card: the kernel path's gradients reach q, k
+    and v and match the plain path's (the same Function, plain=True)."""
+    q, k, v, do = _flash_operands(cuda, dtype, 4, 138, 138, 4, 64, 1.0,
+                                  seed=3)
+
+    def grads(plain):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention.flash_attention(*xs, plain=plain)
+        (out.float() * do.float()).sum().backward()
+        return [x.grad for x in xs]
+
+    fwd0 = flash_attention.flash_attention.launches
+    bwd0 = flash_attention.flash_attention_bwd.launches
+    kernel = grads(False)
+    assert flash_attention.flash_attention.launches == fwd0 + 1
+    assert flash_attention.flash_attention_bwd.launches == bwd0 + 1
+    plain = grads(True)
+    assert flash_attention.flash_attention_bwd.launches == bwd0 + 1
+    errors = flash_attention.bwd_errors(kernel, plain, dtype)
+    assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+def test_tiny_finetune_step_goes_through_the_flash_kernels(cuda):
+    """A Ti/16 two-tower model of depth 2 at 64 px on the unmask-tuning
+    config (mask 0.3, remat "minimal", the image tower on the flash route):
+    every step launches the flash forward twice per image layer (the
+    forward and remat's recompute) and its backward once, the fused kernels
+    never and nothing for the 8-token text tower; 10 steps lower the
+    loss."""
+    from clipa_tpu_torch.configs import clipa_finetune
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.train import step
+
+    config = clipa_finetune.get_config(
+        "img=Ti/16,res=64,token_len=8,batchsize=16,mask_ratio=0.3")
+    config.model.image.update(depth=2, attn_impl="pallas")
+    config.model.text.update(depth=2)
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.lr = 1e-4
+    model = step.create_model(config, device=cuda)
+    state = step.init_train_state(
+        model, config, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tx, _ = optim.make(config, model, sched_kw=dict(total_steps=10))
+    update = step.make_update_fn(model, tx, config, total_steps=10)
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (16, 64, 64, 3), dtype=np.uint8)).to(cuda),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (16, 8)).astype(np.int32)).to(cuda)}
+    losses = []
+    for _ in range(10):
+        flash_attention.flash_attention.launches = 0
+        flash_attention.flash_attention_bwd.launches = 0
+        block_attention.fused_attention.launches = 0
+        block_attention.fused_attention_bwd.launches = 0
+        state, meas = update(state, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.flash_attention.launches == 2 * 2
+        assert flash_attention.flash_attention_bwd.launches == 2
+        assert block_attention.fused_attention.launches == 0
+        assert block_attention.fused_attention_bwd.launches == 0
         assert all(bool(torch.isfinite(v)) for v in meas.values())
         losses.append(float(meas["training_loss"]))
     assert losses[-1] < 0.9 * losses[0], losses

@@ -226,7 +226,8 @@ svc = EmbeddingService({cfg_path!r}, vocab_path={vocab_path!r},
 assert svc.embed_images(np.zeros((2, 48, 48, 3), np.uint8)).shape == (2, 32)
 assert svc.embed_texts(["a cat"]).shape == (1, 32)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "clipa_tpu"))
 assert not bad, bad
 print("jax-free")
 """

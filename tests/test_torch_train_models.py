@@ -210,10 +210,10 @@ def test_towers_keep_fp32_masters_and_refuse_what_is_not_ported():
                             dtype="bfloat16")
     assert all(p.dtype == torch.float32 for p in port.parameters())
     assert port.img.dtype == torch.bfloat16 == port.txt.dtype
-    with pytest.raises(NotImplementedError, match="A9"):
-        port(torch.zeros(1, 48, 48, 3), None, mask_ratio=0.5)
+    with pytest.raises(NotImplementedError, match="patch_embed"):
+        vit.Model(8, patch_embed="linear", width=64, depth=1, num_heads=4)
     with pytest.raises(NotImplementedError, match="remat"):
-        vit.Model(8, remat_policy="minimal", width=64, depth=1, num_heads=4)
+        vit.Model(8, remat_policy="actcp", width=64, depth=1, num_heads=4)
     with pytest.raises(NotImplementedError, match="DropPath"):
         m = vit.Model(8, drop_path=0.1, width=64, depth=2, num_heads=4,
                       patch_size=(8, 8), image_size=16).train()

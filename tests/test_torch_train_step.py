@@ -204,7 +204,7 @@ def test_norm_metrics_gating_and_refusals():
         assert np.isfinite(float(meas["training_loss"]))
     assert logged == [True, False, True, False, True]   # 1st, 3rd, last
     for key, value in (("loss", "sigmoid"), ("grad_accum_steps", 2),
-                       ("mask_ratio", 0.5)):
+                       ("log_block_norms", True)):
         bad = tiny_config()
         bad[key] = value
         with pytest.raises(NotImplementedError):
@@ -245,11 +245,10 @@ def test_training_modules_import_and_step_without_jax():
     code = """
 import sys
 import torch
-from clipa_tpu.config import ConfigDict
 import clipa_tpu_torch.train.step as step, clipa_tpu_torch.optim as optim
 import clipa_tpu_torch.losses, clipa_tpu_torch.convert
 import clipa_tpu_torch.ops.block_attention
-from clipa_tpu.configs import clipa_pretrain
+from clipa_tpu_torch.configs import clipa_pretrain
 config = clipa_pretrain.get_config("img=Ti/16,res=96,token_len=8,batchsize=4")
 config.model.image.update(depth=1)
 config.model.text.update(depth=1, vocab_size=50)
@@ -264,7 +263,8 @@ batch = {"image": torch.zeros(4, 96, 96, 3, dtype=torch.uint8),
 state, meas = update(state, batch)
 assert torch.isfinite(meas["training_loss"])
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "clipa_tpu"))
 assert not bad, bad
 print("jax-free")
 """
