@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width (seeded random weights:
-no CLIPA checkpoint is in the repository) through the hand-written attention
-kernels: the embedding service at ViT-H-14-CL32-GAP-BigVision, the CLIPA
+Drives the port's main paths at full width (seeded random weights: no
+CLIPA checkpoint is in the repository) through the hand-written kernels:
+the embedding service at ViT-H-14-CL32-GAP-BigVision, the CLIPA
 pre-training step of ``clipa_tpu_torch/configs/clipa_pretrain.py`` at
-``img=L/16,res=112,token_len=8,batchsize=384``, and CLIPA's unmask-tuning
+``img=L/16,res=112,token_len=8,batchsize=384``, CLIPA's unmask-tuning
 step of ``clipa_tpu_torch/configs/clipa_finetune.py`` at
 ``img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128`` with the
 image tower on the flash route (``attn_impl="pallas"``), initialized from
-the pre-training state by ``masked_init``.
+the pre-training state by ``masked_init``, the fused uint8 patch embed at
+the pre-training stem and the serving bucket, and the tools: the
+attention-variant sweep and the step-ablation ladder.
 
-  1. the card, torch/CUDA versions, and the four kernels built from
+  1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel (build times
      printed);
   2. the forward kernel against its plain PyTorch version (fp32 from the
@@ -60,7 +62,24 @@ the pre-training state by ``masked_init``.
      cosine >= 0.99) and remat on against off (rtol 1e-5, cosine >=
      0.9999); 20 steps on one batch lower the loss below 0.9x its start;
      pairs/s on the flash route and on the config's ``auto`` route (the
-     fused kernels), best of two, and peak device memory.
+     fused kernels), best of two, and peak device memory;
+  9. the uint8 patch embed (K9): ``fused_patch_embed(impl="pallas")``
+     against its plain version (fp32, TF32 off) at L/16 @112 B=384 (p 16,
+     width 1024), H/14 @224 B=256 (p 14: K = 588, the K-tail) and Ti/16
+     (width 192: a partial 128-column tile, where the reference's Pallas
+     route gives way to XLA), bf16 and fp32 outputs, with and without
+     bias; then the op as a user calls it at the three shapes, counters
+     read around; kernel, plain and library (``F.conv2d`` with the folded
+     weights) times, the bound (two bf16 tensor-core products, the
+     function's near-fp32 route) and this design's fp32-FMA bound;
+ 10. ``tools/attn_sweep.py`` at B=384 L=50 D=1024 H=16: the fused forward
+     clip / exact and the backward normalized / deferred x clip / exact,
+     each against its plain version, the deferred against the normalized,
+     and their times;
+ 11. ``tools/ablate_step.py`` at L/16 @112 B=384 (8 tokens): every key
+     finite, fwd < grad, ``grad_noattn`` through the stand-in attention
+     core (its calls counted) and without a kernel launch; and
+     ``tools/flops.py`` on ViT-H-14-CL32-GAP-BigVision on the meta device.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -108,6 +127,15 @@ REMAT_LOSS_RTOL = 1e-5
 REMAT_MIN_COSINE = 0.9999
 # The resampled text posemb against numpy's linear interpolation (fp32).
 POSEMB_ATOL = 1e-6
+
+# Phase 9: (name, batch, image side, patch, width): the pre-training stem,
+# the serving bucket (K = 588) and a width that is not a multiple of the
+# kernel's 128-column tile.
+PATCH_CASES = (("L/16 @112", 384, 112, 16, 1024),
+               ("H/14 @224", 256, 224, 14, 1280),
+               ("Ti/16 @224", 64, 224, 16, 192))
+SWEEP_ITERS = 10
+ABLATE = ["--batch", "384", "--iters", "3"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -724,6 +752,157 @@ def _finetune(card, model, state, config):
             "learning": [curve[0], curve[-1]]}
 
 
+def _patch_embed(gen):
+    """Phase 9: the fused uint8 patch embed against its plain version at the
+    PATCH_CASES, then the op as a user calls it, counters read around."""
+    import torch
+    import torch.nn.functional as F
+    from clipa_tpu_torch.ops import patch_embed as pe
+
+    cases = []
+    for name, b, side, p, width in PATCH_CASES:
+        images = torch.randint(0, 256, (b, side, side, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        kernel = torch.randn(p, p, 3, width, generator=gen,
+                             device="cuda") * 0.02
+        bias = torch.randn(width, generator=gen, device="cuda")
+        k_scaled, shift = pe.fold_normalization(kernel)
+        errs = []
+        for out_dtype in (torch.bfloat16, torch.float32):
+            for bb in (bias, None):
+                before = pe.fused_patch_embed.launches
+                out = pe.fused_patch_embed(images, kernel, bb,
+                                           out_dtype=out_dtype,
+                                           impl="pallas")
+                torch.cuda.synchronize()
+                n = pe.fused_patch_embed.launches - before
+                if n != 1:
+                    raise RuntimeError(f"patch embed at {name}: {n} "
+                                       f"launches")
+                full = shift if bb is None else shift + bb
+                ref = pe.patch_embed_plain(images, k_scaled, full, p,
+                                           out_dtype)
+                err, ok = pe.errors(out, ref)
+                errs.append(err)
+                if not ok or out.shape != (b, (side // p) ** 2, width):
+                    raise RuntimeError(
+                        f"patch embed kernel disagrees with its plain version "
+                        f"at {name} {out_dtype} bias={bb is not None}: "
+                        f"max abs err {err}")
+        full = shift + bias
+        x_nchw = images.permute(0, 3, 1, 2).float().contiguous()
+        w_oihw = k_scaled.reshape(p, p, 3, width).permute(3, 2, 0, 1) \
+            .contiguous()
+        lib = F.conv2d(x_nchw, w_oihw, full, stride=p)
+        lib_err = (lib.flatten(2).transpose(1, 2) - pe.patch_embed_plain(
+            images, k_scaled, full, p, torch.float32)).abs().max().item()
+        rows, k = b * (side // p) ** 2, 3 * p * p
+        # image, folded weights and bias in, bf16 rows out
+        nbytes = images.numel() + 4 * (k * width + width) + 2 * rows * width
+        res = {
+            "name": name, "max_abs_err": max(errs),
+            "ms": _time_ms(lambda: pe.fused_patch_embed(
+                images, kernel, bias, impl="pallas"), 20),
+            # the op as a user calls it, kernel and folded-product routes
+            # (both fold the normalization first); conv2d on pre-folded
+            # weights and a pre-cast image
+            "plain_ms": _time_ms(lambda: pe.fused_patch_embed(
+                images, kernel, bias, impl="xla"), 20),
+            "library_ms": _time_ms(lambda: F.conv2d(
+                x_nchw, w_oihw, full, stride=p), 20),
+            # the function's least time: uint8 is exact in bf16 and the
+            # folded weights split into bf16 hi + lo, so two bf16
+            # tensor-core products give the fp32 product to near-fp32
+            # accuracy (twice the operations at 989 TFLOP/s)
+            "bound": _bound(nbytes, 2 * 2 * rows * k * width,
+                            torch.bfloat16),
+            # this design's bound: one product on the fp32 FMA units
+            "fp32_fma_bound": _bound(nbytes, 2 * rows * k * width,
+                                     torch.float32),
+        }
+        cases.append(res)
+        print(f"patch embed {name} B={b} p={p} width={width} (K={k}): max "
+              f"abs err {res['max_abs_err']:.3e} (bf16/fp32 out, "
+              f"with/without bias; conv2d vs plain {lib_err:.2e}); kernel "
+              f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms conv2d "
+              f"{res['library_ms']:.4f} ms bound {res['bound'][0]:.4f} ms "
+              f"({res['bound'][1]}, bf16 hi + lo); fp32-FMA bound of this "
+              f"design {res['fp32_fma_bound'][0]:.4f} ms", flush=True)
+        del images, x_nchw, lib
+
+    # the main path: the op at the three shapes, counters read around
+    inputs = []
+    for _, b, side, p, width in PATCH_CASES:
+        inputs.append((torch.randint(0, 256, (b, side, side, 3),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.uint8),
+                       torch.randn(p, p, 3, width, generator=gen,
+                                   device="cuda") * 0.02))
+    pe.fused_patch_embed.launches = 0
+    outs = [pe.fused_patch_embed(x, w, impl="pallas") for x, w in inputs]
+    torch.cuda.synchronize()
+    launches = pe.fused_patch_embed.launches
+    want = len(inputs)
+    print(f"patch embed main path: {len(inputs)} calls, kernel launches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want or not all(bool(torch.isfinite(o).all())
+                                   for o in outs):
+        raise RuntimeError(f"patch embed launched {launches} times, "
+                           f"expected {want}, or non-finite output")
+    return {"cases": cases, "launches": launches}
+
+
+def _sweep():
+    """Phase 10: tools/attn_sweep.py, counters read around."""
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.tools import attn_sweep
+    counters = {"fwd": ba.fused_attention, "bwd": ba.fused_attention_bwd,
+                "deferred": ba.fused_attention_bwd_deferred}
+    for c in counters.values():
+        c.launches = 0
+    rows = attn_sweep.main(["--iters", str(SWEEP_ITERS)])
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"attn_sweep kernel launches {launches}", flush=True)
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"the sweep missed a kernel: {launches}")
+    return {"rows": {r["name"]: r for r in rows}, "launches": launches}
+
+
+def _tools():
+    """Phase 11: tools/ablate_step.py at L/16 @112 B=384 and tools/flops.py
+    on the serving model."""
+    import math
+    from clipa_tpu_torch.tools import ablate_step, flops
+    t0 = time.perf_counter()
+    results, launches = ablate_step.main(ABLATE)
+    print(f"ablate_step {' '.join(ABLATE)} in "
+          f"{time.perf_counter() - t0:.1f} s; launches per rung {launches}",
+          flush=True)
+    keys = ("fwd_ms", "grad_ms", "sgd_ms", "adam_ms", "grad_noattn_ms",
+            "grad_titext_ms", "hbm_triad_gbps")
+    if not all(k in results and math.isfinite(results[k]) for k in keys):
+        raise RuntimeError(f"ablate_step results {results}")
+    if not results["fwd_ms"] < results["grad_ms"]:
+        raise RuntimeError("ablate_step: the forward took longer than the "
+                           "gradient")
+    # grad_noattn: the stand-in core ran in place of every attention core
+    # (its calls counted), and no attention kernel was launched
+    noattn = dict(launches["grad_noattn_ms"])
+    if noattn.pop("bypassed") == 0 or any(noattn.values()):
+        raise RuntimeError(f"grad_noattn did not bypass attention: "
+                           f"{launches['grad_noattn_ms']}")
+    if any(r["bypassed"] for k, r in launches.items()
+           if k != "grad_noattn_ms"):
+        raise RuntimeError(f"attention was bypassed outside grad_noattn: "
+                           f"{launches}")
+    if not (launches["grad_ms"]["fused_fwd"]
+            and launches["grad_ms"]["fused_bwd"]):
+        raise RuntimeError("the grad rung missed the fused kernels")
+    stats = flops.main(["--model", MODEL])
+    print(f"flops {MODEL} (meta device): {json.dumps(stats)}", flush=True)
+    return {"ablate": results, "flops": stats}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -734,6 +913,7 @@ def main() -> int:
     import numpy as np
     from clipa_tpu_torch.ops import block_attention as ba, cuda_build
     from clipa_tpu_torch.ops import flash_attention as fa
+    from clipa_tpu_torch.ops import patch_embed as pe
     from clipa_tpu_torch.serving import EmbeddingService
 
     card = subprocess.run(
@@ -751,7 +931,8 @@ def main() -> int:
     sources = {"fused_attention_fwd.cu": ba.fwd_library,
                "fused_attention_bwd.cu": ba.bwd_library,
                "flash_attention_fwd.cu": fa.fwd_library,
-               "flash_attention_bwd.cu": fa.bwd_library}
+               "flash_attention_bwd.cu": fa.bwd_library,
+               "patch_embed.cu": pe.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(load) for load in sources.values()]:
@@ -874,6 +1055,13 @@ def main() -> int:
     # 7. masked_init from the pretrain state, 8. the unmask-tuning step
     model, state, config = _transition(train.pop("params"))
     tune = _finetune(card, model, state, config)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # 9. the patch embed, 10. the attention sweep, 11. the tools
+    patch = _patch_embed(gen)
+    sweep = _sweep()
+    tools = _tools()
 
     # bounds of the fused kernels' timed cases: the K1 bucket-256 forward
     # (q, k, v, out and the three biases) and the K6 pretrain backward
@@ -948,11 +1136,42 @@ def main() -> int:
         "bound_ms": flash_main["bwd_bound"][0],
         "bound_by": flash_main["bwd_bound"][1],
         "library_ms": flash_main["bwd_library_ms"],
+    }, {
+        "name": "patch_embed",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/patch_embed.cu",
+        "replaces": "clipa_tpu/ops/patch_embed.py:54",
+        "launches": patch["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in patch["cases"]),
+        "ms": patch["cases"][0]["ms"],
+        "plain_ms": patch["cases"][0]["plain_ms"],
+        "bound_ms": patch["cases"][0]["bound"][0],
+        "bound_by": patch["cases"][0]["bound"][1],
+        "library_ms": patch["cases"][0]["library_ms"],
+        "by_shape": {c["name"]: {
+            **{k: c[k] for k in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": c["bound"][0],
+            "fp32_fma_bound_ms": c["fp32_fma_bound"][0]}
+            for c in patch["cases"]},
+    }, {
+        "name": "fused_attention_bwd_deferred",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "clipa_tpu/tools/attn_sweep.py:76",
+        "launches": sweep["launches"]["deferred"],
+        "max_abs_err": max(r["max_abs_err"] for n, r in sweep["rows"].items()
+                           if "deferred" in n),
+        "ms": sweep["rows"]["bwd deferred clip"]["ms"],
+        "plain_ms": sweep["rows"]["bwd deferred clip"]["plain_ms"],
+        "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1],
+        "library_ms": None,   # clip-mode softmax: no one PyTorch call
+        "sweep_ms": {n: r["ms"] for n, r in sweep["rows"].items()},
     }], "training": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],
         "peak_gb": train["peak_gb"],
-    }}))
+    }, "ablate_step": tools["ablate"], "flops": tools["flops"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

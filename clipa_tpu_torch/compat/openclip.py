@@ -149,9 +149,10 @@ class CLIPModel:
 def create_model(model_name: str, pretrained: Optional[str] = None, *,
                  precision: str = "float32",
                  force_image_size: Optional[int] = None,
-                 pos_embed: Optional[str] = None, device="cpu",
+                 pos_embed: Optional[str] = None, device="cuda",
                  seed: int = 0, attn_impl: str = "auto") -> CLIPModel:
-    """Builds a CLIPA model by open_clip name (or config path) on `device`.
+    """Builds a CLIPA model by open_clip name (or config path) on `device`
+    (the card unless the caller names the CPU; raises without a card).
 
     `pretrained` is a flat npz in the JAX package's format (``file.npz`` or
     ``file.npz:subtree``), loaded through ``convert.load_jax_params``.
@@ -160,13 +161,13 @@ def create_model(model_name: str, pretrained: Optional[str] = None, *,
     `attn_impl` is the towers' attention dispatch
     (``ops.attention.multi_head_attention``).
     """
-    from clipa_tpu_torch import convert
+    from clipa_tpu_torch import convert, utils
     from clipa_tpu_torch.models import layers, two_towers
     from clipa_tpu_torch.train import checkpoint as ckpt
 
     dtype = {"float32": None, "bf16": torch.bfloat16,
              "bfloat16": torch.bfloat16}[precision]
-    device = torch.device(device)
+    device = utils.resolve_device(device, "create_model")
     cfg = get_model_config(model_name)
     image_size = force_image_size or cfg["vision_cfg"]["image_size"]
     tt_cfg = _to_two_towers_cfg(cfg, image_size=image_size,

@@ -56,6 +56,25 @@
 // take fp32 operands) run scalar twins: one block per (sample, head, row),
 // fp32 FMA throughout, no TF32, nothing rounded to a narrower type. They are
 // written to be right, not fast.
+//
+// Deferred normalization (entry clipa_fused_attention_bwd_deferred, bf16
+// only; the compile-time variant kDefer of the same two kernels): the
+// backward variant that clipa_tpu/tools/attn_sweep.py:76 make_bwd_bias(g,
+// defer=True) times, computing the same gradients with the softmax's 1/denom
+// folded into dO's rows so the score-sized products run on unnormalized e:
+//   e = exp(clip(s)) (exact mode: exp(s - rowmax)), denom = rowsum(e)
+//   dohn = bf16(do / denom);  dphat = dohn . vb (fp32)
+//   ds = e * (dphat - rowsum(dphat * e) / denom), zeroed where |s| >= 70
+//   dsb = bf16(ds * scale);  dq = dsb . kb, dk = dsb^T . qb, dv = bf16(e)^T .
+//   dohn.
+// The reference's kernel drops the row-sum term's 1/denom (its
+// ds = e * (dphat - rowsum(dphat * e))): its dq and dk are wrong, its dv
+// right; this variant computes the gradient. The held-against plain twin is
+// attention_plain_bwd(..., defer=True). The dq kernel needs denom before it
+// can form dohn, so it sweeps the key tiles three times (denom; then
+// rowsum(dphat * e); then dq) where the normalized variant sweeps twice; the
+// dk/dv kernel scales its dO tiles by the stored 1/denom as it loads them.
+// Same tiles, no atomics, deterministic.
 
 #include <math.h>
 
@@ -98,6 +117,22 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
       }
     }
     *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+  }
+}
+
+// Divides the rows of a 64-row tile in shared memory by den[row] (IEEE
+// division, one rounding to bf16): dO -> dohn of the deferred variant.
+template <int kHdp>
+__device__ __forceinline__ void scale_rows(bf16* tile, const float* den) {
+  constexpr int kStride = kHdp + 8;
+  constexpr int kPairs = kHdp / 2;
+  for (int i = threadIdx.x; i < kTile * kPairs; i += kThreads) {
+    const int r = i / kPairs;
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(
+        tile + r * kStride + 2 * (i % kPairs));
+    const float2 f = __bfloat1622float2(*x);
+    *x = __floats2bfloat162_rn(__fdiv_rn(f.x, den[r]),
+                               __fdiv_rn(f.y, den[r]));
   }
 }
 
@@ -152,8 +187,9 @@ __device__ __forceinline__ void store_tile(float acc[kHdp / 8][4],
 
 // Kernel 1: dq and the softmax statistics, one block per (q-tile, head,
 // sample). stats: m, r, delta, each (batch * seq * num_heads) fp32 indexed
-// (sample * num_heads + head) * seq + row.
-template <int kHdp>
+// (sample * num_heads + head) * seq + row. kDefer: the deferred variant
+// (delta = rowsum(dphat * e) / r there).
+template <int kHdp, bool kDefer>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -172,6 +208,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sk = sdo + kTile * kStride;
   bf16* sv = sk + kTile * kStride;
   float* colsum = reinterpret_cast<float*>(sv + kTile * kStride);
+  float* s_den = colsum + kWarps * kHdp;  // kDefer: denom per tile row
 
   const int h = blockIdx.y;
   const int d_model = num_heads * hd;
@@ -192,7 +229,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Sweep A: per row (g, g + 8 of this thread), partial over this thread's
   // key columns until the quad reduction; the row max is quad-reduced per
-  // tile so all four threads of a row agree on it.
+  // tile so all four threads of a row agree on it. kDefer: r only (u needs
+  // dohn, hence r, first).
   float row_max[2] = {exact ? -INFINITY : 0.f, exact ? -INFINITY : 0.f};
   float row_sum[2] = {0.f, 0.f};
   float row_u[2] = {0.f, 0.f};
@@ -200,11 +238,11 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();
     load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-    load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
+    if (!kDefer) load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
     __syncthreads();
     if (!active) continue;
     warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
+    if (!kDefer) warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
     if (exact) {
       float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -234,7 +272,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int i = 0; i < 4; ++i) {
           const float e = __expf(s[nt][i] - row_max[i >> 1]);
           row_sum[i >> 1] += e;
-          row_u[i >> 1] += e * dp[nt][i];
+          if (!kDefer) row_u[i >> 1] += e * dp[nt][i];
         }
       }
     } else {
@@ -246,7 +284,46 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float x = fminf(fmaxf(s[nt][i] * scale, -kExpClip), kExpClip);
           const float e = key < seq ? __expf(x) : 0.f;
           row_sum[i >> 1] += e;
-          row_u[i >> 1] += e * dp[nt][i];
+          if (!kDefer) row_u[i >> 1] += e * dp[nt][i];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+  }
+  if (kDefer) {
+    // dO -> dohn = bf16(dO / r) in place (rows past seq divide by 1), then
+    // sweep A2: u = rowsum(dphat * e) with dphat = dohn . V.
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lr = warp * 16 + g + 8 * r;
+        s_den[lr] = q0 + lr < seq ? row_sum[r] : 1.f;
+      }
+    }
+    __syncthreads();
+    scale_rows<kHdp>(sdo, s_den);
+    for (int k0 = 0; k0 < seq; k0 += kTile) {
+      __syncthreads();
+      load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
+      load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
+      __syncthreads();
+      if (!active) continue;
+      warp_scores<kHdp, kTile / 8>(s, sqw, sk);
+      warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + nt * 8 + 2 * t + (i & 1);
+          const float x = s[nt][i] * scale;
+          const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
+          if (key < seq) {
+            row_u[i >> 1] += __expf(xe - row_max[i >> 1]) * dp[nt][i];
+          }
         }
       }
     }
@@ -254,8 +331,6 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
     row_u[r] += __shfl_xor_sync(0xffffffffu, row_u[r], 1);
     row_u[r] += __shfl_xor_sync(0xffffffffu, row_u[r], 2);
     delta[r] = row_u[r] / row_sum[r];
@@ -293,7 +368,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float ds = 0.f;
         if (key < seq) {
           const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          const float p = __expf(xe - row_max[r]) / row_sum[r];
+          const float e = __expf(xe - row_max[r]);
+          const float p = kDefer ? e : e / row_sum[r];
           ds = p * (dp[nt][i] - delta[r]);
           if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
         }
@@ -310,8 +386,9 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Kernel 2: dk and dv, one block per (key tile, head, sample), sweeping the
 // q-tiles with kernel 1's statistics. The warp's 16 key rows are the rows of
-// the transposed score tile s^T (keys x queries).
-template <int kHdp>
+// the transposed score tile s^T (keys x queries). kDefer: dO tiles scaled to
+// dohn as they arrive, p replaced by the unnormalized e.
+template <int kHdp, bool kDefer>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -376,6 +453,10 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
       s_delta[i] = ok ? stats[2 * (size_t)n_stats + stat0 + q0 + i] : 0.f;
     }
     __syncthreads();
+    if (kDefer) {
+      scale_rows<kHdp>(sdo, s_sum);
+      __syncthreads();
+    }
     if (!active) continue;
     warp_scores<kHdp, kTile / 8>(st, skw, sq);
     warp_scores<kHdp, kTile / 8>(dpt, svw, sdo);
@@ -388,7 +469,8 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
         float p = 0.f, ds = 0.f;
         if (key_ok[i >> 1] && q0 + col < seq) {
           const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          p = __expf(xe - s_max[col]) / s_sum[col];
+          const float e = __expf(xe - s_max[col]);
+          p = kDefer ? e : e / s_sum[col];
           ds = p * (dpt[nt][i] - s_delta[col]);
           if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
         }
@@ -432,21 +514,22 @@ int column_sums(const float* a, const float* b, const float* c, int n,
   return (int)cudaGetLastError();
 }
 
-template <int kHdp>
+template <int kHdp, bool kDefer>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
            const bf16* bq, const bf16* bk, const bf16* bv, bf16* dq, bf16* dk,
            bf16* dv, float* stats, float* partial, float* dbias, int batch,
            int seq, int num_heads, int hd, float scale, int exact,
            cudaStream_t stream) {
   const int tiles_bytes = 4 * kTile * (kHdp + 8) * (int)sizeof(bf16);
-  const int smem_dq = tiles_bytes + kWarps * kHdp * (int)sizeof(float);
+  const int smem_dq = tiles_bytes + (kWarps * kHdp + (kDefer ? kTile : 0)) *
+                                        (int)sizeof(float);
   const int smem_dkv =
       tiles_bytes + (3 * kTile + kWarps * kHdp) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<kHdp>,
+      attention_bwd_dq_kernel<kHdp, kDefer>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kHdp>,
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kHdp, kDefer>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkv);
   if (err != cudaSuccess) return (int)err;
@@ -457,12 +540,12 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   float* pk = partial ? partial + part_size : nullptr;
   float* pv = partial ? partial + 2 * part_size : nullptr;
   const dim3 grid(n_tiles, num_heads, batch);
-  attention_bwd_dq_kernel<kHdp><<<grid, kThreads, smem_dq, stream>>>(
+  attention_bwd_dq_kernel<kHdp, kDefer><<<grid, kThreads, smem_dq, stream>>>(
       q, k, v, dout, bq, bk, bv, dq, stats, pq, seq, num_heads, hd, scale,
       exact, n_stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, smem_dkv, stream>>>(
+  attention_bwd_dkv_kernel<kHdp, kDefer><<<grid, kThreads, smem_dkv, stream>>>(
       q, k, v, dout, bq, bk, bv, dk, dv, stats, pk, pv, seq, num_heads, hd,
       scale, exact, n_stats);
   err = cudaGetLastError();
@@ -634,20 +717,13 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// q/k/v/do/dq/dk/dv: (batch * seq, num_heads * head_dim) bf16, contiguous,
-// 16-byte aligned; bq/bk/bv: (num_heads * head_dim,) bf16 or all null.
-// stats: 3 * batch * seq * num_heads fp32 scratch. With biases, partial:
-// 3 * batch * ceil(seq / 64) * num_heads * head_dim fp32 scratch and dbias:
-// 3 * num_heads * head_dim fp32 (dbq, dbk, dbv); both null without. head_dim
-// must be a multiple of 8 and at most 128. Returns the cudaError_t of the
-// launches.
-extern "C" int clipa_fused_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* bq, const void* bk, const void* bv, void* dq, void* dk,
-    void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, float scale, int exact, void* stream) {
+// The bf16 entries' body: kDefer selects the variant.
+template <bool kDefer>
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                const void* bq, const void* bk, const void* bv, void* dq,
+                void* dk, void* dv, void* stats, void* partial, void* dbias,
+                int batch, int seq, int num_heads, int head_dim, float scale,
+                int exact, void* stream) {
   if (bad_shape(batch, seq, num_heads, head_dim) ||
       (bq != nullptr) != (partial != nullptr) ||
       (partial != nullptr) != (dbias != nullptr)) {
@@ -667,9 +743,10 @@ extern "C" int clipa_fused_attention_bwd(
   float* pa_ = static_cast<float*>(partial);
   float* db_ = static_cast<float*>(dbias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CLIPA_LAUNCH(HDP)                                                     \
-  return launch<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, st_, pa_, \
-                     db_, batch, seq, num_heads, head_dim, scale, exact, s)
+#define CLIPA_LAUNCH(HDP)                                                   \
+  return launch<HDP, kDefer>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, \
+                             st_, pa_, db_, batch, seq, num_heads, head_dim,  \
+                             scale, exact, s)
   switch ((head_dim + 15) / 16 * 16) {
     case 16: CLIPA_LAUNCH(16);
     case 32: CLIPA_LAUNCH(32);
@@ -682,6 +759,37 @@ extern "C" int clipa_fused_attention_bwd(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CLIPA_LAUNCH
+}
+
+}  // namespace
+
+// q/k/v/do/dq/dk/dv: (batch * seq, num_heads * head_dim) bf16, contiguous,
+// 16-byte aligned; bq/bk/bv: (num_heads * head_dim,) bf16 or all null.
+// stats: 3 * batch * seq * num_heads fp32 scratch. With biases, partial:
+// 3 * batch * ceil(seq / 64) * num_heads * head_dim fp32 scratch and dbias:
+// 3 * num_heads * head_dim fp32 (dbq, dbk, dbv); both null without. head_dim
+// must be a multiple of 8 and at most 128. Returns the cudaError_t of the
+// launches.
+extern "C" int clipa_fused_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* bq, const void* bk, const void* bv, void* dq, void* dk,
+    void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
+    int num_heads, int head_dim, float scale, int exact, void* stream) {
+  return launch_bf16<false>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
+                            partial, dbias, batch, seq, num_heads, head_dim,
+                            scale, exact, stream);
+}
+
+// The deferred-normalization variant: the same arguments, limits and
+// outputs (bf16 only; see the header).
+extern "C" int clipa_fused_attention_bwd_deferred(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* bq, const void* bk, const void* bv, void* dq, void* dk,
+    void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
+    int num_heads, int head_dim, float scale, int exact, void* stream) {
+  return launch_bf16<true>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
+                           partial, dbias, batch, seq, num_heads, head_dim,
+                           scale, exact, stream);
 }
 
 // The fp32 twin: same arguments and limits, fp32 tensors (4-byte aligned

@@ -33,6 +33,11 @@ reproduce the Pallas math, not autograd's:
     P rounded to the operand dtype before the three products, bias grads
     the fp32 column sums of dq/dk/dv taken before those are rounded;
   * per-sample attention only: row i belongs to sample i // seq_len.
+
+:func:`fused_attention_bwd_deferred` is the backward variant that
+``clipa_tpu/tools/attn_sweep.py`` times beside the landed one: the same
+gradients with the softmax's 1/denom folded into dO's rows
+(``attention_plain_bwd(..., defer=True)``; bf16 kernel only).
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ _ENTRY = {torch.bfloat16: "clipa_fused_attention_fwd",
           torch.float32: "clipa_fused_attention_fwd_f32"}
 _BWD_ENTRY = {torch.bfloat16: "clipa_fused_attention_bwd",
               torch.float32: "clipa_fused_attention_bwd_f32"}
+# The deferred-normalization variant of the bf16 backward (same arguments).
+_BWD_DEFERRED_ENTRY = "clipa_fused_attention_bwd_deferred"
 
 _SOURCE = "fused_attention_fwd.cu"
 _BWD_SOURCE = "fused_attention_bwd.cu"
@@ -187,13 +194,22 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, num_heads: int, seq_len: int,
                         biases: Optional[Sequence[torch.Tensor]] = None,
-                        exact: bool = False):
+                        exact: bool = False, defer: bool = False):
     """The backward kernel's function in plain PyTorch, on any device.
 
     The Pallas backward (``_bwd2d_bias_kernel``, ``_call_bwd_2d_b``), not
     autograd's: see the module docstring. Returns (dq, dk, dv, dbq, dbk,
     dbv); dq/dk/dv in q's dtype, the bias grads in the biases' dtype (None
     without biases).
+
+    `defer`: the deferred-normalization form (the deferred kernel's plain
+    twin): with e = exp(clip(s)) (or exp(s - rowmax)) and denom = rowsum(e),
+    dohn = do / denom rounded to the operand dtype, dphat = dohn . v,
+    dS = e * (dphat - rowsum(dphat * e) / denom), e and dS * scale rounded
+    before the products, dv = e^T . dohn. The same gradient as the default
+    form up to where the roundings fall. (The reference's deferred kernel,
+    ``attn_sweep.py`` make_bwd_bias(defer=True), omits the row-sum term's
+    1/denom, which makes its dq and dk wrong.)
     """
     rows, d = q.shape
     hd = d // num_heads
@@ -210,9 +226,16 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         e = (s - s.amax(dim=-1, keepdim=True)).exp()
     else:
         e = s.clamp(-_EXP_CLIP, _EXP_CLIP).exp()
-    p = e / e.sum(dim=-1, keepdim=True)
-    dp = doh @ vh.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    denom = e.sum(dim=-1, keepdim=True)
+    if defer:
+        doh = (doh / denom).to(dtype).float()   # dohn
+        dp = doh @ vh.transpose(-1, -2)         # dphat
+        ds = e * (dp - (dp * e).sum(dim=-1, keepdim=True) / denom)
+        p = e
+    else:
+        p = e / denom
+        dp = doh @ vh.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     if not exact:
         # d(clip)/ds is 0 where the clip saturates, boundary included
         ds = torch.where(s.abs() >= _EXP_CLIP, 0.0, ds)
@@ -306,10 +329,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor it runs :func:`attention_plain_bwd`. The bias grads are None
     without biases.
     """
-    _check_shapes(q, k, v, num_heads, seq_len, biases)
-    if do.shape != q.shape:
-        raise ValueError(f"do has shape {tuple(do.shape)}, expected "
-                         f"{tuple(q.shape)}")
+    _check_shapes(q, k, v, num_heads, seq_len, biases, do)
     if not _uses_kernel(q):
         return attention_plain_bwd(q, k, v, do, num_heads, seq_len, biases,
                                    exact)
@@ -322,8 +342,39 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 fused_attention_bwd.launches = 0
 
 
-def _check_shapes(q, k, v, num_heads, seq_len, biases) -> None:
-    """The kernel's limits, for every device (the one place they live)."""
+def fused_attention_bwd_deferred(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 num_heads: int, seq_len: int,
+                                 biases: Optional[Sequence[torch.Tensor]]
+                                 = None, exact: bool = False):
+    """:func:`fused_attention_bwd` in the deferred-normalization form:
+    (dq, dk, dv, dbq, dbk, dbv).
+
+    On a CUDA tensor this launches the variant ``kDefer`` of
+    ``csrc/fused_attention_bwd.cu`` (bf16 operands only: the fp32 scalar
+    twin has no deferred form and this raises); on a CPU tensor it runs
+    ``attention_plain_bwd(..., defer=True)``.
+    """
+    _check_shapes(q, k, v, num_heads, seq_len, biases, do)
+    if not _uses_kernel(q):
+        return attention_plain_bwd(q, k, v, do, num_heads, seq_len, biases,
+                                   exact, defer=True)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the deferred backward kernel takes bfloat16 "
+                        f"operands, got {q.dtype}")
+    grads = _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact,
+                        entry=_BWD_DEFERRED_ENTRY)
+    fused_attention_bwd_deferred.launches += 1
+    return grads
+
+
+# Deferred backward kernel launches (counted like the others).
+fused_attention_bwd_deferred.launches = 0
+
+
+def _check_shapes(q, k, v, num_heads, seq_len, biases, do=None) -> None:
+    """The kernels' limits, for every device (the one place they live);
+    `do`: the backward's output gradient, shaped as q."""
     if q.dim() != 2:
         raise ValueError(f"expected flat (B*L, D) operands, got {q.shape}")
     rows, d = q.shape
@@ -336,6 +387,8 @@ def _check_shapes(q, k, v, num_heads, seq_len, biases) -> None:
     if rows // seq_len > 65535 or num_heads > 65535:
         raise ValueError("batch and num_heads must be at most 65535")
     named = [("k", k, (rows, d)), ("v", v, (rows, d))]
+    if do is not None:
+        named.append(("do", do, (rows, d)))
     if biases is not None:
         named += [(n, b, (d,)) for n, b in zip(("bq", "bk", "bv"), biases)]
     for name, x, shape in named:
@@ -379,7 +432,8 @@ def fwd_library() -> ctypes.CDLL:
 
 
 def bwd_library() -> ctypes.CDLL:
-    return _library(_BWD_SOURCE, _BWD_ENTRY, 13)
+    return _library(_BWD_SOURCE, {**_BWD_ENTRY, "defer": _BWD_DEFERRED_ENTRY},
+                    13)
 
 
 def _launch(q, k, v, num_heads, seq_len, biases, exact):
@@ -400,7 +454,7 @@ def _launch(q, k, v, num_heads, seq_len, biases, exact):
     return out
 
 
-def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact):
+def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None):
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_memory(name, x, q)
@@ -421,7 +475,7 @@ def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact):
     lib = bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _BWD_ENTRY[q.dtype])(
+        err = getattr(lib, entry or _BWD_ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
             grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
             stats.data_ptr(), None if partial is None else partial.data_ptr(),

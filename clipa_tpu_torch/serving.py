@@ -37,6 +37,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from clipa_tpu_torch import utils
+
 
 class MemmapWriter:
     """Row-streaming writer into a memory-mapped .npy of known length."""
@@ -83,10 +85,7 @@ class EmbeddingService:
                  attn_impl: str = "auto"):
         from clipa_tpu_torch.compat import openclip
 
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("EmbeddingService(device='cuda') needs a CUDA "
-                               "device and torch finds none")
+        self.device = utils.resolve_device(device, "EmbeddingService")
         self.clip = openclip.create_model(
             model_name, pretrained, force_image_size=image_size,
             precision=precision, device=self.device, seed=seed,

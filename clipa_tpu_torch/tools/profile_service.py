@@ -38,6 +38,7 @@ FAMILIES = (
     ("flash attention bwd kernel", r"flash_attention_(dq|dkv)"),
     ("attention kernel", r"fused_attention_fwd"),
     ("attention bwd kernel", r"attention_bwd_|column_sum_kernel"),
+    ("patch embed kernel", r"patch_embed_kernel"),
     ("gemm", r"gemm|nvjet|cutlass|xmma|cublas|s16816|s1688"),
     ("layernorm", r"layer_norm"),
     ("gelu", r"[Gg]elu"),

@@ -18,7 +18,8 @@ family (forward and backward attention kernels, GEMMs, LayerNorm, GELU,
 dtype copies, adds, the rest) and pairs/s on the host clock inside the
 trace (the profiler slows the host). The summary is one JSON line on
 stdout; the ``key_averages()`` tables (by device time and by host time)
-go to `--out`.
+and the Chrome trace (``train_step_trace.json``, each step marked
+``ProfilerStep#<n>``; ``tools/trace_summary.py`` reads it) go to `--out`.
 """
 
 from __future__ import annotations
@@ -82,8 +83,9 @@ def main(argv=None) -> int:
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with torch.profiler.record_function(window):
-            for _ in range(args.steps):
-                state, meas = update(state, batch)
+            for i in range(args.steps):
+                with torch.profiler.record_function(f"ProfilerStep#{i}"):
+                    state, meas = update(state, batch)
             float(meas["training_loss"])
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -99,6 +101,7 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, name), "w") as f:
             f.write(prof.key_averages().table(sort_by=key, row_limit=50,
                                               max_name_column_width=120))
+    prof.export_chrome_trace(os.path.join(args.out, "train_step_trace.json"))
     with open(os.path.join(args.out, "train_step_summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))

@@ -41,15 +41,16 @@ import numpy as np
 import torch
 
 from clipa_tpu_torch import losses as losses_lib
-from clipa_tpu_torch import optim
+from clipa_tpu_torch import optim, utils
 from clipa_tpu_torch.models import get_model_module, layers
 from clipa_tpu_torch.ops import preprocess
 
 
-def create_model(config, device=None) -> torch.nn.Module:
-    """The model of ``config.model`` (a two-tower config), on `device`, with
-    the towers' options as the config sets them (``remat_policy``,
-    ``attn_impl``, ...)."""
+def create_model(config, device="cuda") -> torch.nn.Module:
+    """The model of ``config.model`` (a two-tower config), on `device` (the
+    card unless the caller names the CPU or ``meta``; raises without a
+    card), with the towers' options as the config sets them
+    (``remat_policy``, ``attn_impl``, ...)."""
     name = config.get("model_name", "two_towers")
     if name != "two_towers":
         raise NotImplementedError(f"model_name={name!r} is not ported to "
@@ -60,7 +61,7 @@ def create_model(config, device=None) -> torch.nn.Module:
         cfg["image"] = {"image_size": img_shape[1:3], **cfg["image"]}
     if cfg.get("text") is not None:
         cfg["text"] = {"context_length": txt_shape[1], **cfg["text"]}
-    with torch.device(device or "cpu"):
+    with utils.resolve_device(device, "create_model"):
         return get_model_module(name).Model(**cfg)
 
 

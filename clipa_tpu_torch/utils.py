@@ -1,4 +1,4 @@
-"""Flat-name helpers for parameter trees.
+"""Flat-name helpers for parameter trees, and the entry points' device check.
 
 Port of the naming and masking half of ``clipa_tpu/utils.py``. Parameters
 are addressed by slash-joined names
@@ -72,6 +72,18 @@ def resolve_dtype(dtype: Any) -> Optional[torch.dtype]:
         raise ValueError(f"unknown dtype {dtype!r} (configs name bfloat16 "
                          f"or float32)")
     return names[str(dtype)]
+
+
+def resolve_device(device: Any, what: str) -> torch.device:
+    """`device` as a ``torch.device``; raises for a CUDA device when torch
+    finds none. The port's entry points default to the card and take the CPU
+    only when the caller names it: nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device={str(device)!r}) needs a CUDA "
+                           f"device and torch finds none; pass device='cpu' "
+                           f"to run on the CPU")
+    return device
 
 
 def check_and_compile_patterns(patterns: Sequence[Union[str, re.Pattern]]

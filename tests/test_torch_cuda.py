@@ -10,7 +10,10 @@ and ``flash_attention.tolerance`` for the forwards: about one bf16 ulp for
 bf16 operands, 2e-5 for fp32 ones, and ``flash_attention.LSE_ATOL`` on the
 flash forward's LSE; ``bwd_errors`` of either module for the backwards:
 1e-2 resp. 2e-5 of each gradient's scale), the reference the plain versions
-in fp32 from the same operands with TF32 off.
+in fp32 from the same operands with TF32 off. The deferred backward is
+held to the backward's tolerance against its plain twin and against the
+normalized kernel; the patch embed to ``patch_embed.errors`` (1e-4 of the
+output's scale for fp32 outputs, one bf16 ulp for bf16 ones).
 """
 
 import json
@@ -428,3 +431,103 @@ def test_tiny_finetune_step_goes_through_the_flash_kernels(cuda):
         assert all(bool(torch.isfinite(v)) for v in meas.values())
         losses.append(float(meas["training_loss"]))
     assert losses[-1] < 0.9 * losses[0], losses
+
+
+# --- the deferred-normalization backward (attn_sweep's variant) ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", BWD_CASES)
+def test_deferred_bwd_kernel_matches_plain_and_normalized(
+        cuda, b, l, d, h, bias, exact, q_scale):
+    q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, bias,
+                                        q_scale, seed=5)
+    before = block_attention.fused_attention_bwd_deferred.launches
+    grads = block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
+                                                         biases, exact)
+    torch.cuda.synchronize()
+    assert block_attention.fused_attention_bwd_deferred.launches == before + 1
+    plain = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
+                                                exact, defer=True)
+    errors = block_attention.bwd_errors(grads, plain, torch.bfloat16)
+    assert all(ok for _, ok in errors), errors
+    normalized = block_attention.fused_attention_bwd(q, k, v, do, h, l,
+                                                     biases, exact)
+    errors = block_attention.bwd_errors(grads, normalized, torch.bfloat16)
+    assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+def test_deferred_bwd_refuses_fp32(cuda):
+    x = torch.zeros(2 * 40, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        block_attention.fused_attention_bwd_deferred(x, x, x, x, 4, 40)
+
+
+# --- the uint8 patch embed (K9) ---------------------------------------------
+
+# p = 16 at L/16's width, p = 14 at H/14's (K = 588, the K-tail), a batch
+# whose row count is not a multiple of the 128-row tile, and a non-square
+# image.
+PATCH_CASES = [(3, 112, 112, 16, 1024), (2, 224, 224, 14, 1280),
+               (5, 48, 80, 16, 256)]
+
+
+def _patch_operands(cuda, b, hh, ww, p, width, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    images = torch.randint(0, 256, (b, hh, ww, 3), generator=gen,
+                           device=cuda, dtype=torch.uint8)
+    kernel = torch.randn(p, p, 3, width, generator=gen, device=cuda) * 0.02
+    bias = torch.randn(width, generator=gen, device=cuda)
+    return images, kernel, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b,hh,ww,p,width", PATCH_CASES)
+def test_patch_embed_kernel_matches_plain(cuda, b, hh, ww, p, width,
+                                          with_bias, out_dtype):
+    from clipa_tpu_torch.ops import patch_embed
+    images, kernel, bias = _patch_operands(cuda, b, hh, ww, p, width)
+    bias = bias if with_bias else None
+    before = patch_embed.fused_patch_embed.launches
+    out = patch_embed.fused_patch_embed(images, kernel, bias,
+                                        out_dtype=out_dtype, impl="pallas")
+    torch.cuda.synchronize()
+    assert patch_embed.fused_patch_embed.launches == before + 1
+    ref = patch_embed.fused_patch_embed(images, kernel, bias,
+                                        out_dtype=out_dtype, impl="xla")
+    assert patch_embed.fused_patch_embed.launches == before + 1
+    assert out.shape == ref.shape == (b, (hh // p) * (ww // p), width)
+    assert out.dtype == out_dtype
+    err, ok = patch_embed.errors(out, ref)
+    assert ok, err
+
+
+@pytest.mark.cuda
+def test_patch_embed_width_gate_and_refusals(cuda):
+    """No width gate on the card: width 96 (not a multiple of 128, where
+    the reference's Pallas route gives way to XLA) launches the kernel;
+    a width the kernel cannot take raises, as do the wrong images."""
+    from clipa_tpu_torch.ops import patch_embed
+    images, kernel, bias = _patch_operands(cuda, 2, 32, 32, 16, 96)
+    before = patch_embed.fused_patch_embed.launches
+    out = patch_embed.fused_patch_embed(images, kernel, bias, impl="pallas")
+    assert patch_embed.fused_patch_embed.launches == before + 1
+    err, ok = patch_embed.errors(out, patch_embed.fused_patch_embed(
+        images, kernel, bias, impl="xla"))
+    assert ok, err
+    images, kernel, bias = _patch_operands(cuda, 2, 32, 32, 16, 6)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        patch_embed.fused_patch_embed(images, kernel, bias, impl="pallas")
+    assert patch_embed.fused_patch_embed.launches == before + 1
+    images, kernel, _ = _patch_operands(cuda, 2, 32, 32, 16, 128)
+    with pytest.raises(ValueError, match="uint8"):
+        patch_embed.fused_patch_embed(images.float(), kernel, impl="pallas")
+    with pytest.raises(ValueError, match="uint8"):
+        patch_embed.fused_patch_embed(images.transpose(1, 2), kernel,
+                                      impl="pallas")
+    with pytest.raises(TypeError, match="out_dtype"):
+        patch_embed.fused_patch_embed(images, kernel, out_dtype=torch.half,
+                                      impl="pallas")

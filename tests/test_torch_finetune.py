@@ -347,12 +347,12 @@ def test_masked_init_from_a_pretrain_checkpoint(tmp_path):
     """The fine-tune model from a saved pretrain state: every tensor copied
     bit for bit but the text posemb, resampled from 8 to 32 positions as
     JAX's merge_params resamples it."""
-    pre = step.create_model(tiny_config(res=32, tokens=8))
+    pre = step.create_model(tiny_config(res=32, tokens=8), device="cpu")
     state = step.init_train_state(pre, None,
                                   torch.Generator().manual_seed(0), "cpu")
     path = str(tmp_path / "pretrain.npz")
     checkpoint.save_params(state["params"], path)
-    tune = step.create_model(tiny_config(res=64, tokens=32))
+    tune = step.create_model(tiny_config(res=64, tokens=32), device="cpu")
     params = step.init_train_state(tune, None,
                                    torch.Generator().manual_seed(1),
                                    "cpu")["params"]
@@ -418,7 +418,7 @@ def both_runs():
                 jax_meas.append({k: float(v) for k, v in meas.items()})
                 jax_params.append(_flat(state["params"]))
 
-        port = step.create_model(config)
+        port = step.create_model(config, device="cpu")
         convert.load_jax_params(port, params)
         pstate = {"params": optim.named_parameters(port), "step": 0}
         ptx, _ = optim.make(config, port, sched_kw=dict(total_steps=TOTAL))
@@ -505,7 +505,7 @@ config = clipa_finetune.get_config(
 config.model.image.update(depth=1, attn_impl="pallas")
 config.model.text.update(depth=1, vocab_size=50)
 config.schedule = [(".*", dict(decay_type="const"))]
-model = step.create_model(config)
+model = step.create_model(config, device="cpu")
 state = step.init_train_state(model, config, torch.Generator().manual_seed(0),
                               "cpu")
 checkpoint.save_params(state["params"], {str(tmp_path / 'p.npz')!r})

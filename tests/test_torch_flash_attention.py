@@ -277,14 +277,18 @@ def test_library_path_hashes_the_included_header(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert sources == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
-                       "fused_attention_bwd.cu", "fused_attention_fwd.cu"]
+                       "fused_attention_bwd.cu", "fused_attention_fwd.cu",
+                       "patch_embed.cu"]
+    attention = [s for s in sources if s != "patch_embed.cu"]
     before = {s: cuda_build.library_path(s) for s in sources}
-    for s in sources:
+    for s in attention:
         assert cuda_build._sources(s) == [s, "attention_common.cuh"]
+    assert cuda_build._sources("patch_embed.cu") == ["patch_embed.cu"]
     header = csrc / "attention_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: cuda_build.library_path(s) for s in sources}
-    assert all(before[s] != after[s] for s in sources)
+    assert all(before[s] != after[s] for s in attention)
+    assert before["patch_embed.cu"] == after["patch_embed.cu"]
     # a source's own edit moves only its own library
     src = csrc / "flash_attention_fwd.cu"
     src.write_text(src.read_text() + "\n// edited\n")

@@ -264,7 +264,8 @@ def test_seeded_init_follows_flax_distributions(tmp_path):
     cfg_path.write_text(json.dumps(TINY_CFG))
 
     def build(seed):
-        return openclip.create_model(str(cfg_path), seed=seed).model
+        return openclip.create_model(str(cfg_path), seed=seed,
+                                      device="cpu").model
 
     port_sd = build(0).state_dict()
     assert set(port_sd) == set(ref_sd)

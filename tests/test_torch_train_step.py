@@ -38,6 +38,8 @@ from clipa_tpu.models import two_towers as jax_two_towers
 from clipa_tpu.parallel import create_mesh
 from clipa_tpu.train import step as jax_step
 from clipa_tpu_torch import convert, losses, optim
+from clipa_tpu_torch.compat import openclip
+from clipa_tpu_torch.models import two_towers
 from clipa_tpu_torch.train import step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,7 +125,7 @@ def both_runs():
             jax_params.append(_flat(state["params"]))
 
     # the port
-    port = step.create_model(config)
+    port = step.create_model(config, device="cpu")
     convert.load_jax_params(port, params)
     pstate = {"params": optim.named_parameters(port), "step": 0}
     ptx, _ = optim.make(config, port, sched_kw=dict(total_steps=TOTAL))
@@ -191,7 +193,7 @@ def test_step_new_params_match(both_runs, i):
 def test_norm_metrics_gating_and_refusals():
     config = tiny_config()
     config.log_training_steps = 3
-    port = step.create_model(config)
+    port = step.create_model(config, device="cpu")
     state = step.init_train_state(port, config,
                                   torch.Generator().manual_seed(0), "cpu")
     tx, _ = optim.make(config, port, sched_kw=dict(total_steps=5))
@@ -240,6 +242,31 @@ def test_pretrain_config_builds_the_jax_model():
     assert port.img.Transformer.depth == 24 and port.txt.num_pos == 8
 
 
+@pytest.mark.parametrize("factory", ["compat.openclip", "train.step"])
+def test_model_factories_default_to_the_card(monkeypatch, factory):
+    """Both model factories default to "cuda": with torch reporting no CUDA
+    device they raise before building anything, and nothing lands on the
+    CPU unless the caller names it."""
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(two_towers, "Model",
+                        lambda *a, **kw: built.append(kw))
+    if factory == "train.step":
+        def create(**kw):
+            return step.create_model(tiny_config(), **kw)
+    else:
+        def create(**kw):
+            return openclip.create_model("ViT-S-16", **kw)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        create()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        create(device="cuda:0")
+    assert built == []
+    if factory == "train.step":
+        create(device="cpu")
+        assert len(built) == 1
+
+
 def test_training_modules_import_and_step_without_jax():
     """The training path never pulls in jax (the GPU machine has none)."""
     code = """
@@ -253,7 +280,7 @@ config = clipa_pretrain.get_config("img=Ti/16,res=96,token_len=8,batchsize=4")
 config.model.image.update(depth=1)
 config.model.text.update(depth=1, vocab_size=50)
 config.schedule = [(".*", dict(decay_type="const"))]
-model = step.create_model(config)
+model = step.create_model(config, device="cpu")
 state = step.init_train_state(model, config, torch.Generator().manual_seed(0),
                               "cpu")
 tx, _ = optim.make(config, model, sched_kw=dict(total_steps=3))
