@@ -44,13 +44,15 @@ attention-variant sweep and the step-ablation ladder.
      device memory;
   6. the flash kernels (forward K7, backward K8), driven through the public
      wrapper under autograd as the towers call it, against their plain
-     versions: errors on O, LSE, dq, dk and dv, and kernel, plain and SDPA
-     times (``F.scaled_dot_product_attention``, the library yardstick;
-     the port never calls it) at the unmask-tuning shape (B=128 L=138
-     H=16 hd 64), H/14 @224 mask 0.3 (L=180, hd 80), H/14 @336 mask 0.4
-     (L=346), L=1025 at G/14's width (hd 104: the auto route), cross-
-     attention (77 queries, 257 keys), q x 40 (logits far past 70: exact,
-     no clip) and the fp32 twin;
+     versions: errors on O, LSE, dq, dk and dv, the backward twice on the
+     same inputs bit for bit, kernel, plain and SDPA times by CUDA events
+     (``F.scaled_dot_product_attention``, the library yardstick; the port
+     never calls it), and kernel and SDPA device times (torch.profiler) at
+     FLASH_SHAPES: the unmask-tuning shape (B=128 L=138 H=16 hd 64), H/14
+     @224 mask 0.3 (L=180, hd 80), H/14 @336 mask 0.4 (L=346), L=1025 at
+     G/14's width (hd 104: the auto route), cross-attention (77 queries,
+     257 keys), q x 40 (logits far past 70: exact, no clip); and the fp32
+     twin;
   7. the masked_init transition: phase 5's trained parameters saved with
      ``save_params``, the fine-tune model initialized from the file: every
      parameter bit for bit, except ``txt/pos_embedding``, resampled from 8
@@ -136,12 +138,27 @@ PATCH_CASES = (("L/16 @112", 384, 112, 16, 1024),
                ("Ti/16 @224", 64, 224, 16, 192))
 SWEEP_ITERS = 10
 ABLATE = ["--batch", "384", "--iters", "3"]
+# Phase 6, bf16: (b, lq, lk, h, hd, q_scale), the unmask-tuning shape first
+FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
+                (64, 180, 180, 16, 80, 1.0),   # H/14 @224, mask 0.3
+                (16, 346, 346, 16, 80, 1.0),   # H/14 @336, mask 0.4
+                (2, 1025, 1025, 16, 104, 1.0),  # G/14 @448: the auto route
+                (16, 77, 257, 16, 64, 1.0),    # cross-attention
+                (32, 138, 138, 16, 64, 40.0))  # logits far past 70
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 # of their type (bf16 on the tensor cores; fp32 twins on the fp32 units).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def _card():
+    """The first card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def _time_ms(fn, iters):
@@ -157,6 +174,32 @@ def _time_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters):
+    """Mean device time of the kernels that fn() launches, over `iters`
+    calls: their durations under torch.profiler, summed. Unlike _time_ms
+    it leaves out the host's launch path where that is the slower. Now and
+    then a session's kernel records come back in part or not at all, so a
+    session counts only when it holds the same whole number of kernels for
+    every call; three sessions at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == cuda and not e.is_user_annotation]
+        if kernels and len(kernels) % iters == 0:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in kernels) / 1e3 / iters
+    raise RuntimeError(f"the profiler saw {len(kernels)} kernels in {iters} "
+                       f"calls, three times")
 
 
 def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None):
@@ -501,6 +544,11 @@ def _flash_case(b, lq, lk, h, hd, q_scale, gen, dtype=None, iters=20):
     # the plain backward from the same residuals as the kernel's
     errors = fa.bwd_errors(grads, fa.flash_plain_bwd(q, k, v, out, lse, do),
                            dtype)
+    # no atomics: every sum of the backward runs in a fixed order, so two
+    # calls on the same inputs agree bit for bit
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    repeat = all(torch.equal(x, y) for x, y in zip(
+        first, fa.flash_attention_bwd(q, k, v, out, lse, do)))
     # the library yardstick: SDPA over (B, H, L, hd) views, both directions
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
@@ -517,36 +565,47 @@ def _flash_case(b, lq, lk, h, hd, q_scale, gen, dtype=None, iters=20):
                    and (o_err <= atol + rtol * ref.float().abs()).all()
                    and lse_err <= fa.LSE_ATOL
                    and all(ok for _, ok in errors)),
-        "ms": _time_ms(lambda: fa.flash_attention(q, k, v), iters),
+        "bwd_repeat_identical": repeat,
         "plain_ms": _time_ms(lambda: fa.flash_plain_fwd(q, k, v),
                              max(2, iters // 4)),
-        "library_ms": _time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), iters),
-        "bwd_ms": _time_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, do), iters),
         "bwd_plain_ms": _time_ms(lambda: fa.flash_plain_bwd(
             q, k, v, out, lse, do), max(2, iters // 4)),
-        "bwd_library_ms": _time_ms(lambda: torch.autograd.grad(
-            o_lib, leaves, dot, retain_graph=True), iters),
         "bound": _bound(e * 2 * (nq + nk) + stats, 4 * b * h * lq * lk * hd,
                         dtype),
         "bwd_bound": _bound(e * 4 * (nq + nk) + stats,
                             10 * b * h * lq * lk * hd, dtype),
     }
+    # kernel and SDPA, each direction: CUDA events through the call, and
+    # the device time of the kernels it launched
+    for name, fn in (
+            ("", lambda: fa.flash_attention(q, k, v)),
+            ("library_", lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            ("bwd_", lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)),
+            ("bwd_library_", lambda: torch.autograd.grad(
+                o_lib, leaves, dot, retain_graph=True))):
+        res[f"{name}ms"] = _time_ms(fn, iters)
+        res[f"{name}device_ms"] = _device_ms(fn, iters)
     res["max_abs_err"] = max(res["errors"].values())
     errs = " ".join(f"{n} {x:.3e}" for n, x in res["errors"].items())
     bwd_rtol = fa.BWD_F32_RTOL if dtype == torch.float32 else fa.BWD_RTOL
     print(f"flash kernels vs plain {res['shape']}: max abs err {errs} "
           f"(tolerance: O atol {atol} + rtol {rtol}, LSE {fa.LSE_ATOL}, "
-          f"grads rtol {bwd_rtol} of each one's scale); fwd kernel {res['ms']:.4f} ms plain "
-          f"{res['plain_ms']:.4f} sdpa {res['library_ms']:.4f} bound "
-          f"{res['bound'][0]:.4f} ({res['bound'][1]}); bwd kernel "
-          f"{res['bwd_ms']:.4f} ms plain {res['bwd_plain_ms']:.4f} sdpa "
-          f"{res['bwd_library_ms']:.4f} bound {res['bwd_bound'][0]:.4f} "
-          f"({res['bwd_bound'][1]})", flush=True)
+          f"grads rtol {bwd_rtol} of each one's scale); ms by events "
+          f"(device): fwd kernel {res['ms']:.4f} ({res['device_ms']:.4f}) "
+          f"plain {res['plain_ms']:.4f} sdpa {res['library_ms']:.4f} "
+          f"({res['library_device_ms']:.4f}) bound {res['bound'][0]:.4f} "
+          f"({res['bound'][1]}); bwd kernel {res['bwd_ms']:.4f} "
+          f"({res['bwd_device_ms']:.4f}) plain {res['bwd_plain_ms']:.4f} "
+          f"sdpa {res['bwd_library_ms']:.4f} "
+          f"({res['bwd_library_device_ms']:.4f}) bound "
+          f"{res['bwd_bound'][0]:.4f} ({res['bwd_bound'][1]}); bwd "
+          f"bit-identical on repeat {repeat}", flush=True)
     if not res["ok"]:
         raise RuntimeError(f"flash kernels disagree with their plain "
                            f"versions at {res['shape']}: {res['errors']}")
+    if not repeat:
+        raise RuntimeError(f"flash backward differs between two calls on the "
+                           f"same inputs at {res['shape']}")
     return res
 
 
@@ -916,10 +975,7 @@ def main() -> int:
     from clipa_tpu_torch.ops import patch_embed as pe
     from clipa_tpu_torch.serving import EmbeddingService
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _card()
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
@@ -1041,16 +1097,22 @@ def main() -> int:
     del svc, plain   # the services' weights stay out of the later peaks
 
     # 6. the flash kernels vs their plain versions
-    flash_main = _flash_case(128, 138, 138, 16, 64, 1.0, gen=gen)
-    flash_cases = [flash_main] + [_flash_case(*c, gen=gen) for c in (
-        (64, 180, 180, 16, 80, 1.0),    # H/14 @224, mask 0.3
-        (16, 346, 346, 16, 80, 1.0),    # H/14 @336, mask 0.4
-        (2, 1025, 1025, 16, 104, 1.0),  # G/14 @448: the auto route
-        (16, 77, 257, 16, 64, 1.0),     # cross-attention
-        (32, 138, 138, 16, 64, 40.0),   # logits far past 70
-    )]
+    flash_cases = [_flash_case(*c, gen=gen) for c in FLASH_SHAPES]
+    flash_main = flash_cases[0]
     flash_cases.append(_flash_case(2, 138, 138, 4, 64, 1.0, gen=gen,
                                    dtype=torch.float32, iters=2))
+    for name, pre in (("K7 flash_attention_fwd", ""),
+                      ("K8 flash_attention_bwd", "bwd_")):
+        ms, dev = flash_main[f"{pre}ms"], flash_main[f"{pre}device_ms"]
+        lib_ms = flash_main[f"{pre}library_ms"]
+        lib_dev = flash_main[f"{pre}library_device_ms"]
+        bound = flash_main[f"{pre}bound"][0]
+        print(f"{card}: {name} at B=128 L=138 H=16 hd 64: {ms:.4f} ms by "
+              f"events, {dev:.4f} device; {bound / ms:.1%} of its bound "
+              f"({bound:.4f} ms), {bound / dev:.1%} by device time; kernel / "
+              f"SDPA {ms / lib_ms:.2f}x ({lib_ms:.4f} ms), "
+              f"{dev / lib_dev:.2f}x by device time ({lib_dev:.4f} ms)",
+              flush=True)
 
     # 7. masked_init from the pretrain state, 8. the unmask-tuning step
     model, state, config = _transition(train.pop("params"))

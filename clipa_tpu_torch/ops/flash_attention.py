@@ -34,7 +34,8 @@ exactly 0; the plain versions take only the real keys, which is the same.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -63,6 +64,137 @@ LSE_ATOL = 1e-3
 # term. fp32: summation order only.
 BWD_RTOL = 1e-2
 BWD_F32_RTOL = 2e-5
+
+# Launch plans (see launch_plan). A block may use this much shared memory
+# on an H100 (227 KB), an SM holds this much for all its blocks (228 KB),
+# and each block takes 1 KB of it for the system.
+SMEM_LIMIT = 232_448
+SM_SMEM = 233_472
+SMEM_PER_BLOCK = 1024
+# The split backward's rings hold 64-row tiles.
+BWD_TILE = 64
+
+
+class KernelPlan(NamedTuple):
+    """One kernel's launch: `blocks` blocks of `warps` warps per (sample,
+    head), `smem` bytes of dynamic shared memory per block, and `stages`:
+    the work items in shared memory at once for the persistent fused
+    backward (1 or 2; its grid is what fits on the card), 0 for a grid of
+    blocks."""
+    warps: int
+    blocks: int
+    smem: int
+    stages: int
+
+
+class LaunchPlan(NamedTuple):
+    """The forward's launch, and the backward's: one fused kernel, or the dq
+    kernel then the dk/dv kernel."""
+    fwd: KernelPlan
+    bwd: tuple
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _max_warps(hd: int) -> int:
+    """The kernels' widest block (attention_common.cuh flash_max_warps):
+    their fp32 accumulators grow with the head dim."""
+    return 12 if _round16(hd) <= 80 else 8
+
+
+def _spread(strips: int, max_warps: int) -> tuple[int, int]:
+    """(warps, blocks): the fewest blocks of at most `max_warps` warps that
+    hold `strips` 16-row strips, and the warps that the fullest needs."""
+    blocks = -(-strips // max_warps)
+    return -(-strips // blocks), blocks
+
+
+def strip_range(strips: int, blocks: int, bx: int) -> tuple[int, int]:
+    """Strips [first, end) of block `bx`: the strips spread evenly, block
+    sizes differing by at most one (attention_common.cuh strip_range)."""
+    return bx * strips // blocks, (bx + 1) * strips // blocks
+
+
+def fwd_candidates(lq: int, lk: int, hd: int) -> list[KernelPlan]:
+    """The forward's splits of the query strips over blocks that _fwd_plan
+    weighs: for each block width up to _max_warps(hd), the fewest blocks of
+    it (so no warp idles where the strips divide evenly), where the block
+    fits in shared memory: its Q strips and the K and V rings of 128-key
+    tiles (every key while Lk fits two tiles)."""
+    row = (_round16(hd) + 8) * 2          # one padded bf16 row, bytes
+    ring = _round16(lk) if lk <= 2 * BLOCK_K else 2 * BLOCK_K
+    strips = _round16(lq) // 16
+    plans = []
+    for blocks in sorted({-(-strips // w)
+                          for w in range(1, _max_warps(hd) + 1)}):
+        warps = -(-strips // blocks)
+        smem = (warps * 16 + 2 * ring) * row
+        if smem <= SMEM_LIMIT:
+            plans.append(KernelPlan(warps, blocks, smem, 0))
+    return plans
+
+
+def _fwd_plan(lq: int, lk: int, hd: int) -> KernelPlan:
+    """Of fwd_candidates, the split that keeps the most warps with a strip
+    resident on an SM, then the one with the most blocks (a block waiting
+    for its copies leaves the SM to the others). The kernel's launch bound
+    lets the register file hold _max_warps(hd) of its warps; the shared
+    memory holds SM_SMEM // (smem + SMEM_PER_BLOCK) of its blocks."""
+    strips, max_warps = _round16(lq) // 16, _max_warps(hd)
+
+    def warps_with_a_strip(p: KernelPlan):
+        per_sm = min(max_warps // p.warps,
+                     SM_SMEM // (p.smem + SMEM_PER_BLOCK))
+        return per_sm * strips / p.blocks, p.blocks
+
+    return max(fwd_candidates(lq, lk, hd), key=warps_with_a_strip)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(lq: int, lk: int, hd: int) -> LaunchPlan:
+    """The kernels' launches at one shape (a pure function, cached). The
+    CUDA entry points take its numbers, shared-memory sizes included, and
+    refuse a plan whose sizes are not their own layouts'.
+
+    Forward: one warp per 16-row query strip, the strips of a (sample, head)
+    spread evenly over blocks as _fwd_plan picks; each block streams K and
+    V through a two-stage ring of 128-key tiles. Backward: the fused
+    persistent kernel (per (sample, head): Q, dO, K, V, LSE, delta and
+    bf16(dS)^T in shared memory, 5 products), with two items' operands where
+    they fit, else one; where not even one fits, the dq kernel over query
+    strips and the dk/dv kernel over key strips, each spread over the
+    fewest blocks of at most _max_warps(hd) warps, with 64-row rings.
+    """
+    row = (_round16(hd) + 8) * 2
+    max_warps = _max_warps(hd)
+    lqp, lkp = _round16(lq), _round16(lk)
+    fwd = _fwd_plan(lq, lk, hd)
+    stage = 2 * (lqp + lkp) * row
+    shared = lkp * (lqp + 8) * 2 + 2 * lqp * 4    # bf16(dS)^T, LSE, delta
+    for stages in (2, 1):
+        if stages * stage + shared <= SMEM_LIMIT:
+            warps, _ = _spread(max(lqp, lkp) // 16, max_warps)
+            return LaunchPlan(fwd, (KernelPlan(warps, 1, stages * stage
+                                               + shared, stages),))
+    return LaunchPlan(fwd, bwd_split_plan(lq, lk, hd))
+
+
+def bwd_split_plan(lq: int, lk: int, hd: int) -> tuple:
+    """The split backward's launches: the dq kernel over the query strips,
+    then the dk/dv kernel over the key strips, each spread over the fewest
+    blocks of at most _max_warps(hd) warps; per block its strips' two
+    operands, a two-stage ring of BWD_TILE-row tiles of two more, and fp32
+    row statistics."""
+    row = (_round16(hd) + 8) * 2
+    qw, qb = _spread(_round16(lq) // 16, _max_warps(hd))
+    kw, kb = _spread(_round16(lk) // 16, _max_warps(hd))
+    return (KernelPlan(qw, qb, (2 * qw * 16 + 4 * BWD_TILE) * row
+                       + 2 * qw * 16 * 4, 0),
+            KernelPlan(kw, kb, (2 * kw * 16 + 4 * BWD_TILE) * row
+                       + 4 * BWD_TILE * 4, 0))
+
 
 _SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -273,21 +405,27 @@ def _check_memory(name: str, x: torch.Tensor, like: torch.Tensor,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _library(source: str, entries: dict, n_ptrs: int) -> ctypes.CDLL:
+def _library(source: str, entries: dict, n_ptrs: int,
+             n_plan: int) -> ctypes.CDLL:
     """Loads `source`, typing its entries as (n_ptrs pointers, batch, lq, lk,
-    num_heads, head_dim, scale, stream)."""
-    return cuda_build.load_entries(
-        source, entries.values(),
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
+    num_heads, head_dim, [n_plan plan ints for bf16], scale, stream)."""
+    def args(n_ints):
+        return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                + [ctypes.c_float, ctypes.c_void_p])
+    lib = cuda_build.load_entries(source, [entries[torch.float32]], args(5))
+    bf16 = getattr(lib, entries[torch.bfloat16])
+    if bf16.argtypes is None:
+        bf16.restype = ctypes.c_int
+        bf16.argtypes = args(5 + n_plan)
+    return lib
 
 
 def fwd_library() -> ctypes.CDLL:
-    return _library(_SOURCE, _ENTRY, 5)
+    return _library(_SOURCE, _ENTRY, 5, 3)
 
 
 def bwd_library() -> ctypes.CDLL:
-    return _library(_BWD_SOURCE, _BWD_ENTRY, 10)
+    return _library(_BWD_SOURCE, _BWD_ENTRY, 10, 7)
 
 
 def _call(lib: ctypes.CDLL, entry: str, like: torch.Tensor, what: str,
@@ -303,7 +441,9 @@ def _dims(q, k) -> tuple:
     return b, lq, k.shape[1], h, hd
 
 
-def _launch(q, k, v):
+def _launch(q, k, v, plan: Optional[KernelPlan] = None):
+    """Runs the forward kernel: (out, lse). `plan`: the bf16 kernel's
+    launch, launch_plan's by default (tools/flash_bench.py times others)."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"q is {q.dtype}; the CUDA kernel takes q, k, v all "
                         f"bfloat16 or all float32")
@@ -312,13 +452,18 @@ def _launch(q, k, v):
     b, lq, lk, h, hd = _dims(q, k)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    args = ()   # the fp32 twin takes no plan
+    if q.dtype == torch.bfloat16:
+        args = tuple((plan or launch_plan(lq, lk, hd).fwd)[:3])
     _call(fwd_library(), _ENTRY[q.dtype], q, "flash attention kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          lse.data_ptr(), b, lq, lk, h, hd)
+          lse.data_ptr(), b, lq, lk, h, hd, *args)
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, do):
+def _launch_bwd(q, k, v, out, lse, do, plan: Optional[tuple] = None):
+    """Runs the backward kernels: (dq, dk, dv). `plan`: the bf16 kernels'
+    launches as in LaunchPlan.bwd, launch_plan's by default."""
     if q.dtype not in _BWD_ENTRY:
         raise TypeError(f"q is {q.dtype}; the CUDA kernel takes q, k, v all "
                         f"bfloat16 or all float32")
@@ -327,10 +472,22 @@ def _launch_bwd(q, k, v, out, lse, do):
     _check_memory("lse", lse, q, torch.float32)
     b, lq, lk, h, hd = _dims(q, k)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)   # rowsum(dO * O), written by the dq kernel
+    # the bf16 entry's plan: (stages, warps_q, blocks_q, smem_q, warps_k,
+    # blocks_k, smem_k), the fused kernel's with stages > 0 and zeros after
+    # it, or stages 0, the dq kernel's, then the dk/dv kernel's
+    args = ()   # the fp32 twins take no plan
+    if q.dtype == torch.bfloat16:
+        plan = plan or launch_plan(lq, lk, hd).bwd
+        args = ((plan[0].stages, *plan[0][:3], 0, 0, 0) if len(plan) == 1
+                else (0, *plan[0][:3], *plan[1][:3]))
+    # rowsum(dO * O): written by the dq kernel for the dk/dv kernel (the
+    # split scheme and the fp32 twins); the fused kernel keeps it in shared
+    # memory and takes a null pointer
+    delta = torch.empty_like(lse) if not args or args[0] == 0 else None
     _call(bwd_library(), _BWD_ENTRY[q.dtype], q,
           "flash attention backward kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-          dv.data_ptr(), delta.data_ptr(), b, lq, lk, h, hd)
+          dv.data_ptr(), None if delta is None else delta.data_ptr(),
+          b, lq, lk, h, hd, *args)
     return dq, dk, dv

@@ -35,7 +35,7 @@ import torch
 # Op families by kernel name, first match wins.
 FAMILIES = (
     ("flash attention kernel", r"flash_attention_fwd"),
-    ("flash attention bwd kernel", r"flash_attention_(dq|dkv)"),
+    ("flash attention bwd kernel", r"flash_attention_(dq|dkv|bwd)"),
     ("attention kernel", r"fused_attention_fwd"),
     ("attention bwd kernel", r"attention_bwd_|column_sum_kernel"),
     ("patch embed kernel", r"patch_embed_kernel"),

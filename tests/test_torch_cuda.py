@@ -285,7 +285,11 @@ def test_tiny_training_step_on_the_card(cuda):
 # unmask-tuning shape (L/16 @224, mask 0.3: L = 138, hd 64), H/14 @224 and
 # @336 masked (hd 80), G/14 at 448 px (L = 1025, hd 104: the auto route),
 # cross-attention, logits far past 70 (q x 40: exact, no clip); plus hd 112
-# (e/14), hd 128, hd 16 and a single query row (a pooling probe).
+# (e/14), hd 128, hd 16 and a single query row (a pooling probe); the tile
+# boundaries of the 16-row strips, the 16-key chunks and the 128-key tiles
+# (L = 15 ... 257: the fused backward up to its shared-memory limit, the
+# split one past it), head dims that are multiples of 8 but not of 16 (the
+# zero-filled half chunk), and cross-attention with more queries than keys.
 # (b, lq, lk, h, hd, q_scale)
 FLASH_CASES = [
     (16, 138, 138, 16, 64, 1.0),
@@ -297,6 +301,13 @@ FLASH_CASES = [
     (2, 50, 50, 16, 112, 1.0),
     (2, 129, 129, 8, 128, 1.0),
     (3, 1, 37, 2, 16, 1.0),
+    *((2, n, n, 4, 64, 1.0)
+      for n in (15, 16, 17, 63, 64, 65, 127, 128, 129, 143, 144, 145, 257)),
+    (2, 138, 138, 4, 8, 1.0),
+    (2, 138, 138, 4, 24, 1.0),
+    (2, 180, 180, 4, 72, 1.0),
+    (2, 138, 138, 4, 120, 1.0),
+    (4, 300, 45, 4, 64, 1.0),
 ]
 
 
@@ -339,6 +350,57 @@ def test_flash_kernels_match_plain(cuda, b, lq, lk, h, hd, q_scale, dtype):
         assert g.dtype == r.dtype and g.shape == r.shape
     errors = flash_attention.bwd_errors(grads, want, dtype)
     assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,hd", [
+    (16, 138, 138, 16, 64),     # the fused backward
+    (2, 346, 346, 16, 80),      # the split backward (dq, then dk/dv)
+])
+def test_flash_bwd_is_bit_identical_over_two_calls(cuda, b, lq, lk, h, hd):
+    """No atomics: every sum of the backward runs in a fixed order, so two
+    calls on the same inputs give the same dq, dk and dv bit for bit."""
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, b, lq, lk, h, hd,
+                                  1.0, seed=7)
+    out, lse = flash_attention._launch(q, k, v)
+    first = flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,hd", [(16, 138, 16, 64), (8, 180, 16, 80)])
+def test_flash_other_plans_match_plain(cuda, b, l, h, hd):
+    """Every forward split that launch_plan weighs, and the split backward
+    where it fuses, compute the same function (tools/flash_bench.py --plans
+    times them); a plan whose shared-memory size is not the kernel's own
+    layout's is refused."""
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, b, l, l, h, hd, 1.0)
+    ref, ref_lse = flash_attention.flash_plain_fwd(q, k, v)
+    atol, rtol = flash_attention.tolerance(torch.bfloat16)
+    for plan in flash_attention.fwd_candidates(l, l, hd):
+        out, lse = flash_attention._launch(q, k, v, plan=plan)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(lse, ref_lse,
+                                   atol=flash_attention.LSE_ATOL, rtol=0)
+    assert len(flash_attention.launch_plan(l, l, hd).bwd) == 1
+    split = flash_attention.bwd_split_plan(l, l, hd)
+    grads = flash_attention._launch_bwd(q, k, v, ref, ref_lse, do,
+                                        plan=split)
+    want = flash_attention.flash_plain_bwd(q, k, v, ref, ref_lse, do)
+    errors = flash_attention.bwd_errors(grads, want, torch.bfloat16)
+    assert all(ok for _, ok in errors), errors
+    fwd = flash_attention.launch_plan(l, l, hd).fwd
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention._launch(q, k, v,
+                                plan=fwd._replace(smem=fwd.smem + 16))
+    (fused,) = flash_attention.launch_plan(l, l, hd).bwd
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention._launch_bwd(q, k, v, ref, ref_lse, do, plan=(
+            fused._replace(smem=fused.smem - 16),))
 
 
 @pytest.mark.cuda

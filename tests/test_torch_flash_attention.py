@@ -295,3 +295,178 @@ def test_library_path_hashes_the_included_header(tmp_path, monkeypatch):
     again = {s: cuda_build.library_path(s) for s in sources}
     assert [s for s in sources if again[s] != after[s]] == [
         "flash_attention_fwd.cu"]
+
+
+# launch_plan: the lengths of chip_smoke.py phase 6 and the strip, chunk and
+# tile boundaries; (lq, lk)
+PLAN_LENGTHS = [(138, 138), (180, 180), (346, 346), (1025, 1025), (77, 257),
+                (300, 45), (1, 37)] + [(n, n) for n in (
+                    15, 16, 17, 63, 64, 65, 127, 128, 129, 143, 144, 145,
+                    257)]
+
+
+def _strips_of(plan, strips):
+    """Each 16-row strip's owners under `plan`: one block's warp per strip
+    (a grid plan), or one warp of the single block (the fused backward,
+    whose warps stride over the strips)."""
+    owners = [0] * strips
+    for bx in range(plan.blocks):
+        first, end = flash_attention.strip_range(strips, plan.blocks, bx)
+        assert 1 <= end - first <= plan.warps
+        for s in range(first, end):
+            owners[s] += 1
+    return owners
+
+
+@pytest.mark.parametrize("hd", [8, 64, 80, 104, 128])
+@pytest.mark.parametrize("lq,lk", PLAN_LENGTHS)
+def test_launch_plan_covers_every_row_once(lq, lk, hd):
+    plan = flash_attention.launch_plan(lq, lk, hd)
+    qs, ks = -(-lq // 16), -(-lk // 16)
+    assert _strips_of(plan.fwd, qs) == [1] * qs
+    assert plan.fwd.stages == 0
+    if len(plan.bwd) == 1:   # the fused backward: every strip of both
+        (fused,) = plan.bwd
+        assert fused.blocks == 1 and fused.stages in (1, 2)
+        assert fused.warps <= max(qs, ks)
+    else:                    # the split one: dq over queries, dk/dv keys
+        dq, dkv = plan.bwd
+        assert _strips_of(dq, qs) == [1] * qs
+        assert _strips_of(dkv, ks) == [1] * ks
+    max_warps = 12 if -(-hd // 16) * 16 <= 80 else 8
+    for p in (plan.fwd, *plan.bwd):
+        assert 1 <= p.warps <= max_warps
+
+
+@pytest.mark.parametrize("hd", [64, 80, 104, 128])
+def test_launch_plan_idles_no_warp_at_the_unmask_tuning_length(hd):
+    """L = 138: 9 strips. Every forward block has a strip for each of its
+    warps, and every warp of the fused backward owns a key strip and a
+    query strip: one each up to hd 80 (12-warp blocks), one or two above
+    (8-warp blocks)."""
+    plan = flash_attention.launch_plan(138, 138, hd)
+    for bx in range(plan.fwd.blocks):
+        first, end = flash_attention.strip_range(9, plan.fwd.blocks, bx)
+        assert end - first == plan.fwd.warps
+    (fused,) = plan.bwd
+    assert fused.warps == (9 if hd <= 80 else 5)
+    if hd == 64:   # the fine-tune shape: 3 blocks of 3 warps
+        assert plan.fwd[:2] == (3, 3)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_launch_plan_fits_shared_memory(hd):
+    """Every planned block stays within an H100 block's 227 KB, for every
+    head dim the kernels take, at every phase-6 and boundary length: the
+    plan, each forward split it weighs and the split backward. (The CUDA
+    launchers refuse a size that is not their layout's, so the card tests
+    hold these sizes against the sources.)"""
+    for lq, lk in PLAN_LENGTHS:
+        plan = flash_attention.launch_plan(lq, lk, hd)
+        for p in (plan.fwd, *plan.bwd,
+                  *flash_attention.fwd_candidates(lq, lk, hd),
+                  *flash_attention.bwd_split_plan(lq, lk, hd)):
+            assert 0 < p.smem <= flash_attention.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hd", [8, 64, 80, 104, 128])
+@pytest.mark.parametrize("lq,lk", PLAN_LENGTHS)
+def test_fwd_plan_is_its_best_candidate(lq, lk, hd):
+    """The forward's plan is one of fwd_candidates, each of which covers
+    every query strip once with the fewest blocks of its width; the split
+    backward's plan is the one launch_plan gives where nothing fuses."""
+    cands = flash_attention.fwd_candidates(lq, lk, hd)
+    plan = flash_attention.launch_plan(lq, lk, hd)
+    assert plan.fwd in cands
+    strips = -(-lq // 16)
+    assert len({c.warps for c in cands}) == len(cands)
+    for c in cands:
+        assert c.blocks == -(-strips // c.warps)
+        assert _strips_of(c, strips) == [1] * strips
+    if len(plan.bwd) == 2:
+        assert plan.bwd == flash_attention.bwd_split_plan(lq, lk, hd)
+
+
+@pytest.mark.parametrize("dtype,lq,lk", [
+    (torch.bfloat16, 138, 138), (torch.bfloat16, 346, 346),
+    (torch.bfloat16, 40, 90), (torch.float32, 138, 138)])
+def test_launches_pass_the_plan_to_the_entry_points(monkeypatch, dtype, lq,
+                                                    lk):
+    """_launch and _launch_bwd hand the bf16 entry points launch_plan's
+    numbers after the dimensions (forward: warps, blocks, smem; backward:
+    stages, then warps, blocks and smem of the fused kernel and zeros, or of
+    the dq and the dk/dv kernel) and the fp32 twins none. The backward's
+    fp32 delta scratch, where the split scheme or the fp32 twins need one,
+    is a fresh (B, H, Lq) buffer on the operands' device, distinct from the
+    outputs; the fused kernel gets a null pointer."""
+    seen = []
+    monkeypatch.setattr(flash_attention, "fwd_library", lambda: "fwd")
+    monkeypatch.setattr(flash_attention, "bwd_library", lambda: "bwd")
+    monkeypatch.setattr(flash_attention, "_call",
+                        lambda lib, entry, like, what, *args:
+                        seen.append((lib, entry, args)))
+    made = []
+    empty_like = torch.empty_like
+    monkeypatch.setattr(flash_attention.torch, "empty_like",
+                        lambda x, **kw: made.append(empty_like(x, **kw))
+                        or made[-1])
+    b, h, hd = 2, 4, 64
+    q, do = (torch.zeros(b, lq, h, hd, dtype=dtype) for _ in range(2))
+    k, v = (torch.zeros(b, lk, h, hd, dtype=dtype) for _ in range(2))
+    out, lse = flash_attention._launch(q, k, v)
+    dq, dk, dv = flash_attention._launch_bwd(q, k, v, out, lse, do)
+    (lib_f, entry_f, args_f), (lib_b, entry_b, args_b) = seen
+    assert (lib_f, entry_f) == ("fwd", flash_attention._ENTRY[dtype])
+    assert (lib_b, entry_b) == ("bwd", flash_attention._BWD_ENTRY[dtype])
+    dims = (b, lq, lk, h, hd)
+    plan = flash_attention.launch_plan(lq, lk, hd)
+    fused = dtype == torch.bfloat16 and len(plan.bwd) == 1
+    if dtype == torch.float32:
+        assert args_f[5:] == dims and args_b[10:] == dims
+    else:
+        f = plan.fwd
+        assert args_f[5:] == dims + (f.warps, f.blocks, f.smem)
+        if fused:
+            (p,) = plan.bwd
+            want = (p.stages, p.warps, 1, p.smem, 0, 0, 0)
+        else:
+            p, r = plan.bwd
+            want = (0, p.warps, p.blocks, p.smem, r.warps, r.blocks, r.smem)
+        assert args_b[10:] == dims + want
+    assert args_f[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), lse.data_ptr())
+    assert args_b[6:9] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if fused:
+        assert args_b[9] is None
+        return
+    (delta,) = [x for x in made if x.data_ptr() == args_b[9]]
+    assert delta.shape == (b, h, lq) and delta.dtype == torch.float32
+    assert delta.device == q.device
+    assert args_b[9] not in (lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr())
+
+
+def test_launches_take_another_plan(monkeypatch):
+    """A plan handed to _launch or _launch_bwd (the bench's probes) reaches
+    the entry points in place of launch_plan's: a forward split and the
+    split backward at a length where the plan fuses."""
+    seen = []
+    monkeypatch.setattr(flash_attention, "fwd_library", lambda: "fwd")
+    monkeypatch.setattr(flash_attention, "bwd_library", lambda: "bwd")
+    monkeypatch.setattr(flash_attention, "_call",
+                        lambda lib, entry, like, what, *args:
+                        seen.append(args))
+    b, l, h, hd = 2, 138, 4, 64
+    q, k, v, do = (torch.zeros(b, l, h, hd, dtype=torch.bfloat16)
+                   for _ in range(4))
+    fwd = flash_attention.fwd_candidates(l, l, hd)[0]
+    assert fwd != flash_attention.launch_plan(l, l, hd).fwd
+    assert len(flash_attention.launch_plan(l, l, hd).bwd) == 1
+    p, r = flash_attention.bwd_split_plan(l, l, hd)
+    out, lse = flash_attention._launch(q, k, v, plan=fwd)
+    flash_attention._launch_bwd(q, k, v, out, lse, do, plan=(p, r))
+    args_f, args_b = seen
+    assert args_f[10:] == (fwd.warps, fwd.blocks, fwd.smem)
+    assert args_b[15:] == (0, p.warps, p.blocks, p.smem, r.warps, r.blocks,
+                           r.smem)
+    assert args_b[9] is not None

@@ -47,6 +47,8 @@ def test_union_of_device_intervals(intervals, total):
      "flash attention bwd kernel"),
     ("void (anonymous namespace)::flash_attention_dkv_kernel<80>(...)",
      "flash attention bwd kernel"),
+    ("void (anonymous namespace)::flash_attention_bwd_fused_kernel<64>(...)",
+     "flash attention bwd kernel"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "gemm"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm>", "gemm"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel"
