@@ -20,10 +20,16 @@ attention-variant sweep and the step-ablation ladder.
   2. the forward kernel against its plain PyTorch version (fp32 from the
      same operands, TF32 off) at the serving shapes: H/14 @224, L/16 @112,
      the unbiased flat form, clip and exact mode past the clip (logits >>
-     70), the fp32 twin at H/14 @224, and the bucket-256 H/14 shape; errors,
-     kernel and plain times per case, and SDPA's time where it computes the
-     same function (exact mode without biases) (at the small shapes the
-     times are mostly the wrapper's host-side launch path, not the kernel);
+     70), the fp32 twin at H/14 @224; then at FUSED_SHAPES, the three
+     main-path shapes (bucket 256 at H/14, the pretrain step's B=384 L=50,
+     the fine-tune `auto` route's B=128 L=138) and the exact form without
+     biases at bucket 256; per case errors, the output of two calls bit for
+     bit, kernel and plain times by CUDA events, and SDPA's where it
+     computes the same function (exact mode without biases); at
+     FUSED_SHAPES also the kernel's and SDPA's device times (torch.profiler;
+     "not measured" where the profiler returns no whole session) and the
+     kernel's share of the bound (at the small shapes the event times are
+     mostly the wrapper's host-side launch path, not the kernel);
   3. the backward kernel against the plain backward: dq, dk, dv and the
      bias grads at the pretrain shape (B=384 L=50 D=1024 H=16, bias), H/14
      @224 (several q-tiles, hd 80), L=577 without bias, clip mode past the
@@ -146,6 +152,15 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
                 (16, 77, 257, 16, 64, 1.0),    # cross-attention
                 (32, 138, 138, 16, 64, 40.0))  # logits far past 70
 
+# Phase 2's timed cases of the fused forward, (name, b, l, d, h, bias,
+# exact): the three main-path shapes (serving bucket 256 at H/14 @224, the
+# pretrain step, the fine-tune step's `auto` route) and the exact form
+# without biases that SDPA also computes
+FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
+                ("L/16 @112", 384, 50, 1024, 16, True, False),
+                ("fine-tune auto", 128, 138, 1024, 16, True, False),
+                ("bucket 256 exact", 256, 257, 1280, 16, False, True))
+
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
 # of their type (bf16 on the tensor cores; fp32 twins on the fp32 units).
@@ -178,31 +193,65 @@ def _time_ms(fn, iters):
 
 def _device_ms(fn, iters):
     """Mean device time of the kernels that fn() launches, over `iters`
-    calls: their durations under torch.profiler, summed. Unlike _time_ms
-    it leaves out the host's launch path where that is the slower. Now and
-    then a session's kernel records come back in part or not at all, so a
-    session counts only when it holds the same whole number of kernels for
-    every call; three sessions at most."""
+    calls, under torch.profiler: for each kernel name, its mean duration
+    times its launches per call. Unlike _time_ms it leaves out the host's
+    launch path where that is the slower. Each session first runs `iters`
+    calls as the profiler's warm-up step, whose records it drops (the first
+    records of a session have come back missing: three sessions in a row 3
+    short of 80). Now and then a session's records still come back in part
+    or not at all (none, three sessions in a row), so a name's launches per
+    call is its count over `iters`, rounded, and a session counts when every
+    name's count lies within a quarter of `iters` of that many calls' worth.
+    After three sessions that do not, None: the time is not measured, which
+    fails no phase (the events time each case as well)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == cuda and not e.is_user_annotation]
-        if kernels and len(kernels) % iters == 0:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in kernels) / 1e3 / iters
-    raise RuntimeError(f"the profiler saw {len(kernels)} kernels in {iters} "
-                       f"calls, three times")
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):   # the warm-up step, then the recorded one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = {}
+        for e in prof.events():
+            if e.device_type == cuda and not e.is_user_annotation:
+                us.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        per_call = {n: round(len(d) / iters) for n, d in us.items()}
+        if us and all(per_call[n] >= 1
+                      and abs(len(d) - per_call[n] * iters) <= iters / 4
+                      for n, d in us.items()):
+            return sum(sum(d) / len(d) * per_call[n]
+                       for n, d in us.items()) / 1e3
+    counts = {n[:60]: len(d) for n, d in us.items()}
+    print(f"device time not measured: the profiler saw kernels {counts} in "
+          f"{iters} calls, three times", flush=True)
+    return None
 
 
-def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None):
+def _fmt(ms):
+    """A time for the log: ms to 4 places, or "not measured" (None)."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _ratio(a, b, spec):
+    """a / b formatted by `spec`, or "not measured" where either is None."""
+    return "not measured" if a is None or b is None else format(a / b, spec)
+
+
+def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None,
+                 device=False):
+    """Phase 2: the fused forward against its plain version at one shape:
+    errors, the output of two calls bit for bit, kernel and plain times by
+    CUDA events, the bound, SDPA's time where it computes the same function
+    (exact mode without biases), and with `device` (the timed FUSED_SHAPES)
+    the kernel's and SDPA's device times (torch.profiler)."""
     import torch
     from clipa_tpu_torch.ops import block_attention as ba
     dtype = dtype or torch.bfloat16
@@ -213,12 +262,21 @@ def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None):
 
     q, k, v = mk(b * l, d, scale=q_scale), mk(b * l, d), mk(b * l, d)
     biases = (mk(d), mk(d), mk(d)) if bias else None
-    out = ba.fused_attention(q, k, v, h, l, biases, exact)
+
+    def kernel():
+        return ba.fused_attention(q, k, v, h, l, biases, exact)
+
+    out = kernel()
+    # no atomics: two calls on the same inputs agree bit for bit
+    repeat = torch.equal(out, kernel())
     torch.cuda.synchronize()
     ref = ba.attention_plain(q, k, v, h, l, biases, exact)
     err = (out.float() - ref.float()).abs()
     atol, rtol = ba.tolerance(dtype)
     limit = atol + rtol * ref.float().abs()
+    # q, k, v, out (and the three biases) once each; 4 L^2 hd products per
+    # head and sample
+    nbytes = q.element_size() * (4 * b * l * d + (3 * d if bias else 0))
     res = {
         "shape": (f"{str(dtype).split('.')[-1]} B={b} L={l} D={d} H={h} "
                   f"bias={bias} exact={exact} q_scale={q_scale}"),
@@ -226,27 +284,44 @@ def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None):
         "mean_abs_err": err.mean().item(),
         "finite": bool(torch.isfinite(out).all()),
         "within_tol": bool((err <= limit).all()),
-        "ms": _time_ms(lambda: ba.fused_attention(q, k, v, h, l, biases,
-                                                  exact), 20),
+        "repeat_identical": repeat,
+        "ms": _time_ms(kernel, 20),
+        "device_ms": _device_ms(kernel, 20) if device else None,
         "plain_ms": _time_ms(lambda: ba.attention_plain(q, k, v, h, l,
                                                         biases, exact), 5),
+        "bound": _bound(nbytes, 4 * b * l * l * d, dtype),
     }
     library = ""
     if exact and not bias:   # SDPA computes this function: time it beside
         import torch.nn.functional as F
         qt, kt, vt = (x.reshape(b, l, h, d // h).transpose(1, 2)
                       for x in (q, k, v))
-        res["library_ms"] = _time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        res["library_ms"] = _time_ms(sdpa, 20)
+        res["library_device_ms"] = _device_ms(sdpa, 20) if device else None
         library = f" sdpa {res['library_ms']:.4f} ms"
+    bound = res["bound"][0]
+    by_device = ""
+    if device:
+        by_device = (f"; device ms: kernel {_fmt(res['device_ms'])}, "
+                     f"{_ratio(bound, res['device_ms'], '.1%')} of the bound")
+        if "library_ms" in res:
+            by_device += f", sdpa {_fmt(res['library_device_ms'])}"
     print(f"kernel vs plain {res['shape']}: max_abs_err "
           f"{res['max_abs_err']:.3e} mean_abs_err {res['mean_abs_err']:.3e} "
-          f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms"
-          f"{library}", flush=True)
+          f"bit-identical on repeat {repeat}; kernel {res['ms']:.4f} ms plain "
+          f"{res['plain_ms']:.4f} ms{library}; bound {bound:.4f} ms "
+          f"({res['bound'][1]}){by_device}", flush=True)
     if not (res["finite"] and res["within_tol"]):
         raise RuntimeError(f"kernel disagrees with its plain version at "
                            f"{res['shape']} (tolerance atol {atol} + "
                            f"rtol {rtol})")
+    if not repeat:
+        raise RuntimeError(f"kernel output differs between two calls on the "
+                           f"same inputs at {res['shape']}")
     return res
 
 
@@ -591,13 +666,13 @@ def _flash_case(b, lq, lk, h, hd, q_scale, gen, dtype=None, iters=20):
     print(f"flash kernels vs plain {res['shape']}: max abs err {errs} "
           f"(tolerance: O atol {atol} + rtol {rtol}, LSE {fa.LSE_ATOL}, "
           f"grads rtol {bwd_rtol} of each one's scale); ms by events "
-          f"(device): fwd kernel {res['ms']:.4f} ({res['device_ms']:.4f}) "
+          f"(device): fwd kernel {res['ms']:.4f} ({_fmt(res['device_ms'])}) "
           f"plain {res['plain_ms']:.4f} sdpa {res['library_ms']:.4f} "
-          f"({res['library_device_ms']:.4f}) bound {res['bound'][0]:.4f} "
+          f"({_fmt(res['library_device_ms'])}) bound {res['bound'][0]:.4f} "
           f"({res['bound'][1]}); bwd kernel {res['bwd_ms']:.4f} "
-          f"({res['bwd_device_ms']:.4f}) plain {res['bwd_plain_ms']:.4f} "
+          f"({_fmt(res['bwd_device_ms'])}) plain {res['bwd_plain_ms']:.4f} "
           f"sdpa {res['bwd_library_ms']:.4f} "
-          f"({res['bwd_library_device_ms']:.4f}) bound "
+          f"({_fmt(res['bwd_library_device_ms'])}) bound "
           f"{res['bwd_bound'][0]:.4f} ({res['bwd_bound'][1]}); bwd "
           f"bit-identical on repeat {repeat}", flush=True)
     if not res["ok"]:
@@ -1012,7 +1087,20 @@ def main() -> int:
     )]
     cases.append(_kernel_case(8, 257, 1280, 16, True, False, 1.0, gen=gen,
                               dtype=torch.float32))  # fp32 twin
-    main_case = _kernel_case(256, 257, 1280, 16, True, False, 1.0, gen=gen)
+    by_shape = {name: _kernel_case(*shape, 1.0, gen=gen, device=True)
+                for name, *shape in FUSED_SHAPES}
+    main_case = by_shape["bucket 256"]
+    for name, c in by_shape.items():
+        dev, bound = c["device_ms"], c["bound"][0]
+        sdpa = ""
+        if "library_ms" in c:
+            lib = c["library_device_ms"]
+            sdpa = (f"; kernel / SDPA {_ratio(dev, lib, '.2f')}x by device "
+                    f"time ({_fmt(lib)} ms)")
+        print(f"{card}: K1 fused_attention_fwd at {name}: {c['ms']:.4f} ms by "
+              f"events, {_fmt(dev)} device; {bound:.4f} ms bound "
+              f"({c['bound'][1]}): {_ratio(bound, dev, '.1%')} by device "
+              f"time{sdpa}", flush=True)
 
     # 3. backward kernel vs plain backward
     bwd_main = _bwd_case(384, 50, 1024, 16, True, False, 1.0, gen=gen)
@@ -1108,11 +1196,11 @@ def main() -> int:
         lib_dev = flash_main[f"{pre}library_device_ms"]
         bound = flash_main[f"{pre}bound"][0]
         print(f"{card}: {name} at B=128 L=138 H=16 hd 64: {ms:.4f} ms by "
-              f"events, {dev:.4f} device; {bound / ms:.1%} of its bound "
-              f"({bound:.4f} ms), {bound / dev:.1%} by device time; kernel / "
-              f"SDPA {ms / lib_ms:.2f}x ({lib_ms:.4f} ms), "
-              f"{dev / lib_dev:.2f}x by device time ({lib_dev:.4f} ms)",
-              flush=True)
+              f"events, {_fmt(dev)} device; {bound / ms:.1%} of its bound "
+              f"({bound:.4f} ms), {_ratio(bound, dev, '.1%')} by device "
+              f"time; kernel / SDPA {ms / lib_ms:.2f}x ({lib_ms:.4f} ms), "
+              f"{_ratio(dev, lib_dev, '.2f')}x by device time "
+              f"({_fmt(lib_dev)} ms)", flush=True)
 
     # 7. masked_init from the pretrain state, 8. the unmask-tuning step
     model, state, config = _transition(train.pop("params"))
@@ -1125,13 +1213,9 @@ def main() -> int:
     sweep = _sweep()
     tools = _tools()
 
-    # bounds of the fused kernels' timed cases: the K1 bucket-256 forward
-    # (q, k, v, out and the three biases) and the K6 pretrain backward
-    # (q, k, v, do, biases in; dq, dk, dv and the bias grads out), 4 resp.
-    # 10 L^2 hd products per head and sample, bf16
-    b, l, d = 256, 257, 1280
-    fwd_bound = _bound(2 * (4 * b * l * d + 3 * d), 4 * b * l * l * d,
-                       torch.bfloat16)
+    # the bound of the K6 pretrain backward (q, k, v, do, biases in; dq,
+    # dk, dv and the bias grads out; 10 L^2 hd products per head and
+    # sample, bf16)
     b, l, d = 384, 50, 1024
     bwd_bound = _bound(2 * (7 * b * l * d + 6 * d), 10 * b * l * l * d,
                        torch.bfloat16)
@@ -1152,12 +1236,20 @@ def main() -> int:
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"]},
-        "max_abs_err": max(c["max_abs_err"] for c in cases + [main_case]),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
+        "device_ms": main_case["device_ms"],
         "plain_ms": main_case["plain_ms"],
-        "bound_ms": fwd_bound[0],
-        "bound_by": fwd_bound[1],
+        "bound_ms": main_case["bound"][0],
+        "bound_by": main_case["bound"][1],
         "library_ms": None,   # clip-mode softmax: no one PyTorch call
+        "by_shape": {name: {
+            **{k: c[k] for k in ("ms", "device_ms", "plain_ms")},
+            "bound_ms": c["bound"][0],
+            "library_ms": c.get("library_ms"),
+            "library_device_ms": c.get("library_device_ms")}
+            for name, c in by_shape.items()},
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",

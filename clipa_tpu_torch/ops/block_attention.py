@@ -8,10 +8,11 @@ so do the three backwards (``_bwd_kernel``, ``_bwd2d_kernel``,
 each direction: ``csrc/fused_attention_fwd.cu`` (:func:`fused_attention`)
 and ``csrc/fused_attention_bwd.cu`` (:func:`fused_attention_bwd`). The TPU
 kernels' VMEM plans, sample groups and block-diagonal masks suited Mosaic
-only; the CUDA kernels run one block per (sample, head, 64-row tile). bf16
-operands go through the tensor cores; fp32 operands (the service at
-precision float32, the fp32 smoke configs) through scalar fp32 twins in the
-same sources.
+only. The bf16 forward spreads the 16-row query strips of a (sample, head)
+over the blocks of :func:`fwd_plan`; the backward runs one block per
+(sample, head, 64-row tile). bf16 operands go through the tensor cores;
+fp32 operands (the service at precision float32, the fp32 smoke configs)
+through scalar fp32 twins in the same sources.
 
 :class:`FusedAttentionFn` ties the two directions into autograd, on every
 device: the kernels for CUDA tensors, the plain versions for CPU tensors
@@ -43,11 +44,15 @@ gradients with the softmax's 1/denom folded into dO's rows
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
 
 from clipa_tpu_torch.ops import cuda_build
+from clipa_tpu_torch.ops.flash_attention import (SM_SMEM, SMEM_LIMIT,
+                                                  SMEM_PER_BLOCK, KernelPlan,
+                                                  _max_warps, _round16)
 
 # fp32 exp stays finite for |s| <= 87; see clipa_tpu/ops/block_attention.py
 # for why the clip is 70 and what the clipped softmax gives up.
@@ -95,6 +100,61 @@ _BWD_SOURCE = "fused_attention_bwd.cu"
 
 # Rows per tile of the bf16 backward kernels (bias-grad partials per tile).
 _BWD_TILE = 64
+
+# The bf16 forward's key tiles, and the deepest ring its launcher takes
+# (csrc/fused_attention_fwd.cu kBlockK, kMaxStages).
+FWD_BLOCK_K = 128
+FWD_MAX_STAGES = 8
+
+
+def _ring_rows(seq_len: int, stages: int) -> int:
+    """Rows of each of the forward's K and V rings: `stages` key tiles, or
+    every key (rounded up to a 16-row chunk) where fewer suffice."""
+    return min(stages * FWD_BLOCK_K, _round16(seq_len))
+
+
+def fwd_candidates(seq_len: int, hd: int) -> list[KernelPlan]:
+    """The bf16 forward's launches that fwd_plan weighs, as KernelPlans
+    (warps, blocks, smem, stages). For each block width up to
+    _max_warps(hd), the fewest blocks of it over the ceil(L / 16) query
+    strips of a (sample, head) (so no warp idles where the strips divide
+    evenly); for each, a ring that holds every key (stages = the key tiles,
+    at most FWD_MAX_STAGES) and, past two tiles, a two-stage ring; where
+    the block fits in shared memory: its Q strips, then the K and V
+    rings."""
+    row = (_round16(hd) + 8) * 2          # one padded bf16 row, bytes
+    strips = _round16(seq_len) // 16
+    tiles = -(-seq_len // FWD_BLOCK_K)
+    rings = {min(tiles, FWD_MAX_STAGES), 2} if tiles > 1 else {1}
+    plans = []
+    for blocks in sorted({-(-strips // w)
+                          for w in range(1, _max_warps(hd) + 1)}):
+        warps = -(-strips // blocks)
+        for stages in sorted(rings):
+            smem = (warps * 16 + 2 * _ring_rows(seq_len, stages)) * row
+            if smem <= SMEM_LIMIT:
+                plans.append(KernelPlan(warps, blocks, smem, stages))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(seq_len: int, hd: int) -> KernelPlan:
+    """The bf16 forward's launch at one shape (a pure function, cached),
+    whose numbers the CUDA entry point takes and checks against its own
+    layout: of fwd_candidates, the one that keeps the most warps with a
+    strip resident on an SM (the kernel's launch bound lets the register
+    file hold _max_warps(hd) of its warps; the shared memory holds SM_SMEM
+    // (smem + SMEM_PER_BLOCK) of its blocks), then the one with the fewest
+    blocks (each block copies and biases all of K and V), then the deepest
+    ring (every tile in flight, no refill barrier)."""
+    strips, max_warps = _round16(seq_len) // 16, _max_warps(hd)
+
+    def rank(p: KernelPlan):
+        per_sm = min(max_warps // p.warps,
+                     SM_SMEM // (p.smem + SMEM_PER_BLOCK))
+        return per_sm * strips / p.blocks, -p.blocks, p.stages
+
+    return max(fwd_candidates(seq_len, hd), key=rank)
 
 
 def tolerance(dtype: torch.dtype) -> tuple[float, float]:
@@ -418,17 +478,28 @@ def _bias_pointers(biases, like) -> list:
     return ptrs
 
 
+def _args(n_ptrs: int, n_ints: int = 4) -> list:
+    """An entry's argument types: (n_ptrs pointers, batch, seq, num_heads,
+    head_dim, [plan ints], scale, exact, stream)."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def _library(source: str, entries: dict, n_ptrs: int) -> ctypes.CDLL:
-    """Loads `source`, typing its entries as (n_ptrs pointers, batch, seq,
-    num_heads, head_dim, scale, exact, stream)."""
-    return cuda_build.load_entries(
-        source, entries.values(),
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    """Loads `source`, typing its entries as _args(n_ptrs)."""
+    return cuda_build.load_entries(source, entries.values(), _args(n_ptrs))
 
 
 def fwd_library() -> ctypes.CDLL:
-    return _library(_SOURCE, _ENTRY, 7)
+    """The forward's library: the fp32 twin typed as _args(7), the bf16
+    entry with the plan's four ints (warps, blocks, smem, stages) after
+    the dimensions."""
+    lib = _library(_SOURCE, {torch.float32: _ENTRY[torch.float32]}, 7)
+    bf16 = getattr(lib, _ENTRY[torch.bfloat16])
+    if bf16.argtypes is None:
+        bf16.restype = ctypes.c_int
+        bf16.argtypes = _args(7, 8)
+    return lib
 
 
 def bwd_library() -> ctypes.CDLL:
@@ -436,21 +507,33 @@ def bwd_library() -> ctypes.CDLL:
                     13)
 
 
-def _launch(q, k, v, num_heads, seq_len, biases, exact):
+def _call(lib: ctypes.CDLL, entry: str, like: torch.Tensor, what: str,
+          *args) -> None:
+    """Calls `entry` of `lib` with `args` and the current stream of
+    `like`'s device; raises if the launch failed."""
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    cuda_build.raise_on(err, lib, what)
+
+
+def _launch(q, k, v, num_heads, seq_len, biases, exact,
+            plan: Optional[KernelPlan] = None):
+    """Runs the forward kernel. `plan`: the bf16 kernel's launch, fwd_plan's
+    by default (tools/flash_bench.py times the others)."""
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_memory(name, x, q)
     ptrs = _bias_pointers(biases, q)
     hd = d // num_heads
     out = torch.empty_like(q)
-    lib = fwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
-            rows // seq_len, seq_len, num_heads, hd, hd ** -0.5,
-            int(bool(exact)), stream)
-    cuda_build.raise_on(err, lib, "fused attention kernel")
+    args = ()   # the fp32 twin takes no plan
+    if q.dtype == torch.bfloat16:
+        args = tuple(plan or fwd_plan(seq_len, hd))
+    _call(fwd_library(), _ENTRY[q.dtype], q, "fused attention kernel",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
+          rows // seq_len, seq_len, num_heads, hd, *args, hd ** -0.5,
+          int(bool(exact)))
     return out
 
 
@@ -472,17 +555,13 @@ def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None):
             tiles = batch * -(-seq_len // _BWD_TILE)
             partial = torch.empty((3, tiles, d), dtype=torch.float32,
                                   device=q.device)
-    lib = bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry or _BWD_ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
-            grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-            stats.data_ptr(), None if partial is None else partial.data_ptr(),
-            None if dbias is None else dbias.data_ptr(),
-            batch, seq_len, num_heads, hd, hd ** -0.5, int(bool(exact)),
-            stream)
-    cuda_build.raise_on(err, lib, "fused attention backward kernel")
+    _call(bwd_library(), entry or _BWD_ENTRY[q.dtype], q,
+          "fused attention backward kernel",
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
+          grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+          stats.data_ptr(), None if partial is None else partial.data_ptr(),
+          None if dbias is None else dbias.data_ptr(),
+          batch, seq_len, num_heads, hd, hd ** -0.5, int(bool(exact)))
     dq, dk, dv = grads.unbind(0)
     if dbias is None:
         return dq, dk, dv, None, None, None

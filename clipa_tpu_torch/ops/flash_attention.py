@@ -41,7 +41,8 @@ import torch
 
 from clipa_tpu_torch.ops import cuda_build
 
-# The kernels' head-dim limit (the largest register tile they instantiate).
+# The kernels' head-dim limit (the largest register tile they instantiate);
+# the plain versions take any multiple of 8, as the JAX kernel does.
 MAX_HEAD_DIM = 128
 # Keys per online-softmax step: the Pallas block_k, and the CUDA kernel's
 # key tile (so p is rounded against the same running max).
@@ -372,15 +373,13 @@ flash_attention_bwd.launches = 0
 
 
 def _check_shapes(q, k, v) -> None:
-    """The kernels' limits, for every device."""
+    """The shapes every device takes (the kernels' head-dim limit is
+    checked where a CUDA tensor reaches them: _check_memory)."""
     if q.dim() != 4:
         raise ValueError(f"expected (B, L, H, hd) operands, got {q.shape}")
     b, _, h, hd = q.shape
     if hd % 8:
         raise ValueError(f"head_dim {hd} must be a multiple of 8")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} unsupported by the kernel (at most "
-                         f"{MAX_HEAD_DIM})")
     if b > 65535 or h > 65535:
         raise ValueError("batch and num_heads must be at most 65535")
     if k.dim() != 4 or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
@@ -403,6 +402,10 @@ def _check_memory(name: str, x: torch.Tensor, like: torch.Tensor,
         raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+    if x.dim() == 4 and x.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {x.shape[-1]} unsupported by the "
+                         f"kernel (at most {MAX_HEAD_DIM}); the plain "
+                         f"versions take it (plain=True)")
 
 
 def _library(source: str, entries: dict, n_ptrs: int,

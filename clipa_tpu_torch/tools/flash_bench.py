@@ -1,22 +1,32 @@
-"""Times the flash attention kernels (K7 forward, K8 backward) of one
-checkout at the phase-6 shapes of ``chip_smoke.py``.
+"""Times the attention kernels of one checkout at the shapes of
+``chip_smoke.py``: the fused forward (K1/K3/K5) at its phase-2
+``FUSED_SHAPES`` and the flash kernels (K7 forward, K8 backward) at its
+phase-6 ``FLASH_SHAPES``.
 
     python clipa_tpu_torch/tools/flash_bench.py [--root DIR] [--plans]
+        [--kernels fused,flash] [--serve]
 
-Runs this checkout's ``chip_smoke._flash_case`` at each of its
-``FLASH_SHAPES`` on the ``clipa_tpu_torch`` package under `--root`
-(default: this checkout): the kernels against their plain versions, the
-backward twice bit for bit, kernel and SDPA times by CUDA events and by
-device time, and the bounds. So two commits are measured by the same code
-in turns on one card: unpack the other one with ``git archive`` into a
-directory that .gitignore lists and run this file, by path, once with each
-root. The last line is one JSON object: the card and the cases.
+Runs this checkout's ``chip_smoke._kernel_case`` and ``_flash_case`` on
+the ``clipa_tpu_torch`` package under `--root` (default: this checkout):
+the kernels against their plain versions, the output twice bit for bit,
+kernel, plain and SDPA times by CUDA events and by device time, and the
+bounds. So two commits are measured by the same code in turns on one card:
+unpack the other one with ``git archive`` into a directory that .gitignore
+lists and run this file, by path, once with each root. The last line is one
+JSON object: the card and the cases.
 
 `--plans` adds to each case, under ``plan_device_ms``, the device time of
-the forward under every split of ``fwd_candidates`` and, where
-``launch_plan`` fuses the backward, of the split backward
-(``bwd_split_plan``): the measurements behind the plan's choices (for a
-root whose package has them). Needs a CUDA card.
+the fused forward under every plan of ``block_attention.fwd_candidates``
+(each split and ring, in the case's mode), and of the flash forward under
+every split of ``fwd_candidates`` and, where ``launch_plan`` fuses the
+backward, of the split backward (``bwd_split_plan``): the measurements
+behind the plans' choices (for a root whose package has them).
+
+`--serve` first measures the service as ``chip_smoke.py`` phase 4 does:
+images/s (1024 uint8 224 px images, 4 full chunks) and texts/s (2048
+captions) at bucket 256 on ViT-H-14-CL32-GAP-BigVision (seeded random
+weights, bf16), host clock around synchronous calls, best of two. Needs a
+CUDA card.
 """
 
 import argparse
@@ -61,27 +71,91 @@ def _plan_device_ms(cs, fa, b, lq, lk, h, hd, q_scale, gen, iters):
     return {name: cs._device_ms(fn, iters) for name, fn in probes.items()}
 
 
+def _fused_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
+    """Device ms of the fused forward under each plan that fwd_plan weighs,
+    keyed "<warps>x<blocks> stages <n>", on seeded bf16 operands."""
+    import torch
+
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    q, k, v = mk(b * l, d), mk(b * l, d), mk(b * l, d)
+    biases = (mk(d), mk(d), mk(d)) if bias else None
+    return {f"{p.warps}x{p.blocks} stages {p.stages}": cs._device_ms(
+        lambda p=p: ba._launch(q, k, v, h, l, biases, exact, plan=p), iters)
+        for p in ba.fwd_candidates(l, d // h)}
+
+
+def _serve_rates(cs, root) -> dict:
+    """images/s and texts/s at bucket 256 of the service under `root`."""
+    import numpy as np
+    from clipa_tpu_torch.serving import EmbeddingService
+    svc = EmbeddingService(cs.MODEL, None,
+                           vocab_path=os.path.join(HERE, "data", "vocab.txt"),
+                           device="cuda", precision="bfloat16", seed=cs.SEED,
+                           num_workers=0)
+    rng = np.random.RandomState(cs.SEED)
+    images = rng.randint(0, 256, (1024, 224, 224, 3), np.uint8)
+    captions = [f"a photo of {n} {w}" for n, w in zip(
+        range(40), ["cats", "dogs", "a red car on a street", "birds"] * 10)]
+    texts = (captions * 52)[:2048]
+    svc.embed_images(images[:256])   # warm-up: allocator, cuBLAS plans
+    svc.embed_texts(texts[:256])
+    return {"images_per_s": cs._rate(lambda: svc.embed_images(images),
+                                     len(images)),
+            "texts_per_s": cs._rate(lambda: svc.embed_texts(texts),
+                                    len(texts))}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--plans", action="store_true",
-                        help="also time every forward split that the plan "
-                        "weighs, and the split backward where it fuses")
+                        help="also time every plan of the fused forward and "
+                        "every split of the flash forward that the plans "
+                        "weigh, and the split backward where it fuses")
+    parser.add_argument("--kernels", default="fused,flash",
+                        help="comma-separated: fused (phase 2's shapes), "
+                        "flash (phase 6's)")
+    parser.add_argument("--serve", action="store_true",
+                        help="first measure images/s and texts/s at bucket "
+                        "256")
     args = parser.parse_args(argv)
+    kernels = set(args.kernels.split(","))
+    if not kernels or kernels - {"fused", "flash"}:
+        parser.error(f"--kernels {args.kernels!r}: fused and/or flash")
     import torch
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA device", file=sys.stderr)
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    from clipa_tpu_torch.ops import block_attention as ba
     from clipa_tpu_torch.ops import flash_attention as fa
     if not os.path.abspath(fa.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {fa.__file__}, not the package under "
                            f"{root}: run this file by path")
     cs = _chip_smoke()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out = {"root": root, "card": cs._card()}
+    if args.serve:
+        out["serve"] = _serve_rates(cs, root)
+        print(f"{out['card']}: {root}: images/s at bucket 256 "
+              f"{out['serve']['images_per_s']:.2f}, texts/s "
+              f"{out['serve']['texts_per_s']:.2f}", flush=True)
     cases = []
-    for b, lq, lk, h, hd, q_scale in cs.FLASH_SHAPES:
+    for name, b, l, d, h, bias, exact in (
+            cs.FUSED_SHAPES if "fused" in kernels else ()):
+        case = {"name": name, **cs._kernel_case(b, l, d, h, bias, exact, 1.0,
+                                                gen=gen, device=True)}
+        if args.plans:
+            case["plan"] = ba.fwd_plan(l, d // h)
+            case["plan_device_ms"] = _fused_plan_device_ms(
+                cs, ba, b, l, d, h, bias, exact, gen, iters=20)
+        cases.append(case)
+    for b, lq, lk, h, hd, q_scale in (
+            cs.FLASH_SHAPES if "flash" in kernels else ()):
         case = cs._flash_case(b, lq, lk, h, hd, q_scale, gen=gen)
         if args.plans:
             plan = fa.launch_plan(lq, lk, hd)
@@ -89,7 +163,7 @@ def main(argv=None) -> int:
             case["plan_device_ms"] = _plan_device_ms(
                 cs, fa, b, lq, lk, h, hd, q_scale, gen, iters=20)
         cases.append(case)
-    print(json.dumps({"root": root, "card": cs._card(), "cases": cases}))
+    print(json.dumps({**out, "cases": cases}))
     return 0
 
 

@@ -38,8 +38,14 @@ def cuda():
 # The shapes chip_smoke.py checks: H/14 @224 (the K1 path), L/16 @112 (K5),
 # the unbiased flat kernel (K3), both softmax modes past the clip (q scaled
 # by 40: logits >> 70); plus head dims 40 (zero-padded to 48) and 128, and
-# H/14 @336 (L = 577). Each in bf16 (the tensor-core kernel) and in fp32
-# (its scalar twin, the service at precision float32).
+# H/14 @336 (L = 577). Then the forward's strip, chunk and ring boundaries
+# (L = 33 ... 577 at hd 64: 16-row strips, 16-key chunks, 128-key tiles, a
+# ring that holds every key up to 272 rows, the two-stage ring at 577), in
+# clip mode with bias and exact mode without; and head dims 8 ... 128 at
+# L = 257 (three key tiles, the last one ragged; hd 8, 40 and 88 are padded
+# to the next multiple of 16), in both modes, with and without bias. Each
+# in bf16 (the tensor-core kernel) and in fp32 (its scalar twin, the
+# service at precision float32).
 CASES = [
     (8, 257, 1280, 16, True, False, 1.0),
     (8, 50, 1024, 16, True, False, 1.0),
@@ -51,6 +57,12 @@ CASES = [
     (2, 257, 80, 2, True, True, 1.0),
     (3, 65, 1024, 8, False, False, 1.0),
     (1, 577, 1280, 16, True, False, 1.0),
+    *((2, n, 256, 4, bias, not bias, 1.0)
+      for n in (33, 48, 49, 63, 64, 65, 129, 255, 256, 257, 272, 273, 577)
+      for bias in (True, False)),
+    *((2, 257, 2 * hd, 2, bias, exact, 1.0)
+      for hd in (8, 40, 64, 80, 88, 104, 112, 128)
+      for bias in (True, False) for exact in (False, True)),
 ]
 
 
@@ -77,6 +89,53 @@ def test_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale,
     atol, rtol = block_attention.tolerance(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_kernel_is_bit_identical_over_two_calls(cuda, exact):
+    """No atomics: every sum of the forward runs in a fixed order, so two
+    calls on the same inputs give the same output bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, l, d, h = 8, 257, 1280, 16
+    q, k, v = (torch.randn(b * l, d, device=cuda, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    biases = tuple(torch.randn(d, device=cuda, generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+    first = block_attention.fused_attention(q, k, v, h, l, biases, exact)
+    second = block_attention.fused_attention(q, k, v, h, l, biases, exact)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,h", [(8, 257, 1280, 16), (16, 50, 1024, 16),
+                                     (8, 138, 1024, 16), (2, 577, 1280, 16)])
+def test_kernel_other_plans_match_plain(cuda, b, l, d, h):
+    """Every split and ring that fwd_plan weighs computes the same function
+    (tools/flash_bench.py --plans times them), in both modes; a plan whose
+    shared-memory size is not the kernel's own layout's, or whose ring is
+    one stage short of every key, is refused."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(b * l, d, device=cuda, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    biases = tuple(torch.randn(d, device=cuda, generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+    atol, rtol = block_attention.tolerance(torch.bfloat16)
+    hd = d // h
+    for exact in (False, True):
+        ref = block_attention.attention_plain(q, k, v, h, l, biases, exact)
+        for plan in block_attention.fwd_candidates(l, hd):
+            out = block_attention._launch(q, k, v, h, l, biases, exact,
+                                          plan=plan)
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                       rtol=rtol, msg=lambda m: f"{plan}: {m}")
+    plan = block_attention.fwd_plan(l, hd)
+    for bad in (plan._replace(smem=plan.smem + 16),
+                plan._replace(stages=1) if l > 128 else
+                plan._replace(warps=plan.warps - 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            block_attention._launch(q, k, v, h, l, biases, False, plan=bad)
 
 
 @pytest.mark.cuda
@@ -421,6 +480,26 @@ def test_flash_wrapper_refuses_what_it_cannot_take(cuda):
     with pytest.raises(NotImplementedError, match="unmasked"):
         fa(x, x, x, mask=torch.ones(2, 1, 40, 40, dtype=torch.bool,
                                     device=cuda))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_head_dims_past_128(cuda):
+    """hd 136: the plain versions take it on the card too (plain=True), as
+    on the CPU; a CUDA tensor that would reach a kernel raises with the
+    kernel's limit in the message, and nothing is launched."""
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, 2, 40, 40, 2, 136,
+                                  1.0)
+    fwd0 = flash_attention.flash_attention.launches
+    bwd0 = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention.flash_attention(q, k, v)
+    out, lse = flash_attention.flash_plain_fwd(q, k, v)
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    plain = flash_attention.flash_attention(q, k, v, plain=True)
+    assert torch.equal(plain, out)
+    assert flash_attention.flash_attention.launches == fwd0
+    assert flash_attention.flash_attention_bwd.launches == bwd0
 
 
 @pytest.mark.cuda

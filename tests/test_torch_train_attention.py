@@ -139,6 +139,43 @@ def test_plain_bwd_matches_per_sample_kernel_vjp(l, exact, dtype):
         _close(o, r, rtol, name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q_scale", [1.0, 40.0])
+def test_reference_exact_backward_fallback(monkeypatch, q_scale, dtype):
+    """Where the reference's backward VMEM plan fails while its forward plan
+    fits (ViT-bigG-14 @336 unmasked), its VJP takes the gradient of
+    ``_xla_reference``: the exact softmax's, with no clip-grad mask. A
+    lowered ``_VMEM_BUDGET_BWD`` puts a small shape there. The port keeps
+    the clip-consistent gradient (``attention_plain_bwd``) at every shape:
+    below the clip the two agree up to rounding; past it (q x 40) they
+    differ, and the port's equals ``attention_plain_bwd``."""
+    b, l, h, hd = 2, 40, 4, 16
+    d = h * hd
+    monkeypatch.setattr(jax_block, "_VMEM_BUDGET_BWD", 1)
+    assert jax_block._plan(b, l, d, h, bwd=True) is None
+    assert jax_block._plan(b, l, d, h, bwd=False) is not None
+    q, k, v, do, _ = _inputs(b, l, h, hd, seed=41, q_scale=q_scale)
+    ref = _jax_vjp(lambda q, k, v: jax_block.fused_attention(
+        q.reshape(b, l, d), k.reshape(b, l, d), v.reshape(b, l, d),
+        h).reshape(b * l, d), (q, k, v), do, jnp.dtype(dtype))
+    tdtype = getattr(torch, dtype)
+    leaves = [torch.from_numpy(a).to(tdtype).requires_grad_()
+              for a in (q, k, v)]
+    tdo = torch.from_numpy(do).to(tdtype)
+    block_attention.fused_attention(*leaves, h, l).backward(tdo)
+    port = [x.grad.float().numpy() for x in leaves]
+    clip_consistent = _torch_bwd((q, k, v), do, h, l, False, False, tdtype)
+    for name, g, c in zip(("dq", "dk", "dv"), port, clip_consistent):
+        np.testing.assert_array_equal(g, c, err_msg=name)
+    rtol = F32_RTOL if dtype == "float32" else block_attention.BWD_RTOL
+    if q_scale == 1.0:
+        for name, g, r in zip(("dq", "dk", "dv"), port, ref):
+            _close(g, r, rtol, name)
+    else:   # the clip-grad mask bites: dq and dk leave the exact gradient
+        for g, r in zip(port[:2], ref[:2]):
+            assert np.abs(g - r).max() > 0.1 * np.abs(r).max()
+
+
 def test_clip_grad_mask_bites_past_the_clip():
     """At q x 40 most scores pass the clip: the plain backward zeroes their
     d(logit), boundary included, which autograd of the clamp does not."""
