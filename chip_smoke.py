@@ -31,10 +31,16 @@ attention-variant sweep and the step-ablation ladder.
      kernel's share of the bound (at the small shapes the event times are
      mostly the wrapper's host-side launch path, not the kernel);
   3. the backward kernel against the plain backward: dq, dk, dv and the
-     bias grads at the pretrain shape (B=384 L=50 D=1024 H=16, bias), H/14
-     @224 (several q-tiles, hd 80), L=577 without bias, clip mode past the
+     bias grads, and the outputs of two calls bit for bit, at BWD_SHAPES
+     (the pretrain step's B=384 L=50 D=1024 H=16 with bias, H/14 @84's
+     B=256 L=37 D=1280 with bias, the fine-tune `auto` route's B=128 L=138,
+     and the exact form without bias at L=50: the whole-head scheme where
+     bwd_plan picks it), each with kernel and plain times by CUDA events,
+     the kernel's device time (torch.profiler), its share of the bound and,
+     for the exact form, SDPA's backward beside it; then clip mode past the
      clip with and without bias (the clip-grad mask bites: the share of
-     scores at or past the clip is printed), exact mode, and the fp32 twin;
+     scores at or past the clip is printed; device time too), H/14 @224 and L=577 (the split
+     scheme), exact mode past the clip, and the fp32 twin;
   4. the service: requests of 5, 64 and 300 uint8 images and two caption
      batches; shapes, finite values, unit norms; the forward kernel's launch
      count equals 32 (image layers) per image chunk; the images' embeddings
@@ -160,6 +166,16 @@ FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
                 ("bucket 256 exact", 256, 257, 1280, 16, False, True))
+
+# Phase 3's timed cases of the fused backward, (name, b, l, d, h, bias,
+# exact): the pretrain step's (L/16 @112), the H/14 @84 headline pretrain
+# (`bench.py` STAGES["pretrain_h14"]: hd 80), the fine-tune step's `auto`
+# route, and the exact form without biases that SDPA's backward also
+# computes
+BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
+              ("H/14 @84", 256, 37, 1280, 16, True, False),
+              ("fine-tune auto", 128, 138, 1024, 16, True, False),
+              ("L/16 @112 exact", 384, 50, 1024, 16, False, True))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -337,7 +353,13 @@ def _clipped_share(q, k, h, l, biases):
     return (s.abs() >= ba._EXP_CLIP).float().mean().item()
 
 
-def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10):
+def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10,
+              device=False):
+    """Phase 3: the fused backward against its plain version at one shape:
+    errors, the outputs of two calls bit for bit, kernel and plain times by
+    CUDA events, the bound, and with `device` (the timed BWD_SHAPES and the
+    cases past the clip) the kernel's device time and, where SDPA computes the same function (exact
+    mode without biases), SDPA's backward by events and device time."""
     import torch
     from clipa_tpu_torch.ops import block_attention as ba
     dtype = dtype or torch.bfloat16
@@ -349,32 +371,69 @@ def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10):
     q, k, v, do = (mk(b * l, d, scale=q_scale), mk(b * l, d), mk(b * l, d),
                    mk(b * l, d))
     biases = (mk(d), mk(d), mk(d)) if bias else None
-    grads = ba.fused_attention_bwd(q, k, v, do, h, l, biases, exact)
+
+    def kernel():
+        return ba.fused_attention_bwd(q, k, v, do, h, l, biases, exact)
+
+    grads = kernel()
+    # no atomics: two calls on the same inputs agree bit for bit
+    repeat = all(torch.equal(x, y) for x, y in zip(grads, kernel())
+                 if x is not None)
     torch.cuda.synchronize()
     ref = ba.attention_plain_bwd(q, k, v, do, h, l, biases, exact)
     errors = ba.bwd_errors(grads, ref, dtype)
     names = ("dq", "dk", "dv", "dbq", "dbk", "dbv")[:len(errors)]
+    e = q.element_size()
     res = {
         "shape": (f"{str(dtype).split('.')[-1]} B={b} L={l} D={d} H={h} "
                   f"bias={bias} exact={exact} q_scale={q_scale}"),
-        "errors": dict(zip(names, (e for e, _ in errors))),
-        "max_abs_err": max(e for e, _ in errors),
+        "errors": dict(zip(names, (x for x, _ in errors))),
+        "max_abs_err": max(x for x, _ in errors),
         "ok": all(ok for _, ok in errors),
+        "repeat_identical": repeat,
         "clipped_share": _clipped_share(q, k, h, l, biases),
-        "ms": _time_ms(lambda: ba.fused_attention_bwd(
-            q, k, v, do, h, l, biases, exact), iters),
+        "ms": _time_ms(kernel, iters),
+        "device_ms": _device_ms(kernel, iters) if device else None,
         "plain_ms": _time_ms(lambda: ba.attention_plain_bwd(
             q, k, v, do, h, l, biases, exact), max(2, iters // 4)),
+        # q, k, v, do in and dq, dk, dv out once each (the biases in and
+        # their grads out); 10 L^2 hd products per head and sample
+        "bound": _bound(e * (7 * b * l * d + (6 * d if bias else 0)),
+                        10 * b * l * l * d, dtype),
     }
-    errs = " ".join(f"{n} {e:.3e}" for n, e in res["errors"].items())
+    library = ""
+    if exact and not bias and device:   # SDPA's backward: the same function
+        import torch.nn.functional as F
+        qt, kt, vt, dot = (x.reshape(b, l, h, d // h).transpose(1, 2)
+                           for x in (q, k, v, do))
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        o_lib = F.scaled_dot_product_attention(*leaves)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o_lib, leaves, dot, retain_graph=True)
+
+        res["library_ms"] = _time_ms(sdpa_bwd, iters)
+        res["library_device_ms"] = _device_ms(sdpa_bwd, iters)
+        library = (f" sdpa bwd {res['library_ms']:.4f} ms "
+                   f"({_fmt(res['library_device_ms'])} device)")
+    bound = res["bound"][0]
+    by_device = ""
+    if device:
+        by_device = (f"; device ms: kernel {_fmt(res['device_ms'])}, "
+                     f"{_ratio(bound, res['device_ms'], '.1%')} of the bound")
+    errs = " ".join(f"{n} {x:.3e}" for n, x in res["errors"].items())
     print(f"bwd kernel vs plain {res['shape']}: max abs err {errs} "
           f"(tolerance rtol {ba.bwd_tolerance(dtype)} of each output's "
-          f"scale); scores past the clip {res['clipped_share']:.4f}; "
-          f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms",
-          flush=True)
+          f"scale); bit-identical on repeat {repeat}; scores past the clip "
+          f"{res['clipped_share']:.4f}; kernel {res['ms']:.4f} ms plain "
+          f"{res['plain_ms']:.4f} ms{library}; bound {bound:.4f} ms "
+          f"({res['bound'][1]}){by_device}", flush=True)
     if not res["ok"]:
         raise RuntimeError(f"backward kernel disagrees with its plain "
                            f"version at {res['shape']}: {res['errors']}")
+    if not repeat:
+        raise RuntimeError(f"backward kernel outputs differ between two "
+                           f"calls on the same inputs at {res['shape']}")
     return res
 
 
@@ -1103,17 +1162,33 @@ def main() -> int:
               f"time{sdpa}", flush=True)
 
     # 3. backward kernel vs plain backward
-    bwd_main = _bwd_case(384, 50, 1024, 16, True, False, 1.0, gen=gen)
-    bwd_cases = [bwd_main] + [_bwd_case(*c, gen=gen) for c in (
-        (8, 257, 1280, 16, True, False, 1.0),   # several q-tiles, hd 80 (K2)
-        (2, 577, 1024, 16, False, False, 1.0),  # L = 577, no bias (K4/K2)
+    bwd_by_shape = {name: _bwd_case(*shape, 1.0, gen=gen, device=True)
+                    for name, *shape in BWD_SHAPES}
+    bwd_main = bwd_by_shape["L/16 @112"]
+    for name, c in bwd_by_shape.items():
+        dev, bound = c["device_ms"], c["bound"][0]
+        sdpa = ""
+        if "library_ms" in c:
+            lib = c["library_device_ms"]
+            sdpa = (f"; kernel / SDPA bwd {_ratio(dev, lib, '.2f')}x by "
+                    f"device time ({_fmt(lib)} ms)")
+        print(f"{card}: K6 fused_attention_bwd at {name}: {c['ms']:.4f} ms "
+              f"by events, {_fmt(dev)} device; {bound:.4f} ms bound "
+              f"({c['bound'][1]}): {_ratio(bound, dev, '.1%')} by device "
+              f"time{sdpa}", flush=True)
+    past_clip = [_bwd_case(*c, gen=gen, device=True) for c in (
         (8, 50, 1024, 16, True, False, 40.0),   # clip mode past the clip
         (2, 40, 256, 4, False, False, 40.0),    # ... without bias
-        (2, 40, 256, 4, True, True, 40.0),      # exact mode, logits >> 70
     )]
+    bwd_cases = list(bwd_by_shape.values()) + past_clip + [
+        _bwd_case(*c, gen=gen) for c in (
+            (8, 257, 1280, 16, True, False, 1.0),   # the split scheme, hd 80
+            (2, 577, 1024, 16, False, False, 1.0),  # L = 577, no bias (K4)
+            (2, 40, 256, 4, True, True, 40.0),      # exact mode, logits >> 70
+        )]
     bwd_cases.append(_bwd_case(8, 257, 1280, 16, True, False, 1.0, gen=gen,
                                dtype=torch.float32, iters=2))  # fp32 twin
-    for c in bwd_cases[3:5]:
+    for c in past_clip:
         if c["clipped_share"] <= 0.0:
             raise RuntimeError(f"no score passed the clip at {c['shape']}")
 
@@ -1213,12 +1288,6 @@ def main() -> int:
     sweep = _sweep()
     tools = _tools()
 
-    # the bound of the K6 pretrain backward (q, k, v, do, biases in; dq,
-    # dk, dv and the bias grads out; 10 L^2 hd products per head and
-    # sample, bf16)
-    b, l, d = 384, 50, 1024
-    bwd_bound = _bound(2 * (7 * b * l * d + 6 * d), 10 * b * l * l * d,
-                       torch.bfloat16)
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -1261,10 +1330,17 @@ def main() -> int:
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
+        "device_ms": bwd_main["device_ms"],
         "plain_ms": bwd_main["plain_ms"],
-        "bound_ms": bwd_bound[0],
-        "bound_by": bwd_bound[1],
+        "bound_ms": bwd_main["bound"][0],
+        "bound_by": bwd_main["bound"][1],
         "library_ms": None,   # clip-mode softmax: no one PyTorch call
+        "by_shape": {name: {
+            **{k: c[k] for k in ("ms", "device_ms", "plain_ms")},
+            "bound_ms": c["bound"][0],
+            "library_ms": c.get("library_ms"),
+            "library_device_ms": c.get("library_device_ms")}
+            for name, c in bwd_by_shape.items()},
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1317,8 +1393,8 @@ def main() -> int:
                            if "deferred" in n),
         "ms": sweep["rows"]["bwd deferred clip"]["ms"],
         "plain_ms": sweep["rows"]["bwd deferred clip"]["plain_ms"],
-        "bound_ms": bwd_bound[0],
-        "bound_by": bwd_bound[1],
+        "bound_ms": bwd_main["bound"][0],
+        "bound_by": bwd_main["bound"][1],
         "library_ms": None,   # clip-mode softmax: no one PyTorch call
         "sweep_ms": {n: r["ms"] for n, r in sweep["rows"].items()},
     }], "training": {

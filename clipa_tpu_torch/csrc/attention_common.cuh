@@ -14,6 +14,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace attn {
 
 typedef __nv_bfloat16 bf16;
@@ -99,28 +103,6 @@ __device__ __forceinline__ void warp_accumulate(float out[kHdp / 8][4],
   }
 }
 
-// Copies rows [row0, row0 + kRows) of one head into shared memory (row
-// stride kHdp + 8): `src` points at the head's first column of row 0, rows
-// are `ld` elements apart. Rows at or past `len` and columns at or past `hd`
-// are written as zeros, so no uninitialised value enters a product (0 * NaN
-// would poison a sum).
-template <int kHdp, int kRows, int kThreads>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int len, int hd,
-                                          int ld) {
-  constexpr int kChunks = kHdp / 8;  // 16-byte chunks per row
-  constexpr int kStride = kHdp + 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len && c < hd) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
-
 // Block-wide sum (or max) of one value per thread, in a fixed order;
 // `scratch` holds kThreads / 32 floats of shared memory.
 template <int kThreads>
@@ -180,8 +162,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Issues the copies of rows [row0, row0 + rows) of one head into `dst`
-// (row stride kHdp + 8), the async form of load_rows: rows at or past `len`
-// and columns at or past `hd` are zero-filled. Threads `tid` of `nthreads`.
+// (row stride kHdp + 8) with cp.async: `src` points at the head's first
+// column of row 0, rows are `ld` elements apart. Rows at or past `len` and
+// columns at or past `hd` are zero-filled, so no uninitialised value enters
+// a product (0 * NaN would poison a sum). Threads `tid` of `nthreads`.
 template <int kHdp>
 __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
                                                 int row0, int rows, int len,
@@ -336,6 +320,119 @@ inline bool bad_shape(int batch, int seq, int num_heads, int head_dim) {
   return batch <= 0 || seq <= 0 || num_heads <= 0 || head_dim % 8 != 0 ||
          head_dim <= 0 || head_dim > 128 || batch > 65535 ||
          num_heads > 65535;
+}
+
+// ---------------------------------------------------------------------------
+// Biased copies, exp2 and the persistent grid (the fused kernels).
+// ---------------------------------------------------------------------------
+
+// 2^x by the MUFU unit (ex2.approx.ftz: exp2f without its subnormal-result
+// fix-up). In clip mode x >= -70 log2(e) > -126, so nothing is flushed; in
+// exact mode e < 2^-126 of the row max flushes to 0, far below what one
+// bf16 ulp of the output can hold.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The copies and the bias below split a block of rows over the threads
+// the same way: thread `tid` of `nthreads` owns the 16-byte column chunk
+// tid % kChunks of rows tid / kChunks, + step, + 2 step, ... (step =
+// nthreads / kChunks; the few threads past the last whole step own none).
+// Neighbouring threads take neighbouring chunks of a row, so the copies
+// coalesce, and a thread's column, its bias and its first address are
+// computed once, not per chunk.
+template <int kHdp>
+struct RowSlice {
+  static constexpr int kChunks = kHdp / 8;  // 16-byte chunks per row
+  int first, step, col;                     // first row, row step, column
+  __device__ __forceinline__ RowSlice(int tid, int nthreads)
+      : first(tid / kChunks), step(nthreads / kChunks),
+        col((tid % kChunks) * 8) {
+    if (first >= step) first = 1 << 30;     // no whole column slot
+  }
+};
+
+// Issues the copies of rows [row0, row0 + rows) of one head into `dst`
+// (row stride kHdp + 8) with cp.async: rows at or past `len` and columns
+// at or past `hd` are zero-filled (load_rows_async's function, split as
+// RowSlice splits it).
+template <int kHdp>
+__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src,
+                                           int row0, int rows, int len,
+                                           int hd, int ld,
+                                           const RowSlice<kHdp>& sl) {
+  const bool col_ok = sl.col < hd;
+  for (int r = sl.first; r < rows; r += sl.step) {
+    const bool ok = col_ok && row0 + r < len;
+    cp_async_16(dst + r * (kHdp + 8) + sl.col,
+                ok ? src + (size_t)(row0 + r) * ld + sl.col : src, ok);
+  }
+}
+
+// This thread's 16-byte chunk of a head's bias (`bias`: its first column),
+// the one add_bias_chunk adds; zeros past `hd`.
+template <int kHdp>
+__device__ __forceinline__ uint4 bias_chunk(const bf16* bias, int hd,
+                                            const RowSlice<kHdp>& sl) {
+  return sl.col < hd ? *reinterpret_cast<const uint4*>(bias + sl.col)
+                     : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Adds a head's bias (b4: this thread's chunk of it, from bias_chunk) to
+// the rows that issue_rows copied with the same arguments: each thread to
+// the chunks it issued itself, after its own cp.async wait. One rounding:
+// a bf16x2 add rounds the exact sum of two bf16 values to nearest, as the
+// fp32 add then round to bf16 of the JAX graph does (their fp32 sum is
+// exact, or the smaller addend is below a bf16 half-ulp of the larger).
+// Padding rows (at or past `len`) and columns (at or past `hd`) stay 0.
+template <int kHdp>
+__device__ __forceinline__ void add_bias_chunk(bf16* dst, uint4 b4, int row0,
+                                               int rows, int len, int hd,
+                                               const RowSlice<kHdp>& sl) {
+  if (sl.col >= hd) return;
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&b4);
+  const int end = min(rows, len - row0);
+  for (int r = sl.first; r < end; r += sl.step) {
+    uint4* p = reinterpret_cast<uint4*>(dst + r * (kHdp + 8) + sl.col);
+    uint4 val = *p;
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = __hadd2(x[j], b[j]);
+    *p = val;
+  }
+}
+
+// add_bias_chunk with the chunk loaded here.
+template <int kHdp>
+__device__ __forceinline__ void add_bias_rows(bf16* dst, const bf16* bias,
+                                              int row0, int rows, int len,
+                                              int hd,
+                                              const RowSlice<kHdp>& sl) {
+  add_bias_chunk<kHdp>(dst, bias_chunk<kHdp>(bias, hd, sl), row0, rows, len,
+                       hd, sl);
+}
+
+// Blocks of `kernel` resident on the card at once (the persistent grid),
+// asked of the runtime once per (kernel, device, threads, shared memory).
+inline int resident_blocks(const void* kernel, int threads, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int>, int> known;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const auto key = std::make_tuple(kernel, dev, threads, smem);
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto hit = known.find(key);
+  if (hit != known.end()) return hit->second;
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess) {
+    return 0;
+  }
+  return known[key] = sms * per_sm;
 }
 
 }  // namespace attn

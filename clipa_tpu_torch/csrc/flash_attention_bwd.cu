@@ -74,10 +74,6 @@
 
 #include <math.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "attention_common.cuh"
 
 using namespace attn;
@@ -497,27 +493,6 @@ flash_attention_dkv_kernel(const bf16* __restrict__ q,
   if (!active) return;
   store_strip<kHdp>(dk_acc, dk + kbase, k0 + warp * 16, lk, hd, ld, scale);
   store_strip<kHdp>(dv_acc, dv + kbase, k0 + warp * 16, lk, hd, ld, 1.f);
-}
-
-// Blocks of `kernel` resident on the card at once (the persistent grid),
-// asked of the runtime once per (kernel, device, threads, shared memory).
-inline int resident_blocks(const void* kernel, int threads, int smem) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, int> known;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  const auto key = std::make_tuple(kernel, dev, threads, smem);
-  const std::lock_guard<std::mutex> lock(mu);
-  const auto hit = known.find(key);
-  if (hit != known.end()) return hit->second;
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem) != cudaSuccess) {
-    return 0;
-  }
-  return known[key] = sms * per_sm;
 }
 
 // The plan's shared-memory sizes must be these layouts' (launch_plan

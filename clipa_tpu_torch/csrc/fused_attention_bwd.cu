@@ -4,14 +4,15 @@
 // Replaces the three Pallas TPU backward kernels of
 // clipa_tpu/ops/block_attention.py with one kernel family over flat
 // (B*L, D) rows, row i belonging to sample i // L:
-//   _bwd_kernel         (:185)  per-sample, dK/dV fp32-accumulated across
-//                               q-tiles, rows past L zeroed
-//   _bwd2d_kernel       (:504)  flat rows, no bias
-//   _bwd2d_bias_kernel  (:672)  flat rows with the (D,) q/k/v biases, plus
-//                               fp32 bias grads (has-bias: non-null bq/bk/bv)
+//   _bwd_kernel         (:185, called at :311)  per-sample, dK/dV
+//                               fp32-accumulated across q-tiles
+//   _bwd2d_kernel       (:504, called at :599)  flat rows, no bias
+//   _bwd2d_bias_kernel  (:672, called at :781)  flat rows with the (D,)
+//                               q/k/v biases, plus fp32 bias grads
+//                               (has-bias: non-null bq/bk/bv)
 // They differ only in layout; the function (held against the plain PyTorch
 // version attention_plain_bwd in ops/block_attention.py) is:
-//   qb = q + bq (fp32 add, one rounding), kb, vb likewise
+//   qb = q + bq (one rounding), kb, vb likewise
 //   s  = (qb . kb) in fp32 times scale;   p = softmax(clip(s, +-70)) with no
 //   row max (clip mode) or the row-max softmax (exact mode), in fp32
 //   dp = do . vb in fp32;   ds = p * (dp - rowsum(dp * p))
@@ -19,38 +20,75 @@
 //   dsb = bf16(ds * scale), pb = bf16(p)
 //   dq = dsb . kb,  dk = dsb^T . qb,  dv = pb^T . do   (fp32 sums, rounded
 //   once);  dbq/dbk/dbv = fp32 column sums of the fp32 dq/dk/dv.
-//
-// Blocks share nothing, so the cross-block reductions are split the way
-// clipa_tpu/ops/flash_attention.py splits them (deterministic, no atomics):
-//   1. dq kernel, one block per (sample, head, 64-row q-tile): sweep A over
-//      the key tiles accumulates the row sum r of exp (with the online row
-//      max m in exact mode) and u = sum(exp * dp), so rowsum(dp * p) = u / r
-//      without a third sweep; sweep B recomputes s and dp and accumulates
-//      dq in registers. It writes (m, r, delta) per (row, head) to scratch.
-//   2. dk/dv kernel, one block per (sample, head, 64-row key tile): sweeps
-//      the q-tiles with those statistics and accumulates dK and dV in fp32
-//      registers, rounded once at the end (_bwd_kernel's fp32 accumulators).
-//   3. bias grads: each block of 1. and 2. writes the fp32 column sums of its
-//      tile (valid rows only); a third kernel sums those partials per column
-//      in a fixed order.
 // rowsum(dp * p) is taken from p and dp themselves, not from dO . O (the
-// FlashAttention-2 shortcut would use the bf16-rounded O).
+// FlashAttention-2 shortcut would use the bf16-rounded O). No atomics: every
+// sum runs in a fixed order, so two calls give bit-identical outputs.
 //
-// Layout: block = 4 warps, 16 rows per warp; products on the tensor cores
-// through mma.sync m16n8k16 (bf16 in, fp32 accumulate). Rows past L and
-// head-dim columns past hd are zero-filled in shared memory (no
-// uninitialised value ever enters a product: 0 * NaN would poison a sum);
-// scores of keys past L and of query rows past L are masked to p = ds = 0.
-// Head dims that are a multiple of 8 but not of 16 (H/14's 80 is, but 40
-// is not) are zero-padded to the next multiple of 16.
+// What bounds it: at the pretrain shapes (ViT-L/16 @112: B = 384, L = 50,
+// 16 heads of 64; ViT-H/14 @84: B = 256, L = 37, 16 heads of 80) the
+// function moves q, k, v, dO in and dq, dk, dv out once each (275 MB at
+// L/16: 0.082 ms at 3.35 TB/s) and needs 10 L^2 hd operations per head
+// and sample (9.8 GFLOP: 0.010 ms at 989 TFLOP/s): device memory bounds it.
+// At the fine-tune `auto` route's shape (B = 128, L = 138, hd 64) bytes
+// bound it too (0.076 ms). A (sample, head) is small (50 x 64), so what
+// holds a kernel back is latency and instruction issue: the products of
+// one head are a few mma.sync each, and every copy, reduction and barrier
+// sits between them; at L = 138 the whole-head block (9 warps, 136 KB of
+// shared memory) fits once per SM.
 //
-// What bounds it: at the pretrain shape (ViT-L/16 @112: L = 50, D = 1024,
-// 16 heads of 64) the five backward products are about 10 GFLOP per layer
-// at B = 384, under 1% of the step; the sweeps recompute s twice and dp
-// twice (9 products instead of 5) to keep every reduction inside a block.
-// The kernel is bound by tensor-core issue and shared-memory traffic, not by
-// device memory. This first version keeps the loads simple (synchronous
-// tiles, no cp.async/TMA, no wgmma): that is the known headroom.
+// Two schemes; ops/block_attention.py bwd_plan picks one per shape:
+//   whole-head (L <= 16 kMaxChunks = 144: the pretrain shapes and the
+//   fine-tune `auto` route's L = 138): persistent blocks of one warp per
+//   16-row chunk of L, each (sample, head) an item.
+//     1. cp.async brings the item's Q, dO, K and V (round16(L) rows each,
+//        zero-filled past L) into shared memory; after its own wait, the
+//        thread that copied a chunk adds that chunk's bias with bf16x2 adds
+//        (RowSlice: one column per thread, its bias chunk loaded into
+//        registers with the copies). The other blocks resident on the SM
+//        compute while one block waits for its copies;
+//     2. warp w, query strip w: S = Qb Kb^T and dP = dO Vb^T over every key
+//        in registers (A and B fragments through ldmatrix); then, with quad
+//        shuffles, the row max (exact mode), e and rowsum(e), P, u =
+//        rowsum(dP * P), dS, the clip-grad mask and dsb; dQ = dsb Kb with
+//        dsb's A fragments straight from those registers (as
+//        FlashAttention-2 re-packs its accumulators) and Kb through
+//        ldmatrix.trans;
+//     3. after a barrier K and V are dead: bf16(P) and dsb replace them in
+//        shared memory ([query][key]); after another, warp w owns key strip
+//        w: dV = bf16(P)^T dO and dK = dsb^T Qb, the A fragments of the
+//        transposes through ldmatrix.trans, fp32 registers rounded once;
+//     4. bias grads: each item writes the fp32 column sums of its valid
+//        rows of dq, dk and dv (a fixed shuffle tree per warp, the warps in
+//        order) as one partial per (sample, head slice of D); a second pass
+//        sums the B partials of each column in a fixed order.
+//   S and dP are formed once per (query, key) pair: 5 products. The chunk
+//   count is a template argument: nothing is loaded or computed for a
+//   16-row or 16-key chunk wholly past L (L = 50: 4 chunks; L = 37: 3).
+//   split (longer sequences, and the deferred variant): one block per
+//   (sample, head, 64-row tile), 4 warps, synchronous tile loads:
+//     1. dq kernel: sweep A over the key tiles accumulates the row sum r of
+//        exp (with the online row max m in exact mode) and u = sum(exp *
+//        dp), so rowsum(dp * p) = u / r; sweep B recomputes s and dp and
+//        accumulates dq in registers. It writes (m, r, delta) per (row,
+//        head) to scratch;
+//     2. dk/dv kernel: per key tile, sweeps the q-tiles with those
+//        statistics and accumulates dK and dV in fp32 registers;
+//     3. bias grads: each block writes the fp32 column sums of its tile;
+//        the second pass sums those partials per column in a fixed order.
+//   9 products: s and dp three times.
+// Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate); a wgmma
+// tile's 64 rows would be mostly padding at L = 37 or 50.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py --kernels
+// fused, device time, this design and the previous one, the split pair, in
+// turns in one run): B = 384, L = 50, D = 1024 (L/16 @112, bias, clip)
+// 0.1642-0.1646 ms, 50% of its bound, against 0.7069-0.7115; B = 256,
+// L = 37, D = 1280 (H/14 @84) 0.1017-0.1019 against 0.4594-0.4615; B =
+// 128, L = 138 (fine-tune `auto`) 0.2553 against 1.3008-1.3078; the exact
+// form without bias at L = 50 0.1261-0.1273 against 0.4577-0.4594 and
+// SDPA's backward 0.3471-0.3478. The biases (their adds, the column sums,
+// the second pass) are most of the gap between the biased clip form's
+// 0.164 ms at L = 50 and the unbiased exact form's 0.127.
+// Other shapes in PERF.md section 6.
 //
 // fp32 operands (configs/smoke.py trains in fp32, as the Pallas kernels
 // take fp32 operands) run scalar twins: one block per (sample, head, row),
@@ -58,10 +96,11 @@
 // written to be right, not fast.
 //
 // Deferred normalization (entry clipa_fused_attention_bwd_deferred, bf16
-// only; the compile-time variant kDefer of the same two kernels): the
-// backward variant that clipa_tpu/tools/attn_sweep.py:76 make_bwd_bias(g,
-// defer=True) times, computing the same gradients with the softmax's 1/denom
-// folded into dO's rows so the score-sized products run on unnormalized e:
+// only, the split scheme only; the compile-time variant kDefer of its two
+// kernels): the backward variant that clipa_tpu/tools/attn_sweep.py:76
+// make_bwd_bias(g, defer=True) times, computing the same gradients with the
+// softmax's 1/denom folded into dO's rows so the score-sized products run on
+// unnormalized e:
 //   e = exp(clip(s)) (exact mode: exp(s - rowmax)), denom = rowsum(e)
 //   dohn = bf16(do / denom);  dphat = dohn . vb (fp32)
 //   ds = e * (dphat - rowsum(dphat * e) / denom), zeroed where |s| >= 70
@@ -74,7 +113,6 @@
 // can form dohn, so it sweeps the key tiles three times (denom; then
 // rowsum(dphat * e); then dq) where the normalized variant sweeps twice; the
 // dk/dv kernel scales its dO tiles by the stored 1/denom as it loads them.
-// Same tiles, no atomics, deterministic.
 
 #include <math.h>
 
@@ -84,10 +122,26 @@ using namespace attn;
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;           // split scheme: warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = kWarps * 16;  // rows per block tile, 16 per warp
+constexpr int kMaxChunks = 9;       // whole-head: L <= 16 kMaxChunks
 constexpr float kExpClip = 70.f;    // block_attention._EXP_CLIP
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClipLog2 = kExpClip * kLog2e;
+constexpr float kNegInf = -1e30f;
+
+// The split scheme's shared memory per block: four 64-row tiles, then the
+// fp32 column sums of each warp and (the deferred variant's) 64 row
+// denominators (dq kernel) or the three row statistics (dk/dv kernel).
+__host__ __device__ constexpr int split_smem_dq(int hdp) {
+  return 4 * kTile * (hdp + 8) * (int)sizeof(bf16) +
+         (kWarps * hdp + kTile) * (int)sizeof(float);
+}
+__host__ __device__ constexpr int split_smem_dkv(int hdp) {
+  return 4 * kTile * (hdp + 8) * (int)sizeof(bf16) +
+         (3 * kTile + kWarps * hdp) * (int)sizeof(float);
+}
 
 // Copies rows [row0, row0 + 64) of one head's columns into shared memory
 // (row stride kHdp + 8), adding the bias in fp32 with one rounding. Rows at
@@ -136,6 +190,60 @@ __device__ __forceinline__ void scale_rows(bf16* tile, const float* den) {
   }
 }
 
+// The whole-head scheme's shared memory for its item, in bf16 elements:
+// Q and dO, then a region that holds K and V in phase 1 and bf16(P) and
+// dsb (both [query][key], row stride lp + 8) in phase 2.
+__host__ __device__ constexpr int whole_item_elems(int lp, int hdp) {
+  return 2 * lp * (hdp + 8) + 2 * lp * (hdp > lp ? hdp + 8 : lp + 8);
+}
+
+// Its bytes per block: the item, then the fp32 column sums of dq, dk and
+// dv per warp (lp / 16 warps of kHdp columns each).
+__host__ __device__ constexpr int whole_smem(int lp, int hdp) {
+  return whole_item_elems(lp, hdp) * (int)sizeof(bf16) +
+         3 * (lp / 16) * hdp * (int)sizeof(float);
+}
+
+// Writes the fp32 column sums of a warp's 16-row accumulator tile (rows
+// row0 + ..., those below `len` only) to colsum[0, kHdp): a fixed shuffle
+// tree over the tile's rows.
+template <int kHdp>
+__device__ __forceinline__ void warp_colsum(const float acc[kHdp / 8][4],
+                                            float* colsum, int row0,
+                                            int len) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo_ok = row0 + g < len, hi_ok = row0 + g + 8 < len;
+#pragma unroll
+  for (int nt = 0; nt < kHdp / 8; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float s = (lo_ok ? acc[nt][j] : 0.f) + (hi_ok ? acc[nt][2 + j] : 0.f);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) colsum[nt * 8 + 2 * t + j] = s;
+    }
+  }
+}
+
+// Stores a warp's A fragments a[c] (16 rows from `row0`, 16 columns per
+// chunk c) to the row-major bf16 matrix `dst` (row stride `stride`).
+template <int kNc>
+__device__ __forceinline__ void store_frags(bf16* dst, const uint32_t a[kNc][4],
+                                            int row0, int stride) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* d = dst + (row0 + g) * stride + 2 * t;
+#pragma unroll
+  for (int c = 0; c < kNc; ++c) {
+    *reinterpret_cast<uint32_t*>(d + c * 16) = a[c][0];
+    *reinterpret_cast<uint32_t*>(d + 8 * stride + c * 16) = a[c][1];
+    *reinterpret_cast<uint32_t*>(d + c * 16 + 8) = a[c][2];
+    *reinterpret_cast<uint32_t*>(d + 8 * stride + c * 16 + 8) = a[c][3];
+  }
+}
+
 // Writes the warp tiles `acc` (16 rows per warp, rows tile0 + ...) of one
 // head to `dst` in bf16 (rows < seq, columns < hd) and, with `partial`, the
 // fp32 column sums of the whole 64-row block tile to partial[0, hd) through
@@ -145,37 +253,10 @@ __device__ __forceinline__ void store_tile(float acc[kHdp / 8][4],
                                            bf16* dst, float* partial,
                                            float* colsum, int tile0, int seq,
                                            int hd, int ld) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = tile0 + warp * 16 + g + 8 * r;
-    if (row >= seq) continue;
-    bf16* o = dst + (size_t)row * ld;
-#pragma unroll
-    for (int nt = 0; nt < kHdp / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      if (c < hd) {
-        *reinterpret_cast<uint32_t*>(o + c) =
-            pack_floats(acc[nt][2 * r], acc[nt][2 * r + 1]);
-      }
-    }
-  }
+  const int row0 = tile0 + threadIdx.x / 32 * 16;
+  store_strip<kHdp>(acc, dst, row0, seq, hd, ld, 1.f);
   if (partial == nullptr) return;
-  const bool lo_ok = tile0 + warp * 16 + g < seq;
-  const bool hi_ok = tile0 + warp * 16 + g + 8 < seq;
-#pragma unroll
-  for (int nt = 0; nt < kHdp / 8; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float s = (lo_ok ? acc[nt][j] : 0.f) + (hi_ok ? acc[nt][2 + j] : 0.f);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (g == 0) colsum[warp * kHdp + nt * 8 + 2 * t + j] = s;
-    }
-  }
+  warp_colsum<kHdp>(acc, colsum + threadIdx.x / 32 * kHdp, row0, seq);
   __syncthreads();
   for (int c = threadIdx.x; c < hd; c += kThreads) {
     float s = 0.f;
@@ -492,39 +573,296 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
                    colsum, k0, seq, hd, d_model);
 }
 
-// out[y * width + c] = sum over p < n of src_y[p * width + c], in order of p:
-// the bias grads from the per-tile partials (bf16) or from the fp32 dq/dk/dv
-// themselves (fp32 twin). blockIdx.y selects q, k or v.
-__global__ void column_sum_kernel(const float* __restrict__ a,
-                                  const float* __restrict__ b,
-                                  const float* __restrict__ c, int n,
-                                  int width, float* __restrict__ out) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= width) return;
-  const float* src = blockIdx.y == 0 ? a : (blockIdx.y == 1 ? b : c);
-  float s = 0.f;
-  for (int p = 0; p < n; ++p) s += src[(size_t)p * width + col];
-  out[blockIdx.y * width + col] = s;
+// The whole-head scheme: persistent blocks of kNc warps (one per 16-row
+// strip: L <= 16 kNc), each walking the (head, sample) items blockIdx.x,
+// + gridDim.x, ..., one item's operands in shared memory at a time.
+// Warp w owns query strip w in phase 1 and key strip w in phase 2.
+// partial: null, or the (3, batch, num_heads * hd) fp32 column sums of
+// each sample's dq, dk and dv rows.
+template <int kHdp, int kNc>
+__global__ void __launch_bounds__(kNc * 32)
+attention_bwd_whole_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const bf16* __restrict__ bq,
+                           const bf16* __restrict__ bk,
+                           const bf16* __restrict__ bv,
+                           bf16* __restrict__ dq, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, float* __restrict__ partial,
+                           int batch, int seq, int num_heads, int hd,
+                           float scale, int exact) {
+  constexpr int kStride = kHdp + 8;
+  constexpr int kLp = kNc * 16;
+  constexpr int kPStride = kLp + 8;   // P and dsb, [query][key]
+  constexpr int kNt = kHdp / 8;
+  constexpr int kItem = whole_item_elems(kLp, kHdp);
+  constexpr int kThreadsW = kNc * 32;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int items = batch * num_heads;
+  const int ld = num_heads * hd;
+  const float scale_log2 = scale * kLog2e;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sdo = sq + kLp * kStride;
+  bf16* sk = sdo + kLp * kStride;
+  bf16* sv = sk + kLp * kStride;
+  float* colsum = reinterpret_cast<float*>(sq + kItem);
+  const RowSlice<kHdp> slice(tid, kThreadsW);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int h = item % num_heads, b = item / num_heads;
+    const size_t base = (size_t)b * seq * ld + (size_t)h * hd;
+    // this thread's chunks of the q, k and v biases, loaded with its copies
+    // so that their latency hides behind them
+    uint4 bias[3];
+    if (bq != nullptr) {
+      bias[0] = bias_chunk<kHdp>(bq + h * hd, hd, slice);
+      bias[1] = bias_chunk<kHdp>(bk + h * hd, hd, slice);
+      bias[2] = bias_chunk<kHdp>(bv + h * hd, hd, slice);
+    }
+    issue_rows<kHdp>(sq, q + base, 0, kLp, seq, hd, ld, slice);
+    issue_rows<kHdp>(sdo, dout + base, 0, kLp, seq, hd, ld, slice);
+    issue_rows<kHdp>(sk, k + base, 0, kLp, seq, hd, ld, slice);
+    issue_rows<kHdp>(sv, v + base, 0, kLp, seq, hd, ld, slice);
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (bq != nullptr) {   // each thread biases the chunks it copied
+      add_bias_chunk<kHdp>(sq, bias[0], 0, kLp, seq, hd, slice);
+      add_bias_chunk<kHdp>(sk, bias[1], 0, kLp, seq, hd, slice);
+      add_bias_chunk<kHdp>(sv, bias[2], 0, kLp, seq, hd, slice);
+    }
+    __syncthreads();  // this item's operands, biased, for every warp
+
+    // Phase 1, query strip `warp`: S = Qb Kb^T and dP = dO Vb^T over every
+    // key. Element i of n-tile nt: query q0 + g + 8 (i >> 1), key 8 nt +
+    // 2t + (i & 1).
+    const int q0 = warp * 16;
+    float s[2 * kNc][4], dp[2 * kNc][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < kHdp / 16; ++kc) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, ldsm_rows16(sq + q0 * kStride + kc * 16, kStride));
+      ldsm_x4(ado, ldsm_rows16(sdo + q0 * kStride + kc * 16, kStride));
+#pragma unroll
+      for (int c = 0; c < kNc; ++c) {
+        uint32_t bm[4];
+        ldsm_x4(bm, ldsm_rows8x2(sk + c * 16 * kStride + kc * 16, kStride));
+        mma_16816(s[2 * c], aq, bm[0], bm[1]);
+        mma_16816(s[2 * c + 1], aq, bm[2], bm[3]);
+        ldsm_x4(bm, ldsm_rows8x2(sv + c * 16 * kStride + kc * 16, kStride));
+        mma_16816(dp[2 * c], ado, bm[0], bm[1]);
+        mma_16816(dp[2 * c + 1], ado, bm[2], bm[3]);
+      }
+    }
+    // e in s (0 for keys past L), clip-saturated scores in `clipped`
+    uint32_t clipped[(kNc + 3) / 4] = {};  // bit 4 (nt % 8) + i, word nt / 8
+    if (exact) {
+      float m[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = nt * 8 + 2 * t + (i & 1);
+          if (nt >= 2 * kNc - 2 && key >= seq) s[nt][i] = kNegInf;
+          m[i >> 1] = fmaxf(m[i >> 1], s[nt][i]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+        m[r] *= scale_log2;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[nt][i] = ex2(fmaf(s[nt][i], scale_log2, -m[i >> 1]));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = nt * 8 + 2 * t + (i & 1);
+          const float x = s[nt][i] * scale;
+          if (fabsf(x) >= kExpClip) clipped[nt / 8] |= 1u << (4 * (nt % 8) + i);
+          const float e = ex2(fminf(fmaxf(x * kLog2e, -kClipLog2), kClipLog2));
+          s[nt][i] = (nt >= 2 * kNc - 2 && key >= seq) ? 0.f : e;
+        }
+      }
+    }
+    // p = e / rowsum(e) (0 on query rows past L), u = rowsum(dp * p),
+    // dsb = bf16(p (dp - u) scale), 0 where the clip saturates
+    float inv[2], u[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2 * kNc; ++nt) sum += s[nt][2 * r] + s[nt][2 * r + 1];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = q0 + g + 8 * r < seq ? 1.f / sum : 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] *= inv[i >> 1];
+        u[i >> 1] = fmaf(dp[nt][i], s[nt][i], u[i >> 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      u[r] += __shfl_xor_sync(0xffffffffu, u[r], 1);
+      u[r] += __shfl_xor_sync(0xffffffffu, u[r], 2);
+    }
+    uint32_t pa[kNc][4], da[kNc][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * kNc; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ds = s[nt][i] * (dp[nt][i] - u[i >> 1]) * scale;
+        dp[nt][i] = (clipped[nt / 8] >> (4 * (nt % 8) + i)) & 1u ? 0.f : ds;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) {
+      pack_a(pa[c], s[2 * c], s[2 * c + 1]);
+      pack_a(da[c], dp[2 * c], dp[2 * c + 1]);
+    }
+    // dQ = dsb Kb: A from the registers, B through ldmatrix.trans
+    {
+      float acc[kNt][4];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kNc; ++c) {
+        mma_rows16<kHdp>(acc, da[c], sk + c * 16 * kStride);
+      }
+      store_strip<kHdp>(acc, dq + base, q0, seq, hd, ld, 1.f);
+      if (partial != nullptr) {
+        warp_colsum<kHdp>(acc, colsum + warp * kHdp, q0, seq);
+      }
+    }
+    __syncthreads();  // every warp done with K and V: P and dsb replace them
+    bf16* sp = sk;
+    bf16* sds = sk + kLp * kPStride;
+    store_frags<kNc>(sp, pa, q0, kPStride);
+    store_frags<kNc>(sds, da, q0, kPStride);
+    __syncthreads();
+
+    // Phase 2, key strip `warp`: dV = bf16(P)^T dO, dK = dsb^T Qb, the A
+    // fragments of the transposes through ldmatrix.trans.
+    {
+      const int k0 = warp * 16;
+      float dk_acc[kNt][4], dv_acc[kNt][4];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kNc; ++c) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, ldsm_rows8x2(sp + c * 16 * kPStride + k0, kPStride));
+        mma_rows16<kHdp>(dv_acc, a, sdo + c * 16 * kStride);
+        ldsm_x4_trans(a, ldsm_rows8x2(sds + c * 16 * kPStride + k0, kPStride));
+        mma_rows16<kHdp>(dk_acc, a, sq + c * 16 * kStride);
+      }
+      store_strip<kHdp>(dk_acc, dk + base, k0, seq, hd, ld, 1.f);
+      store_strip<kHdp>(dv_acc, dv + base, k0, seq, hd, ld, 1.f);
+      if (partial != nullptr) {
+        warp_colsum<kHdp>(dk_acc, colsum + (kNc + warp) * kHdp, k0, seq);
+        warp_colsum<kHdp>(dv_acc, colsum + (2 * kNc + warp) * kHdp, k0, seq);
+      }
+    }
+    __syncthreads();  // the operands are free; the column sums are written
+    if (partial != nullptr) {
+      // this sample's column sums, the warps' strips summed in order
+#pragma unroll
+      for (int y = 0; y < 3; ++y) {
+        float* out = partial + ((size_t)y * batch + b) * ld + h * hd;
+        for (int c = tid; c < hd; c += kThreadsW) {
+          const float* cs = colsum + y * kNc * kHdp + c;
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < kNc; ++w) sum += cs[w * kHdp];
+          out[c] = sum;
+        }
+      }
+    }
+  }
 }
 
+// out[y * width + c] = sum over p < n of src_y[p * width + c] in fp32 and a
+// fixed order (kSumGroups interleaved runs of rows, then the runs in
+// order), rounded once to the output type: the bias grads from the
+// per-sample or per-tile partials (bf16) or from the fp32 dq/dk/dv
+// themselves (fp32 twin). blockIdx.y selects q, k or v.
+constexpr int kSumCols = 32, kSumGroups = 32;
+
+__device__ __forceinline__ void store_sum(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_sum(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+column_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ c, int n, int width,
+                  T* __restrict__ out) {
+  __shared__ float runs[kSumGroups][kSumCols];
+  const int cx = threadIdx.x % kSumCols, gy = threadIdx.x / kSumCols;
+  const int col = blockIdx.x * kSumCols + cx;
+  const float* src = blockIdx.y == 0 ? a : (blockIdx.y == 1 ? b : c);
+  float s = 0.f;
+  if (col < width) {
+#pragma unroll 4
+    for (int p = gy; p < n; p += kSumGroups) s += src[(size_t)p * width + col];
+  }
+  runs[gy][cx] = s;
+  __syncthreads();
+  if (gy == 0 && col < width) {
+    float r = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSumGroups; ++i) r += runs[i][cx];
+    store_sum(out + blockIdx.y * width + col, r);
+  }
+}
+
+template <typename T>
 int column_sums(const float* a, const float* b, const float* c, int n,
-                int width, float* out, cudaStream_t stream) {
-  const dim3 grid((width + 255) / 256, 3);
-  column_sum_kernel<<<grid, 256, 0, stream>>>(a, b, c, n, width, out);
+                int width, T* out, cudaStream_t stream) {
+  const dim3 grid((width + kSumCols - 1) / kSumCols, 3);
+  column_sum_kernel<T><<<grid, kSumCols * kSumGroups, 0, stream>>>(
+      a, b, c, n, width, out);
   return (int)cudaGetLastError();
 }
 
+// The split scheme: the dq kernel, the dk/dv kernel, then the bias grads
+// from their per-tile partials. The plan's sizes must be these layouts'.
 template <int kHdp, bool kDefer>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-           const bf16* bq, const bf16* bk, const bf16* bv, bf16* dq, bf16* dk,
-           bf16* dv, float* stats, float* partial, float* dbias, int batch,
-           int seq, int num_heads, int hd, float scale, int exact,
-           cudaStream_t stream) {
-  const int tiles_bytes = 4 * kTile * (kHdp + 8) * (int)sizeof(bf16);
-  const int smem_dq = tiles_bytes + (kWarps * kHdp + (kDefer ? kTile : 0)) *
-                                        (int)sizeof(float);
-  const int smem_dkv =
-      tiles_bytes + (3 * kTile + kWarps * kHdp) * (int)sizeof(float);
+int launch_split(const bf16* q, const bf16* k, const bf16* v,
+                 const bf16* dout, const bf16* bq, const bf16* bk,
+                 const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* stats,
+                 float* partial, bf16* dbias, int batch, int seq,
+                 int num_heads, int hd, int warps, int smem_dq, int smem_dkv,
+                 float scale, int exact, cudaStream_t stream) {
+  if (stats == nullptr || warps != kWarps || smem_dq != split_smem_dq(kHdp) ||
+      smem_dkv != split_smem_dkv(kHdp)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_dq_kernel<kHdp, kDefer>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
@@ -553,6 +891,70 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   if (partial == nullptr) return 0;
   return column_sums(pq, pk, pv, batch * n_tiles, num_heads * hd, dbias,
                      stream);
+}
+
+// The whole-head scheme at kNc chunks: the persistent grid (as many blocks
+// as the card holds at once, at most one per item), then the bias grads
+// from the per-sample partials.
+template <int kHdp, int kNc>
+int launch_whole_nc(const bf16* q, const bf16* k, const bf16* v,
+                    const bf16* dout, const bf16* bq, const bf16* bk,
+                    const bf16* bv, bf16* dq, bf16* dk, bf16* dv,
+                    float* partial, bf16* dbias, int batch, int seq,
+                    int num_heads, int hd, int smem, float scale, int exact,
+                    cudaStream_t stream) {
+  const void* fn = (const void*)attention_bwd_whole_kernel<kHdp, kNc>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)batch * num_heads;
+  const int resident = resident_blocks(fn, kNc * 32, smem);
+  if (resident <= 0 || items > 0x7fffffff) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  attention_bwd_whole_kernel<kHdp, kNc>
+      <<<(int)(items < resident ? items : resident), kNc * 32, smem,
+         stream>>>(q, k, v, dout, bq, bk, bv, dq, dk, dv, partial, batch,
+                   seq, num_heads, hd, scale, exact);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return (int)err;
+  const size_t part_size = (size_t)batch * num_heads * hd;
+  return column_sums(partial, partial + part_size, partial + 2 * part_size,
+                     batch, num_heads * hd, dbias, stream);
+}
+
+// The whole-head plan's check: one warp per 16-row chunk of L (at most
+// kMaxChunks) and this layout's shared memory.
+template <int kHdp>
+int launch_whole(const bf16* q, const bf16* k, const bf16* v,
+                 const bf16* dout, const bf16* bq, const bf16* bk,
+                 const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* partial,
+                 bf16* dbias, int batch, int seq, int num_heads, int hd,
+                 int warps, int smem, int smem_dkv, float scale, int exact,
+                 cudaStream_t stream) {
+  const int nc = (seq + 15) / 16;
+  if (nc > kMaxChunks || warps != nc || smem_dkv != 0 ||
+      smem != whole_smem(16 * nc, kHdp)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define CLIPA_WHOLE(NC)                                                   \
+  case NC:                                                                \
+    return launch_whole_nc<kHdp, NC>(q, k, v, dout, bq, bk, bv, dq, dk, dv, \
+                                     partial, dbias, batch, seq, num_heads, \
+                                     hd, smem, scale, exact, stream)
+  switch (nc) {
+    CLIPA_WHOLE(1);
+    CLIPA_WHOLE(2);
+    CLIPA_WHOLE(3);
+    CLIPA_WHOLE(4);
+    CLIPA_WHOLE(5);
+    CLIPA_WHOLE(6);
+    CLIPA_WHOLE(7);
+    CLIPA_WHOLE(8);
+    CLIPA_WHOLE(9);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CLIPA_WHOLE
 }
 
 // ---------------------------------------------------------------------------
@@ -717,16 +1119,20 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// The bf16 entries' body: kDefer selects the variant.
+// The bf16 entries' body: kDefer selects the variant (split scheme only).
 template <bool kDefer>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* bq, const void* bk, const void* bv, void* dq,
                 void* dk, void* dv, void* stats, void* partial, void* dbias,
-                int batch, int seq, int num_heads, int head_dim, float scale,
-                int exact, void* stream) {
+                int batch, int seq, int num_heads, int head_dim, int whole,
+                int warps, int smem, int smem_dkv, float scale, int exact,
+                void* stream) {
   if (bad_shape(batch, seq, num_heads, head_dim) ||
+      (bq == nullptr) != (bk == nullptr) ||
+      (bq == nullptr) != (bv == nullptr) ||
       (bq != nullptr) != (partial != nullptr) ||
-      (partial != nullptr) != (dbias != nullptr)) {
+      (partial != nullptr) != (dbias != nullptr) || whole < 0 || whole > 1 ||
+      (kDefer && whole)) {
     return (int)cudaErrorInvalidValue;
   }
   const bf16* q_ = static_cast<const bf16*>(q);
@@ -741,21 +1147,27 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
   bf16* dv_ = static_cast<bf16*>(dv);
   float* st_ = static_cast<float*>(stats);
   float* pa_ = static_cast<float*>(partial);
-  float* db_ = static_cast<float*>(dbias);
+  bf16* db_ = static_cast<bf16*>(dbias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CLIPA_LAUNCH(HDP)                                                   \
-  return launch<HDP, kDefer>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, \
-                             st_, pa_, db_, batch, seq, num_heads, head_dim,  \
-                             scale, exact, s)
-  switch ((head_dim + 15) / 16 * 16) {
-    case 16: CLIPA_LAUNCH(16);
-    case 32: CLIPA_LAUNCH(32);
-    case 48: CLIPA_LAUNCH(48);
-    case 64: CLIPA_LAUNCH(64);
-    case 80: CLIPA_LAUNCH(80);
-    case 96: CLIPA_LAUNCH(96);
-    case 112: CLIPA_LAUNCH(112);
-    case 128: CLIPA_LAUNCH(128);
+#define CLIPA_LAUNCH(HDP)                                                    \
+  case HDP:                                                                  \
+    return whole ? launch_whole<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_,    \
+                                     dk_, dv_, pa_, db_, batch, seq,         \
+                                     num_heads, head_dim, warps, smem,       \
+                                     smem_dkv, scale, exact, s)              \
+                  : launch_split<HDP, kDefer>(                               \
+                        q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, st_,  \
+                        pa_, db_, batch, seq, num_heads, head_dim, warps,    \
+                        smem, smem_dkv, scale, exact, s)
+  switch (round16(head_dim)) {
+    CLIPA_LAUNCH(16);
+    CLIPA_LAUNCH(32);
+    CLIPA_LAUNCH(48);
+    CLIPA_LAUNCH(64);
+    CLIPA_LAUNCH(80);
+    CLIPA_LAUNCH(96);
+    CLIPA_LAUNCH(112);
+    CLIPA_LAUNCH(128);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CLIPA_LAUNCH
@@ -764,37 +1176,51 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q/k/v/do/dq/dk/dv: (batch * seq, num_heads * head_dim) bf16, contiguous,
-// 16-byte aligned; bq/bk/bv: (num_heads * head_dim,) bf16 or all null.
-// stats: 3 * batch * seq * num_heads fp32 scratch. With biases, partial:
-// 3 * batch * ceil(seq / 64) * num_heads * head_dim fp32 scratch and dbias:
-// 3 * num_heads * head_dim fp32 (dbq, dbk, dbv); both null without. head_dim
-// must be a multiple of 8 and at most 128. Returns the cudaError_t of the
-// launches.
+// 16-byte aligned; bq/bk/bv: (num_heads * head_dim,) bf16, 16-byte aligned,
+// or all null. head_dim must be a multiple of 8 and at most 128. The plan
+// is ops/block_attention.py bwd_plan's (whole, warps, smem, smem_dkv):
+//   whole 1: the whole-head scheme (L <= 16 kMaxChunks), `warps` one per
+//     16-row chunk of L, one item in shared memory per block, `smem` its
+//     bytes, smem_dkv 0; stats unused (may be null); partial:
+//     3 * batch * num_heads * head_dim fp32 scratch;
+//   whole 0: the split scheme, `warps` 4, `smem` and `smem_dkv` the dq and
+//     dk/dv kernels' bytes; stats: 3 * batch * seq * num_heads fp32
+//     scratch; partial: 3 * batch * ceil(seq / 64) * num_heads * head_dim.
+// Each size must be its kernel's for that plan. With biases, partial and
+// dbias (3 * num_heads * head_dim bf16: dbq, dbk, dbv, each the fp32
+// column sum rounded once) are set; both null without. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for a plan or shape
+// it refuses).
 extern "C" int clipa_fused_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,
     void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, float scale, int exact, void* stream) {
+    int num_heads, int head_dim, int whole, int warps, int smem,
+    int smem_dkv, float scale, int exact, void* stream) {
   return launch_bf16<false>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
                             partial, dbias, batch, seq, num_heads, head_dim,
-                            scale, exact, stream);
+                            whole, warps, smem, smem_dkv, scale, exact,
+                            stream);
 }
 
 // The deferred-normalization variant: the same arguments, limits and
-// outputs (bf16 only; see the header).
+// outputs, the split scheme only (bf16 only; see the header).
 extern "C" int clipa_fused_attention_bwd_deferred(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,
     void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, float scale, int exact, void* stream) {
+    int num_heads, int head_dim, int whole, int warps, int smem,
+    int smem_dkv, float scale, int exact, void* stream) {
   return launch_bf16<true>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
                            partial, dbias, batch, seq, num_heads, head_dim,
-                           scale, exact, stream);
+                           whole, warps, smem, smem_dkv, scale, exact,
+                           stream);
 }
 
-// The fp32 twin: same arguments and limits, fp32 tensors (4-byte aligned
-// suffices); `partial` is not used (the bias grads are the column sums of
-// the fp32 dq/dk/dv), `dbias` is set iff the biases are.
+// The fp32 twin: the same arguments but the plan, the same limits, fp32
+// tensors (4-byte aligned suffices); `partial` is not used (the bias grads
+// are the column sums of the fp32 dq/dk/dv), `dbias` is set iff the biases
+// are.
 extern "C" int clipa_fused_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,

@@ -106,16 +106,6 @@ inline __host__ __device__ int ring_rows(int seq, int stages) {
   return stages * kBlockK < round16(seq) ? stages * kBlockK : round16(seq);
 }
 
-// 2^x by the MUFU unit (ex2.approx.ftz: exp2f without its subnormal-result
-// fix-up). In clip mode x >= -70 log2(e) > -126, so nothing is flushed; in
-// exact mode e < 2^-126 of the row max flushes to 0, far below what one
-// bf16 ulp of the output can hold.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // cp_async_wait with a run-time count (the ring's depth), 0 <= n < 8.
 __device__ __forceinline__ void cp_async_wait_n(int n) {
   switch (n) {
@@ -127,67 +117,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     case 5: cp_async_wait<5>(); break;
     case 6: cp_async_wait<6>(); break;
     default: cp_async_wait<7>(); break;
-  }
-}
-
-// The copies and the bias below split a block of rows over the threads
-// the same way: thread `tid` of `nthreads` owns the 16-byte column chunk
-// tid % kChunks of rows tid / kChunks, + step, + 2 step, ... (step =
-// nthreads / kChunks; the few threads past the last whole step own none).
-// Neighbouring threads take neighbouring chunks of a row, so the copies
-// coalesce, and a thread's column, its bias and its first address are
-// computed once, not per chunk.
-template <int kHdp>
-struct RowSlice {
-  static constexpr int kChunks = kHdp / 8;  // 16-byte chunks per row
-  int first, step, col;                     // first row, row step, column
-  __device__ __forceinline__ RowSlice(int tid, int nthreads)
-      : first(tid / kChunks), step(nthreads / kChunks),
-        col((tid % kChunks) * 8) {
-    if (first >= step) first = 1 << 30;     // no whole column slot
-  }
-};
-
-// Issues the copies of rows [row0, row0 + rows) of one head into `dst`
-// (row stride kHdp + 8) with cp.async: rows at or past `len` and columns
-// at or past `hd` are zero-filled (load_rows_async's function, split as
-// RowSlice splits it).
-template <int kHdp>
-__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* src,
-                                           int row0, int rows, int len,
-                                           int hd, int ld,
-                                           const RowSlice<kHdp>& sl) {
-  const bool col_ok = sl.col < hd;
-  for (int r = sl.first; r < rows; r += sl.step) {
-    const bool ok = col_ok && row0 + r < len;
-    cp_async_16(dst + r * (kHdp + 8) + sl.col,
-                ok ? src + (size_t)(row0 + r) * ld + sl.col : src, ok);
-  }
-}
-
-// Adds the head's bias (`bias`: its first column) to the rows that
-// issue_rows copied with the same arguments: each thread to the chunks it
-// issued itself, after its own cp.async wait. One rounding: a bf16x2 add
-// rounds the exact sum of two bf16 values to nearest, as the fp32 add then
-// round to bf16 of the JAX graph does (their fp32 sum is exact, or the
-// smaller addend is below a bf16 half-ulp of the larger). Padding rows (at
-// or past `len`) and columns (at or past `hd`) stay 0.
-template <int kHdp>
-__device__ __forceinline__ void add_bias_rows(bf16* dst, const bf16* bias,
-                                              int row0, int rows, int len,
-                                              int hd,
-                                              const RowSlice<kHdp>& sl) {
-  if (sl.col >= hd) return;
-  const uint4 b4 = *reinterpret_cast<const uint4*>(bias + sl.col);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&b4);
-  const int end = min(rows, len - row0);
-  for (int r = sl.first; r < end; r += sl.step) {
-    uint4* p = reinterpret_cast<uint4*>(dst + r * (kHdp + 8) + sl.col);
-    uint4 val = *p;
-    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x[j] = __hadd2(x[j], b[j]);
-    *p = val;
   }
 }
 

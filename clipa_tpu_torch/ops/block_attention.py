@@ -9,8 +9,10 @@ each direction: ``csrc/fused_attention_fwd.cu`` (:func:`fused_attention`)
 and ``csrc/fused_attention_bwd.cu`` (:func:`fused_attention_bwd`). The TPU
 kernels' VMEM plans, sample groups and block-diagonal masks suited Mosaic
 only. The bf16 forward spreads the 16-row query strips of a (sample, head)
-over the blocks of :func:`fwd_plan`; the backward runs one block per
-(sample, head, 64-row tile). bf16 operands go through the tensor cores;
+over the blocks of :func:`fwd_plan`; the bf16 backward takes the scheme of
+:func:`bwd_plan`: one (sample, head) per work item of a persistent kernel
+up to L = 16 * BWD_MAX_CHUNKS, else two kernels over 64-row tiles. bf16
+operands go through the tensor cores;
 fp32 operands (the service at precision float32, the fp32 smoke configs)
 through scalar fp32 twins in the same sources.
 
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -98,8 +100,12 @@ _BWD_DEFERRED_ENTRY = "clipa_fused_attention_bwd_deferred"
 _SOURCE = "fused_attention_fwd.cu"
 _BWD_SOURCE = "fused_attention_bwd.cu"
 
-# Rows per tile of the bf16 backward kernels (bias-grad partials per tile).
+# The bf16 backward's split scheme: rows per tile (bias-grad partials per
+# tile) and warps per block (csrc/fused_attention_bwd.cu kTile, kWarps).
 _BWD_TILE = 64
+_BWD_SPLIT_WARPS = 4
+# The whole-head scheme's largest sequence, in 16-row chunks (kMaxChunks).
+BWD_MAX_CHUNKS = 9
 
 # The bf16 forward's key tiles, and the deepest ring its launcher takes
 # (csrc/fused_attention_fwd.cu kBlockK, kMaxStages).
@@ -155,6 +161,60 @@ def fwd_plan(seq_len: int, hd: int) -> KernelPlan:
         return per_sm * strips / p.blocks, -p.blocks, p.stages
 
     return max(fwd_candidates(seq_len, hd), key=rank)
+
+
+class BwdPlan(NamedTuple):
+    """The bf16 backward's launch. `whole` 1: the whole-head scheme, one
+    persistent kernel whose blocks hold one (sample, head) item in shared
+    memory, `warps` one per 16-row chunk of L, `smem` its bytes per block,
+    `smem_dkv` 0. `whole` 0: the split scheme, a dq kernel and a dk/dv
+    kernel of `warps` (4) warps per 64-row tile, `smem` and `smem_dkv`
+    their bytes per block."""
+    whole: int
+    warps: int
+    smem: int
+    smem_dkv: int
+
+
+def _whole_smem(seq_len: int, hd: int) -> int:
+    """The whole-head kernel's bytes per block: the item's Q and dO, then a
+    region that holds K and V and, once they are dead, bf16(P) and dsb
+    ([query][key]); then the fp32 column sums of dq, dk and dv per warp."""
+    lp, hdp = _round16(seq_len), _round16(hd)
+    stage = 2 * lp * (hdp + 8) + 2 * lp * max(hdp + 8, lp + 8)
+    return stage * 2 + 3 * (lp // 16) * hdp * 4
+
+
+def bwd_split_plan(seq_len: int, hd: int) -> BwdPlan:
+    """The split scheme's launch: per block four 64-row bf16 tiles, the
+    warps' fp32 column sums and 64 fp32 row values (dq kernel) or three
+    row statistics (dk/dv kernel). The deferred variant's only scheme."""
+    hdp = _round16(hd)
+    tiles = 4 * _BWD_TILE * (hdp + 8) * 2
+    return BwdPlan(0, _BWD_SPLIT_WARPS,
+                   tiles + (_BWD_SPLIT_WARPS * hdp + _BWD_TILE) * 4,
+                   tiles + (3 * _BWD_TILE + _BWD_SPLIT_WARPS * hdp) * 4)
+
+
+def bwd_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
+    """The bf16 backward's launches at one shape: the whole-head scheme,
+    where L has at most BWD_MAX_CHUNKS 16-row chunks and the block fits in
+    shared memory, then the split scheme."""
+    chunks = _round16(seq_len) // 16
+    smem = _whole_smem(seq_len, hd)
+    whole = ([BwdPlan(1, chunks, smem, 0)]
+             if chunks <= BWD_MAX_CHUNKS and smem <= SMEM_LIMIT else [])
+    return whole + [bwd_split_plan(seq_len, hd)]
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(seq_len: int, hd: int) -> BwdPlan:
+    """The bf16 backward's launch at one shape (a pure function, cached),
+    whose numbers the CUDA entry point takes and checks against its own
+    layouts: the whole-head scheme wherever bwd_candidates offers it (it
+    forms S and dP once, the split scheme three times), else the split
+    scheme."""
+    return bwd_candidates(seq_len, hd)[0]
 
 
 def tolerance(dtype: torch.dtype) -> tuple[float, float]:
@@ -503,8 +563,17 @@ def fwd_library() -> ctypes.CDLL:
 
 
 def bwd_library() -> ctypes.CDLL:
-    return _library(_BWD_SOURCE, {**_BWD_ENTRY, "defer": _BWD_DEFERRED_ENTRY},
-                    13)
+    """The backward's library: the fp32 twin typed as _args(13), the bf16
+    entries (normalized and deferred) with the plan's four ints (whole,
+    warps, smem, smem_dkv) after the dimensions."""
+    lib = _library(_BWD_SOURCE, {torch.float32: _BWD_ENTRY[torch.float32]},
+                   13)
+    for entry in (_BWD_ENTRY[torch.bfloat16], _BWD_DEFERRED_ENTRY):
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = _args(13, 8)
+    return lib
 
 
 def _call(lib: ctypes.CDLL, entry: str, like: torch.Tensor, what: str,
@@ -537,33 +606,46 @@ def _launch(q, k, v, num_heads, seq_len, biases, exact,
     return out
 
 
-def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None):
+def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
+                plan: Optional[BwdPlan] = None):
+    """Runs the backward kernels. `plan`: the bf16 kernels' launch,
+    bwd_plan's by default (the deferred entry: bwd_split_plan's;
+    tools/flash_bench.py times the others)."""
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_memory(name, x, q)
     ptrs = _bias_pointers(biases, q)
     batch, hd = rows // seq_len, d // num_heads
+    args = ()   # the fp32 twin takes no plan
+    split = True
+    if q.dtype == torch.bfloat16:
+        if plan is None:
+            plan = (bwd_split_plan(seq_len, hd) if entry == _BWD_DEFERRED_ENTRY
+                    else bwd_plan(seq_len, hd))
+        args, split = tuple(plan), not plan.whole
     grads = torch.empty((3, rows, d), dtype=q.dtype, device=q.device)
-    # per (row, head): the softmax max (0 in clip mode), sum and rowsum(dP*P)
-    stats = torch.empty((3, rows * num_heads), dtype=torch.float32,
-                        device=q.device)
-    partial = dbias = None
+    stats = partial = dbias = None
+    if split:
+        # per (row, head): the softmax max (0 in clip mode), sum and
+        # rowsum(dP*P)
+        stats = torch.empty((3, rows * num_heads), dtype=torch.float32,
+                            device=q.device)
     if biases is not None:
-        dbias = torch.empty((3, d), dtype=torch.float32, device=q.device)
+        # the fp32 column sums of dq/dk/dv, rounded once to the biases' type
+        dbias = torch.empty((3, d), dtype=q.dtype, device=q.device)
         if q.dtype == torch.bfloat16:
-            # fp32 column sums of dq/dk/dv per 64-row tile, before rounding
-            tiles = batch * -(-seq_len // _BWD_TILE)
-            partial = torch.empty((3, tiles, d), dtype=torch.float32,
+            # fp32 column sums of dq/dk/dv per sample (whole-head) or per
+            # 64-row tile (split), before rounding
+            n = batch * (-(-seq_len // _BWD_TILE) if split else 1)
+            partial = torch.empty((3, n, d), dtype=torch.float32,
                                   device=q.device)
     _call(bwd_library(), entry or _BWD_ENTRY[q.dtype], q,
           "fused attention backward kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
           grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-          stats.data_ptr(), None if partial is None else partial.data_ptr(),
-          None if dbias is None else dbias.data_ptr(),
-          batch, seq_len, num_heads, hd, hd ** -0.5, int(bool(exact)))
-    dq, dk, dv = grads.unbind(0)
+          *(None if x is None else x.data_ptr()
+            for x in (stats, partial, dbias)),
+          batch, seq_len, num_heads, hd, *args, hd ** -0.5, int(bool(exact)))
     if dbias is None:
-        return dq, dk, dv, None, None, None
-    return (dq, dk, dv,
-            *(g.to(bias.dtype) for g, bias in zip(dbias.unbind(0), biases)))
+        return (*grads.unbind(0), None, None, None)
+    return (*grads.unbind(0), *dbias.unbind(0))

@@ -25,8 +25,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
+# --split-compile=0: the device code's optimisation and ptxas run on every
+# core (fused_attention_bwd.cu instantiates some hundred kernels)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 # One lock per source: different sources build in parallel (one nvcc each).
 _locks: dict[str, threading.Lock] = {}

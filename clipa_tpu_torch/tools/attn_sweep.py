@@ -9,9 +9,11 @@ different on Hopper:
 
   fwd  clip / exact               csrc/fused_attention_fwd.cu (K5's function)
   bwd  normalized / deferred,     csrc/fused_attention_bwd.cu: the landed
-       each clip / exact          backward and its kDefer variant, which
-                                  folds 1/denom into dO's rows so the
-                                  score-sized products run on unnormalized e
+       each clip / exact          backward (its whole-head scheme at this
+                                  shape) and the kDefer variant of its split
+                                  scheme, which folds 1/denom into dO's rows
+                                  so the score-sized products run on
+                                  unnormalized e
 
 Each variant is held against its plain PyTorch version (the forward's
 tolerance, or the backward's per output) and the deferred backward also
@@ -21,9 +23,9 @@ closes the output.
 
 Not swept: the reference's `g`, the samples per Pallas program under a
 block-diagonal mask. It is a Mosaic layout knob (sublane alignment, VMEM);
-every g computes the same function, and the CUDA kernels run one block per
-(sample, head, 64-row tile) instead. The history in the reference's
-docstring (v5e times, r3-r5b) is TPU data, not a Hopper figure; its
+every g computes the same function, and the CUDA kernels work per
+(sample, head) instead. The history in the reference's docstring (v5e
+times, r3-r5b) is TPU data, not a Hopper figure; its
 deferred backward also computes a wrong dq and dk (its row-sum term lacks
 the 1/denom), so its "defer loses" timed another function than this one.
 

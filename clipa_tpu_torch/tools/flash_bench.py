@@ -1,26 +1,30 @@
 """Times the attention kernels of one checkout at the shapes of
 ``chip_smoke.py``: the fused forward (K1/K3/K5) at its phase-2
-``FUSED_SHAPES`` and the flash kernels (K7 forward, K8 backward) at its
+``FUSED_SHAPES``, the fused backward (K2/K4/K6) at its phase-3
+``BWD_SHAPES`` and the flash kernels (K7 forward, K8 backward) at its
 phase-6 ``FLASH_SHAPES``.
 
     python clipa_tpu_torch/tools/flash_bench.py [--root DIR] [--plans]
         [--kernels fused,flash] [--serve]
 
-Runs this checkout's ``chip_smoke._kernel_case`` and ``_flash_case`` on
-the ``clipa_tpu_torch`` package under `--root` (default: this checkout):
-the kernels against their plain versions, the output twice bit for bit,
-kernel, plain and SDPA times by CUDA events and by device time, and the
-bounds. So two commits are measured by the same code in turns on one card:
-unpack the other one with ``git archive`` into a directory that .gitignore
-lists and run this file, by path, once with each root. The last line is one
-JSON object: the card and the cases.
+Runs this checkout's ``chip_smoke._kernel_case``, ``_bwd_case`` and
+``_flash_case`` on the ``clipa_tpu_torch`` package under `--root`
+(default: this checkout): the kernels against their plain versions, the
+outputs twice bit for bit, kernel, plain and SDPA times by CUDA events and
+by device time, and the bounds. So two commits are measured by the same
+code in turns on one card: unpack the other one with ``git archive`` into
+a directory that .gitignore lists and run this file, by path, once with
+each root. The last line is one JSON object: the card and the cases.
 
 `--plans` adds to each case, under ``plan_device_ms``, the device time of
 the fused forward under every plan of ``block_attention.fwd_candidates``
-(each split and ring, in the case's mode), and of the flash forward under
-every split of ``fwd_candidates`` and, where ``launch_plan`` fuses the
-backward, of the split backward (``bwd_split_plan``): the measurements
-behind the plans' choices (for a root whose package has them).
+(each split and ring, in the case's mode), of the fused backward under
+every plan of ``block_attention.bwd_candidates`` (the whole-head scheme
+where it is offered, and the split scheme), and of the flash
+forward under every split of ``fwd_candidates`` and, where ``launch_plan``
+fuses the backward, of the split backward (``bwd_split_plan``): the
+measurements behind the plans' choices (for a root whose package has
+them).
 
 `--serve` first measures the service as ``chip_smoke.py`` phase 4 does:
 images/s (1024 uint8 224 px images, 4 full chunks) and texts/s (2048
@@ -87,6 +91,23 @@ def _fused_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
         for p in ba.fwd_candidates(l, d // h)}
 
 
+def _fused_bwd_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
+    """Device ms of the fused backward under each plan of bwd_candidates,
+    keyed "whole|split warps <w>", on seeded bf16 operands."""
+    import torch
+
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    q, k, v, do = mk(b * l, d), mk(b * l, d), mk(b * l, d), mk(b * l, d)
+    biases = (mk(d), mk(d), mk(d)) if bias else None
+    scheme = ("split", "whole")
+    return {f"{scheme[p.whole]} warps {p.warps}": cs._device_ms(
+        lambda p=p: ba._launch_bwd(q, k, v, do, h, l, biases, exact, plan=p),
+        iters) for p in ba.bwd_candidates(l, d // h)}
+
+
 def _serve_rates(cs, root) -> dict:
     """images/s and texts/s at bucket 256 of the service under `root`."""
     import numpy as np
@@ -113,11 +134,12 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--plans", action="store_true",
                         help="also time every plan of the fused forward and "
-                        "every split of the flash forward that the plans "
-                        "weigh, and the split backward where it fuses")
+                        "backward and every split of the flash forward that "
+                        "the plans weigh, and the split flash backward where "
+                        "it fuses")
     parser.add_argument("--kernels", default="fused,flash",
-                        help="comma-separated: fused (phase 2's shapes), "
-                        "flash (phase 6's)")
+                        help="comma-separated: fused (phase 2's and 3's "
+                        "shapes), flash (phase 6's)")
     parser.add_argument("--serve", action="store_true",
                         help="first measure images/s and texts/s at bucket "
                         "256")
@@ -152,6 +174,15 @@ def main(argv=None) -> int:
         if args.plans:
             case["plan"] = ba.fwd_plan(l, d // h)
             case["plan_device_ms"] = _fused_plan_device_ms(
+                cs, ba, b, l, d, h, bias, exact, gen, iters=20)
+        cases.append(case)
+    for name, b, l, d, h, bias, exact in (
+            cs.BWD_SHAPES if "fused" in kernels else ()):
+        case = {"name": f"bwd {name}", **cs._bwd_case(
+            b, l, d, h, bias, exact, 1.0, gen=gen, iters=20, device=True)}
+        if args.plans and hasattr(ba, "bwd_candidates"):
+            case["plan"] = ba.bwd_plan(l, d // h)
+            case["plan_device_ms"] = _fused_bwd_plan_device_ms(
                 cs, ba, b, l, d, h, bias, exact, gen, iters=20)
         cases.append(case)
     for b, lq, lk, h, hd, q_scale in (

@@ -195,6 +195,12 @@ def test_service_goes_through_the_kernel(cuda, tmp_path, precision):
 # H/14 @224 (several q-tiles, hd 80: K2's function), L = 577 unbiased
 # (K4/K2), clip mode past the clip with and without bias, exact mode; plus
 # small ragged ones (L = 37 and 65 across tile edges, hd 40 zero-padded).
+# Then H/14 @84 (L = 37, hd 80) and the fine-tune `auto` route (L = 138);
+# both softmax modes with and without bias, at and past the clip; and the
+# 16-row chunk and 64-row tile boundaries of both schemes at hd 8, 72, 80
+# and 128 (whole-head up to L = 16 BWD_MAX_CHUNKS, split past it), clip
+# mode with bias and exact mode without, in turns.
+BWD_BOUNDARIES = (15, 16, 17, 33, 37, 48, 49, 50, 63, 64, 65, 138, 257, 577)
 BWD_CASES = [
     (384, 50, 1024, 16, True, False, 1.0),
     (8, 257, 1280, 16, True, False, 1.0),
@@ -205,6 +211,14 @@ BWD_CASES = [
     (3, 37, 80, 2, True, False, 1.0),
     (2, 65, 256, 8, False, True, 1.0),
     (1, 129, 512, 4, True, False, 1.0),
+    (16, 37, 1280, 16, True, False, 1.0),
+    (8, 138, 1024, 16, True, False, 1.0),
+    (4, 50, 256, 4, True, True, 1.0),
+    (4, 50, 256, 4, False, False, 1.0),
+    (4, 50, 256, 4, False, True, 40.0),
+    (4, 37, 320, 4, True, False, 40.0),
+    *((2, n, 2 * hd, 2, i % 2 == 0, i % 2 == 1, 1.0)
+      for hd in (8, 72, 80, 128) for i, n in enumerate(BWD_BOUNDARIES)),
 ]
 
 
@@ -264,6 +278,70 @@ def test_bwd_wrapper_refuses_what_it_cannot_take(cuda):
         bwd(x, x, x, transposed, 4, 40)
     with pytest.raises(ValueError, match="on cpu"):
         bwd(x, x, x, x, 4, 40, (x[0].cpu(), x[0], x[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,h", [(16, 50, 1024, 16), (16, 37, 1280, 16),
+                                     (4, 138, 1024, 16), (4, 17, 256, 2)])
+def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
+    """Every scheme that bwd_candidates offers (whole-head, split) computes
+    the same function in both modes, and each gives
+    bit-identical outputs over two calls (no atomics); a plan whose sizes
+    are not the kernel's own layout's, whose warps are not one per strip,
+    or that asks the deferred entry for the whole-head scheme is
+    refused."""
+    q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, True,
+                                        1.0, seed=13)
+    hd = d // h
+    for exact in (False, True):
+        ref = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
+                                                  exact)
+        for plan in block_attention.bwd_candidates(l, hd):
+            first = block_attention._launch_bwd(q, k, v, do, h, l, biases,
+                                                exact, plan=plan)
+            second = block_attention._launch_bwd(q, k, v, do, h, l, biases,
+                                                 exact, plan=plan)
+            torch.cuda.synchronize()
+            errors = block_attention.bwd_errors(first, ref, torch.bfloat16)
+            assert all(ok for _, ok in errors), (plan, errors)
+            assert all(torch.equal(x, y) for x, y in zip(first, second)), plan
+    for plan in block_attention.bwd_candidates(l, hd):
+        bad = [plan._replace(smem=plan.smem + 16),
+               plan._replace(warps=plan.warps + 1)]
+        if plan.whole:
+            bad.append(plan._replace(whole=2))
+        for p in bad:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                block_attention._launch_bwd(q, k, v, do, h, l, biases, False,
+                                            plan=p)
+        if plan.whole:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                block_attention._launch_bwd(
+                    q, k, v, do, h, l, biases, False, plan=plan,
+                    entry=block_attention._BWD_DEFERRED_ENTRY)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,h", [(64, 50, 1024, 16), (64, 37, 1280, 16),
+                                     (8, 138, 1024, 16)])
+def test_bwd_bias_add_is_one_rounding(cuda, b, l, d, h):
+    """The kernel adds the q/k/v biases in shared memory with bf16x2 adds;
+    the function rounds the fp32 sum once. The two agree bit for bit: with
+    the biases the kernel's dq, dk and dv equal, bit for bit, its outputs
+    for the operands biased beforehand by PyTorch (fp32 add, one rounding)
+    and no biases, under every plan."""
+    q, k, v, do, (bq, bk, bv) = _bwd_operands(cuda, torch.bfloat16, b, l, d,
+                                              True, 1.0, seed=17)
+    for plan in block_attention.bwd_candidates(l, d // h):
+        for exact in (False, True):
+            biased = block_attention._launch_bwd(q, k, v, do, h, l,
+                                                 (bq, bk, bv), exact,
+                                                 plan=plan)
+            added = block_attention._launch_bwd(q + bq, k + bk, v + bv, do,
+                                                h, l, None, exact, plan=plan)
+            torch.cuda.synchronize()
+            for x, y in zip(biased[:3], added[:3]):
+                assert torch.equal(x, y), (plan, exact)
 
 
 @pytest.mark.cuda
