@@ -11,8 +11,11 @@ step of ``clipa_tpu_torch/configs/clipa_finetune.py`` at
 ``img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128`` with the
 image tower on the flash route (``attn_impl="pallas"``), initialized from
 the pre-training state by ``masked_init``, the fused uint8 patch embed at
-the pre-training stem and the serving bucket, and the tools: the
-attention-variant sweep and the step-ablation ladder.
+the pre-training stem and the serving bucket, the tools (the
+attention-variant sweep and the step-ablation ladder), and CLIPA-v2's
+H/14 unmask-tuning step of ``clipa_finetune.py`` at
+``img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64`` on the
+config's ``auto`` route (the fused kernels; the backward's long scheme).
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel (build times
@@ -22,8 +25,9 @@ attention-variant sweep and the step-ablation ladder.
      the unbiased flat form, clip and exact mode past the clip (logits >>
      70), the fp32 twin at H/14 @224; then at FUSED_SHAPES, the three
      main-path shapes (bucket 256 at H/14, the pretrain step's B=384 L=50,
-     the fine-tune `auto` route's B=128 L=138) and the exact form without
-     biases at bucket 256; per case errors, the output of two calls bit for
+     the fine-tune `auto` route's B=128 L=138), the exact form without
+     biases at bucket 256 and the H/14 unmask-tuning stages (B=64 L=180,
+     B=16 L=346); per case errors, the output of two calls bit for
      bit, kernel and plain times by CUDA events, and SDPA's where it
      computes the same function (exact mode without biases); at
      FUSED_SHAPES also the kernel's and SDPA's device times (torch.profiler;
@@ -34,13 +38,16 @@ attention-variant sweep and the step-ablation ladder.
      bias grads, and the outputs of two calls bit for bit, at BWD_SHAPES
      (the pretrain step's B=384 L=50 D=1024 H=16 with bias, H/14 @84's
      B=256 L=37 D=1280 with bias, the fine-tune `auto` route's B=128 L=138,
-     and the exact form without bias at L=50: the whole-head scheme where
-     bwd_plan picks it), each with kernel and plain times by CUDA events,
+     the exact form without bias at L=50: the whole-head scheme; the H/14
+     unmask-tuning stages B=64 L=180 and B=16 L=346 D=1280 with bias and in
+     the exact form without: the long scheme), each with kernel and plain
+     times by CUDA events,
      the kernel's device time (torch.profiler), its share of the bound and,
      for the exact form, SDPA's backward beside it; then clip mode past the
      clip with and without bias (the clip-grad mask bites: the share of
-     scores at or past the clip is printed; device time too), H/14 @224 and L=577 (the split
-     scheme), exact mode past the clip, and the fp32 twin;
+     scores at or past the clip is printed; device time too), H/14 @224
+     and L=577 (the long scheme), exact mode past the clip, and the fp32
+     twin;
   4. the service: requests of 5, 64 and 300 uint8 images and two caption
      batches; shapes, finite values, unit norms; the forward kernel's launch
      count equals 32 (image layers) per image chunk; the images' embeddings
@@ -93,7 +100,16 @@ attention-variant sweep and the step-ablation ladder.
  11. ``tools/ablate_step.py`` at L/16 @112 B=384 (8 tokens): every key
      finite, fwd < grad, ``grad_noattn`` through the stand-in attention
      core (its calls counted) and without a kernel launch; and
-     ``tools/flops.py`` on ViT-H-14-CL32-GAP-BigVision on the meta device.
+     ``tools/flops.py`` on ViT-H-14-CL32-GAP-BigVision on the meta device;
+ 12. the H/14 unmask-tuning step (ViT-H/14 @224, 32 layers, D 1280, 16
+     heads of 80, mask 0.3: L = 180; the H text tower at 32 tokens; remat
+     "minimal", bf16 compute, Adam with a bf16 first moment; B=64, seeded
+     random weights): the backward plan is the long scheme; from the same
+     state and mask noise the kernel path's loss and gradients against the
+     plain path's (rtol 1e-2, cosine >= 0.99); one update step launches
+     the fused forward 64 times (32 layers and remat's recompute), the
+     fused backward 32, the flash kernels never; pairs/s (best of two runs
+     of 3 steps) and peak device memory.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -130,6 +146,16 @@ LEARN_STEPS = 20
 LEARN_FACTOR = 0.9
 
 FINETUNE = "img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128"
+# Phase 12: CLIPA-v2's H/14 unmask-tuning stage at 224 px (the config's
+# defaults but the batch): 1 + int(256 x 0.7) = 180 image tokens, the
+# config's `auto` route (the fused forward and the backward's long scheme).
+FINETUNE_H14 = "img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64"
+# Fused launches per H/14 fine-tune step: the forward once per image layer
+# and once more in remat's recompute, the backward once per layer; the text
+# tower (32 tokens) on the einsum path, the flash kernels never.
+FINETUNE_H14_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                         "fused_fwd": 2 * IMAGE_LAYERS,
+                         "fused_bwd": IMAGE_LAYERS}
 # Flash forward launches per fine-tune step: each image layer's forward and
 # remat's recompute of it in the backward.
 FINETUNE_FWD_LAUNCHES = 2 * TRAIN_IMAGE_LAYERS
@@ -160,22 +186,31 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
 
 # Phase 2's timed cases of the fused forward, (name, b, l, d, h, bias,
 # exact): the three main-path shapes (serving bucket 256 at H/14 @224, the
-# pretrain step, the fine-tune step's `auto` route) and the exact form
-# without biases that SDPA also computes
+# pretrain step, the fine-tune step's `auto` route), the exact form
+# without biases that SDPA also computes, and the H/14 unmask-tuning
+# stages (224 px at mask 0.3: L = 180, B = 64 as in phase 12; 336 px at
+# mask 0.4: L = 346, B = 16)
 FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
-                ("bucket 256 exact", 256, 257, 1280, 16, False, True))
+                ("bucket 256 exact", 256, 257, 1280, 16, False, True),
+                ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
+                ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False))
 
 # Phase 3's timed cases of the fused backward, (name, b, l, d, h, bias,
 # exact): the pretrain step's (L/16 @112), the H/14 @84 headline pretrain
 # (`bench.py` STAGES["pretrain_h14"]: hd 80), the fine-tune step's `auto`
-# route, and the exact form without biases that SDPA's backward also
-# computes
+# route, the exact form without biases that SDPA's backward also computes,
+# and the H/14 unmask-tuning stages (the long scheme), each also in the
+# exact form without biases beside SDPA's backward
 BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
               ("H/14 @84", 256, 37, 1280, 16, True, False),
               ("fine-tune auto", 128, 138, 1024, 16, True, False),
-              ("L/16 @112 exact", 384, 50, 1024, 16, False, True))
+              ("L/16 @112 exact", 384, 50, 1024, 16, False, True),
+              ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
+              ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
+              ("H/14 @224 mask 0.3 exact", 64, 180, 1280, 16, False, True),
+              ("H/14 @336 mask 0.4 exact", 16, 346, 1280, 16, False, True))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -807,16 +842,12 @@ def _transition(pretrained):
     return model, state, config
 
 
-def _finetune(card, model, state, config):
-    """Phase 8: the unmask-tuning step at B = 128 from the masked_init
-    state."""
-    import numpy as np
-    import torch
-    from clipa_tpu_torch import optim
+def _attention_counters():
+    """(reset, read): set the flash and fused attention kernels' launch
+    counters to 0; read them as {"flash_fwd", "flash_bwd", "fused_fwd",
+    "fused_bwd": launches}."""
     from clipa_tpu_torch.ops import block_attention as ba
     from clipa_tpu_torch.ops import flash_attention as fa
-    from clipa_tpu_torch.train import step
-
     counters = {"flash_fwd": fa.flash_attention,
                 "flash_bwd": fa.flash_attention_bwd,
                 "fused_fwd": ba.fused_attention,
@@ -829,6 +860,18 @@ def _finetune(card, model, state, config):
     def read():
         return {name: fn.launches for name, fn in counters.items()}
 
+    return reset, read
+
+
+def _finetune(card, model, state, config):
+    """Phase 8: the unmask-tuning step at B = 128 from the masked_init
+    state."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.train import step
+
+    reset, read = _attention_counters()
     batch_size = config.input.batch_size
     batch = _finetune_batch(config)
     params = state["params"]
@@ -943,6 +986,95 @@ def _finetune(card, model, state, config):
             "remat_min_cosine": remat["min_cosine"],
             "remat_max_abs_gap": remat["max_abs_gap"],
             "learning": [curve[0], curve[-1]]}
+
+
+def _finetune_h14(card):
+    """Phase 12: CLIPA-v2's H/14 unmask-tuning step (FINETUNE_H14: ViT-H/14
+    at 224 px, 32 layers, D 1280, 16 heads of 80; the H text tower at 32
+    tokens; remat "minimal", bf16 compute, Adam with a bf16 first moment;
+    seeded random weights) on the config's `auto` route: the fused forward
+    and the backward's long scheme at L = 180. The kernel path against the
+    plain path from the same state and mask noise, the launches of one
+    update step, pairs/s and peak device memory."""
+    import torch
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.configs import clipa_finetune
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.train import step
+
+    reset, read = _attention_counters()
+    config = clipa_finetune.get_config(FINETUNE_H14)
+    batch_size = config.input.batch_size
+    t0 = time.perf_counter()
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED + 2),
+        "cuda")
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=batch_size))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    params = state["params"]
+    block = model.img.Transformer.encoderblock_0.MultiHeadDotProductAttention_0
+    tokens = 1 + int(model.img.grid[0] * model.img.grid[1]
+                     * (1 - config.mask_ratio))
+    plan = ba.bwd_plan(tokens, model.img.width // block.num_heads)
+    torch.cuda.synchronize()
+    print(f"H/14 fine-tune: clipa_finetune.py:{FINETUNE_H14}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M fp32 "
+          f"parameters, compute {model.img.dtype}, image attn_impl "
+          f"{block.attn_impl}, remat {model.img.Transformer.remat_policy}, "
+          f"image tokens {tokens}, backward plan {plan}; built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if plan.scheme != ba.BWD_LONG:
+        raise RuntimeError(f"the backward plan at L = {tokens} is {plan}, "
+                           f"not the long scheme")
+    batch = _finetune_batch(config)
+
+    def grads():   # the same mask noise every time: step 0's generator
+        return _grads(model, params, batch, config.mask_ratio,
+                      step.mask_generator(config, 0, "cuda"))
+
+    # kernel path vs plain path from the same state and noise
+    loss_k, grads_k = grads()
+    before = read()
+    _set_attn_impl(model.img, "plain")
+    loss_p, grads_p = grads()
+    _set_attn_impl(model.img, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("H/14 fine-tune step, fused kernels vs plain", loss_k,
+                   loss_p, cmp, LOSS_RTOL)
+    del grads_k, grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the H/14 kernel path's step differs from the "
+                           "plain path's")
+
+    # the main path: one update step, counters read around it
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    state, meas = update(state, batch)
+    torch.cuda.synchronize()
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"H/14 fine-tune step: loss {float(meas['training_loss']):.6f}; "
+          f"kernel launches {launches} (expected {FINETUNE_H14_LAUNCHES}); "
+          f"peak device memory {peak_gb:.2f} GiB", flush=True)
+    if launches != FINETUNE_H14_LAUNCHES:
+        raise RuntimeError(f"H/14 fine-tune step launched {launches}, "
+                           f"expected {FINETUNE_H14_LAUNCHES}")
+    if not all(bool(torch.isfinite(v)) for v in meas.values()):
+        raise RuntimeError(f"non-finite measurements {meas}")
+
+    # pairs/s: best of two runs of 3 synchronous steps
+    rate = max(batch_size * _steps_per_s(update, state, batch, 3)
+               for _ in range(2))
+    print(f"{card}: H/14 fine-tune pairs/s at B={batch_size} (auto route) "
+          f"{rate:.2f}", flush=True)
+    return {"launches": launches, "pairs_per_s": rate, "peak_gb": peak_gb,
+            "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
+            "plan": list(plan)}
 
 
 def _patch_embed(gen):
@@ -1182,7 +1314,7 @@ def main() -> int:
     )]
     bwd_cases = list(bwd_by_shape.values()) + past_clip + [
         _bwd_case(*c, gen=gen) for c in (
-            (8, 257, 1280, 16, True, False, 1.0),   # the split scheme, hd 80
+            (8, 257, 1280, 16, True, False, 1.0),   # the long scheme, hd 80
             (2, 577, 1024, 16, False, False, 1.0),  # L = 577, no bias (K4)
             (2, 40, 256, 4, True, True, 40.0),      # exact mode, logits >> 70
         )]
@@ -1288,6 +1420,11 @@ def main() -> int:
     sweep = _sweep()
     tools = _tools()
 
+    # 12. the H/14 unmask-tuning step
+    torch.cuda.empty_cache()
+    h14 = _finetune_h14(card)
+    torch.cuda.empty_cache()
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -1295,6 +1432,11 @@ def main() -> int:
                                 "min_cosine", "remat_loss_rel",
                                 "remat_min_cosine", "remat_max_abs_gap",
                                 "learning")},
+    }, "finetune_h14": {
+        "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE_H14}",
+        "image_attn_impl": "auto",
+        **{k: h14[k] for k in ("launches", "pairs_per_s", "peak_gb",
+                               "loss_rel", "min_cosine", "plan")},
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -1304,7 +1446,8 @@ def main() -> int:
         "launches": launches + train["launches"]["fwd"],
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
-            "finetune_step_auto": tune["auto_launches"]["fused_fwd"]},
+            "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
+            "finetune_h14_step": h14["launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
@@ -1327,7 +1470,8 @@ def main() -> int:
         "launches": train["launches"]["bwd"],
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
-            "finetune_step_auto": tune["auto_launches"]["fused_bwd"]},
+            "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
+            "finetune_h14_step": h14["launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],

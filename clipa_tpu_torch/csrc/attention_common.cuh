@@ -307,6 +307,26 @@ __host__ __device__ constexpr int flash_max_warps(int hdp) {
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
+// Rows of a ring of `stages` tiles of `tile` rows, or every row of a
+// sequence of `len` (rounded up to a 16-row chunk) where fewer suffice.
+__host__ __device__ inline int ring_rows(int len, int stages, int tile) {
+  return stages * tile < round16(len) ? stages * tile : round16(len);
+}
+
+// cp_async_wait with a run-time count (a ring's depth), 0 <= n < 8.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
 // A flash launch plan's check: `blocks` blocks of `warps` warps (at most
 // `max_warps`) over `strips` 16-row strips, every block at least one strip
 // and at most `warps`.

@@ -36,7 +36,7 @@
 // sits between them; at L = 138 the whole-head block (9 warps, 136 KB of
 // shared memory) fits once per SM.
 //
-// Two schemes; ops/block_attention.py bwd_plan picks one per shape:
+// Three schemes; ops/block_attention.py bwd_plan picks one per shape:
 //   whole-head (L <= 16 kMaxChunks = 144: the pretrain shapes and the
 //   fine-tune `auto` route's L = 138): persistent blocks of one warp per
 //   16-row chunk of L, each (sample, head) an item.
@@ -64,18 +64,61 @@
 //   S and dP are formed once per (query, key) pair: 5 products. The chunk
 //   count is a template argument: nothing is loaded or computed for a
 //   16-row or 16-key chunk wholly past L (L = 50: 4 chunks; L = 37: 3).
-//   split (longer sequences, and the deferred variant): one block per
+//   long (L > 144: the H/14 unmask-tuning stages' L = 180 at 224 px, mask
+//   0.3, and L = 346 at 336 px, mask 0.4; up to the 577 of an unmasked
+//   336 px tower): S and dP of a 16-query strip over every key no longer
+//   fit in registers, nor bf16(P) and dsb beside the operands in shared
+//   memory, so a dq kernel and a dk/dv kernel share the row statistics
+//   through device memory, as in the split scheme, but built as the fused
+//   forward is: one warp per 16-row strip, the strips of a (sample, head)
+//   spread over `blocks` blocks of `warps` warps (bwd_plan ranks the
+//   splits as fwd_plan does, then by blocks resident per SM: L = 180 at hd
+//   80 two blocks of 6 warps, L = 346 two of 11), the streamed operands
+//   through a cp.async ring of
+//   `stages` 128-row tiles that holds every row where it fits (L = 180 and
+//   346 at hd 80: no refill barrier), else two stages;
+//     1. dq kernel: the block's Q and dO strips, K and V through the ring,
+//        each thread biasing the chunks it copied (RowSlice, bf16x2, one
+//        rounding). Sweep A, per 16-key chunk: S and dP through ldmatrix
+//        fragments, e by exp2 with the scale in the exponent and the clip
+//        in the log2 domain (exact mode: against the running row max,
+//        rescaling), r = rowsum(e) and u = rowsum(e dP), two chunks per
+//        step with Q's and dO's fragments loaded once for both (twice the
+//        independent products in flight). Then lse2 = m +
+//        log2(r) and delta = u / r (rowsum(dP * P), from p and dp) go to a
+//        (2, B * L * H) fp32 scratch. Sweep B: S and dP again, p = 2^(x -
+//        lse2), dsb, and dQ += dsb Kb with dsb's A fragments straight from
+//        the registers and Kb through ldmatrix.trans; where the ring holds
+//        every key, sweep B reads the tiles sweep A left there;
+//     2. dk/dv kernel: the block's K and V strips (biased), Q (biased), dO
+//        and the statistics through the ring; per 16-query chunk S^T and
+//        dP^T, then P^T and dS^T, dV += bf16(P^T) dO and dK += dsb^T Qb
+//        (dO and Qb through ldmatrix.trans), fp32 registers rounded once;
+//     3. bias grads: each block's fp32 column sums of its strips (the warps
+//        in order) as one partial per (sample, block); the second pass
+//        sums them in a fixed order.
+//   9 products, as in the split scheme, but nothing past L is loaded or
+//   computed (16-row strips, 16-key chunks: L = 180 pads to 192, not 256),
+//   no tile is copied or biased more than once per block, and every
+//   fragment comes through ldmatrix. It replaces the split pair on the
+//   normalized entry. Its bound at the H/14 fine-tune shapes (D = 1280, 16
+//   heads of 80; q, k, v, dO in and dq, dk, dv out once each): B = 64,
+//   L = 180: 0.0616 ms by bytes; B = 16, L = 346: 0.0296 ms. Latency and
+//   instruction issue hold it back, as at the pretrain shapes: three warps
+//   per SM sub-partition, each product's accumulation a chain of 5
+//   dependent mma at hd 80; the two-chunk step of sweeps A and B doubles
+//   the independent chains (8-9% faster at both shapes, measured in turns).
+//   split (PR 2's pair, kept for the deferred variant alone: no main path
+//   calls it, and the normalized entry refuses the scheme): one block per
 //   (sample, head, 64-row tile), 4 warps, synchronous tile loads:
 //     1. dq kernel: sweep A over the key tiles accumulates the row sum r of
-//        exp (with the online row max m in exact mode) and u = sum(exp *
-//        dp), so rowsum(dp * p) = u / r; sweep B recomputes s and dp and
-//        accumulates dq in registers. It writes (m, r, delta) per (row,
-//        head) to scratch;
+//        exp (with the online row max m in exact mode); sweep A2 the
+//        deferred u (below); sweep B recomputes s and dp and accumulates dq
+//        in registers. It writes (m, r, delta) per (row, head) to scratch;
 //     2. dk/dv kernel: per key tile, sweeps the q-tiles with those
 //        statistics and accumulates dK and dV in fp32 registers;
 //     3. bias grads: each block writes the fp32 column sums of its tile;
 //        the second pass sums those partials per column in a fixed order.
-//   9 products: s and dp three times.
 // Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate); a wgmma
 // tile's 64 rows would be mostly padding at L = 37 or 50.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py --kernels
@@ -88,7 +131,14 @@
 // SDPA's backward 0.3471-0.3478. The biases (their adds, the column sums,
 // the second pass) are most of the gap between the biased clip form's
 // 0.164 ms at L = 50 and the unbiased exact form's 0.127.
-// Other shapes in PERF.md section 6.
+// The long scheme (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py
+// --kernels fused, device time, against the split pair in one run, then
+// against its own variants in turns): B = 64, L = 180 (bias, clip)
+// 0.3806-0.3872 ms, 16% of the bound, against the split pair's
+// 0.9131-0.9181; B = 16, L = 346 0.2807-0.2840, 10.5%, against
+// 0.7696-0.7733; the exact form without bias 0.2964-0.2981 at L = 180 and
+// 0.2439-0.2466 at L = 346 against SDPA's backward 0.2736-0.2759 and
+// 0.1549-0.1584 (1.08x, 1.57x). Other shapes in PERF.md section 6.
 //
 // fp32 operands (configs/smoke.py trains in fp32, as the Pallas kernels
 // take fp32 operands) run scalar twins: one block per (sample, head, row),
@@ -96,8 +146,8 @@
 // written to be right, not fast.
 //
 // Deferred normalization (entry clipa_fused_attention_bwd_deferred, bf16
-// only, the split scheme only; the compile-time variant kDefer of its two
-// kernels): the backward variant that clipa_tpu/tools/attn_sweep.py:76
+// only, the split scheme's two kernels): the backward variant that
+// clipa_tpu/tools/attn_sweep.py:76
 // make_bwd_bias(g, defer=True) times, computing the same gradients with the
 // softmax's 1/denom folded into dO's rows so the score-sized products run on
 // unnormalized e:
@@ -111,8 +161,8 @@
 // right; this variant computes the gradient. The held-against plain twin is
 // attention_plain_bwd(..., defer=True). The dq kernel needs denom before it
 // can form dohn, so it sweeps the key tiles three times (denom; then
-// rowsum(dphat * e); then dq) where the normalized variant sweeps twice; the
-// dk/dv kernel scales its dO tiles by the stored 1/denom as it loads them.
+// rowsum(dphat * e); then dq); the dk/dv kernel scales its dO tiles by the
+// stored 1/denom as it loads them.
 
 #include <math.h>
 
@@ -266,11 +316,11 @@ __device__ __forceinline__ void store_tile(float acc[kHdp / 8][4],
   }
 }
 
-// Kernel 1: dq and the softmax statistics, one block per (q-tile, head,
-// sample). stats: m, r, delta, each (batch * seq * num_heads) fp32 indexed
-// (sample * num_heads + head) * seq + row. kDefer: the deferred variant
-// (delta = rowsum(dphat * e) / r there).
-template <int kHdp, bool kDefer>
+// Kernel 1 of the split scheme (the deferred variant): dq and the softmax
+// statistics, one block per (q-tile, head, sample). stats: m, r, delta,
+// each (batch * seq * num_heads) fp32 indexed (sample * num_heads + head) *
+// seq + row, with delta = rowsum(dphat * e) / r.
+template <int kHdp>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -289,7 +339,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sk = sdo + kTile * kStride;
   bf16* sv = sk + kTile * kStride;
   float* colsum = reinterpret_cast<float*>(sv + kTile * kStride);
-  float* s_den = colsum + kWarps * kHdp;  // kDefer: denom per tile row
+  float* s_den = colsum + kWarps * kHdp;  // denom per tile row
 
   const int h = blockIdx.y;
   const int d_model = num_heads * hd;
@@ -308,10 +358,10 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* sqw = sq + warp * 16 * kStride;
   const bf16* sdow = sdo + warp * 16 * kStride;
 
-  // Sweep A: per row (g, g + 8 of this thread), partial over this thread's
-  // key columns until the quad reduction; the row max is quad-reduced per
-  // tile so all four threads of a row agree on it. kDefer: r only (u needs
-  // dohn, hence r, first).
+  // Sweep A: r per row (g, g + 8 of this thread), partial over this
+  // thread's key columns until the quad reduction; the row max is
+  // quad-reduced per tile so all four threads of a row agree on it. (u
+  // needs dohn, hence r, first.)
   float row_max[2] = {exact ? -INFINITY : 0.f, exact ? -INFINITY : 0.f};
   float row_sum[2] = {0.f, 0.f};
   float row_u[2] = {0.f, 0.f};
@@ -319,11 +369,9 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();
     load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-    if (!kDefer) load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
     __syncthreads();
     if (!active) continue;
     warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-    if (!kDefer) warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
     if (exact) {
       float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -345,15 +393,12 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float alpha = __expf(row_max[r] - m_new);
         row_max[r] = m_new;
         row_sum[r] *= alpha;
-        row_u[r] *= alpha;
       }
 #pragma unroll
       for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float e = __expf(s[nt][i] - row_max[i >> 1]);
-          row_sum[i >> 1] += e;
-          if (!kDefer) row_u[i >> 1] += e * dp[nt][i];
+          row_sum[i >> 1] += __expf(s[nt][i] - row_max[i >> 1]);
         }
       }
     } else {
@@ -363,9 +408,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int i = 0; i < 4; ++i) {
           const int key = k0 + nt * 8 + 2 * t + (i & 1);
           const float x = fminf(fmaxf(s[nt][i] * scale, -kExpClip), kExpClip);
-          const float e = key < seq ? __expf(x) : 0.f;
-          row_sum[i >> 1] += e;
-          if (!kDefer) row_u[i >> 1] += e * dp[nt][i];
+          row_sum[i >> 1] += key < seq ? __expf(x) : 0.f;
         }
       }
     }
@@ -375,36 +418,34 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
     row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
   }
-  if (kDefer) {
-    // dO -> dohn = bf16(dO / r) in place (rows past seq divide by 1), then
-    // sweep A2: u = rowsum(dphat * e) with dphat = dohn . V.
-    if (t == 0) {
+  // dO -> dohn = bf16(dO / r) in place (rows past seq divide by 1), then
+  // sweep A2: u = rowsum(dphat * e) with dphat = dohn . V.
+  if (t == 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int lr = warp * 16 + g + 8 * r;
-        s_den[lr] = q0 + lr < seq ? row_sum[r] : 1.f;
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int lr = warp * 16 + g + 8 * r;
+      s_den[lr] = q0 + lr < seq ? row_sum[r] : 1.f;
     }
+  }
+  __syncthreads();
+  scale_rows<kHdp>(sdo, s_den);
+  for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();
-    scale_rows<kHdp>(sdo, s_den);
-    for (int k0 = 0; k0 < seq; k0 += kTile) {
-      __syncthreads();
-      load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-      load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
-      __syncthreads();
-      if (!active) continue;
-      warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-      warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
+    load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
+    load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
+    __syncthreads();
+    if (!active) continue;
+    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
+    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + nt * 8 + 2 * t + (i & 1);
-          const float x = s[nt][i] * scale;
-          const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          if (key < seq) {
-            row_u[i >> 1] += __expf(xe - row_max[i >> 1]) * dp[nt][i];
-          }
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + nt * 8 + 2 * t + (i & 1);
+        const float x = s[nt][i] * scale;
+        const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
+        if (key < seq) {
+          row_u[i >> 1] += __expf(xe - row_max[i >> 1]) * dp[nt][i];
         }
       }
     }
@@ -450,8 +491,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (key < seq) {
           const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
           const float e = __expf(xe - row_max[r]);
-          const float p = kDefer ? e : e / row_sum[r];
-          ds = p * (dp[nt][i] - delta[r]);
+          ds = e * (dp[nt][i] - delta[r]);
           if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
         }
         s[nt][i] = ds * scale;
@@ -465,11 +505,11 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    h * hd : nullptr, colsum, q0, seq, hd, d_model);
 }
 
-// Kernel 2: dk and dv, one block per (key tile, head, sample), sweeping the
-// q-tiles with kernel 1's statistics. The warp's 16 key rows are the rows of
-// the transposed score tile s^T (keys x queries). kDefer: dO tiles scaled to
-// dohn as they arrive, p replaced by the unnormalized e.
-template <int kHdp, bool kDefer>
+// Kernel 2 of the split scheme: dk and dv, one block per (key tile, head,
+// sample), sweeping the q-tiles with kernel 1's statistics. The warp's 16
+// key rows are the rows of the transposed score tile s^T (keys x queries).
+// dO tiles scaled to dohn as they arrive; p is the unnormalized e.
+template <int kHdp>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -534,10 +574,8 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
       s_delta[i] = ok ? stats[2 * (size_t)n_stats + stat0 + q0 + i] : 0.f;
     }
     __syncthreads();
-    if (kDefer) {
-      scale_rows<kHdp>(sdo, s_sum);
-      __syncthreads();
-    }
+    scale_rows<kHdp>(sdo, s_sum);
+    __syncthreads();
     if (!active) continue;
     warp_scores<kHdp, kTile / 8>(st, skw, sq);
     warp_scores<kHdp, kTile / 8>(dpt, svw, sdo);
@@ -550,8 +588,7 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
         float p = 0.f, ds = 0.f;
         if (key_ok[i >> 1] && q0 + col < seq) {
           const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          const float e = __expf(xe - s_max[col]);
-          p = kDefer ? e : e / s_sum[col];
+          p = __expf(xe - s_max[col]);
           ds = p * (dpt[nt][i] - s_delta[col]);
           if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
         }
@@ -805,6 +842,570 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The long scheme (L past 16 kMaxChunks): two kernels over 16-row strips.
+// The strips of a (sample, head) spread over `blocks` blocks of `warps`
+// warps (one warp per strip, as the fused forward spreads its query
+// strips); the other operand pair streams through a ring of `stages`
+// 128-row tiles, every tile in flight at once where the ring holds the
+// whole sequence.
+// ---------------------------------------------------------------------------
+
+constexpr int kRingTile = 128;   // rows per ring tile
+constexpr int kMaxStages = 8;    // the deepest ring the launcher takes
+
+// The long scheme's shared memory per block, in bytes. dq kernel: the
+// block's Q and dO strips, the K and V rings (`ring` rows each), then the
+// warps' fp32 column sums of dq. dk/dv kernel: its K and V strips, the Q
+// and dO rings, the ring's fp32 row statistics (lse2, then delta), then the
+// warps' column sums of dk and of dv.
+__host__ __device__ inline int long_smem_dq(int hdp, int warps, int ring) {
+  return (2 * warps * 16 + 2 * ring) * (hdp + 8) * (int)sizeof(bf16) +
+         warps * hdp * (int)sizeof(float);
+}
+__host__ __device__ inline int long_smem_dkv(int hdp, int warps, int ring) {
+  return (2 * warps * 16 + 2 * ring) * (hdp + 8) * (int)sizeof(bf16) +
+         (2 * ring + 2 * warps * hdp) * (int)sizeof(float);
+}
+
+// acc[2c], acc[2c + 1] (16 x 16 each) = A . B_c^T for a warp's 16-row
+// block `a_rows` and the kN 16-row blocks B_c at b_rows + 16 c rows (all
+// row-major over the head dim, stride kHdp + 8): A's fragment loaded once
+// per 16 columns for the kN blocks, every fragment through ldmatrix.
+template <int kHdp, int kN>
+__device__ __forceinline__ void mma_scores(float acc[2 * kN][4],
+                                           const bf16* a_rows,
+                                           const bf16* b_rows) {
+  constexpr int kStride = kHdp + 8;
+#pragma unroll
+  for (int nt = 0; nt < 2 * kN; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  }
+#pragma unroll
+  for (int kc = 0; kc < kHdp / 16; ++kc) {
+    uint32_t a[4];
+    ldsm_x4(a, ldsm_rows16(a_rows + kc * 16, kStride));
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      uint32_t b[4];
+      ldsm_x4(b, ldsm_rows8x2(b_rows + c * 16 * kStride + kc * 16, kStride));
+      mma_16816(acc[2 * c], a, b[0], b[1]);
+      mma_16816(acc[2 * c + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Sweep A of the dq kernel over kN 16-key chunks (keys at `skc`, V rows at
+// `svc`, the first key key0; every chunk holds a key below L) for a warp's
+// 16 query rows (`sqw`, dO at `sdow`): S = Qb Kb^T and dP = dO Vb^T, then
+// this thread's row statistics (rows g and g + 8), partial over its key
+// columns: r = sum(e), u = sum(e dp). Clip mode: e = 2^clamp(s scale
+// log2(e), +-70 log2(e)), 0 for keys past L (m stays 0). Exact mode: e =
+// 2^(s scale log2(e) - m) against the running row max m (log2 domain,
+// quad-reduced per step so the four threads of a row agree; r and u
+// rescaled as it grows; keys past L at -1e30 before the max). Element i of
+// n-tile nt: query g + 8 (i >> 1), key key0 + 8 nt + 2t + (i & 1).
+template <int kHdp, int kN>
+__device__ __forceinline__ void stats_chunks(float m[2], float r[2],
+                                             float u[2], const bf16* sqw,
+                                             const bf16* sdow,
+                                             const bf16* skc,
+                                             const bf16* svc, int key0,
+                                             int seq, float scale_log2,
+                                             int exact) {
+  const int t = threadIdx.x % 4;
+  float s[2 * kN][4], dp[2 * kN][4];
+  mma_scores<kHdp, kN>(s, sqw, skc);
+  mma_scores<kHdp, kN>(dp, sdow, svc);
+  const bool ragged = seq - key0 < 16 * kN;
+  if (exact) {
+    float cm[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (ragged && key0 + nt * 8 + 2 * t + (i & 1) >= seq) {
+          s[nt][i] = kNegInf;
+        }
+        cm[i >> 1] = fmaxf(cm[i >> 1], s[nt][i]);
+      }
+    }
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      cm[row] = fmaxf(cm[row], __shfl_xor_sync(0xffffffffu, cm[row], 1));
+      cm[row] = fmaxf(cm[row], __shfl_xor_sync(0xffffffffu, cm[row], 2));
+      const float m_new = fmaxf(m[row], cm[row] * scale_log2);
+      const float alpha = ex2(m[row] - m_new);
+      m[row] = m_new;
+      r[row] *= alpha;
+      u[row] *= alpha;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = ex2(fmaf(s[nt][i], scale_log2, -m[i >> 1]));
+        r[i >> 1] += e;
+        u[i >> 1] = fmaf(e, dp[nt][i], u[i >> 1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float e = ex2(fminf(fmaxf(s[nt][i] * scale_log2, -kClipLog2),
+                            kClipLog2));
+        if (ragged && key0 + nt * 8 + 2 * t + (i & 1) >= seq) e = 0.f;
+        r[i >> 1] += e;
+        u[i >> 1] = fmaf(e, dp[nt][i], u[i >> 1]);
+      }
+    }
+  }
+}
+
+// Sweep B of the dq kernel over kN chunks: S and dP again, p = 2^(x -
+// lse2) with x the clipped (clip mode) or raw (exact mode) s scale log2(e)
+// and lse2 = m + log2(r) the row's statistic, ds = p (dp - delta) scale,
+// zeroed where |s scale| >= 70 in clip mode and for keys past L; then acc
+// += bf16(ds) Kb, the A fragments straight from the registers, Kb through
+// ldmatrix.trans.
+template <int kHdp, int kN>
+__device__ __forceinline__ void dq_chunks(float acc[kHdp / 8][4],
+                                          const float lse2[2],
+                                          const float delta[2],
+                                          const bf16* sqw, const bf16* sdow,
+                                          const bf16* skc, const bf16* svc,
+                                          int key0, int seq, float scale,
+                                          float scale_log2, int exact) {
+  constexpr int kStride = kHdp + 8;
+  const int t = threadIdx.x % 4;
+  float s[2 * kN][4], dp[2 * kN][4];
+  mma_scores<kHdp, kN>(s, sqw, skc);
+  mma_scores<kHdp, kN>(dp, sdow, svc);
+  const bool ragged = seq - key0 < 16 * kN;
+  if (exact) {
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = i >> 1;
+        const float p = ex2(fmaf(s[nt][i], scale_log2, -lse2[row]));
+        s[nt][i] = p * (dp[nt][i] - delta[row]) * scale;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = i >> 1;
+        const float x = s[nt][i] * scale_log2;
+        const float p =
+            ex2(fminf(fmaxf(x, -kClipLog2), kClipLog2) - lse2[row]);
+        const float ds = p * (dp[nt][i] - delta[row]) * scale;
+        // the clip's own gradient: 0 where |s scale| >= 70
+        s[nt][i] = fabsf(s[nt][i] * scale) >= kExpClip ? 0.f : ds;
+      }
+    }
+  }
+  if (ragged) {
+#pragma unroll
+    for (int nt = 0; nt < 2 * kN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (key0 + nt * 8 + 2 * t + (i & 1) >= seq) s[nt][i] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    uint32_t a[4];
+    pack_a(a, s[2 * c], s[2 * c + 1]);
+    mma_rows16<kHdp>(acc, a, skc + c * 16 * kStride);
+  }
+}
+
+// One 16-query chunk (Qb at `sqc`, dO at `sdoc`, the statistics of its
+// rows at lse2_c and delta_c, the first query query0) for the warp that
+// owns the 16 keys at `skw` (Vb at `svw`, the first key key0): S^T = Kb
+// Qb^T and dP^T = Vb dO^T, P^T and dS^T as in dq_chunks (0 for keys or
+// queries past L), then dv += bf16(P^T) dO and dk += bf16(dS^T) Qb, dO and
+// Qb through ldmatrix.trans. Element i of n-tile nt: key key0 + g + 8 (i >>
+// 1), query query0 + 8 nt + 2t + (i & 1).
+template <int kHdp>
+__device__ __forceinline__ void key_chunk(float dk[kHdp / 8][4],
+                                          float dv[kHdp / 8][4],
+                                          const bf16* skw, const bf16* svw,
+                                          const bf16* sqc, const bf16* sdoc,
+                                          const float* lse2_c,
+                                          const float* delta_c, int key0,
+                                          int query0, int seq, float scale,
+                                          float scale_log2, int exact) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float st[2][4], dpt[2][4];
+  mma_scores<kHdp, 1>(st, skw, sqc);
+  mma_scores<kHdp, 1>(dpt, svw, sdoc);
+  float2 l2[2], d2[2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    l2[nt] = *reinterpret_cast<const float2*>(lse2_c + nt * 8 + 2 * t);
+    d2[nt] = *reinterpret_cast<const float2*>(delta_c + nt * 8 + 2 * t);
+  }
+  if (exact) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float l = (i & 1) ? l2[nt].y : l2[nt].x;
+        const float dl = (i & 1) ? d2[nt].y : d2[nt].x;
+        const float p = ex2(fmaf(st[nt][i], scale_log2, -l));
+        dpt[nt][i] = p * (dpt[nt][i] - dl) * scale;
+        st[nt][i] = p;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float l = (i & 1) ? l2[nt].y : l2[nt].x;
+        const float dl = (i & 1) ? d2[nt].y : d2[nt].x;
+        const float x = st[nt][i] * scale_log2;
+        const float p =
+            ex2(fminf(fmaxf(x, -kClipLog2), kClipLog2) - l);
+        const float ds = p * (dpt[nt][i] - dl) * scale;
+        dpt[nt][i] = fabsf(st[nt][i] * scale) >= kExpClip ? 0.f : ds;
+        st[nt][i] = p;
+      }
+    }
+  }
+  // keys or queries past L: 0 (a select, not a branch)
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = key0 + g + 8 * (i >> 1) < seq &&
+                      query0 + nt * 8 + 2 * t + (i & 1) < seq;
+      st[nt][i] = ok ? st[nt][i] : 0.f;
+      dpt[nt][i] = ok ? dpt[nt][i] : 0.f;
+    }
+  }
+  uint32_t pa[4], da[4];
+  pack_a(pa, st[0], st[1]);
+  pack_a(da, dpt[0], dpt[1]);
+  mma_rows16<kHdp>(dv, pa, sdoc);
+  mma_rows16<kHdp>(dk, da, sqc);
+}
+
+// After a barrier that makes the warps' sums visible: this block's fp32
+// column sums, its first `n` warps' rows of `colsum` (kHdp floats each)
+// summed in order, to out[0, hd).
+template <int kHdp>
+__device__ __forceinline__ void block_colsum(const float* colsum, int n,
+                                             float* out, int hd) {
+  __syncthreads();
+  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+    float sum = 0.f;
+    for (int w = 0; w < n; ++w) sum += colsum[w * kHdp + c];
+    out[c] = sum;
+  }
+}
+
+// Kernel 1 of the long scheme: dq and the softmax statistics, grid
+// (blocks, num_heads, batch). Each block copies its Q and dO strips and
+// streams K and V through the ring; sweep A over every key tile gives each
+// query row m, r and u, hence lse2 = m + log2(r) and delta = rowsum(dP * P)
+// = u / r (written to stats: lse2 at [(sample * num_heads + head) * seq +
+// row], delta n_stats further); sweep B over the tiles again forms dq in
+// fp32 registers. Where the ring holds every key, sweep B reads the tiles
+// sweep A left in it; else it streams (and biases) them once more.
+// partial: null, or the fp32 column sums of dq per (sample, block).
+template <int kHdp>
+__global__ void __launch_bounds__(flash_max_warps(kHdp) * 32)
+attention_bwd_long_dq_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const bf16* __restrict__ bq,
+                             const bf16* __restrict__ bk,
+                             const bf16* __restrict__ bv,
+                             bf16* __restrict__ dq, float* __restrict__ stats,
+                             float* __restrict__ partial, int seq,
+                             int num_heads, int hd, int stages, float scale,
+                             int exact, int n_stats) {
+  constexpr int kStride = kHdp + 8;
+  constexpr int kNt = kHdp / 8;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warps = nthreads / 32, warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int ring = ring_rows(seq, stages, kRingTile);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sdo = sq + warps * 16 * kStride;
+  bf16* sk = sdo + warps * 16 * kStride;
+  bf16* sv = sk + ring * kStride;
+  float* colsum = reinterpret_cast<float*>(sv + ring * kStride);
+
+  const int h = blockIdx.y;
+  const int ld = num_heads * hd;
+  const size_t base = (size_t)blockIdx.z * seq * ld + (size_t)h * hd;
+  const int2 strips = strip_range((seq + 15) / 16, gridDim.x, blockIdx.x);
+  const int q0 = strips.x * 16, q_rows = (strips.y - strips.x) * 16;
+  // A warp past the block's strips only helps with the copies.
+  const bool active = strips.x + warp < strips.y;
+  const int ntiles = (seq + kRingTile - 1) / kRingTile;
+  const int inflight = min(stages, ntiles);
+  const bool resident = stages >= ntiles;   // the ring holds every key
+  const int loads = resident ? ntiles : 2 * ntiles;
+  const float scale_log2 = scale * kLog2e;
+  const RowSlice<kHdp> slice(tid, nthreads);
+
+  auto tile_rows = [&](int tile) {
+    return min(kRingTile, round16(seq - tile * kRingTile));
+  };
+  // Load `load` brings key tile load % ntiles into ring stage load %
+  // stages, as one commit group (empty past the last load, so the group
+  // count stays uniform).
+  auto stage = [&](int load) { return (load % stages) * kRingTile * kStride; };
+  auto issue = [&](int load) {
+    if (load < loads) {
+      const int tile = load % ntiles;
+      issue_rows<kHdp>(sk + stage(load), k + base, tile * kRingTile,
+                       tile_rows(tile), seq, hd, ld, slice);
+      issue_rows<kHdp>(sv + stage(load), v + base, tile * kRingTile,
+                       tile_rows(tile), seq, hd, ld, slice);
+    }
+    cp_async_commit();
+  };
+  // Q and dO ride with the first load.
+  issue_rows<kHdp>(sq, q + base, q0, q_rows, seq, hd, ld, slice);
+  issue_rows<kHdp>(sdo, dout + base, q0, q_rows, seq, hd, ld, slice);
+  for (int load = 0; load < inflight; ++load) issue(load);
+
+  const bf16* sqw = sq + warp * 16 * kStride;
+  const bf16* sdow = sdo + warp * 16 * kStride;
+  float m[2] = {exact ? kNegInf : 0.f, exact ? kNegInf : 0.f};
+  float r[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float acc[kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  }
+  // Turn j: sweep A over tile j (j < ntiles), else sweep B over tile j -
+  // ntiles; load j arrives in turn j (every load before sweep B where the
+  // ring holds every key).
+  for (int j = 0; j < 2 * ntiles; ++j) {
+    const int tile = j % ntiles;
+    const bool arrives = j < loads;
+    if (arrives) {
+      cp_async_wait_n(inflight - 1);   // this thread's copies of load j
+      if (bq != nullptr) {
+        if (j == 0) {
+          add_bias_rows<kHdp>(sq, bq + h * hd, q0, q_rows, seq, hd, slice);
+        }
+        add_bias_rows<kHdp>(sk + stage(j), bk + h * hd, tile * kRingTile,
+                            tile_rows(tile), seq, hd, slice);
+        add_bias_rows<kHdp>(sv + stage(j), bv + h * hd, tile * kRingTile,
+                            tile_rows(tile), seq, hd, slice);
+      }
+      __syncthreads();   // this tile (and Q), biased, for every warp
+    }
+    if (active) {
+      if (j == ntiles) {
+        // the row statistics, whole: quad sums, then lse2 and delta
+#pragma unroll
+        for (int row = 0; row < 2; ++row) {
+          r[row] += __shfl_xor_sync(0xffffffffu, r[row], 1);
+          r[row] += __shfl_xor_sync(0xffffffffu, r[row], 2);
+          u[row] += __shfl_xor_sync(0xffffffffu, u[row], 1);
+          u[row] += __shfl_xor_sync(0xffffffffu, u[row], 2);
+          delta[row] = u[row] / r[row];
+          lse2[row] = m[row] + log2f(r[row]);
+          const int qrow = q0 + warp * 16 + g + 8 * row;
+          if (t == 0 && qrow < seq) {
+            const size_t at =
+                ((size_t)blockIdx.z * num_heads + h) * seq + qrow;
+            stats[at] = lse2[row];
+            stats[n_stats + at] = delta[row];
+          }
+        }
+      }
+      const int k0 = tile * kRingTile;
+      const int st = stage(resident ? tile : j);
+      const int nc = min(kRingTile / 16, (seq - k0 + 15) / 16);
+      // two 16-key chunks per step (twice the independent products in
+      // flight), then the odd one
+      for (int c = 0; c < nc; c += 2) {
+        const bf16* skc = sk + st + c * 16 * kStride;
+        const bf16* svc = sv + st + c * 16 * kStride;
+        const int key0 = k0 + c * 16;
+        if (j < ntiles) {
+          if (c + 1 < nc) {
+            stats_chunks<kHdp, 2>(m, r, u, sqw, sdow, skc, svc, key0, seq,
+                                  scale_log2, exact);
+          } else {
+            stats_chunks<kHdp, 1>(m, r, u, sqw, sdow, skc, svc, key0, seq,
+                                  scale_log2, exact);
+          }
+        } else if (c + 1 < nc) {
+          dq_chunks<kHdp, 2>(acc, lse2, delta, sqw, sdow, skc, svc, key0,
+                             seq, scale, scale_log2, exact);
+        } else {
+          dq_chunks<kHdp, 1>(acc, lse2, delta, sqw, sdow, skc, svc, key0,
+                             seq, scale, scale_log2, exact);
+        }
+      }
+    }
+    if (arrives) {
+      // a ring that refills: every warp done with this stage first
+      if (inflight < loads) __syncthreads();
+      issue(j + inflight);
+    }
+  }
+  const int row0 = q0 + warp * 16;
+  if (active) {
+    store_strip<kHdp>(acc, dq + base, row0, seq, hd, ld, 1.f);
+    if (partial != nullptr) {
+      warp_colsum<kHdp>(acc, colsum + warp * kHdp, row0, seq);
+    }
+  }
+  if (partial == nullptr) return;
+  block_colsum<kHdp>(colsum, strips.y - strips.x,
+                     partial + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) *
+                                   ld + h * hd, hd);
+}
+
+// Kernel 2 of the long scheme: dk and dv, grid (blocks, num_heads, batch),
+// the key strips spread as kernel 1 spreads the query strips. Each block
+// copies its K and V strips and streams Q, dO and kernel 1's (lse2, delta)
+// through the ring, one sweep; dK and dV accumulate in fp32 registers.
+// partial_k/partial_v: null, or the fp32 column sums of dk and dv per
+// (sample, block).
+template <int kHdp>
+__global__ void __launch_bounds__(flash_max_warps(kHdp) * 32)
+attention_bwd_long_dkv_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const bf16* __restrict__ bq,
+                              const bf16* __restrict__ bk,
+                              const bf16* __restrict__ bv,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              const float* __restrict__ stats,
+                              float* __restrict__ partial_k,
+                              float* __restrict__ partial_v, int seq,
+                              int num_heads, int hd, int stages, float scale,
+                              int exact, int n_stats) {
+  constexpr int kStride = kHdp + 8;
+  constexpr int kNt = kHdp / 8;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warps = nthreads / 32, warp = tid / 32;
+  const int ring = ring_rows(seq, stages, kRingTile);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + warps * 16 * kStride;
+  bf16* sq = sv + warps * 16 * kStride;
+  bf16* sdo = sq + ring * kStride;
+  float* s_lse2 = reinterpret_cast<float*>(sdo + ring * kStride);
+  float* s_delta = s_lse2 + ring;
+  float* colsum = s_delta + ring;
+
+  const int h = blockIdx.y;
+  const int ld = num_heads * hd;
+  const size_t base = (size_t)blockIdx.z * seq * ld + (size_t)h * hd;
+  const float* lse2_h = stats + ((size_t)blockIdx.z * num_heads + h) * seq;
+  const float* delta_h = lse2_h + n_stats;
+  const int2 strips = strip_range((seq + 15) / 16, gridDim.x, blockIdx.x);
+  const int k0 = strips.x * 16, k_rows = (strips.y - strips.x) * 16;
+  const bool active = strips.x + warp < strips.y;
+  const int ntiles = (seq + kRingTile - 1) / kRingTile;
+  const int inflight = min(stages, ntiles);
+  const float scale_log2 = scale * kLog2e;
+  const RowSlice<kHdp> slice(tid, nthreads);
+
+  auto tile_rows = [&](int tile) {
+    return min(kRingTile, round16(seq - tile * kRingTile));
+  };
+  auto stage = [&](int tile) { return (tile % stages) * kRingTile; };
+  // Q, dO, lse2 and delta of query tile `tile`: one commit group (empty
+  // past the last tile).
+  auto issue = [&](int tile) {
+    if (tile < ntiles) {
+      const int q0 = tile * kRingTile, n = tile_rows(tile);
+      issue_rows<kHdp>(sq + stage(tile) * kStride, q + base, q0, n, seq, hd,
+                       ld, slice);
+      issue_rows<kHdp>(sdo + stage(tile) * kStride, dout + base, q0, n, seq,
+                       hd, ld, slice);
+      for (int i = tid; i < n; i += nthreads) {
+        const bool ok = q0 + i < seq;
+        cp_async_4(s_lse2 + stage(tile) + i, ok ? lse2_h + q0 + i : lse2_h,
+                   ok);
+        cp_async_4(s_delta + stage(tile) + i,
+                   ok ? delta_h + q0 + i : delta_h, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // K and V ride with the first query tile.
+  issue_rows<kHdp>(sk, k + base, k0, k_rows, seq, hd, ld, slice);
+  issue_rows<kHdp>(sv, v + base, k0, k_rows, seq, hd, ld, slice);
+  for (int tile = 0; tile < inflight; ++tile) issue(tile);
+
+  const bf16* skw = sk + warp * 16 * kStride;
+  const bf16* svw = sv + warp * 16 * kStride;
+  float dk_acc[kNt][4], dv_acc[kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait_n(inflight - 1);   // this thread's copies of this tile
+    if (bq != nullptr) {
+      if (tile == 0) {
+        add_bias_rows<kHdp>(sk, bk + h * hd, k0, k_rows, seq, hd, slice);
+        add_bias_rows<kHdp>(sv, bv + h * hd, k0, k_rows, seq, hd, slice);
+      }
+      add_bias_rows<kHdp>(sq + stage(tile) * kStride, bq + h * hd,
+                          tile * kRingTile, tile_rows(tile), seq, hd, slice);
+    }
+    __syncthreads();   // this tile (and K, V), biased, for every warp
+    if (active) {
+      const int q0 = tile * kRingTile;
+      const int nc = min(kRingTile / 16, (seq - q0 + 15) / 16);
+      for (int c = 0; c < nc; ++c) {
+        const int at = stage(tile) + c * 16;
+        key_chunk<kHdp>(dk_acc, dv_acc, skw, svw, sq + at * kStride,
+                        sdo + at * kStride, s_lse2 + at, s_delta + at,
+                        k0 + warp * 16, q0 + c * 16, seq, scale, scale_log2,
+                        exact);
+      }
+    }
+    // a ring that refills: every warp done with this stage first
+    if (inflight < ntiles) __syncthreads();
+    issue(tile + inflight);
+  }
+  const int row0 = k0 + warp * 16;
+  if (active) {
+    store_strip<kHdp>(dk_acc, dk + base, row0, seq, hd, ld, 1.f);
+    store_strip<kHdp>(dv_acc, dv + base, row0, seq, hd, ld, 1.f);
+    if (partial_k != nullptr) {
+      warp_colsum<kHdp>(dk_acc, colsum + warp * kHdp, row0, seq);
+      warp_colsum<kHdp>(dv_acc, colsum + (warps + warp) * kHdp, row0, seq);
+    }
+  }
+  if (partial_k == nullptr) return;
+  const size_t part =
+      ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * ld + h * hd;
+  block_colsum<kHdp>(colsum, strips.y - strips.x, partial_k + part, hd);
+  block_colsum<kHdp>(colsum + warps * kHdp, strips.y - strips.x,
+                     partial_v + part, hd);
+}
+
 // out[y * width + c] = sum over p < n of src_y[p * width + c] in fp32 and a
 // fixed order (kSumGroups interleaved runs of rows, then the runs in
 // order), rounded once to the output type: the bias grads from the
@@ -851,23 +1452,26 @@ int column_sums(const float* a, const float* b, const float* c, int n,
 }
 
 // The split scheme: the dq kernel, the dk/dv kernel, then the bias grads
-// from their per-tile partials. The plan's sizes must be these layouts'.
-template <int kHdp, bool kDefer>
+// from their per-tile partials. The plan's sizes must be these layouts':
+// kWarps warps, one block per 64-row tile, no ring.
+template <int kHdp>
 int launch_split(const bf16* q, const bf16* k, const bf16* v,
                  const bf16* dout, const bf16* bq, const bf16* bk,
                  const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* stats,
                  float* partial, bf16* dbias, int batch, int seq,
-                 int num_heads, int hd, int warps, int smem_dq, int smem_dkv,
-                 float scale, int exact, cudaStream_t stream) {
-  if (stats == nullptr || warps != kWarps || smem_dq != split_smem_dq(kHdp) ||
-      smem_dkv != split_smem_dkv(kHdp)) {
+                 int num_heads, int hd, int warps, int blocks, int stages,
+                 int smem_dq, int smem_dkv, float scale, int exact,
+                 cudaStream_t stream) {
+  if (stats == nullptr || warps != kWarps ||
+      blocks != (seq + kTile - 1) / kTile || stages != 0 ||
+      smem_dq != split_smem_dq(kHdp) || smem_dkv != split_smem_dkv(kHdp)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<kHdp, kDefer>,
+      attention_bwd_dq_kernel<kHdp>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kHdp, kDefer>,
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kHdp>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkv);
   if (err != cudaSuccess) return (int)err;
@@ -878,12 +1482,12 @@ int launch_split(const bf16* q, const bf16* k, const bf16* v,
   float* pk = partial ? partial + part_size : nullptr;
   float* pv = partial ? partial + 2 * part_size : nullptr;
   const dim3 grid(n_tiles, num_heads, batch);
-  attention_bwd_dq_kernel<kHdp, kDefer><<<grid, kThreads, smem_dq, stream>>>(
+  attention_bwd_dq_kernel<kHdp><<<grid, kThreads, smem_dq, stream>>>(
       q, k, v, dout, bq, bk, bv, dq, stats, pq, seq, num_heads, hd, scale,
       exact, n_stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<kHdp, kDefer><<<grid, kThreads, smem_dkv, stream>>>(
+  attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, smem_dkv, stream>>>(
       q, k, v, dout, bq, bk, bv, dk, dv, stats, pk, pv, seq, num_heads, hd,
       scale, exact, n_stats);
   err = cudaGetLastError();
@@ -924,17 +1528,17 @@ int launch_whole_nc(const bf16* q, const bf16* k, const bf16* v,
 }
 
 // The whole-head plan's check: one warp per 16-row chunk of L (at most
-// kMaxChunks) and this layout's shared memory.
+// kMaxChunks), one block per item, no ring, and this layout's shared memory.
 template <int kHdp>
 int launch_whole(const bf16* q, const bf16* k, const bf16* v,
                  const bf16* dout, const bf16* bq, const bf16* bk,
                  const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* partial,
                  bf16* dbias, int batch, int seq, int num_heads, int hd,
-                 int warps, int smem, int smem_dkv, float scale, int exact,
-                 cudaStream_t stream) {
+                 int warps, int blocks, int stages, int smem, int smem_dkv,
+                 float scale, int exact, cudaStream_t stream) {
   const int nc = (seq + 15) / 16;
-  if (nc > kMaxChunks || warps != nc || smem_dkv != 0 ||
-      smem != whole_smem(16 * nc, kHdp)) {
+  if (nc > kMaxChunks || warps != nc || blocks != 1 || stages != 0 ||
+      smem_dkv != 0 || smem != whole_smem(16 * nc, kHdp)) {
     return (int)cudaErrorInvalidValue;
   }
 #define CLIPA_WHOLE(NC)                                                   \
@@ -955,6 +1559,56 @@ int launch_whole(const bf16* q, const bf16* k, const bf16* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CLIPA_WHOLE
+}
+
+// The long scheme: the dq kernel, the dk/dv kernel, then the bias grads
+// from their per-(sample, block) partials. The plan's check: `blocks`
+// blocks of `warps` warps (at most flash_max_warps) over the 16-row strips,
+// every block at least one strip and at most `warps`; a ring of `stages`
+// tiles (at least two, or one that holds every row; at most kMaxStages);
+// and each kernel's shared memory this layout's.
+template <int kHdp>
+int launch_long(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                const bf16* bq, const bf16* bk, const bf16* bv, bf16* dq,
+                bf16* dk, bf16* dv, float* stats, float* partial,
+                bf16* dbias, int batch, int seq, int num_heads, int hd,
+                int warps, int blocks, int stages, int smem, int smem_dkv,
+                float scale, int exact, cudaStream_t stream) {
+  const int ntiles = (seq + kRingTile - 1) / kRingTile;
+  const int ring = ring_rows(seq, stages, kRingTile);
+  if (stats == nullptr ||
+      bad_plan(warps, blocks, (seq + 15) / 16, flash_max_warps(kHdp)) ||
+      stages < 1 || stages > kMaxStages || (stages < 2 && ntiles > 1) ||
+      smem != long_smem_dq(kHdp, warps, ring) ||
+      smem_dkv != long_smem_dkv(kHdp, warps, ring)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_long_dq_kernel<kHdp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_bwd_long_dkv_kernel<kHdp>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const int n_stats = batch * num_heads * seq;
+  const size_t part_size = (size_t)batch * blocks * num_heads * hd;
+  float* pq = partial;
+  float* pk = partial ? partial + part_size : nullptr;
+  float* pv = partial ? partial + 2 * part_size : nullptr;
+  const dim3 grid(blocks, num_heads, batch);
+  attention_bwd_long_dq_kernel<kHdp><<<grid, warps * 32, smem, stream>>>(
+      q, k, v, dout, bq, bk, bv, dq, stats, pq, seq, num_heads, hd, stages,
+      scale, exact, n_stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_long_dkv_kernel<kHdp><<<grid, warps * 32, smem_dkv, stream>>>(
+      q, k, v, dout, bq, bk, bv, dk, dv, stats, pk, pv, seq, num_heads, hd,
+      stages, scale, exact, n_stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return (int)err;
+  return column_sums(pq, pk, pv, batch * blocks, num_heads * hd, dbias,
+                     stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1119,20 +1773,25 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// The bf16 entries' body: kDefer selects the variant (split scheme only).
+// The plan's schemes (ops/block_attention.py BWD_SPLIT, BWD_WHOLE,
+// BWD_LONG).
+constexpr int kSplit = 0, kWhole = 1, kLong = 2;
+
+// The bf16 entries' body: kDefer selects the entry. The normalized one
+// takes the whole-head and long schemes, the deferred one the split scheme.
 template <bool kDefer>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* bq, const void* bk, const void* bv, void* dq,
                 void* dk, void* dv, void* stats, void* partial, void* dbias,
-                int batch, int seq, int num_heads, int head_dim, int whole,
-                int warps, int smem, int smem_dkv, float scale, int exact,
-                void* stream) {
+                int batch, int seq, int num_heads, int head_dim, int scheme,
+                int warps, int blocks, int stages, int smem, int smem_dkv,
+                float scale, int exact, void* stream) {
   if (bad_shape(batch, seq, num_heads, head_dim) ||
       (bq == nullptr) != (bk == nullptr) ||
       (bq == nullptr) != (bv == nullptr) ||
       (bq != nullptr) != (partial != nullptr) ||
-      (partial != nullptr) != (dbias != nullptr) || whole < 0 || whole > 1 ||
-      (kDefer && whole)) {
+      (partial != nullptr) != (dbias != nullptr) ||
+      (kDefer ? scheme != kSplit : scheme != kWhole && scheme != kLong)) {
     return (int)cudaErrorInvalidValue;
   }
   const bf16* q_ = static_cast<const bf16*>(q);
@@ -1151,14 +1810,22 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CLIPA_LAUNCH(HDP)                                                    \
   case HDP:                                                                  \
-    return whole ? launch_whole<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_,    \
-                                     dk_, dv_, pa_, db_, batch, seq,         \
-                                     num_heads, head_dim, warps, smem,       \
-                                     smem_dkv, scale, exact, s)              \
-                  : launch_split<HDP, kDefer>(                               \
-                        q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, st_,  \
-                        pa_, db_, batch, seq, num_heads, head_dim, warps,    \
-                        smem, smem_dkv, scale, exact, s)
+    if (scheme == kWhole) {                                                  \
+      return launch_whole<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_,     \
+                               dv_, pa_, db_, batch, seq, num_heads,         \
+                               head_dim, warps, blocks, stages, smem,        \
+                               smem_dkv, scale, exact, s);                   \
+    }                                                                        \
+    if (scheme == kLong) {                                                   \
+      return launch_long<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, \
+                              st_, pa_, db_, batch, seq, num_heads,          \
+                              head_dim, warps, blocks, stages, smem,         \
+                              smem_dkv, scale, exact, s);                    \
+    }                                                                        \
+    return launch_split<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_,  \
+                             st_, pa_, db_, batch, seq, num_heads, head_dim, \
+                             warps, blocks, stages, smem, smem_dkv, scale,   \
+                             exact, s)
   switch (round16(head_dim)) {
     CLIPA_LAUNCH(16);
     CLIPA_LAUNCH(32);
@@ -1178,43 +1845,51 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 // q/k/v/do/dq/dk/dv: (batch * seq, num_heads * head_dim) bf16, contiguous,
 // 16-byte aligned; bq/bk/bv: (num_heads * head_dim,) bf16, 16-byte aligned,
 // or all null. head_dim must be a multiple of 8 and at most 128. The plan
-// is ops/block_attention.py bwd_plan's (whole, warps, smem, smem_dkv):
-//   whole 1: the whole-head scheme (L <= 16 kMaxChunks), `warps` one per
-//     16-row chunk of L, one item in shared memory per block, `smem` its
-//     bytes, smem_dkv 0; stats unused (may be null); partial:
-//     3 * batch * num_heads * head_dim fp32 scratch;
-//   whole 0: the split scheme, `warps` 4, `smem` and `smem_dkv` the dq and
-//     dk/dv kernels' bytes; stats: 3 * batch * seq * num_heads fp32
-//     scratch; partial: 3 * batch * ceil(seq / 64) * num_heads * head_dim.
-// Each size must be its kernel's for that plan. With biases, partial and
-// dbias (3 * num_heads * head_dim bf16: dbq, dbk, dbv, each the fp32
-// column sum rounded once) are set; both null without. Returns the
-// cudaError_t of the launches (cudaErrorInvalidValue for a plan or shape
-// it refuses).
+// is ops/block_attention.py bwd_plan's (scheme, warps, blocks, stages,
+// smem, smem_dkv):
+//   scheme 1 (whole-head, L <= 16 kMaxChunks): `warps` one per 16-row
+//     chunk of L, blocks 1 (one item in shared memory per block), stages 0,
+//     `smem` its bytes, smem_dkv 0; stats unused (may be null);
+//   scheme 2 (long): `blocks` blocks of `warps` warps per (sample, head),
+//     a ring of `stages` 128-row tiles, `smem` and `smem_dkv` the dq and
+//     dk/dv kernels' bytes; stats: 2 * batch * seq * num_heads fp32
+//     scratch (lse2, delta);
+//   scheme 0 (split: the deferred entry's only scheme, which the
+//     normalized entry refuses): `warps` 4, `blocks` ceil(seq / 64),
+//     stages 0, `smem` and `smem_dkv` the dq and dk/dv kernels' bytes;
+//     stats: 3 * batch * seq * num_heads fp32 scratch (m, r, delta).
+// Each size must be its kernel's for that plan. With biases, partial
+// (3 * batch * blocks * num_heads * head_dim fp32 scratch) and dbias
+// (3 * num_heads * head_dim bf16: dbq, dbk, dbv, each the fp32 column sum
+// rounded once) are set; both null without. Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for a plan or shape it refuses).
 extern "C" int clipa_fused_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,
     void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, int whole, int warps, int smem,
-    int smem_dkv, float scale, int exact, void* stream) {
+    int num_heads, int head_dim, int scheme, int warps, int blocks,
+    int stages, int smem, int smem_dkv, float scale, int exact,
+    void* stream) {
   return launch_bf16<false>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
                             partial, dbias, batch, seq, num_heads, head_dim,
-                            whole, warps, smem, smem_dkv, scale, exact,
-                            stream);
+                            scheme, warps, blocks, stages, smem, smem_dkv,
+                            scale, exact, stream);
 }
 
 // The deferred-normalization variant: the same arguments, limits and
-// outputs, the split scheme only (bf16 only; see the header).
+// outputs, the split scheme only, which it alone takes (bf16 only; see the
+// header).
 extern "C" int clipa_fused_attention_bwd_deferred(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,
     void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, int whole, int warps, int smem,
-    int smem_dkv, float scale, int exact, void* stream) {
+    int num_heads, int head_dim, int scheme, int warps, int blocks,
+    int stages, int smem, int smem_dkv, float scale, int exact,
+    void* stream) {
   return launch_bf16<true>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
                            partial, dbias, batch, seq, num_heads, head_dim,
-                           whole, warps, smem, smem_dkv, scale, exact,
-                           stream);
+                           scheme, warps, blocks, stages, smem, smem_dkv,
+                           scale, exact, stream);
 }
 
 // The fp32 twin: the same arguments but the plan, the same limits, fp32

@@ -100,26 +100,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClipLog2 = kExpClip * kLog2e;
 constexpr float kNegInf = -1e30f;
 
-// Rows of each of the K and V rings: `stages` 128-key tiles, or every key
-// (rounded up to a 16-row chunk) where fewer suffice.
-inline __host__ __device__ int ring_rows(int seq, int stages) {
-  return stages * kBlockK < round16(seq) ? stages * kBlockK : round16(seq);
-}
-
-// cp_async_wait with a run-time count (the ring's depth), 0 <= n < 8.
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
-
 // One 128-key tile for a warp's 16 query rows at `sqw`, over its first kNc
 // 16-key chunks (keys at `skt`, the first one k0; a chunk wholly past L is
 // not computed): the raw scores q.k, then e and acc += bf16(e) . V (V rows
@@ -276,7 +256,7 @@ fused_attention_fwd_kernel(const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* sk = sq + (nthreads / 32) * 16 * kStride;
-  bf16* sv = sk + ring_rows(seq, stages) * kStride;
+  bf16* sv = sk + ring_rows(seq, stages, kBlockK) * kStride;
 
   const int h = blockIdx.y;
   const int ld = num_heads * hd;
@@ -380,7 +360,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* bq,
   // size must be this layout's: Q strips, then the K and V rings
   if (bad_plan(warps, blocks, (seq + 15) / 16, flash_max_warps(kHdp)) ||
       stages < 1 || stages > kMaxStages || (stages < 2 && ntiles > 1) ||
-      smem != (warps * 16 + 2 * ring_rows(seq, stages)) * kRow) {
+      smem != (warps * 16 + 2 * ring_rows(seq, stages, kBlockK)) * kRow) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = cudaFuncSetAttribute(

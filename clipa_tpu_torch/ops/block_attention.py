@@ -11,8 +11,10 @@ kernels' VMEM plans, sample groups and block-diagonal masks suited Mosaic
 only. The bf16 forward spreads the 16-row query strips of a (sample, head)
 over the blocks of :func:`fwd_plan`; the bf16 backward takes the scheme of
 :func:`bwd_plan`: one (sample, head) per work item of a persistent kernel
-up to L = 16 * BWD_MAX_CHUNKS, else two kernels over 64-row tiles. bf16
-operands go through the tensor cores;
+up to L = 16 * BWD_MAX_CHUNKS, else the long scheme, two kernels whose
+16-row strips spread over blocks as the forward's do, the other operands
+streaming through a ring (PR 2's split pair serves the deferred variant
+alone). bf16 operands go through the tensor cores;
 fp32 operands (the service at precision float32, the fp32 smoke configs)
 through scalar fp32 twins in the same sources.
 
@@ -100,12 +102,21 @@ _BWD_DEFERRED_ENTRY = "clipa_fused_attention_bwd_deferred"
 _SOURCE = "fused_attention_fwd.cu"
 _BWD_SOURCE = "fused_attention_bwd.cu"
 
-# The bf16 backward's split scheme: rows per tile (bias-grad partials per
-# tile) and warps per block (csrc/fused_attention_bwd.cu kTile, kWarps).
+# The bf16 backward's schemes (BwdPlan.scheme; csrc/fused_attention_bwd.cu
+# kSplit, kWhole, kLong).
+BWD_SPLIT, BWD_WHOLE, BWD_LONG = 0, 1, 2
+# The split scheme: rows per tile (one block per tile) and warps per block
+# (kTile, kWarps).
 _BWD_TILE = 64
 _BWD_SPLIT_WARPS = 4
 # The whole-head scheme's largest sequence, in 16-row chunks (kMaxChunks).
 BWD_MAX_CHUNKS = 9
+# The long scheme's ring tiles and deepest ring (kRingTile, kMaxStages).
+BWD_RING_TILE = 128
+BWD_MAX_STAGES = 8
+# fp32 row statistics per (row, head) that each scheme's dk/dv kernel reads
+# (split: m, r, delta; long: lse2, delta; whole-head: none).
+_BWD_STAT_ROWS = {BWD_SPLIT: 3, BWD_WHOLE: 0, BWD_LONG: 2}
 
 # The bf16 forward's key tiles, and the deepest ring its launcher takes
 # (csrc/fused_attention_fwd.cu kBlockK, kMaxStages).
@@ -164,14 +175,20 @@ def fwd_plan(seq_len: int, hd: int) -> KernelPlan:
 
 
 class BwdPlan(NamedTuple):
-    """The bf16 backward's launch. `whole` 1: the whole-head scheme, one
-    persistent kernel whose blocks hold one (sample, head) item in shared
-    memory, `warps` one per 16-row chunk of L, `smem` its bytes per block,
-    `smem_dkv` 0. `whole` 0: the split scheme, a dq kernel and a dk/dv
-    kernel of `warps` (4) warps per 64-row tile, `smem` and `smem_dkv`
-    their bytes per block."""
-    whole: int
+    """The bf16 backward's launch, as the C entry takes it. `scheme`
+    BWD_WHOLE: one persistent kernel whose blocks hold one (sample, head)
+    item in shared memory, `warps` one per 16-row chunk of L, `blocks` 1,
+    `stages` 0, `smem` its bytes per block, `smem_dkv` 0. BWD_LONG: a dq
+    kernel and a dk/dv kernel, each `blocks` blocks of `warps` warps per
+    (sample, head) over the 16-row strips, the other operands through a
+    ring of `stages` 128-row tiles, `smem` and `smem_dkv` their bytes per
+    block. BWD_SPLIT: PR 2's dq and dk/dv kernels, `warps` 4 per 64-row
+    tile, `blocks` the tiles, `stages` 0: the deferred variant's only
+    scheme, which the normalized entry refuses."""
+    scheme: int
     warps: int
+    blocks: int
+    stages: int
     smem: int
     smem_dkv: int
 
@@ -191,20 +208,56 @@ def bwd_split_plan(seq_len: int, hd: int) -> BwdPlan:
     row statistics (dk/dv kernel). The deferred variant's only scheme."""
     hdp = _round16(hd)
     tiles = 4 * _BWD_TILE * (hdp + 8) * 2
-    return BwdPlan(0, _BWD_SPLIT_WARPS,
+    return BwdPlan(BWD_SPLIT, _BWD_SPLIT_WARPS, -(-seq_len // _BWD_TILE), 0,
                    tiles + (_BWD_SPLIT_WARPS * hdp + _BWD_TILE) * 4,
                    tiles + (3 * _BWD_TILE + _BWD_SPLIT_WARPS * hdp) * 4)
 
 
+def _long_smem(seq_len: int, hd: int, warps: int,
+               stages: int) -> tuple[int, int]:
+    """The long scheme's bytes per block of each kernel: the block's two
+    16-row strip operands and the two rings (`stages` 128-row tiles, or
+    every row where fewer suffice), bf16 rows of round16(hd) + 8; then the
+    dq kernel's per-warp fp32 column sums of dq, and the dk/dv kernel's
+    ring of fp32 row statistics (lse2, delta) and column sums of dk and
+    dv."""
+    hdp = _round16(hd)
+    ring = min(stages * BWD_RING_TILE, _round16(seq_len))
+    rows = (2 * warps * 16 + 2 * ring) * (hdp + 8) * 2
+    return (rows + warps * hdp * 4,
+            rows + (2 * ring + 2 * warps * hdp) * 4)
+
+
+def bwd_long_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
+    """The long scheme's launches at one shape: for each block width up to
+    _max_warps(hd), the fewest blocks of it over the ceil(L / 16) strips of
+    a (sample, head), and for each a ring that holds every row (stages =
+    the 128-row tiles, at most BWD_MAX_STAGES) and, past two tiles, a
+    two-stage ring; where both kernels fit in shared memory."""
+    strips = _round16(seq_len) // 16
+    tiles = -(-seq_len // BWD_RING_TILE)
+    rings = {min(tiles, BWD_MAX_STAGES), 2} if tiles > 1 else {1}
+    plans = []
+    for blocks in sorted({-(-strips // w)
+                          for w in range(1, _max_warps(hd) + 1)}):
+        warps = -(-strips // blocks)
+        for stages in sorted(rings):
+            smem, smem_dkv = _long_smem(seq_len, hd, warps, stages)
+            if max(smem, smem_dkv) <= SMEM_LIMIT:
+                plans.append(BwdPlan(BWD_LONG, warps, blocks, stages, smem,
+                                     smem_dkv))
+    return plans
+
+
 def bwd_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
-    """The bf16 backward's launches at one shape: the whole-head scheme,
-    where L has at most BWD_MAX_CHUNKS 16-row chunks and the block fits in
-    shared memory, then the split scheme."""
+    """The bf16 (normalized) backward's launches at one shape: the
+    whole-head scheme, where L has at most BWD_MAX_CHUNKS 16-row chunks and
+    the block fits in shared memory, then the long scheme's."""
     chunks = _round16(seq_len) // 16
     smem = _whole_smem(seq_len, hd)
-    whole = ([BwdPlan(1, chunks, smem, 0)]
+    whole = ([BwdPlan(BWD_WHOLE, chunks, 1, 0, smem, 0)]
              if chunks <= BWD_MAX_CHUNKS and smem <= SMEM_LIMIT else [])
-    return whole + [bwd_split_plan(seq_len, hd)]
+    return whole + bwd_long_candidates(seq_len, hd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,9 +265,29 @@ def bwd_plan(seq_len: int, hd: int) -> BwdPlan:
     """The bf16 backward's launch at one shape (a pure function, cached),
     whose numbers the CUDA entry point takes and checks against its own
     layouts: the whole-head scheme wherever bwd_candidates offers it (it
-    forms S and dP once, the split scheme three times), else the split
-    scheme."""
-    return bwd_candidates(seq_len, hd)[0]
+    forms S and dP once, the long scheme three times), else of the long
+    scheme's, as fwd_plan ranks the forward's, the one that keeps the most
+    warps with a strip resident on an SM (the shared memory holds SM_SMEM
+    // (the larger kernel's smem + SMEM_PER_BLOCK) blocks), then the one
+    with the most blocks resident on an SM (one block's copies and
+    barriers overlap another's products: at L = 180, hd 80, two blocks of
+    6 warps beat one of 12, PERF.md section 6), then the fewest blocks
+    (each copies and biases all of the streamed operands), then the
+    deepest ring. Raises where no plan fits."""
+    cands = bwd_candidates(seq_len, hd)
+    if not cands:
+        raise ValueError(f"no backward plan fits L = {seq_len}, head_dim "
+                         f"{hd} in {SMEM_LIMIT} bytes of shared memory")
+    if cands[0].scheme == BWD_WHOLE:
+        return cands[0]
+    strips, max_warps = _round16(seq_len) // 16, _max_warps(hd)
+
+    def rank(p: BwdPlan):
+        per_sm = min(max_warps // p.warps, SM_SMEM // (
+            max(p.smem, p.smem_dkv) + SMEM_PER_BLOCK))
+        return per_sm * strips / p.blocks, per_sm, -p.blocks, p.stages
+
+    return max(cands, key=rank)
 
 
 def tolerance(dtype: torch.dtype) -> tuple[float, float]:
@@ -564,15 +637,15 @@ def fwd_library() -> ctypes.CDLL:
 
 def bwd_library() -> ctypes.CDLL:
     """The backward's library: the fp32 twin typed as _args(13), the bf16
-    entries (normalized and deferred) with the plan's four ints (whole,
-    warps, smem, smem_dkv) after the dimensions."""
+    entries (normalized and deferred) with the plan's six ints (scheme,
+    warps, blocks, stages, smem, smem_dkv) after the dimensions."""
     lib = _library(_BWD_SOURCE, {torch.float32: _BWD_ENTRY[torch.float32]},
                    13)
     for entry in (_BWD_ENTRY[torch.bfloat16], _BWD_DEFERRED_ENTRY):
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = _args(13, 8)
+            fn.argtypes = _args(13, 10)
     return lib
 
 
@@ -606,6 +679,31 @@ def _launch(q, k, v, num_heads, seq_len, biases, exact,
     return out
 
 
+def _bwd_scratch(q: torch.Tensor, num_heads: int, seq_len: int, bias: bool,
+                 plan: Optional[BwdPlan]):
+    """The backward's scratch and bias-grad output: (stats, partial,
+    dbias), each None where the launch takes none. `plan`: the bf16
+    launch, None for the fp32 twin. stats: the fp32 row statistics per
+    (row, head) that the scheme's dk/dv kernel reads (the fp32 twin: the
+    softmax max, sum and rowsum(dP*P)); partial: with biases on the bf16
+    kernels, the fp32 column sums of dq, dk and dv per (sample, block)
+    before rounding; dbias: with biases, their fp32 column sums rounded
+    once to the biases' type."""
+    rows, d = q.shape
+    # a scheme the wrapper does not know gets the most; the entry refuses it
+    n_stats = 3 if plan is None else _BWD_STAT_ROWS.get(plan.scheme, 3)
+    stats = partial = dbias = None
+    if n_stats:
+        stats = torch.empty((n_stats, rows * num_heads), dtype=torch.float32,
+                            device=q.device)
+    if bias:
+        dbias = torch.empty((3, d), dtype=q.dtype, device=q.device)
+        if plan is not None:
+            partial = torch.empty((3, rows // seq_len * plan.blocks, d),
+                                  dtype=torch.float32, device=q.device)
+    return stats, partial, dbias
+
+
 def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
                 plan: Optional[BwdPlan] = None):
     """Runs the backward kernels. `plan`: the bf16 kernels' launch,
@@ -616,36 +714,22 @@ def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
         _check_memory(name, x, q)
     ptrs = _bias_pointers(biases, q)
     batch, hd = rows // seq_len, d // num_heads
-    args = ()   # the fp32 twin takes no plan
-    split = True
-    if q.dtype == torch.bfloat16:
-        if plan is None:
-            plan = (bwd_split_plan(seq_len, hd) if entry == _BWD_DEFERRED_ENTRY
-                    else bwd_plan(seq_len, hd))
-        args, split = tuple(plan), not plan.whole
+    if q.dtype != torch.bfloat16:
+        plan = None   # the fp32 twin takes no plan
+    elif plan is None:
+        plan = (bwd_split_plan(seq_len, hd) if entry == _BWD_DEFERRED_ENTRY
+                else bwd_plan(seq_len, hd))
     grads = torch.empty((3, rows, d), dtype=q.dtype, device=q.device)
-    stats = partial = dbias = None
-    if split:
-        # per (row, head): the softmax max (0 in clip mode), sum and
-        # rowsum(dP*P)
-        stats = torch.empty((3, rows * num_heads), dtype=torch.float32,
-                            device=q.device)
-    if biases is not None:
-        # the fp32 column sums of dq/dk/dv, rounded once to the biases' type
-        dbias = torch.empty((3, d), dtype=q.dtype, device=q.device)
-        if q.dtype == torch.bfloat16:
-            # fp32 column sums of dq/dk/dv per sample (whole-head) or per
-            # 64-row tile (split), before rounding
-            n = batch * (-(-seq_len // _BWD_TILE) if split else 1)
-            partial = torch.empty((3, n, d), dtype=torch.float32,
-                                  device=q.device)
+    stats, partial, dbias = _bwd_scratch(q, num_heads, seq_len,
+                                         biases is not None, plan)
     _call(bwd_library(), entry or _BWD_ENTRY[q.dtype], q,
           "fused attention backward kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
           grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
           *(None if x is None else x.data_ptr()
             for x in (stats, partial, dbias)),
-          batch, seq_len, num_heads, hd, *args, hd ** -0.5, int(bool(exact)))
+          batch, seq_len, num_heads, hd, *(plan or ()), hd ** -0.5,
+          int(bool(exact)))
     if dbias is None:
         return (*grads.unbind(0), None, None, None)
     return (*grads.unbind(0), *dbias.unbind(0))

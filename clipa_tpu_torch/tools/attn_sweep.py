@@ -10,8 +10,8 @@ different on Hopper:
   fwd  clip / exact               csrc/fused_attention_fwd.cu (K5's function)
   bwd  normalized / deferred,     csrc/fused_attention_bwd.cu: the landed
        each clip / exact          backward (its whole-head scheme at this
-                                  shape) and the kDefer variant of its split
-                                  scheme, which folds 1/denom into dO's rows
+                                  shape) and the deferred variant (its split
+                                  scheme), which folds 1/denom into dO's rows
                                   so the score-sized products run on
                                   unnormalized e
 

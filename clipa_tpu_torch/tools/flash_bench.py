@@ -20,7 +20,8 @@ each root. The last line is one JSON object: the card and the cases.
 the fused forward under every plan of ``block_attention.fwd_candidates``
 (each split and ring, in the case's mode), of the fused backward under
 every plan of ``block_attention.bwd_candidates`` (the whole-head scheme
-where it is offered, and the split scheme), and of the flash
+where it is offered, every plan of the long scheme, and the split
+scheme), and of the flash
 forward under every split of ``fwd_candidates`` and, where ``launch_plan``
 fuses the backward, of the split backward (``bwd_split_plan``): the
 measurements behind the plans' choices (for a root whose package has
@@ -93,7 +94,7 @@ def _fused_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
 
 def _fused_bwd_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
     """Device ms of the fused backward under each plan of bwd_candidates,
-    keyed "whole|split warps <w>", on seeded bf16 operands."""
+    keyed by the plan's repr, on seeded bf16 operands."""
     import torch
 
     def mk(*shape):
@@ -102,8 +103,7 @@ def _fused_bwd_plan_device_ms(cs, ba, b, l, d, h, bias, exact, gen, iters):
 
     q, k, v, do = mk(b * l, d), mk(b * l, d), mk(b * l, d), mk(b * l, d)
     biases = (mk(d), mk(d), mk(d)) if bias else None
-    scheme = ("split", "whole")
-    return {f"{scheme[p.whole]} warps {p.warps}": cs._device_ms(
+    return {repr(p): cs._device_ms(
         lambda p=p: ba._launch_bwd(q, k, v, do, h, l, biases, exact, plan=p),
         iters) for p in ba.bwd_candidates(l, d // h)}
 

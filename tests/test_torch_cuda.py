@@ -196,11 +196,15 @@ def test_service_goes_through_the_kernel(cuda, tmp_path, precision):
 # (K4/K2), clip mode past the clip with and without bias, exact mode; plus
 # small ragged ones (L = 37 and 65 across tile edges, hd 40 zero-padded).
 # Then H/14 @84 (L = 37, hd 80) and the fine-tune `auto` route (L = 138);
-# both softmax modes with and without bias, at and past the clip; and the
-# 16-row chunk and 64-row tile boundaries of both schemes at hd 8, 72, 80
-# and 128 (whole-head up to L = 16 BWD_MAX_CHUNKS, split past it), clip
-# mode with bias and exact mode without, in turns.
-BWD_BOUNDARIES = (15, 16, 17, 33, 37, 48, 49, 50, 63, 64, 65, 138, 257, 577)
+# both softmax modes with and without bias, at and past the clip; the H/14
+# fine-tune shapes (L = 180 at 224 px, mask 0.3; L = 346 at 336 px, mask
+# 0.4; the long scheme), clip mode with bias and the exact form without;
+# and the 16-row chunk, 64-row tile, 128-row ring-tile and scheme
+# boundaries at hd 8, 72, 80 and 128 (whole-head up to L = 16
+# BWD_MAX_CHUNKS, the long scheme past it), clip mode with bias and exact
+# mode without, in turns.
+BWD_BOUNDARIES = (15, 16, 17, 33, 37, 48, 49, 50, 63, 64, 65, 138, 257, 577,
+                  145, 160, 161, 176, 180, 192, 193, 346, 352, 353)
 BWD_CASES = [
     (384, 50, 1024, 16, True, False, 1.0),
     (8, 257, 1280, 16, True, False, 1.0),
@@ -217,6 +221,10 @@ BWD_CASES = [
     (4, 50, 256, 4, False, False, 1.0),
     (4, 50, 256, 4, False, True, 40.0),
     (4, 37, 320, 4, True, False, 40.0),
+    (64, 180, 1280, 16, True, False, 1.0),
+    (16, 346, 1280, 16, True, False, 1.0),
+    (64, 180, 1280, 16, False, True, 1.0),
+    (16, 346, 1280, 16, False, True, 1.0),
     *((2, n, 2 * hd, 2, i % 2 == 0, i % 2 == 1, 1.0)
       for hd in (8, 72, 80, 128) for i, n in enumerate(BWD_BOUNDARIES)),
 ]
@@ -282,14 +290,17 @@ def test_bwd_wrapper_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,d,h", [(16, 50, 1024, 16), (16, 37, 1280, 16),
-                                     (4, 138, 1024, 16), (4, 17, 256, 2)])
+                                     (4, 138, 1024, 16), (4, 17, 256, 2),
+                                     (4, 180, 1280, 16), (2, 346, 1280, 16),
+                                     (1, 577, 2048, 16)])
 def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
-    """Every scheme that bwd_candidates offers (whole-head, split) computes
-    the same function in both modes, and each gives
-    bit-identical outputs over two calls (no atomics); a plan whose sizes
-    are not the kernel's own layout's, whose warps are not one per strip,
-    or that asks the deferred entry for the whole-head scheme is
-    refused."""
+    """Every scheme that bwd_candidates offers (whole-head, each long plan:
+    every block split and ring) computes the same function in both modes,
+    and each gives bit-identical outputs over two calls (no atomics); a
+    plan whose sizes are not the kernel's own layout's, whose warps do not
+    fit its strips, whose scheme is unknown, that asks the deferred entry
+    for another scheme than the split one, or the normalized entry for the
+    split one is refused."""
     q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, True,
                                         1.0, seed=13)
     hd = d // h
@@ -307,23 +318,29 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
             assert all(torch.equal(x, y) for x, y in zip(first, second)), plan
     for plan in block_attention.bwd_candidates(l, hd):
         bad = [plan._replace(smem=plan.smem + 16),
-               plan._replace(warps=plan.warps + 1)]
-        if plan.whole:
-            bad.append(plan._replace(whole=2))
+               plan._replace(warps=plan.warps + 1),
+               plan._replace(scheme=3)]
+        if plan.scheme == block_attention.BWD_LONG:
+            bad += [plan._replace(smem_dkv=plan.smem_dkv + 16),
+                    plan._replace(stages=block_attention.BWD_MAX_STAGES + 1)]
         for p in bad:
             with pytest.raises(RuntimeError, match="launch failed"):
                 block_attention._launch_bwd(q, k, v, do, h, l, biases, False,
                                             plan=p)
-        if plan.whole:
-            with pytest.raises(RuntimeError, match="launch failed"):
-                block_attention._launch_bwd(
-                    q, k, v, do, h, l, biases, False, plan=plan,
-                    entry=block_attention._BWD_DEFERRED_ENTRY)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            block_attention._launch_bwd(
+                q, k, v, do, h, l, biases, False, plan=plan,
+                entry=block_attention._BWD_DEFERRED_ENTRY)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        block_attention._launch_bwd(
+            q, k, v, do, h, l, biases, False,
+            plan=block_attention.bwd_split_plan(l, hd))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,d,h", [(64, 50, 1024, 16), (64, 37, 1280, 16),
-                                     (8, 138, 1024, 16)])
+                                     (8, 138, 1024, 16), (8, 180, 1280, 16),
+                                     (2, 346, 1280, 16)])
 def test_bwd_bias_add_is_one_rounding(cuda, b, l, d, h):
     """The kernel adds the q/k/v biases in shared memory with bf16x2 adds;
     the function rounds the fp32 sum once. The two agree bit for bit: with

@@ -118,11 +118,14 @@ def test_plain_bwd_matches_unbiased_2d_kernel_vjp(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("l,exact", [(577, False), (257, True), (37, False)])
+@pytest.mark.parametrize("l,exact", [(577, False), (257, True), (37, False),
+                                     (180, False), (346, False)])
 def test_plain_bwd_matches_per_sample_kernel_vjp(l, exact, dtype):
     """K2 over (B, L, D). At L = 577 its plan has two q-tiles (bq = 512), so
     dK/dV accumulate in fp32 across q-tiles and the rows past L are
-    zeroed."""
+    zeroed. L = 180 and 346 are the H/14 unmask-tuning lengths (224 px at
+    mask 0.3, 336 px at mask 0.4), where the port's bwd_plan takes its long
+    scheme."""
     b, h, hd = 1, 2, 16
     d = h * hd
     if l == 577:
@@ -137,6 +140,23 @@ def test_plain_bwd_matches_per_sample_kernel_vjp(l, exact, dtype):
     rtol = F32_RTOL if dtype == "float32" else block_attention.BWD_RTOL
     for name, o, r in zip(("dq", "dk", "dv"), out, ref):
         _close(o, r, rtol, name)
+
+
+@pytest.mark.parametrize("b,res,mask_ratio", [(64, 224, 0.3),
+                                              (16, 336, 0.4)])
+def test_auto_takes_the_fused_kernels_at_the_h14_finetune_shapes(
+        b, res, mask_ratio):
+    """The H/14 unmask-tuning stages of configs/clipa_finetune.py keep 1 +
+    int(grid^2 (1 - mask_ratio)) image tokens: 180 at 224 px and mask 0.3,
+    346 at 336 px and mask 0.4. There the JAX package's fused plan fits,
+    so `auto` takes the fused kernels in both packages, and the port's
+    backward takes its long scheme."""
+    grid = res // 14
+    l = 1 + int(grid * grid * (1 - mask_ratio))
+    assert l == {224: 180, 336: 346}[res]
+    assert jax_block._plan(b, l, 1280, 16, bwd=False) is not None
+    assert attention._auto(b, l, 1280, 16, None, True) == "fused"
+    assert block_attention.bwd_plan(l, 80).scheme == block_attention.BWD_LONG
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
