@@ -73,7 +73,8 @@ config's ``auto`` route (the fused kernels; the backward's long scheme).
      257 keys), q x 40 (logits far past 70: exact, no clip); and the fp32
      twin;
   7. the masked_init transition: phase 5's trained parameters saved with
-     ``save_params``, the fine-tune model initialized from the file: every
+     ``save_params`` in the JAX layout (``convert.to_jax_params``), the
+     fine-tune model initialized from the file: every
      parameter bit for bit, except ``txt/pos_embedding``, resampled from 8
      to 32 positions and held against a numpy linear interpolation;
   8. the unmask-tuning step: launches per step (flash forward 24 x 2, the
@@ -109,7 +110,28 @@ config's ``auto`` route (the fused kernels; the backward's long scheme).
      plain path's (rtol 1e-2, cosine >= 0.99); one update step launches
      the fused forward 64 times (32 layers and remat's recompute), the
      fused backward 32, the flash kernels never; pairs/s (best of two runs
-     of 3 steps) and peak device memory.
+     of 3 steps) and peak device memory;
+ 13. the trainer entry point, ``train.loop.main`` (``python -m
+     clipa_tpu_torch.train``), on a config file that wraps
+     ``clipa_pretrain.py:img=L/16,res=112,token_len=8,batchsize=384`` and
+     changes the data source (synthetic decoded 144 px uint8 images, 16
+     captions longer than 7 WordPiece ids), the pp in-keys (``image``,
+     ``texts``; ops and arguments unchanged: the inception crop to 112, the
+     SimCLR jitter, syntax_tokenize), the shuffle buffer (4 batches), the
+     steps, the schedule's warmup (2 steps: the config's 3200 must be fewer
+     than total_steps), log every step, checkpoints every 4, keep 2. Run 1
+     trains 4 steps, run 2 extends to 8 on the same workdir and resumes at
+     step 4. Raises unless metrics.jsonl logs steps 1-8 once each with the
+     JAX loop's keys and finite losses, every step launches the fused
+     forward and backward 24 times each and the flash kernels never, the
+     step-4 checkpoint restores into a fresh model and optimizer equal to
+     run 1's final state bit for bit (params, mu, nu, count), and
+     params.npz (the JAX layout) loads into a new model through
+     ``load_params`` and equals the final params bit for bit. Prints the
+     trainer's pairs/s (host clock, steps 2-4 and 6-8) beside phase 5's
+     with the batch on the device and the input pipeline's batches/s
+     alone; the checkpoint's bytes, save and restore seconds; peak device
+     memory.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -641,7 +663,7 @@ def _training(card):
                            f"its start: {curve}")
     return {"launches": launches, "pairs_per_s": rates, "peak_gb": peak_gb,
             "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
-            "params": state["params"]}
+            "model": model}
 
 
 def _print_compare(what, loss_a, loss_b, cmp, loss_rtol):
@@ -790,12 +812,13 @@ def _finetune_batch(config):
             0, 32000, (b, tokens)).astype(np.int32)).cuda()}
 
 
-def _transition(pretrained):
+def _transition(pretrained_model):
     """Phase 7: the fine-tune model initialized by masked_init from the
-    pretrain parameters `pretrained` ({JAX name: tensor}) written to npz."""
+    pretrain model's parameters written to npz (the JAX layout)."""
     import tempfile
     import numpy as np
     import torch
+    from clipa_tpu_torch import convert, optim
     from clipa_tpu_torch.configs import clipa_finetune
     from clipa_tpu_torch.ops import cuda_build
     from clipa_tpu_torch.train import checkpoint, step
@@ -807,14 +830,15 @@ def _transition(pretrained):
         model, config, torch.Generator(device="cuda").manual_seed(SEED + 1),
         "cuda")
     params = state["params"]
+    pretrained = optim.named_parameters(pretrained_model)
     t0 = time.perf_counter()
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
         path = os.path.join(tmp, "pretrain_params.npz")
-        checkpoint.save_params(pretrained, path)
+        checkpoint.save_params(convert.to_jax_params(pretrained_model), path)
         saved_s = time.perf_counter() - t0
         size_gb = os.path.getsize(path) / 2 ** 30
-        checkpoint.masked_init(params, path)
+        checkpoint.masked_init(model, path)
     torch.cuda.synchronize()
     copied = [n for n in params if n != "txt/pos_embedding"]
     differ = [n for n in copied if not torch.equal(params[n], pretrained[n])]
@@ -1075,6 +1099,265 @@ def _finetune_h14(card):
     return {"launches": launches, "pairs_per_s": rate, "peak_gb": peak_gb,
             "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
             "plan": list(plan)}
+
+
+# Phase 13: the trainer (train/loop.py) from the data pipeline, at the
+# pretrain config's full width, in two runs on one workdir: run 1 stops at
+# TRAINER_STEPS[0] and checkpoints there, run 2 extends total_steps and must
+# resume from that checkpoint.
+TRAINER_STEPS = (4, 8)
+# 16 alt-text captions, each longer than token_len - 1 = 7 WordPiece ids, so
+# that syntax_tokenize samples words by part of speech
+TRAINER_CAPTIONS = (
+    "a golden retriever puppy playing with a red ball on green grass",
+    "aerial view of a small fishing village on a rocky coastline at dawn",
+    "vintage wooden chair with a soft blue cushion in an empty room",
+    "two children building a large sandcastle on a sunny beach in summer",
+    "fresh strawberries and sliced bananas in a white ceramic breakfast bowl",
+    "an old steam locomotive crossing a stone bridge over a wide river",
+    "modern kitchen interior with marble countertops and bright pendant "
+    "lights",
+    "a tabby cat sleeping on a cozy knitted blanket next to the window",
+    "snow covered mountain peaks reflected in a calm alpine lake at sunset",
+    "close up of a hummingbird drinking nectar from a bright pink flower",
+    "a busy city street at night with yellow taxis and glowing shop signs",
+    "hand drawn illustration of a friendly green dragon reading a book",
+    "a cyclist riding along a winding country road through autumn forests",
+    "handmade silver earrings with turquoise stones on a dark velvet cloth",
+    "a lighthouse standing on a cliff above crashing waves during a storm",
+    "chef slicing vegetables on a wooden cutting board in a restaurant "
+    "kitchen",
+)
+# The keys of a metrics.jsonl row of the JAX loop (train/loop.py) on a log
+# step, besides `core_hours_<device kind>`; `img/sec/core` and `img/sec`
+# join from each run's third tick on.
+TRAINER_KEYS = {"step", "t", "t/parameter", "nimg", "ntxt", "ncorrect",
+                "training_loss", "l2_grads", "l2_params", "l2_updates",
+                "global_schedule", "epoch", "examples_seen"}
+TRAINER_RATE_KEYS = {"img/sec/core", "img/sec"}
+# Fused launches per trainer step: the image tower's 24 layers, forward and
+# backward; the 8-token text tower on the einsum path, the flash kernels
+# never.
+TRAINER_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                    "fused_fwd": TRAIN_IMAGE_LAYERS,
+                    "fused_bwd": TRAIN_IMAGE_LAYERS}
+PIPELINE_BATCHES = 4
+
+_TRAINER_CONFIG = """
+from clipa_tpu_torch.configs import clipa_pretrain
+
+
+def get_config(arg=None):
+    config = clipa_pretrain.get_config({pretrain!r})
+    # decoded uint8 images at 144 px and long captions (no JPEG decoder on
+    # the card machine)
+    config.input.data = dict(name="synthetic", n_examples=1_000_000,
+                             res=144, captions={captions!r})
+    config.input.pp = config.input.pp.replace(
+        'inkey="jpg"', 'inkey="image"').replace('inkey="txt"',
+                                                'inkey="texts"')
+    # 15 GB of decoded images at the config's 250 000: four batches here
+    config.input.shuffle_buffer_size = 4 * config.input.batch_size
+    config.total_steps = {steps}
+    # the config's 3200 warmup steps must be fewer than total_steps
+    config.schedule = [(".*", dict(decay_type="cosine", warmup_steps=2))]
+    config.log_training_steps = 1
+    config.ckpt_steps = {ckpt}
+    config.keep_ckpts = 2
+    return config
+"""
+
+
+def _bits_equal(a, b):
+    """Tensors equal bit for bit (same dtype, shape and bytes)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def _trainer(card, phase5_rate):
+    """Phase 13: the trainer entry point (``train.loop.main``, the function
+    behind ``python -m clipa_tpu_torch.train``) at the pretrain config's
+    full width (L/16 @112, B = 384) from the data pipeline: synthetic
+    decoded 144 px images and 16 long captions through the config's pp
+    (inception crop to 112, SimCLR jitter, syntax_tokenize), run 1 for
+    TRAINER_STEPS[0] steps, run 2 to TRAINER_STEPS[1] resuming from run 1's
+    checkpoint. Checks the metrics, the launches of every step, the resumed
+    state bit for bit and the npz export; times the trainer, the pipeline
+    alone and the checkpoint."""
+    import tempfile
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import convert, optim, registry
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.data import core as data_core
+    from clipa_tpu_torch.data import pipeline
+    from clipa_tpu_torch.train import checkpoint, loop, metrics, step
+
+    reset, read = _attention_counters()
+    per_step, stamps = [], []
+    make_update_fn = step.make_update_fn
+
+    def counted(*args, **kw):   # each step's launches and end time
+        update = make_update_fn(*args, **kw)
+
+        def run(state, batch):
+            reset()
+            state, meas = update(state, batch)
+            per_step.append(read())
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return state, meas
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trainer_config.py")
+        with open(path, "w") as f:
+            f.write(_TRAINER_CONFIG.format(
+                pretrain=PRETRAIN, captions=TRAINER_CAPTIONS,
+                steps=TRAINER_STEPS[0], ckpt=TRAINER_STEPS[0]))
+        workdir = os.path.join(tmp, "run")
+        argv = [f"--config={path}", f"--workdir={workdir}", "--device=cuda"]
+        step.make_update_fn = counted
+        runs = []
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for total in TRAINER_STEPS:
+                t0 = time.perf_counter()
+                final = loop.main(argv + [f"--config.total_steps={total}"])
+                runs.append({"final": final,
+                             "seconds": time.perf_counter() - t0})
+        finally:
+            step.make_update_fn = make_update_fn
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # metrics.jsonl: steps 1-8 once each, the JAX loop's keys, finite
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        logged = [r["step"] for r in rows]
+        if logged != list(range(1, TRAINER_STEPS[1] + 1)):
+            raise RuntimeError(f"metrics.jsonl logs steps {logged}, "
+                               f"expected 1-{TRAINER_STEPS[1]} once each")
+        for r in rows:
+            keys = {k for k in r if not k.startswith("core_hours_")}
+            # a run's first tick starts the clock, its second is warm-up
+            rate = r["step"] - 1 not in (0, 1, TRAINER_STEPS[0],
+                                         TRAINER_STEPS[0] + 1)
+            want = TRAINER_KEYS | (TRAINER_RATE_KEYS if rate else set())
+            if keys != want or len(r) != len(want) + 1:
+                raise RuntimeError(f"step {r['step']} logs {sorted(r)}, "
+                                   f"expected {sorted(want)} and "
+                                   f"core_hours_<kind>")
+        losses = [r["training_loss"] for r in rows]
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite training losses {losses}")
+
+        # each step: 24 fused forward and 24 fused backward launches
+        if per_step != [TRAINER_LAUNCHES] * TRAINER_STEPS[1]:
+            raise RuntimeError(f"trainer steps launched {per_step}, "
+                               f"expected {TRAINER_LAUNCHES} each")
+
+        # run 2 resumed from run 1's state, bit for bit
+        config = load_config(path)
+        manager = checkpoint.CheckpointManager(
+            os.path.join(workdir, "checkpoints"))
+        if manager.all_steps() != list(TRAINER_STEPS):
+            raise RuntimeError(f"checkpoints {manager.all_steps()}, expected "
+                               f"{list(TRAINER_STEPS)}")
+        t0 = time.perf_counter()
+        saved = manager.restore(TRAINER_STEPS[0])
+        restore_s = time.perf_counter() - t0
+        model = step.create_model(config, device="cuda")
+        state = step.init_train_state(
+            model, config, torch.Generator(device="cuda").manual_seed(SEED),
+            "cuda")
+        tx, _ = optim.make(config, model, sched_kw=dict(
+            total_steps=TRAINER_STEPS[1],
+            batch_size=config.input.batch_size))
+        chrono = metrics.Chrono("cuda")
+        resumed_at = loop.restore(saved, state, tx, chrono)
+        first = runs[0]["final"]
+        got = tx.state_dict()
+        same = {
+            "params": all(_bits_equal(state["params"][n], p)
+                          for n, p in first["params"].items()),
+            "mu": all(_bits_equal(got["mu"][n], m)
+                      for n, m in first["opt"]["mu"].items()),
+            "nu": all(_bits_equal(got["nu"][n], v)
+                      for n, v in first["opt"]["nu"].items()),
+            "count": got["count"] == first["opt"]["count"]
+            == TRAINER_STEPS[0],
+        }
+        mu_dtype = next(iter(got["mu"].values())).dtype
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(
+                             manager.step_dir(TRAINER_STEPS[0]))
+                         for f in files)
+        print(f"resume: run 2 restored step {resumed_at}; against run 1's "
+              f"final state bit for bit {same} (mu {mu_dtype})", flush=True)
+        if resumed_at != TRAINER_STEPS[0] or not all(same.values()):
+            raise RuntimeError("the restored state differs from run 1's "
+                               "final state")
+        t0 = time.perf_counter()
+        other = checkpoint.CheckpointManager(os.path.join(tmp, "save"))
+        other.save(TRAINER_STEPS[0], loop.checkpoint_state(state, tx,
+                                                           chrono))
+        other.close()
+        save_s = time.perf_counter() - t0
+        del model, state, tx, saved
+
+        # params.npz (the JAX layout) loads back into the model
+        model = step.create_model(config, device="cuda")
+        convert.load_jax_params(model, checkpoint.load_params(
+            os.path.join(workdir, "params.npz")))
+        loaded = optim.named_parameters(model)
+        last = runs[1]["final"]["params"]
+        if set(loaded) != set(last) or not all(
+                _bits_equal(loaded[n], p) for n, p in last.items()):
+            raise RuntimeError("params.npz differs from the final params")
+        runs_s = [r["seconds"] for r in runs]
+        del model, runs
+
+        # the input pipeline alone: the config's source and pp, no model
+        source = data_core.get_source(**dict(config.input.data))
+        batches = pipeline.make_for_train(
+            source, registry.get_preprocess_fn(config.input.pp),
+            config.input.batch_size,
+            shuffle_buffer=config.input.shuffle_buffer_size,
+            seed=config.seed, num_workers=config.input.num_workers)
+        t0 = time.perf_counter()
+        batch = next(batches)
+        first_batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(PIPELINE_BATCHES):
+            batch = next(batches)
+        pipeline_rate = PIPELINE_BATCHES / (time.perf_counter() - t0)
+        batches.close()
+        shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in batch.items()}
+
+    batch_size = config.input.batch_size
+    rates = [batch_size * 3 / (stamps[i + 3] - stamps[i])
+             for i in (0, TRAINER_STEPS[0])]
+    torch.cuda.empty_cache()
+    print(f"{card}: trainer pairs/s at B={batch_size} from the pipeline, "
+          f"host clock over steps 2-4 {rates[0]:.2f} and 6-8 {rates[1]:.2f}; "
+          f"phase 5's step with the batch on the device {phase5_rate:.2f}; "
+          f"the input pipeline alone {pipeline_rate:.3f} batches/s "
+          f"({pipeline_rate * batch_size:.1f} pairs/s, {shapes}; first batch "
+          f"after {first_batch_s:.2f} s, the shuffle buffer filled); "
+          f"checkpoint {ckpt_bytes / 2 ** 20:.1f} MiB, save "
+          f"{save_s:.2f} s, restore {restore_s:.2f} s; runs "
+          f"{runs_s[0]:.2f} s and {runs_s[1]:.2f} s; peak device memory "
+          f"{peak_gb:.2f} GiB; losses {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    return {"launches": per_step[0], "steps": len(per_step),
+            "pairs_per_s": rates, "phase5_pairs_per_s": phase5_rate,
+            "pipeline_batches_per_s": pipeline_rate,
+            "first_batch_s": first_batch_s, "checkpoint_bytes": ckpt_bytes,
+            "save_s": save_s, "restore_s": restore_s, "peak_gb": peak_gb,
+            "losses": losses}
 
 
 def _patch_embed(gen):
@@ -1410,7 +1693,7 @@ def main() -> int:
               f"({_fmt(lib_dev)} ms)", flush=True)
 
     # 7. masked_init from the pretrain state, 8. the unmask-tuning step
-    model, state, config = _transition(train.pop("params"))
+    model, state, config = _transition(train.pop("model"))
     tune = _finetune(card, model, state, config)
     del model, state
     torch.cuda.empty_cache()
@@ -1425,6 +1708,9 @@ def main() -> int:
     h14 = _finetune_h14(card)
     torch.cuda.empty_cache()
 
+    # 13. the trainer from the data pipeline
+    trainer = _trainer(card, train["pairs_per_s"]["kernel"])
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -1437,6 +1723,10 @@ def main() -> int:
         "image_attn_impl": "auto",
         **{k: h14[k] for k in ("launches", "pairs_per_s", "peak_gb",
                                "loss_rel", "min_cosine", "plan")},
+    }, "trainer": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
+        "source": "synthetic, 144 px uint8, 16 captions",
+        **{k: v for k, v in trainer.items() if k != "losses"},
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -1447,7 +1737,8 @@ def main() -> int:
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
-            "finetune_h14_step": h14["launches"]["fused_fwd"]},
+            "finetune_h14_step": h14["launches"]["fused_fwd"],
+            "trainer_step": trainer["launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
@@ -1471,7 +1762,8 @@ def main() -> int:
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
-            "finetune_h14_step": h14["launches"]["fused_bwd"]},
+            "finetune_h14_step": h14["launches"]["fused_bwd"],
+            "trainer_step": trainer["launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],

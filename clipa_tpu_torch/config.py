@@ -5,7 +5,8 @@ nothing of the JAX package): configs are nested attribute-dicts that
 serialize to JSON, experiment files expose ``get_config(arg: str)`` and
 parse their ``"k1=v1,k2=v2"`` argument string with :func:`parse_arg`.
 Durations may be given in steps/examples/epochs/percent units; :func:`steps`
-resolves them.
+resolves them. :func:`apply_overrides` applies the trainer CLI's
+``--config.a.b=value`` arguments.
 """
 
 from __future__ import annotations
@@ -40,12 +41,43 @@ class ConfigDict(dict):
             value = ConfigDict(value)
         super().__setitem__(key, value)
 
+    def setdefault(self, key, default=None):
+        if key not in self:
+            self[key] = default
+        return self[key]
+
     def update(self, other=(), **kw):  # keep auto-wrap on update
         for k, v in dict(other, **kw).items():
             self[k] = v
 
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
+
+    def set_path(self, dotted: str, value: Any) -> None:
+        parts = dotted.split(".")
+        node = self
+        for part in parts[:-1]:
+            nxt = node.get(part)
+            if not isinstance(nxt, ConfigDict):
+                nxt = ConfigDict()
+                node[part] = nxt
+            node = nxt
+        node[parts[-1]] = value
+
     def to_json(self, **json_kw) -> str:
         return json.dumps(self, default=_jsonify, **json_kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ConfigDict":
+        return cls(json.loads(s))
+
+    def copy(self) -> "ConfigDict":
+        return ConfigDict(json.loads(self.to_json()))
 
 
 def _jsonify(obj):
@@ -169,3 +201,14 @@ def load_config(spec: str) -> ConfigDict:
     else:
         mod = importlib.import_module(path)
     return mod.get_config(arg or None)
+
+
+def apply_overrides(config: ConfigDict, overrides: list[str]) -> ConfigDict:
+    """Applies `--config.a.b=value` style CLI overrides in place."""
+    for ov in overrides:
+        ov = ov.lstrip("-")
+        if ov.startswith("config."):
+            ov = ov[len("config."):]
+        key, _, val = ov.partition("=")
+        config.set_path(key, _coerce(val))
+    return config

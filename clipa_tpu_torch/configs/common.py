@@ -42,6 +42,25 @@ def two_towers_model(img_variant: str, txt_variant: str, *,
     )
 
 
+def adam_config(lr: float, wd: float, warmup_steps: int, total_epochs=None,
+                total_examples=None, *, b1=0.9, b2=0.95,
+                mu_dtype="bfloat16") -> ConfigDict:
+    c = ConfigDict(
+        optax_name="scale_by_adam",
+        optax=ConfigDict(mu_dtype=mu_dtype, b1=b1, b2=b2),
+        lr=lr,
+        wd=wd,
+        schedule=[(".*", dict(decay_type="cosine",
+                              warmup_steps=warmup_steps))],
+        grad_clip_norm=1.0,
+    )
+    if total_epochs is not None:
+        c.total_epochs = total_epochs
+    if total_examples is not None:
+        c.total_examples = total_examples
+    return c
+
+
 def disclf_eval(res: int, tokenizer_pp: str, *, dataset="imagenet2012",
                 data_dir="", split="validation", log_steps=2000,
                 prefix="z/0shot/") -> ConfigDict:

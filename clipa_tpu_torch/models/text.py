@@ -128,3 +128,13 @@ def decode_variant(variant: Optional[str]) -> dict:
         "num_heads": {"Ti": 3, "S": 6, "M": 8, "B": 8, "L": 12,
                       "H": 16, "g": 16, "G": 16, "e": 16}[v],
     }
+
+
+def load(init_params, init_file, model_cfg=None, dont_load=()):
+    """Loads tower params from an npz checkpoint, merging with `init_params`
+    (a tree of the tower's tensors) under `dont_load`."""
+    del model_cfg
+    from clipa_tpu_torch.models import common
+    from clipa_tpu_torch.train import checkpoint
+    return common.merge_params(checkpoint.load_params(init_file),
+                               init_params, dont_load)

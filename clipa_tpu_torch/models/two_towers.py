@@ -73,3 +73,37 @@ class Model(nn.Module):
         out["t"] = torch.exp(self.t)
         out["t/parameter"] = self.t
         return zimg, ztxt, out
+
+
+def load(init_params, init_files, model_cfg, img_load_kw=None,
+         txt_load_kw=None):
+    """Loads both towers (the trainer's ``config.model_init``): `init_files`
+    is a dict with img/txt/t keys (or image/text/temperature), or one path,
+    a two_towers checkpoint whose subtrees are read with the
+    ``file.npz:key`` syntax. `init_params`: the model's tree of tensors
+    (nested); each tower merges through its module's ``load`` with
+    `img_load_kw` / `txt_load_kw` (``dont_load``). Returns the tree."""
+    from clipa_tpu_torch.train import checkpoint
+
+    if isinstance(init_files, str):
+        init_files = {k: f"{init_files}:{k}" for k in ("img", "txt", "t")}
+    else:
+        init_files = {**init_files}
+
+    restored = {**init_params}
+    img_init = init_files.pop("image", init_files.pop("img", None))
+    if img_init:
+        restored["img"] = get_model_module(model_cfg.image_model).load(
+            init_params["img"], img_init, model_cfg.get("image"),
+            **(img_load_kw or {}))
+    txt_init = init_files.pop("text", init_files.pop("txt", None))
+    if txt_init:
+        restored["txt"] = get_model_module(model_cfg.text_model).load(
+            init_params["txt"], txt_init, model_cfg.get("text"),
+            **(txt_load_kw or {}))
+    t_init = init_files.pop("temperature", init_files.pop("t", None))
+    if t_init:
+        restored["t"] = checkpoint.load_params(t_init)
+    if init_files:
+        raise ValueError(f"Unused keys in model_init: {list(init_files)}")
+    return restored

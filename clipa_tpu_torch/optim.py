@@ -168,7 +168,8 @@ class Optimizer:
 
     `params`: {JAX flat name: tensor}, updated in place by :meth:`apply`.
     State: ``count`` (steps taken; also the schedules' count), ``mu`` and
-    ``nu`` ({name: moment} for the unfrozen parameters).
+    ``nu`` ({name: moment} for the unfrozen parameters); :meth:`state_dict`
+    and :meth:`load_state_dict` carry it through a checkpoint.
     """
 
     def __init__(self, config, params: dict[str, torch.Tensor],
@@ -292,6 +293,32 @@ class Optimizer:
             updates[n] = -x
         self.count = c
         return updates
+
+    def state_dict(self) -> dict:
+        """{"count": steps taken, "mu": {name: moment}, "nu": {...}}: the
+        optimizer's tensors themselves (a checkpoint copies them)."""
+        return {"count": self.count, "mu": dict(self.mu),
+                "nu": dict(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copies a :meth:`state_dict` into the moments, bit for bit: each
+        moment must have its counterpart's name, shape and dtype (a bf16
+        `mu` stays bf16)."""
+        for key in ("mu", "nu"):
+            mine, theirs = getattr(self, key), state[key]
+            if set(mine) != set(theirs):
+                raise ValueError(f"optimizer state {key}: names differ: "
+                                 f"{sorted(set(mine) ^ set(theirs))[:10]}")
+            for name, t in mine.items():
+                src = theirs[name]
+                if src.shape != t.shape or src.dtype != t.dtype:
+                    raise ValueError(
+                        f"optimizer state {key}[{name!r}]: "
+                        f"{tuple(src.shape)} {src.dtype}, expected "
+                        f"{tuple(t.shape)} {t.dtype}")
+                t.copy_(src)
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def apply(self, updates: dict[str, torch.Tensor]) -> None:

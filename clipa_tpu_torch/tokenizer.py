@@ -6,12 +6,15 @@ The port's copy of the WordPiece stack of the JAX package
 
   * basic tokenization: lower-casing, NFD accent stripping, CJK spacing,
     punctuation splitting; then greedy longest-match WordPiece with "##"
-    continuations (:class:`WordPieceTokenizer`);
+    continuations (:class:`WordPieceTokenizer`; ``encode_words`` for
+    pre-split words);
   * :func:`bert_tokenize`: WordPiece ids truncated or zero-padded to
     ``max_len - 1`` behind ``[CLS]``.
 
-Syntax-priority sampling (``syntax_tokenize``), which only the training
-data pipeline uses, is not ported yet.
+Serving tokenizes captions here. The training pp ops
+(``clipa_tpu_torch/pp/ops_text.py``: ``bert_tokenize``,
+``custom_bert_tokenize`` and CLIPA's syntax-priority sampling,
+``syntax_tokenize``) build on the same tokenizer.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import functools
 import re
 import unicodedata
-from typing import List, Sequence
+from typing import Iterable, List, Sequence
 
 import numpy as np
 
@@ -137,6 +140,13 @@ class WordPieceTokenizer:
         for word in basic_tokenize(text):
             ids.extend(self.tokenize_word(word))
         return ids
+
+    def encode_words(self, words: Iterable[str]) -> List[List[int]]:
+        """Pre-split words -> per-word WordPiece id lists (syntax-priority
+        sampling selects words before it flattens them to ids). Each word
+        still goes through basic tokenization: it may split into several
+        pieces, e.g. "don't"."""
+        return [self.encode(word) for word in words]
 
 
 @functools.lru_cache(maxsize=8)

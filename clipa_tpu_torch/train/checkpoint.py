@@ -1,23 +1,37 @@
-"""Flat-npz checkpoints.
+"""Checkpoints: flat npz files and the trainer's resumable step directories.
 
-Port of the flat-npz half of ``clipa_tpu/train/checkpoint.py``: npz files
-whose keys are slash-joined parameter names, bf16 stored as ``V2`` void
-bytes, written atomically (:func:`npsave`, :func:`save_params`) and read
-(:func:`load_params`, with the ``file.npz:subtree`` syntax), on local paths;
-and :func:`masked_init`, the trainer's cross-resolution initialization
-(``config.masked_init``). Remote URLs (``gs://``), the async writer and
-Orbax checkpoints are not ported yet.
+Port of ``clipa_tpu/train/checkpoint.py``, on local paths (a remote URL
+raises, ROADMAP A4):
+
+  * **flat npz**: keys are slash-joined parameter names, bf16 stored as
+    ``V2`` void bytes, written atomically (:func:`npsave`,
+    :func:`save_params`, or in the background by
+    :class:`AsyncCheckpointWriter`) and read (:func:`load_params`, with the
+    ``file.npz:subtree`` syntax): wire-compatible with the JAX package's
+    files and released CLIPA weights when the tensors are in the JAX
+    layout (``convert.to_jax_params`` of a model; a train state's
+    ``params`` are the model's own, in torch layout).
+    :func:`masked_init` is the trainer's cross-resolution initialization
+    (``config.masked_init``).
+  * **resumable**: :class:`CheckpointManager` keeps ``<dir>/<step>/state.pt``
+    step directories (``torch.save`` in place of Orbax), each written in the
+    background to a temporary directory and renamed into place, the newest
+    `max_to_keep` kept. The trainer stores {params, optimizer state, step,
+    chrono} there; every tensor comes back bit for bit, bf16 included.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
-from typing import Any, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
+from clipa_tpu_torch import convert, pathio
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.models import common
 
@@ -25,7 +39,7 @@ from clipa_tpu_torch.models import common
 def npsave(data: dict, path: str) -> None:
     """Atomic np.savez of a flat {name: np.ndarray} dict: written to a
     temporary file beside `path`, then renamed over it."""
-    parent = os.path.dirname(os.path.abspath(path))
+    parent = pathio.dirname(path)
     os.makedirs(parent, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=parent, suffix=".npz-TEMPORARY")
     try:
@@ -56,7 +70,8 @@ def save_params(params: Any, path: str) -> None:
 
 def npload(path: str) -> dict:
     """Reads an npz file into a flat {name: np.ndarray} dict."""
-    with np.load(path, allow_pickle=False) as checkpoint:
+    with pathio.open_file(path) as f, \
+            np.load(f, allow_pickle=False) as checkpoint:
         return {k: checkpoint[k] for k in checkpoint.files}
 
 
@@ -75,7 +90,7 @@ def load_params(path: str) -> dict:
     tensors (or one tensor, when the subtree key names a leaf).
     """
     key = None
-    if ":" in path:
+    if ":" in path and not pathio.is_remote(path):
         path, _, key = path.rpartition(":")
     tree = load_checkpoint(path)
     if "params" in tree and isinstance(tree["params"], dict) and \
@@ -87,23 +102,135 @@ def load_params(path: str) -> dict:
     return tree
 
 
-def masked_init(params: dict, path: str, dont_load: Sequence = ()) -> dict:
-    """Initializes `params` in place from the checkpoint at `path`: the
-    trainer's ``config.masked_init`` branch (clipa_tpu/train/loop.py). The
-    checkpoint is merged into the parameters by
-    :func:`common.merge_params` under `dont_load` (``config.masked_no_load``):
-    every tensor is copied, except position embeddings of another length,
-    which are resampled (the pretrain text tower's 8 positions to the
-    fine-tune's 32), and what `dont_load` keeps at its init.
-
-    params: {slash-joined JAX name: tensor}, a train state's ``params``.
-    Returns `params`.
+def masked_init(model: torch.nn.Module, path: str,
+                dont_load: Sequence = ()) -> torch.nn.Module:
+    """Initializes `model`'s parameters in place from the checkpoint at
+    `path` (the JAX layout, as the JAX package and :func:`save_params` of
+    ``convert.to_jax_params`` write it): the trainer's
+    ``config.masked_init`` branch (clipa_tpu/train/loop.py). The checkpoint
+    is merged into the model's parameters, mapped to the JAX layout, by
+    :func:`common.merge_params` under `dont_load`
+    (``config.masked_no_load``): every tensor is copied, except position
+    embeddings of another length, which are resampled (the pretrain text
+    tower's 8 positions to the fine-tune's 32), and what `dont_load` keeps
+    at its init. Returns `model`.
     """
     merged = common.merge_params(load_params(path),
-                                 {n: p.detach() for n, p in params.items()},
-                                 dont_load)
-    flat = dict(u.tree_flatten_with_names(merged))
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(flat[name])
-    return params
+                                 convert.to_jax_params(model), dont_load)
+    convert.load_jax_params(model, merged)
+    return model
+
+
+def _to_host(tree: Any) -> Any:
+    """A copy of a nested dict with every tensor copied to the CPU (the
+    caller's tensors may change under the next step while it is written)."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+class AsyncCheckpointWriter:
+    """Single-slot async npz writer: saves overlap the next train steps.
+
+    The tensors are copied to the host before `save` returns; a second
+    save waits for the first. `wait` raises a failed write's error, or a
+    ``TimeoutError`` after `timeout_secs`.
+    """
+
+    def __init__(self, timeout_secs: float = 600.0):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="ckpt")
+        self._future = None
+        self.timeout_secs = timeout_secs
+
+    def wait(self):
+        if self._future is not None:
+            future, self._future = self._future, None
+            future.result(timeout=self.timeout_secs)
+
+    def save(self, params: Any, path: str) -> None:
+        self.wait()  # one write in flight at a time
+        self._future = self._pool.submit(save_params, _to_host(params), path)
+
+    def close(self):
+        self.wait()
+        self._pool.shutdown(wait=True)
+
+
+def load_state(path: str) -> dict:
+    """Reads a resumable checkpoint: a :class:`CheckpointManager` step
+    directory or its ``state.pt`` (``config.resume``), onto the CPU."""
+    if os.path.isdir(pathio.local_path(path)):
+        path = os.path.join(path, CheckpointManager.STATE)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class CheckpointManager:
+    """Resumable checkpoints in step directories: ``<directory>/<step>/
+    state.pt`` holds one ``torch.save``-d nested dict of tensors and
+    Python scalars.
+
+    :meth:`save` copies the state to the host and writes it in a background
+    thread (one write in flight) into a temporary directory, renamed into
+    place when whole, so a step directory is complete or absent; then only
+    the newest `max_to_keep` steps are kept. Saving a step that exists is a
+    no-op. :meth:`restore` reads a step (the latest by default) onto the
+    CPU.
+    """
+
+    STATE = "state.pt"
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(pathio.local_path(directory))
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="ckpt")
+        self._future = None
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(name) for name in os.listdir(self.directory)
+                      if name.isdigit() and os.path.exists(
+                          os.path.join(self.directory, name, self.STATE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, state: dict) -> bool:
+        self.wait()
+        if step in self.all_steps():
+            return False
+        self._future = self._pool.submit(self._write, step, _to_host(state))
+        return True
+
+    def _write(self, step: int, host: dict) -> None:
+        tmp = tempfile.mkdtemp(dir=self.directory,
+                               prefix=f".{step}-TEMPORARY-")
+        try:
+            torch.save(host, os.path.join(tmp, self.STATE))
+            os.replace(tmp, self.step_dir(step))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.step_dir(old))
+
+    def restore(self, step: Optional[int] = None) -> Optional[dict]:
+        self.wait()
+        step = self.latest_step() if step is None else step
+        return None if step is None else load_state(self.step_dir(step))
+
+    def wait(self) -> None:
+        if self._future is not None:
+            future, self._future = self._future, None
+            future.result()
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown(wait=True)

@@ -1,6 +1,7 @@
 """Flat-name helpers for parameter trees, and the entry points' device check.
 
-Port of the naming and masking half of ``clipa_tpu/utils.py``. Parameters
+Port of the naming, masking and scheduling half of ``clipa_tpu/utils.py``
+(:func:`itstime` reads the process rank from ``torch.distributed``). Parameters
 are addressed by slash-joined names
 (``img/Transformer/encoderblock_0/LayerNorm_0/scale``); npz checkpoints store
 them under those keys, ``convert.py`` maps them to ``state_dict`` names, and
@@ -128,3 +129,33 @@ def make_mask_trees(names: Iterable[str],
             mask[name] = not hit and bool(pat.fullmatch(name))
             hit = hit or mask[name]
     return masks
+
+
+def process_index() -> int:
+    """This process's rank: ``torch.distributed``'s when it is initialized,
+    else 0."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def process_count() -> int:
+    """The number of processes: ``torch.distributed``'s world size when it
+    is initialized, else 1."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+
+
+def itstime(step: int, every_n: int | None, total_steps: int,
+            host: int | None = None, last: bool = True,
+            first: bool = True) -> bool:
+    """Scheduling predicate: is `step` a multiple of every_n / first / last?
+    With `host`, only on the process of that rank."""
+    if every_n is None or every_n <= 0:
+        return False
+    if host is not None and process_index() != host:
+        return False
+    is_last = last and step == total_steps
+    is_first = first and step == 1
+    return is_first or is_last or step % every_n == 0

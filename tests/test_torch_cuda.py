@@ -767,3 +767,27 @@ def test_patch_embed_width_gate_and_refusals(cuda):
     with pytest.raises(TypeError, match="out_dtype"):
         patch_embed.fused_patch_embed(images, kernel, out_dtype=torch.half,
                                       impl="pallas")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prefetch", [0, 2])
+def test_input_pipeline_delivers_the_host_batches_on_the_card(cuda,
+                                                              n_prefetch):
+    """start_input_pipeline's batches on the card (pinned memory, copies on
+    a side stream that the consumer's stream waits on) equal the host
+    batches, read on the consumer's stream while the producer runs ahead."""
+    from clipa_tpu_torch.data import pipeline
+    rng = np.random.default_rng(0)
+    host = [{"image": rng.integers(0, 256, (64, 112, 112, 3), np.uint8),
+             "labels": rng.integers(0, 32000, (64, 8)).astype(np.int32)}
+            for _ in range(6)]
+    got = pipeline.start_input_pipeline(iter(host), cuda,
+                                        n_prefetch=n_prefetch)
+    for want, batch in zip(host, got):
+        assert set(batch) == set(want)
+        for key, t in batch.items():
+            assert t.device.type == "cuda"
+            # work on the consumer's stream, as a train step would
+            seen = (t.to(torch.int64) * 1).cpu().numpy()
+            np.testing.assert_array_equal(seen, want[key], err_msg=key)
+    got.close()

@@ -351,13 +351,14 @@ def test_masked_init_from_a_pretrain_checkpoint(tmp_path):
     state = step.init_train_state(pre, None,
                                   torch.Generator().manual_seed(0), "cpu")
     path = str(tmp_path / "pretrain.npz")
-    checkpoint.save_params(state["params"], path)
+    checkpoint.save_params(convert.to_jax_params(pre), path)
     tune = step.create_model(tiny_config(res=64, tokens=32), device="cpu")
     params = step.init_train_state(tune, None,
                                    torch.Generator().manual_seed(1),
                                    "cpu")["params"]
-    init_np = {k: v.detach().numpy().copy() for k, v in params.items()}
-    assert checkpoint.masked_init(params, path) is params
+    init_np = {k: v.detach().numpy().copy()
+               for k, v in convert.to_jax_params(tune).items()}
+    assert checkpoint.masked_init(tune, path) is tune
     saved = state["params"]
     for name, p in params.items():
         if name != "txt/pos_embedding":
@@ -497,7 +498,7 @@ import clipa_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(clipa_tpu_torch.__path__, "clipa_tpu_torch."):
     importlib.import_module(m.name)
 from clipa_tpu_torch.configs import clipa_finetune
-from clipa_tpu_torch import optim
+from clipa_tpu_torch import convert, optim
 from clipa_tpu_torch.ops import flash_attention
 from clipa_tpu_torch.train import checkpoint, step
 config = clipa_finetune.get_config(
@@ -508,8 +509,9 @@ config.schedule = [(".*", dict(decay_type="const"))]
 model = step.create_model(config, device="cpu")
 state = step.init_train_state(model, config, torch.Generator().manual_seed(0),
                               "cpu")
-checkpoint.save_params(state["params"], {str(tmp_path / 'p.npz')!r})
-checkpoint.masked_init(state["params"], {str(tmp_path / 'p.npz')!r})
+checkpoint.save_params(convert.to_jax_params(model),
+                       {str(tmp_path / 'p.npz')!r})
+checkpoint.masked_init(model, {str(tmp_path / 'p.npz')!r})
 tx, _ = optim.make(config, model, sched_kw=dict(total_steps=3))
 update = step.make_update_fn(model, tx, config, total_steps=3)
 batch = {{"image": torch.zeros(4, 32, 32, 3, dtype=torch.uint8),
