@@ -15,7 +15,9 @@ the pre-training stem and the serving bucket, the tools (the
 attention-variant sweep and the step-ablation ladder), and CLIPA-v2's
 H/14 unmask-tuning step of ``clipa_finetune.py`` at
 ``img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64`` on the
-config's ``auto`` route (the fused kernels; the backward's long scheme).
+config's ``auto`` route (the fused kernels; the backward's long scheme),
+the trainer from the data pipeline, and CLIPA's zero-shot ImageNet eval in
+the trainer and in ``tools/eval_zeroshot``.
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel (build times
@@ -131,7 +133,26 @@ config's ``auto`` route (the fused kernels; the backward's long scheme).
      trainer's pairs/s (host clock, steps 2-4 and 6-8) beside phase 5's
      with the batch on the device and the input pipeline's batches/s
      alone; the checkpoint's bytes, save and restore seconds; peak device
-     memory.
+     memory;
+ 14. CLIPA's evals in the trainer: ``imagenet2012-validation`` tfrecords
+     (4096 PIL-encoded 160 x 144 JPEGs, labels 0-999, a class-dependent
+     channel signal) in a ``data_dir``; phase 13's config wrapper over
+     ``clipa_pretrain.py:...,data_dir=<dir>``, so ``config.evals.disclf``
+     is the config's own zero-shot eval (1000 class names x 81 CLIP-paper
+     prompts, ``decode|resize_small(112)|central_crop(112)``, B = 384)
+     with log_steps 2, plus a contrastive eval on 1536 synthetic pairs
+     through the train pp. Run A trains 4 steps; run B replays the step-4
+     checkpoint with ``eval_only``. Raises unless the zero-shot accuracy is
+     logged at steps 1, 2 and 4 (the JAX loop's cadence) in [0, 1], the
+     contrastive loss is finite, the training losses equal phase 13's run
+     1 bit for bit, every zero-shot run launches the fused forward 24 x 11
+     = 264 times and nothing else, and eval_only reproduces the step-4
+     accuracy exactly. Then ``tools/eval_zeroshot`` on
+     ViT-H-14-CL32-GAP-BigVision @224 from an npz of the serving model's
+     seeded random weights (JAX layout) over the same tfrecords: a finite
+     accuracy and 32 x 16 fused forwards. Prints the prompt-embedding
+     seconds, the eval images/s with JPEG decode in the pp, the evals'
+     seconds beside the steps'.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -1360,6 +1381,316 @@ def _trainer(card, phase5_rate):
             "losses": losses}
 
 
+# Phase 14: the trainer with CLIPA's evals: the pretrain config with a
+# data_dir, so that config.evals.disclf is the config's own zero-shot
+# ImageNet eval (1000 class names x 81 CLIP-paper prompts, its pp and eval
+# batch), on imagenet2012 validation tfrecords written here; then the
+# eval-only replay of the same workdir and tools/eval_zeroshot at H/14.
+EVAL_IMAGES = 4096
+EVAL_SHARDS = 2
+EVAL_IMAGE_HW = (144, 160)       # JPEGs of 160 x 144 pixels
+EVAL_CLASSES = 1000
+EVAL_LOG_STEPS = 2
+CONTRASTIVE_PAIRS = 1536
+TOOL_BATCH = 256
+ZEROSHOT_KEY = "z/0shot/imagenet2012_accuracy"
+# The JAX loop's cadence: the evals run at multiples of log_steps, at the
+# last step and, with log_steps < total_steps, at step 1.
+ZEROSHOT_STEPS = [1, 2, 4]
+# Launches of one zero-shot run at L/16 @112 (B = 384): the image tower's 24
+# layers per image batch (the 8-token text tower on the einsum path); of the
+# tool at H/14 @224 (B = 256): 32 per batch (32-token text tower: einsum).
+ZEROSHOT_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                     "fused_fwd": TRAIN_IMAGE_LAYERS * -(-EVAL_IMAGES // 384),
+                     "fused_bwd": 0}
+TOOL_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                 "fused_fwd": IMAGE_LAYERS * -(-EVAL_IMAGES // TOOL_BATCH),
+                 "fused_bwd": 0}
+
+_EVAL_CONFIG = _TRAINER_CONFIG.replace("    return config\n", """\
+    # the config's own disclf eval, but its cadence
+    config.evals.disclf.log_steps = {log_steps}
+    config.evals.val = dict(
+        type="contrastive", log_steps={steps},
+        data=dict(name="synthetic", n_examples={pairs}, res=144,
+                  captions={captions!r}),
+        pp=config.input.pp)
+    return config
+""")
+
+
+def _write_eval_tfrecords(data_dir):
+    """imagenet2012-validation tfrecords of EVAL_IMAGES PIL-encoded JPEGs
+    ({image, label}, labels in 0-999) with a class-dependent channel
+    signal, in EVAL_SHARDS files."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from clipa_tpu_torch.data import tfrecord
+
+    rng = np.random.default_rng(SEED)
+    per = EVAL_IMAGES // EVAL_SHARDS
+    for shard in range(EVAL_SHARDS):
+        def payloads():
+            for _ in range(per):
+                cls = int(rng.integers(0, EVAL_CLASSES))
+                arr = rng.integers(0, 255, EVAL_IMAGE_HW + (3,),
+                                   dtype=np.uint8)
+                arr[..., cls % 3] //= 2
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, "JPEG")
+                yield tfrecord.build_example({"image": buf.getvalue(),
+                                              "label": np.asarray([cls])})
+        tfrecord.write_records(os.path.join(
+            data_dir, f"imagenet2012-validation.tfrecord-"
+                      f"{shard:05d}-of-{EVAL_SHARDS:05d}"), payloads())
+
+
+def _decode_cost(pp_img, data_dir, n=256):
+    """Host ms per image of the eval pp `pp_img` on one thread, on the
+    first `n` records' JPEG bytes and on the same images decoded
+    beforehand (`decode` passes an array through): what decoding costs."""
+    import numpy as np
+    from clipa_tpu_torch import registry
+    from clipa_tpu_torch.data import core as data_core
+
+    pp = registry.get_preprocess_fn(pp_img)
+    decode = registry.get_preprocess_fn("decode")
+    source = data_core.get_source(
+        name="tfrecord", pattern=f"{data_dir}/imagenet2012-validation*")
+    raw = [s["image"] for _, s in zip(range(n), source.iter_process_shard())]
+    decoded = [decode({"image": r})["image"] for r in raw]
+    ms, out = {}, {}
+    for name, images in (("jpeg", raw), ("decoded", decoded)):
+        t0 = time.perf_counter()
+        out[name] = [pp({"image": x})["image"] for x in images]
+        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+    if not all(np.array_equal(a, b) for a, b in zip(out["jpeg"],
+                                                    out["decoded"])):
+        raise RuntimeError("the eval pp differs on decoded images")
+    return ms
+
+
+def _count_zeroshot_runs(zeroshot, runs):
+    """Wraps zeroshot.Evaluator.run and _class_embeddings: each run's
+    launches (counters set to 0 at its start, read at its end), seconds,
+    prompt-embedding seconds and image count go to `runs`. Returns the
+    function that undoes the wrap."""
+    import torch
+    reset, read = _attention_counters()
+    run, embed = zeroshot.Evaluator.run, zeroshot.Evaluator._class_embeddings
+
+    def counted_embed(self, params, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = embed(self, params, name)
+        runs[-1]["prompts"] = len(zeroshot.build_prompts(
+            self.datasets[name]["class_names"],
+            self.datasets[name]["templates"])[0])
+        runs[-1]["prompt_s"] = time.perf_counter() - t0
+        return z
+
+    def counted_run(self, params):
+        runs.append({})
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, params)
+        torch.cuda.synchronize()
+        runs[-1].update(seconds=time.perf_counter() - t0, launches=read(),
+                        images=sum(s.total_examples() for s in (
+                            d["source"] for d in self.datasets.values())))
+        return out
+
+    zeroshot.Evaluator.run = counted_run
+    zeroshot.Evaluator._class_embeddings = counted_embed
+
+    def undo():
+        zeroshot.Evaluator.run = run
+        zeroshot.Evaluator._class_embeddings = embed
+    return undo
+
+
+def _evals(card, phase13_losses):
+    """Phase 14: the trainer with CLIPA's evals at L/16 @112 (B = 384):
+    run A trains TRAINER_STEPS[0] steps with the config's zero-shot eval
+    every EVAL_LOG_STEPS steps and a contrastive eval at the last; run B
+    replays the step-4 checkpoint with eval_only; then tools/eval_zeroshot
+    on ViT-H-14-CL32-GAP-BigVision @224 from an npz of the serving model's
+    seeded random weights. Checks the accuracies, the launches of every
+    zero-shot run, and that the evals leave training bit for bit as phase
+    13's run 1."""
+    import tempfile
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import convert
+    from clipa_tpu_torch.compat import openclip
+    from clipa_tpu_torch.evaluators import zeroshot
+    from clipa_tpu_torch.tools import eval_zeroshot
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.train import checkpoint, loop, step
+
+    reset, read = _attention_counters()
+    per_step, step_s = [], []
+    make_update_fn = step.make_update_fn
+
+    def counted(*args, **kw):   # each step's launches and seconds
+        update = make_update_fn(*args, **kw)
+
+        def run(state, batch):
+            reset()
+            t0 = time.perf_counter()
+            state, meas = update(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(read())
+            return state, meas
+        return run
+
+    runs = []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "imagenet")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        _write_eval_tfrecords(data_dir)
+        write_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "eval_config.py")
+        with open(path, "w") as f:
+            f.write(_EVAL_CONFIG.format(
+                pretrain=f"{PRETRAIN},data_dir={data_dir}",
+                captions=TRAINER_CAPTIONS, steps=TRAINER_STEPS[0],
+                ckpt=TRAINER_STEPS[0], log_steps=EVAL_LOG_STEPS,
+                pairs=CONTRASTIVE_PAIRS))
+        workdir = os.path.join(tmp, "run")
+        argv = [f"--config={path}", f"--workdir={workdir}", "--device=cuda",
+                f"--config.total_steps={TRAINER_STEPS[0]}"]
+        step.make_update_fn = counted
+        undo = _count_zeroshot_runs(zeroshot, runs)
+        try:
+            t0 = time.perf_counter()
+            loop.main(argv)
+            run_a_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loop.main(argv + ["--config.eval_only=True"])
+            run_b_s = time.perf_counter() - t0
+        finally:
+            step.make_update_fn = make_update_fn
+            undo()
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        decode = _decode_cost(load_config(path).evals.disclf.pp_img,
+                              data_dir)
+
+        # the tool: H/14 @224 from an npz of the serving model's weights
+        clip = openclip.create_model(MODEL, None, precision="bfloat16",
+                                     device="cuda", seed=SEED)
+        npz = os.path.join(tmp, "h14.npz")
+        checkpoint.save_params(convert.to_jax_params(clip.model), npz)
+        del clip
+        torch.cuda.empty_cache()
+        undo = _count_zeroshot_runs(zeroshot, runs)
+        try:
+            t0 = time.perf_counter()
+            tool = eval_zeroshot.main([
+                "--model", MODEL, "--pretrained", npz,
+                "--data-dir", data_dir, "--vocab",
+                os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "vocab.txt"),
+                "--batch-size", str(TOOL_BATCH)])
+            tool_s = time.perf_counter() - t0
+        finally:
+            undo()
+        torch.cuda.empty_cache()
+
+    # run A: the zero-shot accuracy at the JAX loop's cadence, the
+    # contrastive loss at the last step, steps 1-4 logged once each
+    train_rows = [r for r in rows if "training_loss" in r]
+    losses = [r["training_loss"] for r in train_rows]
+    acc = {r["step"]: r[ZEROSHOT_KEY] for r in rows[:len(rows) - 1]
+           if ZEROSHOT_KEY in r}
+    if sorted(acc) != ZEROSHOT_STEPS or not all(
+            0.0 <= a <= 1.0 for a in acc.values()):
+        raise RuntimeError(f"run A logged {ZEROSHOT_KEY} {acc}, expected "
+                           f"values in [0, 1] at steps {ZEROSHOT_STEPS}")
+    val = {r["step"]: r["val/loss"] for r in rows if "val/loss" in r}
+    if TRAINER_STEPS[0] not in val or not np.isfinite(list(val.values())
+                                                      ).all():
+        raise RuntimeError(f"contrastive eval losses {val}")
+    if [r["step"] for r in train_rows] != list(
+            range(1, TRAINER_STEPS[0] + 1)):
+        raise RuntimeError(f"run A logged training steps "
+                           f"{[r['step'] for r in train_rows]}")
+    # the evals leave training as it was: phase 13's run 1, bit for bit
+    if losses != phase13_losses[:TRAINER_STEPS[0]]:
+        raise RuntimeError(f"training losses with evals {losses} differ "
+                           f"from phase 13's {phase13_losses[:4]}")
+    if per_step != [TRAINER_LAUNCHES] * TRAINER_STEPS[0]:
+        raise RuntimeError(f"trainer steps launched {per_step}, expected "
+                           f"{TRAINER_LAUNCHES} each")
+    # run B: eval_only at the restored step reproduces run A's accuracy
+    replay = rows[-1]
+    if replay["step"] != TRAINER_STEPS[0] or "training_loss" in replay or \
+            replay.get(ZEROSHOT_KEY) != acc[TRAINER_STEPS[0]]:
+        raise RuntimeError(f"eval_only logged {replay}, expected "
+                           f"{ZEROSHOT_KEY} {acc[TRAINER_STEPS[0]]} at step "
+                           f"{TRAINER_STEPS[0]}")
+    # every zero-shot run: 24 fused forwards per image batch, no backward
+    zs, tool_run = runs[:-1], runs[-1]
+    if len(zs) != len(ZEROSHOT_STEPS) + 1 or any(
+            r["launches"] != ZEROSHOT_LAUNCHES for r in zs):
+        raise RuntimeError(f"zero-shot runs launched "
+                           f"{[r['launches'] for r in zs]}, expected "
+                           f"{ZEROSHOT_LAUNCHES} each")
+    tool_acc = tool["imagenet2012_accuracy"]
+    if not np.isfinite(tool_acc) or tool_run["launches"] != TOOL_LAUNCHES:
+        raise RuntimeError(f"eval_zeroshot: accuracy {tool_acc}, launches "
+                           f"{tool_run['launches']}, expected {TOOL_LAUNCHES}")
+
+    phase_s = time.perf_counter() - t_phase
+
+    def rate(r):   # images/s of the image pass (pp, decode included)
+        return r["images"] / (r["seconds"] - r["prompt_s"])
+
+    def fmt(values, spec=".2f"):
+        return " ".join(format(v, spec) for v in values)
+
+    print(f"{card}: evals at L/16 @112 (B=384): {EVAL_IMAGES} JPEGs "
+          f"({EVAL_IMAGE_HW[1]}x{EVAL_IMAGE_HW[0]}) written in {write_s:.2f} "
+          f"s; zero-shot accuracy by step {acc}, eval_only "
+          f"{replay[ZEROSHOT_KEY]}; contrastive loss {val}; run A "
+          f"{run_a_s:.2f} s ({TRAINER_STEPS[0]} steps {fmt(step_s, '.3f')} "
+          f"s; zero-shot runs {fmt(r['seconds'] for r in zs[:-1])} s), run "
+          f"B {run_b_s:.2f} s (zero-shot {zs[-1]['seconds']:.2f} s); "
+          f"{zs[0]['prompts']} prompts embedded (L text tower, 8 tokens) in "
+          f"{fmt(r['prompt_s'] for r in zs)} s; eval images/s with JPEG "
+          f"decode in the pp {fmt((rate(r) for r in zs), '.1f')}; fused "
+          f"forward launches per zero-shot run "
+          f"{zs[0]['launches']['fused_fwd']}; training losses {losses} = "
+          f"phase 13's", flush=True)
+    print(f"{card}: the eval pp (256 images, one host thread): "
+          f"{decode['jpeg']:.3f} ms per image from JPEG bytes, "
+          f"{decode['decoded']:.3f} ms from decoded arrays", flush=True)
+    print(f"{card}: tools/eval_zeroshot {MODEL} @224 (B={TOOL_BATCH}): "
+          f"accuracy {tool_acc} in {tool_s:.2f} s (eval "
+          f"{tool_run['seconds']:.2f} s); {tool_run['prompts']} prompts "
+          f"(H text tower, 32 tokens) in {tool_run['prompt_s']:.2f} s; "
+          f"images/s {rate(tool_run):.1f}; fused forward launches "
+          f"{tool_run['launches']['fused_fwd']}; phase 14 in "
+          f"{phase_s:.2f} s", flush=True)
+    return {"zeroshot_launches": zs[0]["launches"],
+            "tool_launches": tool_run["launches"],
+            "accuracy": acc, "eval_only_accuracy": replay[ZEROSHOT_KEY],
+            "contrastive_loss": val, "tool_accuracy": tool_acc,
+            "zeroshot_s": [r["seconds"] for r in zs],
+            "prompt_s": [r["prompt_s"] for r in zs],
+            "images_per_s": [rate(r) for r in zs], "step_s": step_s,
+            "run_s": [run_a_s, run_b_s], "tool_s": tool_s,
+            "tool_prompt_s": tool_run["prompt_s"],
+            "pp_ms_per_image": decode,
+            "tool_images_per_s": rate(tool_run), "phase_s": phase_s}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -1711,6 +2042,9 @@ def main() -> int:
     # 13. the trainer from the data pipeline
     trainer = _trainer(card, train["pairs_per_s"]["kernel"])
 
+    # 14. the trainer with CLIPA's evals, eval_only, tools/eval_zeroshot
+    evals = _evals(card, trainer["losses"])
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -1727,18 +2061,26 @@ def main() -> int:
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "source": "synthetic, 144 px uint8, 16 captions",
         **{k: v for k, v in trainer.items() if k != "losses"},
+    }, "evals": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN},"
+                  "data_dir=<tfrecords>",
+        "tool_model": MODEL, **evals,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "clipa_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "clipa_tpu/ops/block_attention.py:165",
-        "launches": launches + train["launches"]["fwd"],
+        "launches": (launches + train["launches"]["fwd"]
+                     + evals["zeroshot_launches"]["fused_fwd"]
+                     + evals["tool_launches"]["fused_fwd"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
             "finetune_h14_step": h14["launches"]["fused_fwd"],
-            "trainer_step": trainer["launches"]["fused_fwd"]},
+            "trainer_step": trainer["launches"]["fused_fwd"],
+            "zeroshot_eval": evals["zeroshot_launches"]["fused_fwd"],
+            "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],

@@ -64,15 +64,22 @@ def adam_config(lr: float, wd: float, warmup_steps: int, total_epochs=None,
 def disclf_eval(res: int, tokenizer_pp: str, *, dataset="imagenet2012",
                 data_dir="", split="validation", log_steps=2000,
                 prefix="z/0shot/") -> ConfigDict:
-    """Zero-shot discriminative-classifier evaluator config (the evaluator
-    itself is not ported yet; the config is kept so that the experiment
-    files describe the same run as the JAX package's)."""
+    """Zero-shot discriminative-classifier evaluator config.
+
+    pp_img decodes first and ends on uint8: the trainer's predict fn
+    normalizes uint8 on the device with the train step's statistics
+    (``train.step.make_predict_fn``). The JAX package's copy has no
+    ``decode`` and fails on the encoded JPEG bytes that a tfrecord
+    ImageNet split yields (``resize_small`` gets bytes, not an image);
+    ``decode`` passes an already-decoded array through, so the prefix
+    changes nothing for decoded inputs.
+    """
     return ConfigDict(
         type="zeroshot_classifier",
         dataset_names=[dataset],
         split=split,
         data_dir=data_dir,
-        pp_img=(f'resize_small({res}, method="bilinear")|'
+        pp_img=(f'decode|resize_small({res}, method="bilinear")|'
                 f'central_crop({res})'),
         pp_txt=tokenizer_pp,
         log_steps=log_steps,

@@ -17,6 +17,7 @@ path) and writers always emit correct CRCs so TF/TFDS can read our shards.
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 from typing import Any, BinaryIO, Iterator
@@ -24,32 +25,53 @@ from typing import Any, BinaryIO, Iterator
 import numpy as np
 
 # ---------------------------------------------------------------------------
-# CRC32C (Castagnoli), table-driven
+# CRC32C (Castagnoli), table-driven, a chunk of bytes at a time
 # ---------------------------------------------------------------------------
 
-_CRC_TABLE = None
+_CRC_CHUNK = 4096
 
 
-def _crc_table() -> np.ndarray:
-    global _CRC_TABLE
-    if _CRC_TABLE is None:
-        poly = 0x82F63B78  # reversed Castagnoli polynomial
-        table = np.zeros(256, np.uint32)
-        for i in range(256):
-            crc = i
-            for _ in range(8):
-                crc = (crc >> 1) ^ (poly if crc & 1 else 0)
-            table[i] = crc
-        _CRC_TABLE = table
-    return _CRC_TABLE
+@functools.lru_cache(maxsize=1)
+def _crc_tables() -> tuple[np.ndarray, np.ndarray]:
+    """(table, shifted): the byte table of the reflected Castagnoli CRC,
+    and shifted[k, b], the register that byte b leaves from register 0
+    once k zero bytes follow it (k < _CRC_CHUNK)."""
+    poly = 0x82F63B78  # reversed Castagnoli polynomial
+    table = np.zeros(256, np.uint32)
+    for i in range(256):
+        crc = i
+        for _ in range(8):
+            crc = (crc >> 1) ^ (poly if crc & 1 else 0)
+        table[i] = crc
+    shifted = np.empty((_CRC_CHUNK, 256), np.uint32)
+    shifted[0] = table
+    for k in range(1, _CRC_CHUNK):
+        prev = shifted[k - 1]
+        shifted[k] = table[prev & 0xFF] ^ (prev >> 8)
+    return table, shifted
 
 
 def crc32c(data: bytes) -> int:
-    table = _crc_table()
-    crc = np.uint32(0xFFFFFFFF)
-    for b in np.frombuffer(data, np.uint8):
-        crc = table[(crc ^ b) & np.uint32(0xFF)] ^ (crc >> np.uint8(8))
-    return int(crc ^ np.uint32(0xFFFFFFFF))
+    """CRC32C of `data`. The register update is linear over GF(2), so the
+    register after a chunk is the XOR of each byte's contribution
+    (``shifted`` at its distance from the chunk's end), with the register
+    before the chunk XORed into the chunk's first four bytes (for a
+    reflected CRC, the same as starting from that register)."""
+    table, shifted = _crc_tables()
+    buf = np.frombuffer(data, np.uint8)
+    crc = 0xFFFFFFFF
+    for start in range(0, len(buf), _CRC_CHUNK):
+        chunk = buf[start:start + _CRC_CHUNK]
+        n = len(chunk)
+        if n < 4:
+            for b in chunk.tolist():
+                crc = int(table[(crc ^ b) & 0xFF]) ^ (crc >> 8)
+            continue
+        chunk = chunk.copy()
+        chunk[:4] ^= np.frombuffer(crc.to_bytes(4, "little"), np.uint8)
+        crc = int(np.bitwise_xor.reduce(
+            shifted[np.arange(n - 1, -1, -1), chunk]))
+    return crc ^ 0xFFFFFFFF
 
 
 def masked_crc32c(data: bytes) -> int:

@@ -4,10 +4,14 @@ Port of ``clipa_tpu/losses.py``: :func:`bidirectional_contrastive_loss`, the
 global-batch InfoNCE of CLIP/CLIPA pre-training, on one device. The logits
 are fp32 at full fp32 precision in both directions of autograd: the JAX loss
 asks for ``Precision.HIGHEST``, so TF32 stays off for this product whatever
-the process-wide setting is.
+the process-wide setting is. The classification losses
+(:func:`sigmoid_xent`, :func:`softmax_xent`, :func:`bce_logits`,
+:func:`weighted_softmax_xent`) are the ones the classification evaluator
+resolves by name; each returns the per-row loss under ``reduction=False``.
 
-Not ported yet: the sigmoid, local, CoCa and distillation losses and the
-chunked/ring InfoNCE (``ops/infonce.py``, ``ops/ring_infonce.py``).
+Not ported yet: the sigmoid, local, CoCa and distillation contrastive
+losses and the chunked/ring InfoNCE (``ops/infonce.py``,
+``ops/ring_infonce.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 
 @contextlib.contextmanager
-def _full_fp32_matmul():
+def full_fp32_matmul():
     """fp32 matrix products without TF32 on a card (no-op on the CPU)."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -35,13 +39,13 @@ class _Fp32MatmulT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        with _full_fp32_matmul():
+        with full_fp32_matmul():
             return a @ b.T
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        with _full_fp32_matmul():
+        with full_fp32_matmul():
             return g @ b, g.T @ a
 
 
@@ -88,3 +92,57 @@ def bidirectional_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
         def redux(x):
             return x
     return redux(loss), {"ncorrect": redux(ncorrect)}
+
+
+def sigmoid_xent(*, logits, labels, reduction: bool = True):
+    """Stable elementwise sigmoid cross-entropy, summed over the last axis."""
+    log_p = torch.nn.functional.logsigmoid(logits)
+    log_not_p = torch.nn.functional.logsigmoid(-logits)
+    nll = -torch.sum(labels * log_p + (1.0 - labels) * log_not_p, dim=-1)
+    return nll.mean() if reduction else nll
+
+
+def softmax_xent(*, logits, labels, reduction: bool = True, kl: bool = False,
+                 axis: int = -1):
+    """Cross-entropy of soft (one/multi-hot) `labels`; with `kl`, the KL
+    divergence (the labels' entropy added back)."""
+    log_p = torch.log_softmax(logits, dim=axis)
+    nll = -torch.sum(labels * log_p, dim=axis)
+    if kl:
+        nll = nll + torch.sum(labels * torch.log(labels.clamp(min=1e-8)),
+                              dim=axis)
+    return nll.mean() if reduction else nll
+
+
+def bce_logits(*, logits, labels, weight=None, reduction: bool = True):
+    """Stable binary cross-entropy with logits, elementwise."""
+    max_val = logits.clamp(min=0)
+    loss = logits - logits * labels + max_val + \
+        torch.log(torch.exp(-max_val) + torch.exp(-logits - max_val))
+    if weight is not None:
+        loss = loss * weight
+    return loss.mean() if reduction else loss
+
+
+def weighted_softmax_xent(*, logits, labels, reduction: bool = True,
+                          weights=None, label_smoothing: float = 0.0,
+                          normalize: bool = True):
+    """Token-level cross-entropy over (B, L, V) logits / (B, L) int labels."""
+    if logits.dim() != labels.dim() + 1:
+        raise ValueError(f"Bad shapes: {tuple(logits.shape)} vs "
+                         f"{tuple(labels.shape)}")
+    vocab = logits.shape[-1]
+    confidence = 1.0 - label_smoothing
+    low = label_smoothing / (vocab - 1)
+    onehot = torch.nn.functional.one_hot(labels.long(), vocab).to(
+        logits.dtype)
+    soft = onehot * confidence + (1.0 - onehot) * low
+    loss = -torch.sum(soft * torch.log_softmax(logits, dim=-1), dim=-1)
+    norm = labels.shape[1]
+    if weights is not None:
+        loss = loss * weights
+        norm = weights.sum(dim=1)
+    loss = loss.sum(dim=1)
+    if normalize:
+        loss = loss / norm
+    return loss.mean() if reduction else loss

@@ -9,7 +9,9 @@ Port of ``clipa_tpu/train/loop.py`` (``python -m clipa_tpu_torch.train``):
   * duration configs in steps/examples/epochs units (``config.total_steps``
     and its kin),
   * Chrono/metrics with the reference metric names, NaN hard-abort, periodic
-    checkpoints via `itstime`,
+    checkpoints and the evaluators of ``config.evals`` via `itstime`
+    (built on first use; ``config.eval_only`` runs them once at the
+    restored step and returns without training),
   * resumable checkpoints of {params, optimizer state, step, chrono} in step
     directories, and a flat-npz export of the params in the JAX layout
     (``params.npz``), wire-compatible with the JAX package's and released
@@ -22,9 +24,9 @@ the stopped run would have seen next.
 
 The card is the default device; ``device="cpu"`` (``--device cpu``) is how
 tests ask for the CPU, and no path falls back to it. Not ported yet (they
-raise ``NotImplementedError``): evaluators and ``eval_only`` (ROADMAP A7),
-distillation (A5), remote workdirs and ``remote_sync`` (A4), wandb, and
-``fsdp > 1`` or several processes (A8).
+raise ``NotImplementedError``): distillation (ROADMAP A5), remote workdirs
+and ``remote_sync`` (A4), wandb, and ``fsdp > 1`` or several processes
+(A8).
 
 CLI: python -m clipa_tpu_torch.train --config=<file.py>[:args] \
     --workdir=/tmp/run [--device cpu] [--config.input.batch_size=256 ...]
@@ -48,6 +50,7 @@ from clipa_tpu_torch.config import ConfigDict, apply_overrides, load_config
 from clipa_tpu_torch.config import steps as steps_cfg
 from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.data import pipeline as pipeline_lib
+from clipa_tpu_torch.evaluators import common as eval_common
 from clipa_tpu_torch.models import get_model_module
 from clipa_tpu_torch.train import checkpoint as ckpt_lib
 from clipa_tpu_torch.train import metrics as metrics_lib
@@ -58,8 +61,6 @@ def _refuse_unported(config: ConfigDict, workdir: Optional[str]) -> None:
     """Raises NotImplementedError for what the JAX loop does and this one
     does not yet, naming the ROADMAP item."""
     refused = [
-        (bool(config.get("evals")), "config.evals (evaluators: ROADMAP A7)"),
-        (bool(config.get("eval_only")), "config.eval_only (ROADMAP A7)"),
         (bool(config.get("distill")), "config.distill (distillation: "
                                       "ROADMAP A5)"),
         (bool(workdir) and pathio.is_remote(workdir),
@@ -171,6 +172,8 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
         write_note(f"Model has {n_params / 1e6:.1f}M params")
         update_fn = step_lib.make_update_fn(model, tx, config,
                                             total_steps=total_steps)
+        predict_fn = step_lib.make_predict_fn(
+            model, normalize=bool(config.get("cpu_unit8", True)))
 
         # ----- metrics / chrono ---------------------------------------------
         metric = metrics_lib.MetricWriter(workdir)
@@ -216,6 +219,36 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                       global_bs=batch_size,
                       steps_per_epoch=ntrain / batch_size)
 
+        # ----- evaluators ---------------------------------------------------
+        evaluators_cache: list = []
+
+        def evaluators():
+            if not evaluators_cache and config.get("evals"):
+                evaluators_cache.extend(eval_common.from_config(
+                    config, {"predict": predict_fn}, device=device,
+                    total_steps=total_steps))
+            return evaluators_cache
+
+        def run_evals(step: int, force: bool = False):
+            for (name, evaluator, every, prefix) in evaluators():
+                # an entry without a cadence runs only under eval_only (the
+                # JAX loop compares None < total_steps and raises)
+                if force or u.itstime(step, every, total_steps,
+                                      first=bool(every)
+                                      and every < total_steps):
+                    chrono.pause()
+                    write_note(f"Running evaluator {name} at step {step}...")
+                    for key, value in evaluator.run(state["params"]):
+                        metric.measure(f"{prefix}{key}", value)
+                    chrono.resume()
+
+        if config.get("eval_only"):
+            metric.step_start(first_step)
+            run_evals(first_step, force=True)
+            metric.step_end()
+            return {"params": state["params"], "opt": tx.state_dict(),
+                    "step": state["step"]}
+
         # ----- train loop ---------------------------------------------------
         log_steps = config.get("log_training_steps", 50)
         ckpt_steps = config.get("ckpt_steps", 1000)
@@ -246,6 +279,8 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                 chrono.pause()
                 manager.save(step, checkpoint_state(state, tx, chrono))
                 chrono.resume()
+
+            run_evals(step)
             metric.step_end()
 
         if manager:

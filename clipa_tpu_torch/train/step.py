@@ -23,6 +23,9 @@ The measurements are the JAX step's: ``training_loss``, ``t``,
 computed on the first, the last and every ``log_training_steps``-th step and
 are 0 on the others. Values are 0-d tensors on the device (no host sync).
 
+:func:`make_predict_fn` is the evaluators' forward: eval mode, no masking,
+no gradients, uint8 images normalized as the step normalizes them.
+
 The masking noise of step s comes from a ``torch.Generator`` on the
 device seeded from ``(config.seed, s)``: the counterpart of the JAX step's
 ``fold_in(rng, step)``. The two give different streams of the same
@@ -174,3 +177,32 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
 
     return update
 
+
+
+def make_predict_fn(model: torch.nn.Module, normalize: bool = True
+                    ) -> Callable:
+    """The predict fn handed to the evaluators: ``predict(params,
+    image=None, text=None) -> (zimg, ztxt, out)``.
+
+    uint8 images are normalized on the device with the statistics the
+    update step uses (``preprocess.normalize_uint8``), so evaluator pp
+    strings stay on the uint8 transfer path and train and eval inputs are
+    identically distributed; float images (a pp string that applied its own
+    value range) pass through untouched. The forward runs in eval mode under
+    ``torch.inference_mode()`` with ``mask_ratio`` 0 and no generator: no
+    token is masked at eval, whatever the config's ``mask_ratio``, and no
+    generator that training draws from is touched. The next ``update()``
+    puts the model back in train mode.
+
+    `params` is the train state's parameter dict: its tensors are the
+    model's own, which the forward reads through `model`; it is taken for
+    the evaluators' ``run(params)`` contract.
+    """
+    def predict(params, image=None, text=None, **unused):
+        del params, unused
+        if normalize and image is not None and image.dtype == torch.uint8:
+            image = preprocess.normalize_uint8(image)
+        model.eval()
+        with torch.inference_mode():
+            return model(image, text, mask_ratio=0.0, generator=None)
+    return predict

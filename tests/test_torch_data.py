@@ -149,6 +149,16 @@ def test_crc32c_vectors():
             jax_tfrecord.masked_crc32c(data)
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4095, 4096, 4097, 4099, 4100,
+                               8192, 10000])
+def test_crc32c_by_chunks_matches_the_bytewise_crc(n):
+    """The chunked CRC (a 4096-byte table per chunk) against the JAX
+    package's byte-at-a-time loop, across the chunk boundaries and with
+    tails of fewer than four bytes."""
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+    assert tfrecord.crc32c(data) == jax_tfrecord.crc32c(data)
+
+
 def test_tfrecord_round_trip_both_ways(tmp_path):
     features = {"jpg": b"\x00\xffbytes", "txt": "caption é",
                 "many": [b"a", b"bc"], "f": np.asarray([1.5, -2.25],

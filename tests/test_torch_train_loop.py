@@ -206,8 +206,6 @@ def test_optimizer_state_dict_round_trip_keeps_bf16_mu(tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    (("evals", {"z": {"type": "zeroshot_classifier"}}), "A7"),
-    (("eval_only", True), "A7"),
     (("distill", {"model": {}}), "A5"),
     (("remote_sync", {"path": "gs://b/run"}), "A4"),
     (("wandb", {"log_wandb": True}), "wandb"),
