@@ -16,12 +16,15 @@ attention-variant sweep and the step-ablation ladder), and CLIPA-v2's
 H/14 unmask-tuning step of ``clipa_finetune.py`` at
 ``img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64`` on the
 config's ``auto`` route (the fused kernels; the backward's long scheme),
-the trainer from the data pipeline, and CLIPA's zero-shot ImageNet eval in
-the trainer and in ``tools/eval_zeroshot``.
+the trainer from the data pipeline, CLIPA's zero-shot ImageNet eval in
+the trainer and in ``tools/eval_zeroshot``, and the trainer from JPEG
+tfrecords at a batch of 1536 through two-pass gradient accumulation on the
+native host library.
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
-     clipa_tpu_torch/csrc, one nvcc per source, in parallel (build times
-     printed);
+     clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
+     native host library (clipa_tpu_torch/native: its seconds, its path,
+     whether /usr/include/jpeglib.h exists and which libjpeg it links);
   2. the forward kernel against its plain PyTorch version (fp32 from the
      same operands, TF32 off) at the serving shapes: H/14 @224, L/16 @112,
      the unbiased flat form, clip and exact mode past the clip (logits >>
@@ -153,6 +156,33 @@ the trainer and in ``tools/eval_zeroshot``.
      accuracy and 32 x 16 fused forwards. Prints the prompt-embedding
      seconds, the eval images/s with JPEG decode in the pp, the evals'
      seconds beside the steps'.
+ 15. the trainer from JPEG tfrecords: (a) 8192 JPEGs of 256 x 256 random
+     pixels with phase 13's captions, as features ``jpg`` and ``txt`` (the
+     layout tools/laion writes), in 16 shards; (b) the pipeline alone
+     (``tools/bench_pipeline.measure``, the config's pp at B = 384) on 48
+     threads on the native route, on 48 threads on the PIL and Python
+     route, on 16 and on 32 worker processes, in turns: pairs/s each (the
+     thread runs held to their route's decodes and encodes; the worker
+     processes count in their own memory, so their route is not read); (c)
+     ``train.loop.main`` on a file wrapping
+     ``clipa_pretrain.py:img=L/16,res=112,token_len=8,batchsize=1536,
+     data_dir=<the shards>`` (shuffle buffer 2 x 1536, warmup 2, log every
+     step; no evals or checkpoints: phases 13-14 run those) with
+     ``--config.grad_accum_steps=4`` for 3 steps: raises unless the losses
+     are finite, every step launches the fused forward 192 times (4
+     microbatches x 24 layers x 2 passes), the fused backward 96 times and
+     the flash kernels never, every JPEG took the native decode and every
+     caption the native WordPiece (``pp/ops_text``'s counts); prints pairs/s over steps 2-3,
+     seconds per step and peak device memory beside phase 13's rate; (d)
+     on one state and one B = 384 batch, 4 x 96 accumulated against one
+     pass: the loss within ACCUM_LOSS_RTOL, every gradient but ``t``'s at
+     cosine >= ACCUM_MIN_COSINE and its norm within ACCUM_NORM_RTOL of the
+     single pass's, ``t``'s 4x the single pass's within rtol 1e-2;
+     (e) one step of ``loss=chunked`` (chunk 96) against the softmax loss
+     (rtol 1e-5, cosine >= 0.9999); the accumulated step alone at B =
+     1536 with the batch on the device (pairs/s, best of two runs of 2
+     steps); one step of ``loss=sigmoid`` with ``bias_init=-10`` (finite,
+     ``b`` gets a gradient).
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -1170,8 +1200,8 @@ from clipa_tpu_torch.configs import clipa_pretrain
 
 def get_config(arg=None):
     config = clipa_pretrain.get_config({pretrain!r})
-    # decoded uint8 images at 144 px and long captions (no JPEG decoder on
-    # the card machine)
+    # decoded uint8 images at 144 px and long captions: the pp without
+    # JPEG decoding, apart from it (phase 15 trains from JPEG tfrecords)
     config.input.data = dict(name="synthetic", n_examples=1_000_000,
                              res=144, captions={captions!r})
     config.input.pp = config.input.pp.replace(
@@ -1691,6 +1721,364 @@ def _evals(card, phase13_losses):
             "tool_images_per_s": rate(tool_run), "phase_s": phase_s}
 
 
+# Phase 15: the trainer from JPEG tfrecords at a batch of 1536 through
+# two-pass gradient accumulation (4 microbatches of phase 5's 384), on the
+# native host library (libjpeg decode and crop, WordPiece); the pipeline
+# alone by route; accumulation against one pass; the chunked and sigmoid
+# losses.
+JPEG_IMAGES = 8192
+JPEG_SIZE = 256           # tools/bench_pipeline's default
+JPEG_SHARDS = 16
+ACCUM_PRETRAIN = "img=L/16,res=112,token_len=8,batchsize=1536"
+ACCUM_STEPS = 4
+ACCUM_TRAIN_STEPS = 3
+# per accumulated step: pass 1 embeds each microbatch (24 fused forwards),
+# pass 2 embeds it again with gradients (24 forwards, 24 backwards)
+ACCUM_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                  "fused_fwd": 2 * ACCUM_STEPS * TRAIN_IMAGE_LAYERS,
+                  "fused_bwd": ACCUM_STEPS * TRAIN_IMAGE_LAYERS}
+PIPELINE_BATCH = 384
+PIPELINE_SECONDS = 6.0
+# (what, workers, worker processes, native route)
+PIPELINE_RUNS = (("native, 48 threads", 48, False, True),
+                 ("PIL and Python, 48 threads", 48, False, False),
+                 ("native, 16 worker processes", 16, True, True),
+                 ("native, 32 worker processes", 32, True, True))
+CHUNK_SIZE = 96
+SIGMOID_BIAS_INIT = -10.0
+CHUNKED_LOSS_RTOL = 1e-5
+CHUNKED_MIN_COSINE = 0.9999
+T_GRAD_RTOL = 1e-2
+# Accumulated against one pass: both run the same kernels on the same
+# samples, in microbatches of 96 against one of 384, so only the order of
+# fp32 sums and a rare bf16 rounding differ (on an H100 80GB HBM3 at 700 W
+# the loss agreed exactly and the least gradient cosine was 0.9999864). A
+# scale fault (a mean for a sum, a microbatch counted twice) moves each
+# gradient's norm, which the cosine does not see: every gradient's norm but
+# t's (and the key biases', rounding noise) is held within ACCUM_NORM_RTOL
+# of the single pass's.
+ACCUM_LOSS_RTOL = 1e-5
+ACCUM_MIN_COSINE = 0.9999
+ACCUM_NORM_RTOL = 1e-3
+
+_JPEG_TRAINER_CONFIG = """
+from clipa_tpu_torch.configs import clipa_pretrain
+
+
+def get_config(arg=None):
+    config = clipa_pretrain.get_config({pretrain!r})
+    # two batches in the shuffle buffer (the config's 250 000 is 30x the
+    # shards)
+    config.input.shuffle_buffer_size = 2 * config.input.batch_size
+    config.total_steps = {steps}
+    # the config's 3200 warmup steps must be fewer than total_steps
+    config.schedule = [(".*", dict(decay_type="cosine", warmup_steps=2))]
+    config.log_training_steps = 1
+    # phase 14 runs the config's zero-shot eval, phase 13 the checkpoints
+    config.evals = {{}}
+    config.save_ckpt = False
+    config.export_npz = False
+    return config
+"""
+
+
+class _GradRecorder:
+    """An optimizer that records the gradients update() gets and leaves
+    the parameters as they are (the state stays where it was)."""
+
+    frozen = frozenset()
+
+    def __init__(self):
+        self.grads = []
+
+    def update(self, grads):
+        self.grads.append({n: g.float().clone() for n, g in grads.items()})
+        return {n: g.new_zeros(()) for n, g in grads.items()}
+
+    def apply(self, updates):
+        del updates
+
+
+def _step_grads(model, state, config, batch, **changes):
+    """(loss, {name: fp32 grad}) of one update() at `state`, with the
+    config changes made, the parameters left as they are."""
+    import copy
+    from clipa_tpu_torch.train import step
+    config = copy.deepcopy(config)
+    for key, value in changes.items():
+        config[key] = value
+    tx = _GradRecorder()
+    _, meas = step.make_update_fn(model, tx, config)(dict(state), batch)
+    return float(meas["training_loss"]), tx.grads[0]
+
+
+def _pipeline_rates(pattern, pp):
+    """Phase 15(b): pairs/s of the pipeline alone (tools/bench_pipeline
+    .measure) on each of PIPELINE_RUNS, in turns; the PIL and Python route
+    forced by patching the ops' route builders."""
+    from clipa_tpu_torch import tokenizer
+    from clipa_tpu_torch.pp import ops_image, ops_text
+    from clipa_tpu_torch.tools import bench_pipeline
+    rates = {}
+    for what, workers, processes, native in PIPELINE_RUNS:
+        native_lib, get_tokenizer = ops_image._native_lib, ops_text.get_tokenizer
+        if not native:
+            ops_image._native_lib = lambda: None
+            ops_text.get_tokenizer = lambda path: tokenizer.get_tokenizer(
+                path, backend="python")
+        ops_image.native_decodes = ops_image.pil_decodes = 0
+        ops_text.native_encodes = ops_text.python_encodes = 0
+        t0 = time.perf_counter()
+        try:
+            r = bench_pipeline.measure(pattern, pp, workers, PIPELINE_BATCH,
+                                       PIPELINE_SECONDS,
+                                       processes=processes)
+        finally:
+            ops_image._native_lib = native_lib
+            ops_text.get_tokenizer = get_tokenizer
+        # threads of the run before may still finish a sample or two after
+        # its pipeline closed: a forced PIL run is held to its PIL decodes.
+        # Worker processes count in their own memory: their route is the
+        # one the pp string builds there, not read here.
+        for kind, routes in (
+                ("decodes", (ops_image.native_decodes,
+                             ops_image.pil_decodes)),
+                ("encodes", (ops_text.native_encodes,
+                             ops_text.python_encodes))):
+            if not processes and (routes[0] == 0 or routes[1] > 0 if native
+                                  else routes[1] == 0):
+                raise RuntimeError(f"pipeline {what}: {kind} by route "
+                                   f"(native, PIL or Python) {routes}")
+        rates[what] = {"pairs_per_s": r["samples_per_sec"],
+                       "batches": r["batches"],
+                       "seconds": time.perf_counter() - t0}
+    return rates
+
+
+def _jpeg_trainer(card, phase13):
+    """Phase 15: (a) JPEG tfrecords in the layout tools/laion writes; (b)
+    the pipeline alone on the config's pp by route; (c) the trainer
+    (train.loop.main) on clipa_pretrain.py at B = 1536 from those shards,
+    grad_accum_steps 4, for ACCUM_TRAIN_STEPS steps: finite losses, 192
+    fused forwards, 96 fused backwards and no flash kernel per step, every
+    JPEG on the native decode, the native WordPiece; (d) 4 x 96
+    accumulated against one pass on one state and one B = 384 batch; (e)
+    one step each of the chunked (against the softmax) and the sigmoid
+    loss (the towers' b) at B = 384."""
+    import tempfile
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import native, optim
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.pp import ops_image, ops_text
+    from clipa_tpu_torch.tools import bench_pipeline
+    from clipa_tpu_torch.train import loop, step
+
+    reset, read = _attention_counters()
+    per_step, stamps = [], []
+    make_update_fn = step.make_update_fn
+
+    def counted(*args, **kw):   # each step's launches and end time
+        update = make_update_fn(*args, **kw)
+
+        def run(state, batch):
+            reset()
+            state, meas = update(state, batch)
+            per_step.append(read())
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return state, meas
+        return run
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the shards: jpg (256 x 256 random pixels) and txt features
+        data_dir = os.path.join(tmp, "laion")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        pattern = bench_pipeline.make_jpeg_shards(
+            data_dir, JPEG_IMAGES, JPEG_SIZE, shards=JPEG_SHARDS,
+            captions=TRAINER_CAPTIONS)
+        write_s = time.perf_counter() - t0
+        shard_bytes = sum(os.path.getsize(os.path.join(data_dir, f))
+                          for f in os.listdir(data_dir))
+        pretrain = f"{ACCUM_PRETRAIN},data_dir={data_dir}"
+        config = clipa_pretrain.get_config(pretrain)
+
+        # (b) the pipeline alone, the config's pp at B = 384, in turns
+        pipeline_rates = _pipeline_rates(pattern, config.input.pp)
+
+        # (c) the trainer at B = 1536 = 4 x 384
+        path = os.path.join(tmp, "jpeg_trainer_config.py")
+        with open(path, "w") as f:
+            f.write(_JPEG_TRAINER_CONFIG.format(pretrain=pretrain,
+                                                steps=ACCUM_TRAIN_STEPS))
+        argv = [f"--config={path}", f"--workdir={os.path.join(tmp, 'run')}",
+                "--device=cuda", f"--config.grad_accum_steps={ACCUM_STEPS}"]
+        ops_image.native_decodes = ops_image.pil_decodes = 0
+        ops_text.native_encodes = ops_text.python_encodes = 0
+        step.make_update_fn = counted
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loop.main(argv)
+            run_s = time.perf_counter() - t0
+        finally:
+            step.make_update_fn = make_update_fn
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        decodes = {"native": ops_image.native_decodes,
+                   "pil": ops_image.pil_decodes}
+        encodes = {"native": ops_text.native_encodes,
+                   "python": ops_text.python_encodes}
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    torch.cuda.empty_cache()
+
+    losses = [r["training_loss"] for r in rows]
+    if [r["step"] for r in rows] != list(range(1, ACCUM_TRAIN_STEPS + 1)) \
+            or not np.isfinite(losses).all():
+        raise RuntimeError(f"metrics.jsonl: steps {[r['step'] for r in rows]}"
+                           f", losses {losses}")
+    if per_step != [ACCUM_LAUNCHES] * ACCUM_TRAIN_STEPS:
+        raise RuntimeError(f"accumulated steps launched {per_step}, "
+                           f"expected {ACCUM_LAUNCHES} each")
+    if decodes["pil"] or not decodes["native"]:
+        raise RuntimeError(f"JPEG decodes by route {decodes}: every sample "
+                           f"must take the native route")
+    if encodes["python"] or not encodes["native"]:
+        raise RuntimeError(f"captions encoded by tokenizer {encodes}: every "
+                           f"caption must take the native WordPiece")
+    batch_size = config.input.batch_size
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    rate = batch_size * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+    # (d) 4 x 96 accumulated against one pass, one state, one B = 384 batch
+    config = clipa_pretrain.get_config(PRETRAIN)
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    rng = np.random.RandomState(SEED)
+    res, tokens = config.init_shapes[0][1], config.init_shapes[1][1]
+    b = config.input.batch_size
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 255, (b, res, res, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(rng.randint(
+                 0, 32000, (b, tokens)).astype(np.int32)).cuda()}
+    loss_1, grads_1 = _step_grads(model, state, config, batch)
+    loss_4, grads_4 = _step_grads(model, state, config, batch,
+                                  grad_accum_steps=ACCUM_STEPS)
+    t_ratio = (grads_4["t"] / grads_1["t"]).item()
+    cmp = _compare(loss_4, {n: g for n, g in grads_4.items() if n != "t"},
+                   loss_1, {n: g for n, g in grads_1.items() if n != "t"})
+    norm_gaps = {n: abs(grads_4[n].norm().item() / g.norm().item() - 1)
+                 for n, g in grads_1.items()
+                 if n != "t" and not n.endswith("/key/bias")}
+    worst_norm = max(norm_gaps, key=norm_gaps.get)
+    _print_compare(f"{ACCUM_STEPS} x {b // ACCUM_STEPS} accumulated vs one "
+                   f"pass at B={b}", loss_4, loss_1, cmp, ACCUM_LOSS_RTOL)
+    print(f"gradient norms, accumulated / one pass, over {len(norm_gaps)} "
+          f"tensors: largest gap from 1 {norm_gaps[worst_norm]:.3e} at "
+          f"{worst_norm} (tolerance {ACCUM_NORM_RTOL}); t's gradient, "
+          f"accumulated / one pass: {t_ratio:.6f} (expected {ACCUM_STEPS}, "
+          f"rtol {T_GRAD_RTOL})", flush=True)
+    if (cmp["loss_rel"] > ACCUM_LOSS_RTOL
+            or cmp["min_cosine"] < ACCUM_MIN_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE
+            or norm_gaps[worst_norm] > ACCUM_NORM_RTOL
+            or abs(t_ratio / ACCUM_STEPS - 1) > T_GRAD_RTOL):
+        raise RuntimeError("the accumulated step differs from one pass")
+    del grads_4
+
+    # (e) the chunked loss against the softmax, then the sigmoid loss
+    loss_c, grads_c = _step_grads(model, state, config, batch,
+                                  loss="chunked", loss_chunk_size=CHUNK_SIZE)
+    chunked = _compare(loss_c, grads_c, loss_1, grads_1)
+    _print_compare(f"chunked InfoNCE (chunk {CHUNK_SIZE}) vs softmax at "
+                   f"B={b}", loss_c, loss_1, chunked, CHUNKED_LOSS_RTOL)
+    if (chunked["loss_rel"] > CHUNKED_LOSS_RTOL
+            or chunked["min_cosine"] < CHUNKED_MIN_COSINE
+            or chunked["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the chunked loss differs from the softmax loss")
+    del grads_1, grads_c
+
+    # the accumulated step alone at B = 1536, the batch on the device
+    config.grad_accum_steps = ACCUM_STEPS
+    big = {k: v.repeat(ACCUM_STEPS, *[1] * (v.dim() - 1))
+           for k, v in batch.items()}
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=len(big["image"])))
+    update = step.make_update_fn(model, tx, config)
+    update(state, big)   # warm-up
+    step_rate = len(big["image"]) * max(
+        _steps_per_s(update, state, big, 2) for _ in range(2))
+    del model, state, tx, update, big
+    config.grad_accum_steps = 1
+    torch.cuda.empty_cache()
+    config.loss = "sigmoid"
+    config.model.bias_init = SIGMOID_BIAS_INIT
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=b))
+    grads_s = []
+    tx_update = tx.update
+
+    def recording(grads):
+        grads_s.append({n: g.float().clone() for n, g in grads.items()})
+        return tx_update(grads)
+
+    tx.update = recording
+    state, meas = step.make_update_fn(model, tx, config)(state, batch)
+    loss_s = float(meas["training_loss"])
+    b_grad = grads_s[0]["b"].item()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_s[0].values())
+    print(f"sigmoid loss (bias_init {SIGMOID_BIAS_INIT}) at B={b}: loss "
+          f"{loss_s:.4f}, b's gradient {b_grad:.6f}, b after the step "
+          f"{model.b.item():.6f}; every gradient finite {finite}", flush=True)
+    if not (np.isfinite(loss_s) and finite and b_grad != 0.0):
+        raise RuntimeError("the sigmoid loss step is not finite or b got "
+                           "no gradient")
+    del model, state, tx, grads_s
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+
+    routes = "; ".join(f"{what} {r['pairs_per_s']:.1f}"
+                       for what, r in pipeline_rates.items())
+    print(f"{card}: JPEG tfrecords: {JPEG_IMAGES} images of {JPEG_SIZE} x "
+          f"{JPEG_SIZE} in {JPEG_SHARDS} shards ({shard_bytes / 2 ** 20:.1f} "
+          f"MiB) written in {write_s:.2f} s; native library "
+          f"{native.library_path()} (libjpeg: {native.jpeg_route()})",
+          flush=True)
+    print(f"{card}: the pipeline alone at B={PIPELINE_BATCH} (the config's "
+          f"pp from JPEG bytes, pairs/s over {PIPELINE_SECONDS} s after one "
+          f"batch): {routes}", flush=True)
+    print(f"{card}: trainer pairs/s at B={batch_size} = {ACCUM_STEPS} x "
+          f"{batch_size // ACCUM_STEPS} from JPEG tfrecords, host clock over "
+          f"steps 2-{ACCUM_TRAIN_STEPS} {rate:.2f} (the step alone with the "
+          f"batch on the device {step_rate:.2f}); seconds per step "
+          f"{' '.join(f'{s:.3f}' for s in step_s)}; run {run_s:.2f} s; peak "
+          f"device memory {peak_gb:.2f} GiB; launches per step "
+          f"{per_step[0]}; JPEG decodes native {decodes['native']}, PIL "
+          f"{decodes['pil']}; losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"phase 13's trainer at B=384 {phase13['pairs_per_s'][0]:.2f} and "
+          f"{phase13['pairs_per_s'][1]:.2f}; phase 15 in {phase_s:.2f} s",
+          flush=True)
+    return {"launches": per_step[0], "steps": len(per_step),
+            "pairs_per_s": rate, "step_pairs_per_s": step_rate,
+            "step_s": step_s, "run_s": run_s,
+            "peak_gb": peak_gb, "decodes": decodes, "losses": losses,
+            "pipeline": pipeline_rates, "write_s": write_s,
+            "accum_loss_rel": cmp["loss_rel"],
+            "accum_min_cosine": cmp["min_cosine"], "t_grad_ratio": t_ratio,
+            "chunked_loss_rel": chunked["loss_rel"],
+            "chunked_min_cosine": chunked["min_cosine"],
+            "sigmoid_loss": loss_s, "sigmoid_b_grad": b_grad,
+            "phase_s": phase_s}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -1850,6 +2238,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import numpy as np
+    from clipa_tpu_torch import native
     from clipa_tpu_torch.ops import block_attention as ba, cuda_build
     from clipa_tpu_torch.ops import flash_attention as fa
     from clipa_tpu_torch.ops import patch_embed as pe
@@ -1863,16 +2252,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. build: one nvcc per source, started together
+    # 1. build: one nvcc per source and g++ for the native host library,
+    # started together
     sources = {"fused_attention_fwd.cu": ba.fwd_library,
                "fused_attention_bwd.cu": ba.bwd_library,
                "flash_attention_fwd.cu": fa.fwd_library,
                "flash_attention_bwd.cu": fa.bwd_library,
                "patch_embed.cu": pe.library}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(native.load)
         for f in [pool.submit(load) for load in sources.values()]:
             f.result()
+        host.result()
+    print(f"native host library built from clipa_tpu_torch/native/src in "
+          f"{native.build_seconds:.2f} s -> {native.library_path()}; "
+          f"{native.SYSTEM_HEADER} exists: "
+          f"{os.path.exists(native.SYSTEM_HEADER)}; libjpeg: "
+          f"{native.jpeg_route()}", flush=True)
     for source in sources:
         print(f"kernel built from clipa_tpu_torch/csrc/{source} in "
               f"{cuda_build.build_seconds[source]:.2f} s -> "
@@ -2045,6 +2442,10 @@ def main() -> int:
     # 14. the trainer with CLIPA's evals, eval_only, tools/eval_zeroshot
     evals = _evals(card, trainer["losses"])
 
+    # 15. the trainer from JPEG tfrecords at B = 1536 (4 x 384), the native
+    # host library, the pipeline by route, the chunked and sigmoid losses
+    jpeg = _jpeg_trainer(card, trainer)
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -2065,6 +2466,12 @@ def main() -> int:
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN},"
                   "data_dir=<tfrecords>",
         "tool_model": MODEL, **evals,
+    }, "trainer_jpeg": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                  f"{ACCUM_PRETRAIN},data_dir=<JPEG tfrecords> "
+                  f"--config.grad_accum_steps={ACCUM_STEPS}",
+        "source": f"{JPEG_IMAGES} JPEGs of {JPEG_SIZE} px, random pixels",
+        **{k: v for k, v in jpeg.items() if k != "losses"},
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -2079,6 +2486,7 @@ def main() -> int:
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
             "finetune_h14_step": h14["launches"]["fused_fwd"],
             "trainer_step": trainer["launches"]["fused_fwd"],
+            "trainer_accumulated_step": jpeg["launches"]["fused_fwd"],
             "zeroshot_eval": evals["zeroshot_launches"]["fused_fwd"],
             "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
@@ -2105,7 +2513,8 @@ def main() -> int:
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
             "finetune_h14_step": h14["launches"]["fused_bwd"],
-            "trainer_step": trainer["launches"]["fused_bwd"]},
+            "trainer_step": trainer["launches"]["fused_bwd"],
+            "trainer_accumulated_step": jpeg["launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],

@@ -22,7 +22,7 @@ JAX name (shape)                                           torch leaf          t
 ``.../{LayerNorm_i,encoder_norm,ln_pre}/bias``             ``.bias``           as is
 ``img/embedding/kernel`` (p, p, 3, W)                      ``.kernel``         as is (HWIO, NHWC stem)
 ``txt/Embed_0/embedding`` (vocab, W)                       ``.weight``         as is
-``.../{cls,pos_embedding,ls1,ls2}``, ``t``                 same name           as is
+``.../{cls,pos_embedding,ls1,ls2}``, ``t``, ``b``          same name           as is
 =========================================================  ==================  =================================
 
 A name that matches no row raises: a weight silently dropped gives wrong
@@ -47,7 +47,7 @@ torch key                                                   JAX leaf            
 ``...{LayerNorm_i,encoder_norm,ln_pre}.bias``               ``/bias``           as is
 ``img.embedding.kernel`` (p, p, 3, W)                       ``/kernel``         as is
 ``txt.Embed_0.weight`` (vocab, W)                           ``/embedding``      as is
-``...{cls,pos_embedding,ls1,ls2}``, ``t``                   same name           as is
+``...{cls,pos_embedding,ls1,ls2}``, ``t``, ``b``            same name           as is
 ==========================================================  ==================  ===========================================
 
 The optimizer's regexes (``optim.py``) and the parity tests run on the JAX
@@ -87,7 +87,7 @@ _RULES: list[tuple[re.Pattern, str, Callable[[torch.Tensor], torch.Tensor]]] = [
     (re.compile(r"((?:.*/)?embedding)/kernel"), r"\1/kernel", lambda a: a),
     (re.compile(r"((?:.*/)?Embed_\d+)/embedding"), r"\1/weight",
      lambda a: a),
-    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t)"), r"\1",
+    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t|b)"), r"\1",
      lambda a: a),
 ]
 
@@ -148,7 +148,7 @@ _INVERSE: list[tuple[re.Pattern, str, str]] = [
      r"\1/bias", "same"),
     (re.compile(r"((?:.*/)?embedding)/kernel"), r"\1/kernel", "same"),
     (re.compile(r"((?:.*/)?Embed_\d+)/weight"), r"\1/embedding", "same"),
-    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t)"), r"\1",
+    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t|b)"), r"\1",
      "same"),
 ]
 

@@ -1,17 +1,18 @@
 """Losses.
 
 Port of ``clipa_tpu/losses.py``: :func:`bidirectional_contrastive_loss`, the
-global-batch InfoNCE of CLIP/CLIPA pre-training, on one device. The logits
-are fp32 at full fp32 precision in both directions of autograd: the JAX loss
-asks for ``Precision.HIGHEST``, so TF32 stays off for this product whatever
-the process-wide setting is. The classification losses
+global-batch InfoNCE of CLIP/CLIPA pre-training, and
+:func:`sigmoid_contrastive_loss`, SigLIP's pairwise loss, on one device.
+The logits are fp32 at full fp32 precision in both directions of autograd:
+the JAX losses ask for ``Precision.HIGHEST``, so TF32 stays off for this
+product whatever the process-wide setting is. The chunked InfoNCE is
+``ops/infonce.py``. The classification losses
 (:func:`sigmoid_xent`, :func:`softmax_xent`, :func:`bce_logits`,
 :func:`weighted_softmax_xent`) are the ones the classification evaluator
 resolves by name; each returns the per-row loss under ``reduction=False``.
 
-Not ported yet: the sigmoid, local, CoCa and distillation contrastive
-losses and the chunked/ring InfoNCE (``ops/infonce.py``,
-``ops/ring_infonce.py``).
+Not ported yet: the local, CoCa and distillation contrastive losses and
+the ring InfoNCE (``ops/ring_infonce.py``).
 """
 
 from __future__ import annotations
@@ -92,6 +93,25 @@ def bidirectional_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
         def redux(x):
             return x
     return redux(loss), {"ncorrect": redux(ncorrect)}
+
+
+def sigmoid_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
+                             t: torch.Tensor, bias=0.0,
+                             reduction: bool = True):
+    """SigLIP-style pairwise sigmoid loss (arxiv.org/abs/2303.15343).
+
+    Every (i, j) pair is an independent binary problem, positives on the
+    diagonal: the per-row loss is sum_j softplus(-sign_ij * (t * zimg_i .
+    ztxt_j + bias)). `bias`: the two towers' learned ``b`` (or a number).
+    Returns (mean over rows, or the per-row losses without `reduction`,
+    {}).
+    """
+    logits = _Fp32MatmulT.apply(zimg.float(), ztxt.float()) * t + bias
+    b = logits.shape[0]
+    signs = 2 * torch.eye(b, device=logits.device) - 1.0  # +1 diag, -1 off
+    nll = torch.nn.functional.softplus(-signs * logits)
+    per_row = nll.sum(dim=1)
+    return (per_row.mean() if reduction else per_row), {}
 
 
 def sigmoid_xent(*, logits, labels, reduction: bool = True):

@@ -2,7 +2,9 @@
 
 Port of ``clipa_tpu/models/two_towers.py``: towers named ``img``/``txt``,
 embeddings L2-normalized with a 1e-8 floor, scalar log-temperature ``t``
-initialized to log(temperature_init). Either input may be None. `dtype` is
+initialized to log(temperature_init), and, where ``bias_init`` is set, the
+sigmoid loss's learned bias ``b`` (shape (1,), initialized to bias_init;
+``out["b"]``). Either input may be None. `dtype` is
 both towers' compute dtype over fp32 parameters (a config's "bfloat16"), so
 ``Model(**config.model)`` builds the model the JAX trainer builds; the
 towers' position tables are sized by `image_size` / `context_length` in the
@@ -27,7 +29,8 @@ class Model(nn.Module):
                  text: Optional[dict] = None, image_model: str = "vit",
                  text_model: str = "text_transformer",
                  out_dim: Union[int, Tuple[Optional[int], int]] = 512,
-                 temperature_init: float = 1.0, dtype: Any = None):
+                 temperature_init: float = 1.0,
+                 bias_init: Optional[float] = None, dtype: Any = None):
         super().__init__()
         out_dims = (out_dim, out_dim) if isinstance(out_dim, int) else out_dim
         self.img = (get_model_module(image_model).Model(
@@ -38,9 +41,14 @@ class Model(nn.Module):
             if text is not None else None)
         self.temperature_init = temperature_init
         self.t = nn.Parameter(torch.empty(1))
+        self.bias_init = bias_init
+        self.b = (nn.Parameter(torch.empty(1)) if bias_init is not None
+                  else None)
 
     def init_own_parameters(self, generator):
         self.t.fill_(math.log(self.temperature_init))
+        if self.b is not None:
+            self.b.fill_(self.bias_init)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> None:
         """Stores the towers' weights in `dtype` (LayerNorms and `t` stay
@@ -72,6 +80,8 @@ class Model(nn.Module):
             out.update({f"img/{k}": v for k, v in out_img.items()})
         out["t"] = torch.exp(self.t)
         out["t/parameter"] = self.t
+        if self.b is not None:
+            out["b"] = self.b
         return zimg, ztxt, out
 
 

@@ -13,15 +13,24 @@ sampling, ``libImaging/Geometry.c``, for nearest), bit-exact against
 ``PIL.Image.resize``, so that the port needs no PIL where images arrive
 decoded. PIL is imported only where JPEG bytes must be decoded (``decode``,
 and the bytes branch of ``decode_jpeg_and_inception_crop``); without it
-those branches raise ``ImportError``. The JAX package's C++ decode library
-(``clipa_tpu/native``) is not ported (ROADMAP A3).
+those branches raise ``ImportError``.
+
+The bytes branch of ``decode_jpeg_and_inception_crop`` first takes the
+native library's fused libjpeg decode, crop and resize
+(``clipa_tpu_torch/native``, as the JAX op takes ``clipa_tpu/native``), with
+the crop box drawn from the sample's RNG in the same order; where the
+library is missing, or refuses the bytes, that sample takes the PIL route.
+:data:`native_decodes` and :data:`pil_decodes` count the samples of each
+route since import (a run sets them to 0 and reads them back).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import io
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -34,6 +43,44 @@ _default_rng = np.random.default_rng(0)
 def _rng_of(sample) -> np.random.Generator:
     return sample.get("_rng", _default_rng) if isinstance(sample, dict) \
         else _default_rng
+
+
+# JPEG bytes decoded by decode_jpeg_and_inception_crop, by route
+native_decodes = 0
+pil_decodes = 0
+_route_lock = threading.Lock()
+
+
+def _count_decode(native: bool) -> None:
+    global native_decodes, pil_decodes
+    with _route_lock:
+        if native:
+            native_decodes += 1
+        else:
+            pil_decodes += 1
+
+
+def _native_lib():
+    """The C++ decode library, or None (PIL route)."""
+    from clipa_tpu_torch import native
+    return native.load() if native.available() else None
+
+
+def _native_decode_crop(lib, data: bytes, rng, size: int, area_min,
+                        area_max) -> Optional[np.ndarray]:
+    """Fused libjpeg decode, crop and resize of JPEG `data` to (size, size,
+    3) uint8, the box drawn from `rng` as the PIL route draws it; None
+    where the library refuses the bytes (the caller takes the PIL route)."""
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h)) != 0:
+        return None
+    top, left, ch, cw = _sample_inception_box(rng, h.value, w.value,
+                                              area_min, area_max)
+    out = np.empty((size, size, 3), np.uint8)
+    ret = lib.jpeg_decode_crop_resize(
+        data, len(data), top, left, ch, cw, size, size,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out if ret == 0 else None
 
 
 def _pil(op: str):
@@ -329,10 +376,12 @@ def get_decode_jpeg_and_inception_crop(size: Optional[int] = None,
 
     libjpeg can decode at 1/2, 1/4, 1/8 DCT scale nearly for free; when the
     final target is small (CLIPA pretrains at 64-112px) this skips most of
-    the inverse DCT and colour conversion. Decoded arrays take the plain
-    inception crop (and need no PIL).
+    the inverse DCT and colour conversion. JPEG bytes take the native
+    library where it builds (the JAX op's route), else PIL; decoded arrays
+    take the plain inception crop (and need no PIL).
     """
     del antialias
+    native_lib = _native_lib() if size is not None else None
 
     def _op(data, sample=None):
         rng = _rng_of(sample)
@@ -344,7 +393,15 @@ def get_decode_jpeg_and_inception_crop(size: Optional[int] = None,
             crop = data[top:top + ch, left:left + cw]
             return _resize_np(crop, size, size, method) if size else crop
 
+        if native_lib is not None:
+            out = _native_decode_crop(native_lib, bytes(data), rng, size,
+                                      area_min, area_max)
+            if out is not None:
+                _count_decode(native=True)
+                return out
+
         Image = _pil("decode_jpeg_and_inception_crop")
+        _count_decode(native=False)
         img = Image.open(io.BytesIO(bytes(data)))  # header only (lazy)
         iw, ih = img.size
         top, left, ch, cw = _sample_inception_box(rng, ih, iw, area_min,

@@ -1,7 +1,9 @@
 """Text preprocessing ops: WordPiece tokenization + CLIPA token reduction.
 
-Port of ``clipa_tpu/pp/ops_text.py`` on the port's WordPiece
-(``clipa_tpu_torch/tokenizer.py``). Reference semantics
+Port of ``clipa_tpu/pp/ops_text.py`` on the port's WordPiece, through
+``clipa_tpu_torch/tokenizer.get_tokenizer`` as the JAX ops go through
+theirs: the native C++ WordPiece where its library builds, else the Python
+one (the same ids). Reference semantics
 (clipa_jax/transforms/bert_ops.py):
   * `bert_tokenize` — sample one caption (random if several), WordPiece,
     truncate/zero-pad to max_len-1, prepend [CLS].
@@ -23,14 +25,32 @@ falling back to a module-level generator.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import List
 
 import numpy as np
 
+from clipa_tpu_torch.native.wordpiece import NativeWordPieceTokenizer
 from clipa_tpu_torch.registry import InKeyOutKey, Registry
-from clipa_tpu_torch.tokenizer import _pad_cls, basic_tokenize, get_wordpiece
+from clipa_tpu_torch.tokenizer import _pad_cls, basic_tokenize, get_tokenizer
 
 _default_rng = np.random.default_rng(0)
+
+# Captions the tokenize ops encoded, by the tokenizer they were built with
+native_encodes = 0
+python_encodes = 0
+_route_lock = threading.Lock()
+
+
+def _encode(tok, txt: str) -> List[int]:
+    """tok.encode(txt), counted under its tokenizer's route."""
+    global native_encodes, python_encodes
+    with _route_lock:
+        if isinstance(tok, NativeWordPieceTokenizer):
+            native_encodes += 1
+        else:
+            python_encodes += 1
+    return tok.encode(txt)
 
 
 def _rng_of(sample) -> np.random.Generator:
@@ -58,12 +78,12 @@ def _pick_caption(labels, sample_if_multi: bool, rng) -> str:
 @InKeyOutKey(indefault="texts", outdefault="labels", with_data=True)
 def get_bert_tokenize(vocab_path: str, max_len: int,
                       sample_if_multi: bool = True):
-    tok = get_wordpiece(vocab_path)
+    tok = get_tokenizer(vocab_path)
 
     def _op(labels, sample=None):
         rng = _rng_of(sample)
         txt = _pick_caption(labels, sample_if_multi, rng)
-        return _pad_cls(tok.encode(txt), max_len, tok.cls_id)
+        return _pad_cls(_encode(tok, txt), max_len, tok.cls_id)
 
     return _op
 
@@ -73,12 +93,12 @@ def get_bert_tokenize(vocab_path: str, max_len: int,
 def get_custom_bert_tokenize(vocab_path: str, max_len: int,
                              sample_if_multi: bool = True,
                              mask_type: str = "first", train: bool = True):
-    tok = get_wordpiece(vocab_path)
+    tok = get_tokenizer(vocab_path)
 
     def _op(labels, sample=None):
         rng = _rng_of(sample)
         txt = _pick_caption(labels, sample_if_multi, rng)
-        ids = tok.encode(txt)
+        ids = _encode(tok, txt)
         keep = max_len - 1
         if train and len(ids) > keep:
             if mask_type == "first":
@@ -210,12 +230,12 @@ def get_syntax_tokenize(vocab_path: str, max_len: int,
     clipa_jax/transforms/bert_ops.py:211-254 and
     clipa_torch/open_clip/tokenizer.py syntax_mask_tokenize.)
     """
-    tok = get_wordpiece(vocab_path)
+    tok = get_tokenizer(vocab_path)
 
     def _op(labels, sample=None):
         rng = _rng_of(sample)
         txt = _pick_caption(labels, sample_if_multi, rng)
-        ids = tok.encode(txt)
+        ids = _encode(tok, txt)
         keep = max_len - 1
         if len(ids) > keep:
             words = basic_tokenize(txt)

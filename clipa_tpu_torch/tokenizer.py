@@ -11,7 +11,9 @@ The port's copy of the WordPiece stack of the JAX package
   * :func:`bert_tokenize`: WordPiece ids truncated or zero-padded to
     ``max_len - 1`` behind ``[CLS]``.
 
-Serving tokenizes captions here. The training pp ops
+:func:`get_tokenizer` picks the native C++ WordPiece of
+``clipa_tpu_torch/native`` (same ids, ASCII text in C++) where its library
+builds. Serving tokenizes captions here. The training pp ops
 (``clipa_tpu_torch/pp/ops_text.py``: ``bert_tokenize``,
 ``custom_bert_tokenize`` and CLIPA's syntax-priority sampling,
 ``syntax_tokenize``) build on the same tokenizer.
@@ -151,8 +153,35 @@ class WordPieceTokenizer:
 
 @functools.lru_cache(maxsize=8)
 def get_wordpiece(vocab_path: str) -> WordPieceTokenizer:
-    """The (cached) tokenizer of a vocab file."""
+    """The (cached) Python tokenizer of a vocab file."""
     return WordPieceTokenizer(load_vocab(vocab_path))
+
+
+TOKENIZER_BACKENDS = ("auto", "native", "python")
+
+
+@functools.lru_cache(maxsize=8)
+def get_tokenizer(vocab_path: str, lower_case: bool = True,
+                  backend: str = "auto") -> WordPieceTokenizer:
+    """The (cached) tokenizer of a vocab file, as the JAX package's
+    ``pp/tokenizer.get_tokenizer``: "auto" takes the native C++ WordPiece
+    (``clipa_tpu_torch/native``) where its library builds and the Python
+    one where it does not, "native" raises where it does not build,
+    "python" never tries it. Both give the same ids. Lower-case only, as
+    every CLIPA text tower."""
+    if backend not in TOKENIZER_BACKENDS:
+        raise ValueError(f"backend must be one of {TOKENIZER_BACKENDS}, got "
+                         f"{backend!r}")
+    if not lower_case:
+        raise NotImplementedError("the port's WordPiece is lower-case only")
+    if backend != "python":
+        from clipa_tpu_torch.native import wordpiece as native_wp
+        try:
+            return native_wp.NativeWordPieceTokenizer(load_vocab(vocab_path))
+        except (OSError, RuntimeError):
+            if backend == "native":
+                raise
+    return get_wordpiece(vocab_path)
 
 
 def _pad_cls(ids: List[int], max_len: int, cls_id: int) -> np.ndarray:

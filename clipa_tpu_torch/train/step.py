@@ -12,16 +12,33 @@ measurements)``:
   forward in the config's compute dtype over fp32 parameters, with CLIPA's
   random image-token masking at ``config.mask_ratio`` (unmask-tuning) and
   the towers' ``remat_policy`` and ``attn_impl`` -> the loss
-  (``config.loss``; only "softmax", the global InfoNCE, is ported) ->
-  autograd, through the attention kernels' backward on a card -> the optax
-  chain of ``optim.py``, applied in place -> the temperature clamp.
+  (``config.loss``: "softmax", the global InfoNCE; "sigmoid", with the
+  towers' ``b`` where the model has one; "chunked", ``ops/infonce.py`` at
+  ``config.loss_chunk_size``) -> autograd, through the attention kernels'
+  backward on a card -> the optax chain of ``optim.py``, applied in place
+  -> the temperature clamp.
+
+With ``config.grad_accum_steps`` = n > 1 the step is the JAX step's
+two-pass full-batch-negative accumulation (the reference torch trainer's
+cached-feature scheme): pass 1 embeds each of the n microbatches without
+gradients; pass 2 re-embeds microbatch j live, splices it into the cached
+full-batch features, takes the loss against the full batch's negatives and
+adds its gradients. Each feature's contribution is counted once, so the
+gradients equal the single pass's, except the loss's own parameters: every
+pass sees the whole dL/dt (and, under ``loss="sigmoid"``, the whole dL/db),
+so ``t`` and ``b`` receive n times the single-pass gradient, as in the JAX
+step and the reference (ROADMAP, quirks). The measurements
+are the last pass's. Microbatch j draws its masking noise from the same
+generator, seeded from ``(config.seed, step, j)``, in both passes.
 
 The measurements are the JAX step's: ``training_loss``, ``t``,
 ``t/parameter``, ``nimg``, ``ntxt``, ``ncorrect`` and, under
 ``config.norm_metrics`` "log" (default) / "always" / "never",
 ``l2_grads``, ``l2_params`` and ``l2_updates``: under "log" they are
 computed on the first, the last and every ``log_training_steps``-th step and
-are 0 on the others. Values are 0-d tensors on the device (no host sync).
+are 0 on the others; with ``config.log_block_norms``, the image tower's
+gradient norms per block (:func:`_block_norms`). Values are 0-d tensors on
+the device (no host sync).
 
 :func:`make_predict_fn` is the evaluators' forward: eval mode, no masking,
 no gradients, uint8 images normalized as the step normalizes them.
@@ -31,9 +48,8 @@ device seeded from ``(config.seed, s)``: the counterpart of the JAX step's
 ``fold_in(rng, step)``. The two give different streams of the same
 distribution.
 
-Not ported yet (they raise): the sigmoid, chunked, ring and CoCa losses,
-two-pass gradient accumulation (``grad_accum_steps > 1``), distillation and
-the per-block gradient norms.
+Not ported yet (they raise, naming the ROADMAP item): the ring losses
+(multi-GPU, A8), the CoCa loss (its model, A10) and distillation (A5).
 """
 
 from __future__ import annotations
@@ -46,7 +62,7 @@ import torch
 from clipa_tpu_torch import losses as losses_lib
 from clipa_tpu_torch import optim, utils
 from clipa_tpu_torch.models import get_model_module, layers
-from clipa_tpu_torch.ops import preprocess
+from clipa_tpu_torch.ops import infonce, preprocess
 
 
 def create_model(config, device="cuda") -> torch.nn.Module:
@@ -81,10 +97,15 @@ def init_train_state(model: torch.nn.Module, config, generator:
     return {"params": optim.named_parameters(model), "step": 0}
 
 
-def mask_generator(config, step: int, device) -> torch.Generator:
+def mask_generator(config, step: int, device,
+                   microbatch: Optional[int] = None) -> torch.Generator:
     """The masking noise's generator of step `step`, seeded from
-    ``(config.seed, step)``."""
-    seed = np.random.SeedSequence([int(config.get("seed", 0)), int(step)])
+    ``(config.seed, step)``; of its microbatch `microbatch` under gradient
+    accumulation, from ``(config.seed, step, microbatch)``."""
+    key = [int(config.get("seed", 0)), int(step)]
+    if microbatch is not None:
+        key.append(int(microbatch))
+    seed = np.random.SeedSequence(key)
     return torch.Generator(device=device).manual_seed(
         int(seed.generate_state(1, np.uint64)[0]))
 
@@ -94,6 +115,68 @@ def _sqsum(tensors) -> torch.Tensor:
     return sum(x.float().square().sum() for x in tensors)
 
 
+_REFUSED_LOSSES = {
+    "ring": "the ring InfoNCE (multi-GPU: ROADMAP A8)",
+    "ring_sigmoid": "the ring sigmoid loss (multi-GPU: ROADMAP A8)",
+    "coca": "the CoCa loss (the CoCa model: ROADMAP A10)",
+}
+LOSSES = ("softmax", "sigmoid", "chunked")
+
+
+def _make_loss_dispatch(loss_kind: str, config) -> Callable:
+    """Maps ``config.loss`` to its implementation, as the JAX step's
+    dispatch: apply_loss(zimg, ztxt, extras) -> (loss, extras dict). Raises
+    NotImplementedError for the losses not ported yet and ValueError for an
+    unknown name."""
+    if loss_kind in _REFUSED_LOSSES:
+        raise NotImplementedError(f"config.loss={loss_kind!r}: "
+                                  f"{_REFUSED_LOSSES[loss_kind]} is not "
+                                  "ported yet")
+    if loss_kind not in LOSSES:
+        raise ValueError(f"unknown config.loss {loss_kind!r} (one of "
+                         f"{LOSSES})")
+    chunk_size = int(config.get("loss_chunk_size", 4096))
+
+    def apply_loss(zimg, ztxt, extras):
+        if loss_kind == "sigmoid":
+            return losses_lib.sigmoid_contrastive_loss(
+                zimg, ztxt, extras["t"], bias=extras.get("b", 0.0),
+                reduction=True)
+        if loss_kind == "chunked":
+            return infonce.chunked_contrastive_loss(
+                zimg, ztxt, extras["t"], chunk_size=chunk_size)
+        return losses_lib.bidirectional_contrastive_loss(
+            zimg, ztxt, extras["t"], reduction=True)
+
+    return apply_loss
+
+
+def _block_norms(grads: dict, frozen=frozenset()) -> dict:
+    """Per-block gradient norms of the image tower (the JAX step's, from
+    the reference's telemetry): ``l2_grad_{embedding,cls,head}`` over each
+    subtree, the `frozen` names (the optimizer's) counted as 0, and
+    ``l2_grad_<block>``, the norm of each encoder block's second MLP
+    kernel. (The JAX step matches config.schedule against the names within
+    each subtree, so a schedule that freezes by full name is not seen
+    there; ROADMAP C.)"""
+    out = {}
+    for key in ("embedding", "cls", "head"):
+        prefix = f"img/{key}"
+        sub = [(n, g) for n, g in grads.items()
+               if n == prefix or n.startswith(prefix + "/")]
+        if sub:
+            out[f"l2_grad_{key}"] = torch.sqrt(_sqsum(
+                g * 0 if n in frozen else g for n, g in sub))
+    blocks = "img/Transformer/"
+    kernel = "/MlpBlock_0/Dense_1/kernel"
+    for name, g in grads.items():
+        if name.startswith(blocks) and name.endswith(kernel):
+            block = name[len(blocks):-len(kernel)]
+            if "/" not in block:
+                out[f"l2_grad_{block}"] = torch.sqrt(_sqsum([g]))
+    return out
+
+
 def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                    total_steps: int = 0,
                    teacher_model: Optional[Any] = None) -> Callable:
@@ -101,58 +184,92 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
 
     `state` is :func:`init_train_state`'s; its parameters must be the ones
     `tx` was made over. `batch`: {"image": (B, H, W, 3) uint8 or float,
-    "labels": (B, l) token ids}, tensors on the model's device.
-    `total_steps` (when known) lets the gated norm metrics fire on the
-    last step too.
+    "labels": (B, l) token ids}, tensors on the model's device; B must
+    divide by ``config.grad_accum_steps``. `total_steps` (when known) lets
+    the gated norm metrics fire on the last step too.
     """
     mask_ratio = float(config.get("mask_ratio", 0.0))
-    loss_kind = config.get("loss", "softmax")
     normalize_on_device = bool(config.get("cpu_unit8", True))
     norm_metrics = config.get("norm_metrics", "log")  # log|always|never
     log_steps = int(config.get("log_training_steps", 50))
+    measure_block_norms = bool(config.get("log_block_norms", False))
+    accum_steps = int(config.get("grad_accum_steps", 1))
     temperature_clamp = config.get("temperature_clamp", False)
     t_clamp_max = (float(np.log(100.0)) if temperature_clamp is True
                    else float(temperature_clamp or 0.0))
-    if loss_kind != "softmax":
-        raise NotImplementedError(
-            f"config.loss={loss_kind!r} is not ported yet (only 'softmax', "
-            "the global InfoNCE)")
-    if int(config.get("grad_accum_steps", 1)) > 1:
-        raise NotImplementedError("grad_accum_steps > 1 (two-pass "
-                                  "full-batch-negative accumulation) is not "
-                                  "ported yet")
+    apply_loss = _make_loss_dispatch(config.get("loss", "softmax"), config)
     if teacher_model is not None:
-        raise NotImplementedError("distillation is not ported yet")
-    if config.get("log_block_norms"):
-        raise NotImplementedError("log_block_norms is not ported yet")
+        raise NotImplementedError("distillation is not ported yet "
+                                  "(ROADMAP A5)")
     if norm_metrics not in ("log", "always", "never"):
         raise ValueError(f"unknown norm_metrics {norm_metrics!r}")
 
-    def update(state: dict, batch: dict):
-        params = state["params"]
-        images, labels = batch["image"], batch["labels"]
-        if normalize_on_device and images.dtype == torch.uint8:
-            images = preprocess.normalize_uint8(images)
-
-        model.train()
-        generator = (mask_generator(config, state["step"], images.device)
-                     if mask_ratio > 0 else None)
-        zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio,
-                                   generator=generator)
-        loss, l_extras = losses_lib.bidirectional_contrastive_loss(
-            zimg, ztxt, extras["t"], reduction=True)
-        measurements = {
+    def loss_and_measurements(zimg, ztxt, extras):
+        loss, l_extras = apply_loss(zimg, ztxt, extras)
+        return loss, {
             "t": extras["t"][0].detach(),
             "t/parameter": extras["t/parameter"][0].detach().clone(),
             "nimg": extras["img/norm"].mean().detach(),
             "ntxt": extras["txt/norm"].mean().detach(),
             **{k: v.mean().detach() for k, v in l_extras.items()},
         }
-        names = list(params)
+
+    def gradients(loss, params, names):
         found = torch.autograd.grad(loss, [params[n] for n in names],
                                     allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
-                 for n, g in zip(names, found)}
+        return {n: torch.zeros_like(params[n]) if g is None else g
+                for n, g in zip(names, found)}
+
+    def update(state: dict, batch: dict):
+        params = state["params"]
+        names = list(params)
+        images, labels = batch["image"], batch["labels"]
+        if normalize_on_device and images.dtype == torch.uint8:
+            images = preprocess.normalize_uint8(images)
+
+        model.train()
+        if accum_steps <= 1:
+            generator = (mask_generator(config, state["step"], images.device)
+                         if mask_ratio > 0 else None)
+            zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio,
+                                       generator=generator)
+            loss, measurements = loss_and_measurements(zimg, ztxt, extras)
+            grads = gradients(loss, params, names)
+        else:
+            if images.shape[0] % accum_steps:
+                raise ValueError(
+                    f"grad_accum_steps={accum_steps} must divide the global "
+                    f"batch size {images.shape[0]}")
+            mb = images.shape[0] // accum_steps
+            micro = [(images[j * mb:(j + 1) * mb], labels[j * mb:(j + 1) * mb])
+                     for j in range(accum_steps)]
+
+            def embed(j):
+                generator = (mask_generator(config, state["step"],
+                                            images.device, j)
+                             if mask_ratio > 0 else None)
+                return model(*micro[j], mask_ratio=mask_ratio,
+                             generator=generator)
+
+            # pass 1: every microbatch's features, without gradients
+            with torch.no_grad():
+                cached = [embed(j)[:2] for j in range(accum_steps)]
+            zi_all = torch.cat([z for z, _ in cached])
+            zt_all = torch.cat([z for _, z in cached])
+            del cached
+            # pass 2: microbatch j live, against the full batch's negatives
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
+                     for n, p in params.items()}
+            for j in range(accum_steps):
+                zimg_j, ztxt_j, extras = embed(j)
+                rows = slice(j * mb, (j + 1) * mb)
+                zimg = torch.cat([zi_all[:rows.start], zimg_j,
+                                  zi_all[rows.stop:]])
+                ztxt = torch.cat([zt_all[:rows.start], ztxt_j,
+                                  zt_all[rows.stop:]])
+                loss, measurements = loss_and_measurements(zimg, ztxt, extras)
+                for n, g in gradients(loss, params, names).items():
+                    grads[n].add_(g)
 
         updates = tx.update(grads)
         tx.apply(updates)
@@ -172,11 +289,13 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                                   ("l2_updates", updates)):
                     measurements[key] = (torch.sqrt(_sqsum(tree.values()))
                                          if due else zero)
+        if measure_block_norms:
+            with torch.no_grad():
+                measurements.update(_block_norms(grads, tx.frozen))
         state["step"] += 1
         return state, measurements
 
     return update
-
 
 
 def make_predict_fn(model: torch.nn.Module, normalize: bool = True

@@ -35,6 +35,7 @@ from clipa_tpu.pp import tokenizer as jax_tokenizer
 from clipa_tpu_torch import pathio, registry, tokenizer
 from clipa_tpu_torch.configs import clipa_pretrain
 from clipa_tpu_torch.data import core, pipeline, tfrecord
+from clipa_tpu_torch.pp import ops_image
 from clipa_tpu_torch.train import checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,10 +48,14 @@ N = 10   # examples per source
 
 @pytest.fixture(autouse=True)
 def python_route(monkeypatch):
-    """The JAX ops decode through PIL and tokenize in Python, as the port
-    does: its native WordPiece shares one output buffer between the
-    pipeline's threads (see test_tokenization_is_thread_safe)."""
+    """Both packages' ops decode JPEG bytes through PIL (their native
+    decoders: test_make_for_train_on_the_native_decode_matches); the JAX
+    ops tokenize in Python: its native WordPiece shares one output buffer
+    between the pipeline's threads (see test_tokenization_is_thread_safe).
+    The port's tokenizer is its native one where it builds (the same ids,
+    tests/test_torch_native.py)."""
     monkeypatch.setattr(jax_ops_image, "_native_lib", lambda: None)
+    monkeypatch.setattr(ops_image, "_native_lib", lambda: None)
     monkeypatch.setattr(jax_ops_text, "get_tokenizer", lambda path: (
         jax_tokenizer.get_tokenizer(path, backend="python")))
 
@@ -265,6 +270,36 @@ def test_make_for_train_matches_jax_package(shards, name, pp, workers):
                    **workers)
     _same(got, want, f"{name} {pp}")
     assert all(b[k].shape[0] == 4 for b in got for k in b)
+
+
+# the route builders as imported (python_route patches both to None)
+NATIVE_LIBS = (jax_ops_image._native_lib, ops_image._native_lib)
+
+
+@pytest.mark.parametrize("workers", [dict(num_workers=3),
+                                     dict(worker_processes=2)])
+def test_make_for_train_on_the_native_decode_matches(shards, monkeypatch,
+                                                     workers):
+    """The pretrain pp over JPEG tfrecords with both packages on their
+    native JPEG decode (the JAX text in Python, as python_route sets):
+    byte-identical batches, on the port's threads or worker processes; on
+    threads every sample of the port's took the native route."""
+    from clipa_tpu import native as jax_native
+    assert jax_native.available()
+    monkeypatch.setattr(jax_ops_image, "_native_lib", NATIVE_LIBS[0])
+    monkeypatch.setattr(ops_image, "_native_lib", NATIVE_LIBS[1])
+    monkeypatch.setattr(ops_image, "native_decodes", 0)
+    monkeypatch.setattr(ops_image, "pil_decodes", 0)
+    pp = clipa_pretrain.get_config(
+        f"img=L/16,res=32,token_len=8,vocab_path={VOCAB}").input.pp
+    want = _batches((jax_core, jax_pipeline), jax_registry,
+                    shards["tfrecord"], pp, 5, num_workers=3)
+    got = _batches((core, pipeline), registry, shards["tfrecord"], pp, 5,
+                   **workers)
+    _same(got, want, pp)
+    if "num_workers" in workers:
+        assert ops_image.pil_decodes == 0
+        assert ops_image.native_decodes >= 5 * 4
 
 
 def test_make_for_train_on_worker_processes_matches(shards):

@@ -57,6 +57,7 @@ from clipa_tpu_torch.evaluators import (classification, common, contrastive,
                                         fewshot, mean, prompts, retrieval,
                                         zeroshot)
 from clipa_tpu_torch.ops import preprocess
+from clipa_tpu_torch.pp import ops_image
 from clipa_tpu_torch.train import step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,9 +83,10 @@ def one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def python_route(monkeypatch):
-    """The JAX ops decode through PIL and tokenize in Python, as the port
-    does (its native WordPiece is not thread-safe)."""
+    """Both packages' ops decode JPEG bytes through PIL; the JAX ops
+    tokenize in Python (its native WordPiece is not thread-safe)."""
     monkeypatch.setattr(jax_ops_image, "_native_lib", lambda: None)
+    monkeypatch.setattr(ops_image, "_native_lib", lambda: None)
     monkeypatch.setattr(jax_ops_text, "get_tokenizer", lambda path: (
         jax_tokenizer.get_tokenizer(path, backend="python")))
 

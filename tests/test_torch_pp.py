@@ -49,8 +49,10 @@ CAPTIONS = ["a golden retriever puppy playing with a red ball on green grass",
 
 @pytest.fixture(autouse=True)
 def pil_route(monkeypatch):
-    """The JAX ops decode through PIL, as the port does."""
+    """Both packages' ops decode JPEG bytes through PIL (the native
+    route's cases, in both packages, are test_native_route_*)."""
     monkeypatch.setattr(jax_ops_image, "_native_lib", lambda: None)
+    monkeypatch.setattr(ops_image, "_native_lib", lambda: None)
 
 
 def _encoded(arr, fmt):
@@ -277,6 +279,79 @@ def test_pretrain_pp_string_end_to_end(decoded):
         _assert_same(got, want, pp)
         assert got["image"].shape == (112, 112, 3)
         assert got["labels"].shape == (8,)
+
+
+# the route builders as imported (pil_route patches both to None)
+NATIVE_LIBS = (jax_ops_image._native_lib, ops_image._native_lib)
+
+
+@pytest.fixture
+def native_route(monkeypatch):
+    """Both packages' decode_jpeg_and_inception_crop on their native
+    libraries, the port's route counters at 0."""
+    from clipa_tpu import native as jax_native
+    assert jax_native.available()
+    monkeypatch.setattr(jax_ops_image, "_native_lib", NATIVE_LIBS[0])
+    monkeypatch.setattr(ops_image, "_native_lib", NATIVE_LIBS[1])
+    monkeypatch.setattr(ops_image, "native_decodes", 0)
+    monkeypatch.setattr(ops_image, "pil_decodes", 0)
+
+
+@pytest.mark.parametrize("hw,size", [((57, 83), 32), ((300, 260), 112),
+                                     ((144, 144), 112), ((427, 640), 112),
+                                     ((31, 500), 64)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_native_route_matches_jax_native_route(native_route, hw, size,
+                                               seed):
+    """The fused libjpeg decode, crop and resize: the same pixels and the
+    same generator state after the op (the box drawn in the JAX order)."""
+    rng = np.random.default_rng(seed)
+    jpg = _encoded(rng.integers(0, 256, (*hw, 3), dtype=np.uint8), "JPEG")
+    spec = (f'decode_jpeg_and_inception_crop(inkey="jpg", size={size}, '
+            f'area_min=40)')
+    want, got = _both(spec, {"jpg": jpg}, seed)
+    _assert_same(got, want, spec)
+    assert got["image"].shape == (size, size, 3)
+    assert (ops_image.native_decodes, ops_image.pil_decodes) == (1, 0)
+
+
+def test_native_route_falls_back_to_pil_per_sample(native_route):
+    """Bytes the library refuses (a PNG) take the PIL route in both
+    packages, sample by sample; the pretrain pp string end to end on the
+    native route."""
+    sample = _sample(3)
+    spec = 'decode_jpeg_and_inception_crop(inkey="png", size=32)'
+    want, got = _both(spec, sample, 3)
+    _assert_same(got, want, spec)
+    assert (ops_image.native_decodes, ops_image.pil_decodes) == (0, 1)
+    pp = _pretrain_pp(clipa_pretrain, decoded=False)
+    for seed in range(3):
+        sample = _sample(seed, h=144, w=144)
+        sample["jpg"] = sample["big_jpg"]
+        want, got = _both(pp, sample, seed)
+        _assert_same(got, want, pp)
+    assert (ops_image.native_decodes, ops_image.pil_decodes) == (3, 1)
+
+
+@pytest.mark.parametrize("op", ["bert_tokenize", "custom_bert_tokenize",
+                                "syntax_tokenize"])
+def test_tokenize_ops_count_encodes_by_route(monkeypatch, op):
+    """Each tokenize op counts the captions it encodes under the tokenizer
+    it was built with: the native WordPiece by default, the Python one when
+    get_tokenizer is asked for it."""
+    from clipa_tpu_torch import tokenizer
+    monkeypatch.setattr(ops_text, "native_encodes", 0)
+    monkeypatch.setattr(ops_text, "python_encodes", 0)
+    spec = f'{op}(inkey="txt", max_len=8, vocab_path="{VOCAB}")'
+    sample = {"txt": b"a small red car parked near the old stone house"}
+    want = registry.get_preprocess_fn(spec)(dict(sample))["labels"]
+    assert (ops_text.native_encodes, ops_text.python_encodes) == (1, 0)
+    monkeypatch.setattr(ops_text, "get_tokenizer",
+                        lambda path: tokenizer.get_tokenizer(
+                            path, backend="python"))
+    got = registry.get_preprocess_fn(spec)(dict(sample))["labels"]
+    assert (ops_text.native_encodes, ops_text.python_encodes) == (1, 1)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_smoke_pp_string_end_to_end():

@@ -4,6 +4,8 @@ copies of that package's host-only modules compute what those do.
   * Every module of ``clipa_tpu_torch`` and ``chip_smoke.py`` (whose imports
     sit inside functions that only run on a card) is parsed, and no import
     names ``jax``, ``jaxlib``, ``flax``, ``optax`` or ``clipa_tpu``.
+  * The C++ sources of ``clipa_tpu_torch/native`` are the JAX package's,
+    but for a comment on the output buffer of ``wp_encode``.
   * Against the JAX package on the same inputs, all exact: the experiment
     configs over argument strings, the argument parser and the duration
     resolver, the open_clip model JSON files, WordPiece tokenization, and
@@ -63,6 +65,39 @@ def _forbidden(source: str) -> list:
 def test_no_module_imports_the_jax_package(path):
     with open(os.path.join(REPO, path)) as f:
         assert _forbidden(f.read()) == [], path
+
+
+def test_the_scan_covers_the_native_losses_and_tools_modules():
+    """The modules ported with the native library, the losses and the data
+    tools are among the scanned sources."""
+    for path in ("native/__init__.py", "native/wordpiece.py",
+                 "ops/infonce.py", "tools/laion.py",
+                 "tools/bench_pipeline.py", "losses.py", "train/step.py",
+                 "pp/ops_image.py", "data/tfrecord.py", "tokenizer.py"):
+        assert os.path.join("clipa_tpu_torch", path) in SOURCES, path
+
+
+# The port's copy of each C++ source of clipa_tpu/native: identical but for
+# the comment wordpiece.cc adds on who owns wp_encode's output buffer.
+BUFFER_COMMENT = """//
+// `out` is the caller's, one buffer per call: wp_encode reads the handle
+// and writes nothing else, so calls from several threads may share a
+// handle but never an output buffer.
+"""
+
+
+@pytest.mark.parametrize("name", ["jpeg_decode.cc", "tfrecord.cc",
+                                  "wordpiece.cc"])
+def test_native_sources_are_the_jax_packages(name):
+    with open(os.path.join(REPO, "clipa_tpu", "native", "src", name)) as f:
+        ref = f.read()
+    with open(os.path.join(REPO, "clipa_tpu_torch", "native", "src",
+                           name)) as f:
+        ours = f.read()
+    if name == "wordpiece.cc":
+        assert ours.count(BUFFER_COMMENT) == 1
+        ours = ours.replace(BUFFER_COMMENT, "")
+    assert ours == ref
 
 
 @pytest.mark.parametrize("snippet", [

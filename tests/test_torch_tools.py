@@ -1,7 +1,10 @@
 """clipa_tpu_torch.tools: the profile summary's arithmetic (the trace itself
 needs a card; see tools/profile_service.py), the ablation ladder on the CPU
-against the JAX tool's keys, the FLOP count against the JAX tool's, and the
-Chrome-trace summary on a synthetic trace."""
+against the JAX tool's keys, the FLOP count against the JAX tool's, the
+Chrome-trace summary on a synthetic trace, ``bench_pipeline`` (the shards
+it writes and ``measure``'s keys, against the JAX tool's) and ``laion``
+(``count``, ``convert-webdataset``, ``rename`` and ``smoke`` against the
+JAX tool's on a tar the test writes; URLs refused)."""
 
 import inspect
 import json
@@ -13,11 +16,13 @@ import torch
 
 from clipa_tpu.models import two_towers as jax_two_towers
 from clipa_tpu.tools import ablate_step as jax_ablate_step
+from clipa_tpu.tools import bench_pipeline as jax_bench_pipeline
 from clipa_tpu.tools import flops as jax_flops
+from clipa_tpu.tools import laion as jax_laion
 from clipa_tpu_torch.models import two_towers
 from clipa_tpu_torch.ops import attention, block_attention
-from clipa_tpu_torch.tools import (ablate_step, flops, profile_service,
-                                   trace_summary)
+from clipa_tpu_torch.tools import (ablate_step, bench_pipeline, flops, laion,
+                                   profile_service, trace_summary)
 
 
 @pytest.mark.parametrize("intervals,total", [
@@ -195,3 +200,107 @@ def test_trace_summary_of_a_synthetic_trace(tmp_path):
     assert sum(f["share"] for f in fams.values()) == pytest.approx(1.0)
     assert trace_summary.summarize(str(path), steps=1)[
         "device_ms_per_step"] == 0.029
+
+
+def test_bench_pipeline_shards_and_measure_keys(tmp_path):
+    """The same shard bytes as the JAX tool (same seed, PIL encoder and
+    record layout); ``measure`` on threads and on worker processes returns
+    the JAX tool's keys."""
+    import glob
+    ours, ref = tmp_path / "ours", tmp_path / "ref"
+    ours.mkdir()
+    ref.mkdir()
+    pattern = bench_pipeline.make_jpeg_shards(str(ours), 16, 48, shards=2)
+    jax_bench_pipeline.make_jpeg_shards(str(ref), 16, 48, shards=2)
+    assert pattern == str(ours / "*.tfrecord")
+    names = sorted(p.rsplit("/", 1)[1] for p in glob.glob(pattern))
+    assert names == ["bench-00000.tfrecord", "bench-00001.tfrecord"]
+    for name in names:
+        assert (ours / name).read_bytes() == (ref / name).read_bytes()
+    # captions in turn
+    bench_pipeline.make_jpeg_shards(str(tmp_path), 4, 16, shards=1,
+                                    captions=["one", "two"])
+    from clipa_tpu_torch.data import tfrecord
+    txts = [tfrecord.parse_example(r)["txt"] for r in tfrecord.read_records(
+        str(tmp_path / "bench-00000.tfrecord"))]
+    assert [bytes(t[0]) if isinstance(t, list) else bytes(t)
+            for t in txts] == [b"one", b"two", b"one", b"two"]
+    pp = ('decode_jpeg_and_inception_crop(inkey="jpg", size=16)|'
+          'keep("image")')
+    for processes in (False, True):
+        r = bench_pipeline.measure(pattern, pp, 2, 4, 0.2,
+                                   processes=processes)
+        assert set(r) == {"num_workers", "mode", "samples_per_sec",
+                          "batches"}
+        assert r["mode"] == ("processes" if processes else "threads")
+        assert r["samples_per_sec"] > 0 and r["batches"] >= 1
+
+
+def _webdataset_tar(path, n=5):
+    import io
+    import tarfile
+    from PIL import Image
+    rng = np.random.RandomState(0)
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 255, (12, 10, 3), np.uint8)).save(
+                buf, "JPEG")
+            parts = {"jpg" if i % 2 else "jpeg": buf.getvalue(),
+                     "txt": f"caption {i}".encode(), "json": b"{}"}
+            if i == 3:
+                parts.pop("txt")
+            if i == 4:   # no image: skipped
+                parts = {"txt": b"orphan"}
+            for ext, data in parts.items():
+                info = tarfile.TarInfo(f"{i:05d}.{ext}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_laion_convert_and_count_match_the_jax_tool(tmp_path, capsys,
+                                                    verify):
+    for i in range(2):
+        _webdataset_tar(str(tmp_path / f"shard-{i}.tar"))
+    outs = {}
+    for name, tool in (("ours", laion), ("ref", jax_laion)):
+        out = tmp_path / name
+        tool.main(["convert-webdataset", "--pattern",
+                   str(tmp_path / "shard-*.tar"), "--out-dir", str(out)])
+        tool.main(["count", "--pattern", str(out / "*.tfrecord*")]
+                  + (["--verify"] if verify else []))
+        outs[name] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+    assert outs["ours"] == outs["ref"]
+    info = json.loads(outs["ours"]["dataset_info.json"])
+    assert info["splits"][0]["shardLengths"] == ["4", "4"]
+    assert info["totalExamples"] == 8
+    capsys.readouterr()
+    laion.main(["smoke", "--pattern", str(tmp_path / "ours" / "*.tfrecord*"),
+                "-n", "2"])
+    jax_laion.main(["smoke", "--pattern",
+                    str(tmp_path / "ref" / "*.tfrecord*"), "-n", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:2] == lines[2:] and len(lines) == 4
+
+
+def test_laion_rename_and_urls(tmp_path, capsys):
+    for i in range(3):
+        (tmp_path / f"part{i}.tfrecord").write_bytes(b"")
+    laion.main(["rename", "--pattern", str(tmp_path / "part*"),
+                "--dry-run"])
+    jax_laion.main(["rename", "--pattern", str(tmp_path / "part*"),
+                    "--dry-run"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:3] == lines[3:]
+    laion.main(["rename", "--pattern", str(tmp_path / "part*"),
+                "--name", "ds"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"ds-full.tfrecord-0000{i}-of-00003" for i in range(3)]
+    for argv in (["count", "--pattern", "gs://bucket/*.tfrecord"],
+                 ["convert-webdataset", "--pattern", str(tmp_path / "x"),
+                  "--out-dir", "s3://bucket/out"]):
+        with pytest.raises(NotImplementedError, match="A4"):
+            laion.main(argv)
+    with pytest.raises(SystemExit, match="no files match"):
+        laion.main(["count", "--pattern", str(tmp_path / "nothing*")])

@@ -12,7 +12,10 @@ resumable checkpoints) on the CPU, against the JAX package's loop.
   * loss parity: both loops from one masked_init npz of the JAX smoke
     model's initial parameters, 3 steps of the fp32 smoke config on the
     same synthetic data: `training_loss` within rtol 1e-5 at step 1 and
-    1e-4 at steps 2-3, and the same metric keys.
+    1e-4 at steps 2-3, and the same metric keys; once as the config is,
+    once with ``loss="chunked"``, ``grad_accum_steps=2`` and
+    ``log_block_norms`` (the per-block norms reach metrics.jsonl under the
+    JAX loop's names).
 
 The JAX side tokenizes in Python: its native WordPiece is not thread-safe
 (tests/test_torch_data.py::test_tokenization_is_thread_safe).
@@ -262,10 +265,18 @@ def test_profiler_writes_a_trace(tmp_path):
     assert traces == ["train_steps_2-3.json"]
 
 
-@pytest.fixture(scope="module")
-def parity_runs(tmp_path_factory):
+# config changes of the loss parity runs: the plain step, and two-pass
+# accumulation on the chunked loss with the per-block gradient norms
+PARITY = {"softmax": {},
+          "chunked_accum": dict(loss="chunked", loss_chunk_size=4,
+                                grad_accum_steps=2, log_block_norms=True)}
+
+
+@pytest.fixture(scope="module", params=sorted(PARITY))
+def parity_runs(tmp_path_factory, request):
     """The JAX loop and the port's from the same masked_init npz, 3 steps
-    of the fp32 smoke config, logging every step."""
+    of the fp32 smoke config, logging every step, with the changes of
+    PARITY[param] made in both."""
     root = tmp_path_factory.mktemp("loop_parity")
     spec = "steps=3,batch=16"
     config = jax_load_config(f"{JAX_SMOKE}:{spec}")
@@ -282,6 +293,8 @@ def parity_runs(tmp_path_factory):
         config.log_training_steps = 1
         config.save_ckpt = False
         config.export_npz = False
+        for key, value in PARITY[request.param].items():
+            config[key] = value
         return config
 
     with pytest.MonkeyPatch.context() as mp:
@@ -356,6 +369,9 @@ def test_metric_keys_match_the_jax_loop(parity_runs):
     want, got = parity_runs
     for g, w in zip(got, want):
         assert set(g) == set(w), w["step"]
+    blocks = {k for k in got[0] if k.startswith("l2_grad_")}
+    assert not blocks or {"l2_grad_embedding", "l2_grad_head",
+                          "l2_grad_encoderblock_0"} <= blocks
 
 
 def test_async_writer_saves_the_values_at_the_call(tmp_path):

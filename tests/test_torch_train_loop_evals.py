@@ -43,6 +43,7 @@ from clipa_tpu_torch.compat import openclip
 from clipa_tpu_torch.config import ConfigDict, load_config
 from clipa_tpu_torch.configs.smoke import _vocab_path
 from clipa_tpu_torch.data import tfrecord
+from clipa_tpu_torch.pp import ops_image
 from clipa_tpu_torch.tools import eval_zeroshot
 from clipa_tpu_torch.train import checkpoint, loop
 
@@ -78,6 +79,7 @@ def one_torch_thread():
 @pytest.fixture(autouse=True)
 def python_route(monkeypatch):
     monkeypatch.setattr(jax_ops_image, "_native_lib", lambda: None)
+    monkeypatch.setattr(ops_image, "_native_lib", lambda: None)
     monkeypatch.setattr(jax_ops_text, "get_tokenizer", lambda path: (
         jax_tokenizer.get_tokenizer(path, backend="python")))
 

@@ -8,6 +8,16 @@ seeded noise, carried across with ``convert.load_jax_params``) and the same
 uint8 batch, in fp32 (JAX under default_matmul_precision("highest"), on a
 one-device CPU mesh).
 
+The same runs with two-pass gradient accumulation (2 and 4 microbatches of
+the batch of 8, with and without masking at 0.3, the masking noise handed
+to both packages), the sigmoid loss with the towers' ``b`` and the chunked
+InfoNCE compare the gradients each package hands its optimizer (an optax
+transformation and ``Optimizer.update`` wrapped to record them) and every
+measurement, the per-block norms of ``log_block_norms`` included, at the
+same tolerances; the port's second step starts from the JAX step's first
+parameters (Adam's first step moves each parameter by about lr * sign(g),
+so the two packages' parameters differ where |g| is at rounding level).
+
 Tolerances: gradients 1e-4 of each tensor's largest element (fp32
 summation order through two blocks; the key bias's gradient is 0 in exact
 arithmetic, so tensors are measured against at least a hundredth of the
@@ -205,12 +215,234 @@ def test_norm_metrics_gating_and_refusals():
         logged.append(float(meas["l2_grads"]) > 0)
         assert np.isfinite(float(meas["training_loss"]))
     assert logged == [True, False, True, False, True]   # 1st, 3rd, last
-    for key, value in (("loss", "sigmoid"), ("grad_accum_steps", 2),
-                       ("log_block_norms", True)):
+    for loss, item in (("ring", "A8"), ("ring_sigmoid", "A8"),
+                       ("coca", "A10")):
         bad = tiny_config()
-        bad[key] = value
-        with pytest.raises(NotImplementedError):
+        bad.loss = loss
+        with pytest.raises(NotImplementedError, match=item):
             step.make_update_fn(port, tx, bad)
+    with pytest.raises(NotImplementedError, match="A5"):
+        step.make_update_fn(port, tx, tiny_config(), teacher_model=port)
+    bad = tiny_config()
+    bad.loss = "softmx"
+    with pytest.raises(ValueError, match="softmx"):
+        step.make_update_fn(port, tx, bad)
+    bad = tiny_config()
+    bad.grad_accum_steps = 3   # does not divide the batch of 8
+    with pytest.raises(ValueError, match="must divide"):
+        step.make_update_fn(port, tx, bad)(state, batch)
+
+
+# Accumulated and alternative-loss steps against the JAX step: (name,
+# config changes). Masked cases hand both packages the same masking noise per
+# microbatch (each package's random_masking patched, as in
+# tests/test_torch_finetune.py); log_block_norms adds the per-block norms.
+ACCUM_CASES = [
+    ("accum2", dict(grad_accum_steps=2)),
+    ("accum4", dict(grad_accum_steps=4)),
+    ("accum2_mask", dict(grad_accum_steps=2, mask_ratio=0.3)),
+    ("accum4_mask", dict(grad_accum_steps=4, mask_ratio=0.3)),
+    ("sigmoid", dict(loss="sigmoid", bias_init=-10.0)),
+    ("accum2_sigmoid", dict(loss="sigmoid", bias_init=-10.0,
+                            grad_accum_steps=2)),
+    ("chunked_accum2", dict(loss="chunked", loss_chunk_size=3,
+                            grad_accum_steps=2)),
+]
+NOISE_KEY = jax.random.PRNGKey(7)
+
+
+def _case_config(changes):
+    config = tiny_config()
+    config.log_block_norms = True
+    for key, value in changes.items():
+        if key == "bias_init":
+            config.model.bias_init = value
+        else:
+            config[key] = value
+    return config
+
+
+def _fixed_noise(monkeypatch, n, l):
+    """Both packages' random_masking draw the same (n, l) noise."""
+    import functools
+    from clipa_tpu.models import vit as jax_vit
+    from clipa_tpu_torch.models import vit
+    noise = jax.random.uniform(NOISE_KEY, (n, l))
+    orig = jax_vit.random_masking
+    monkeypatch.setattr(jax_vit, "random_masking",
+                        lambda x, r, rng: orig(x, r, NOISE_KEY))
+    monkeypatch.setattr(vit, "random_masking", functools.partial(
+        vit.random_masking, noise=torch.from_numpy(np.array(noise))))
+
+
+def _spied_runs(config, steps=2):
+    """`steps` update steps of each package from the same parameters and
+    batch; each optimizer's update is wrapped to record the gradients it
+    is handed. Returns (JAX grads, port grads, JAX measurements, port
+    measurements), per step."""
+    import optax
+    model, params = _jax_params(config)
+    batch = _batch(config)
+    mesh = create_mesh(fsdp=1, devices=jax.devices()[:1])
+    tx, _ = jax_optim.make(config, params, sched_kw=dict(total_steps=TOTAL))
+    jgrads = []
+
+    def update_and_record(grads, opt_state, params=None):
+        jax.debug.callback(lambda g: jgrads.append(_flat(g)), grads)
+        return tx.update(grads, opt_state, params)
+
+    spy = optax.GradientTransformation(tx.init, update_and_record)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    state = {"params": jp, "opt": spy.init(jp), "rng": jax.random.PRNGKey(0),
+             "step": jnp.zeros((), jnp.int32)}
+    update = jax_step.make_update_fn(model, spy, config, mesh,
+                                     total_steps=TOTAL)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jmeas, jparams = [], []
+    with jax.default_matmul_precision("highest"):
+        for _ in range(steps):
+            state, meas = update(state, jbatch)
+            jmeas.append({k: float(v) for k, v in meas.items()})
+            jparams.append(_flat(state["params"]))
+    jax.effects_barrier()
+
+    port = step.create_model(config, device="cpu")
+    convert.load_jax_params(port, params)
+    pstate = {"params": optim.named_parameters(port), "step": 0}
+    ptx, _ = optim.make(config, port, sched_kw=dict(total_steps=TOTAL))
+    pgrads = []
+    tx_update = ptx.update
+
+    def record(grads):
+        pgrads.append({k: v.detach().numpy().copy() for k, v in
+                       convert.to_jax_params(port, {
+                           key: grads[name] for key, name in
+                           convert.to_jax_names(port).items()}).items()})
+        return tx_update(grads)
+
+    ptx.update = record
+    pupdate = step.make_update_fn(port, ptx, config, total_steps=TOTAL)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    pmeas = []
+    for i in range(steps):
+        if i:   # from the JAX step's parameters (see the module docstring)
+            convert.load_jax_params(port, jparams[i - 1])
+        pstate, meas = pupdate(pstate, tbatch)
+        pmeas.append({k: float(v) for k, v in meas.items()})
+    return jgrads, pgrads, jmeas, pmeas
+
+
+@pytest.fixture(scope="module", params=ACCUM_CASES, ids=[c[0] for c in
+                                                         ACCUM_CASES])
+def accum_runs(request):
+    _, changes = request.param
+    config = _case_config(changes)
+    with pytest.MonkeyPatch.context() as m:
+        if config.get("mask_ratio", 0.0):
+            mb = config.input.batch_size // config.get("grad_accum_steps", 1)
+            _fixed_noise(m, mb, 36)   # 96 px / 16: 36 patches
+        return _spied_runs(config)
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_accumulated_step_gradients_match(accum_runs, i):
+    """The gradients each package hands its optimizer at steps 1 and 2,
+    within 1e-4 of each gradient's scale; ``t``'s is accum_steps times the
+    single pass's in both."""
+    jg, pg = accum_runs[0][i], accum_runs[1][i]
+    assert set(jg) == set(pg)
+    for name, g in jg.items():
+        err = np.abs(pg[name] - g).max()
+        assert err <= 1e-4 * _scale(jg, name), (name, err)
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_accumulated_step_measurements_match(accum_runs, i):
+    """Every measurement, the per-block gradient norms (log_block_norms)
+    included, under the JAX step's names."""
+    ours, ref = accum_runs[3][i], accum_runs[2][i]
+    assert set(ours) == set(ref)
+    assert {"l2_grad_embedding", "l2_grad_head", "l2_grad_encoderblock_0",
+            "l2_grad_encoderblock_1"} <= set(ours)
+    for key, want in ref.items():
+        np.testing.assert_allclose(ours[key], want, rtol=(1e-5, 1e-4)[i],
+                                   atol=1e-7, err_msg=key)
+
+
+@pytest.mark.parametrize("accum", [2, 4])
+@pytest.mark.parametrize("loss", ["softmax", "sigmoid"])
+def test_accumulated_step_equals_a_single_pass(loss, accum):
+    """In the port, accum_steps microbatches give the single pass's loss
+    and gradients, but ``t``'s (and the sigmoid loss's ``b``'s), which are
+    accum_steps times as large (the reference's quirk: every pass sees the
+    whole dL/dt and dL/db)."""
+    config = tiny_config()
+    config.loss = loss
+    if loss == "sigmoid":
+        config.model.bias_init = -10.0
+    model, params = _jax_params(config)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(config).items()}
+    got = {}
+    for n in (1, accum):
+        config.grad_accum_steps = n
+        port = step.create_model(config, device="cpu")
+        convert.load_jax_params(port, params)
+        tx, _ = optim.make(config, port, sched_kw=dict(total_steps=TOTAL))
+        grads = []
+        tx_update = tx.update
+        tx.update = lambda g: (grads.append({k: v.clone() for k, v in
+                                             g.items()}), tx_update(g))[1]
+        state = {"params": optim.named_parameters(port), "step": 0}
+        _, meas = step.make_update_fn(port, tx, config)(state, batch)
+        got[n] = grads[0], float(meas["training_loss"])
+    (single, loss1), (accumulated, loss_n) = got[1], got[accum]
+    np.testing.assert_allclose(loss_n, loss1, rtol=1e-6)
+    floor = 1e-2 * max(float(g.abs().max()) for g in single.values())
+    for name, g in single.items():
+        want = g * accum if name in ("t", "b") else g
+        err = float((accumulated[name] - want).abs().max())
+        assert err <= 1e-4 * max(float(want.abs().max()), floor), (name, err)
+    assert float(single["t"].abs().max()) > 0
+    assert (loss == "sigmoid") == ("b" in single)
+
+
+def test_block_norms_are_the_gradients_norms():
+    """log_block_norms: the image stem's, cls's and head's gradient norms
+    and each encoder block's MlpBlock_0/Dense_1 kernel norm, from the
+    gradients the optimizer gets; a name the optimizer freezes counts as
+    0. The JAX step matches config.schedule against the names within each
+    subtree, so it does not see a freeze by full name (ROADMAP C)."""
+    grads = {"img/embedding/kernel": torch.full((2, 2), 1.0),
+             "img/embedding/bias": torch.full((3,), 2.0),
+             "img/head/kernel": torch.full((4,), 3.0),
+             "img/Transformer/encoderblock_0/MlpBlock_0/Dense_1/kernel":
+                 torch.full((2,), 4.0),
+             "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel":
+                 torch.full((2,), 5.0),
+             "txt/head/kernel": torch.full((1,), 6.0)}
+    out = step._block_norms(grads)
+    assert set(out) == {"l2_grad_embedding", "l2_grad_head",
+                        "l2_grad_encoderblock_0"}
+    np.testing.assert_allclose(float(out["l2_grad_embedding"]),
+                               np.sqrt(4 * 1.0 + 3 * 4.0))
+    np.testing.assert_allclose(float(out["l2_grad_head"]), 6.0)
+    np.testing.assert_allclose(float(out["l2_grad_encoderblock_0"]),
+                               np.sqrt(2 * 16.0))
+    config = tiny_config()
+    config.schedule = [("img/embedding/kernel", None),
+                       (".*", dict(decay_type="cosine"))]
+    port = step.create_model(config, device="cpu")
+    tx, _ = optim.make(config, port, sched_kw=dict(total_steps=TOTAL))
+    assert tx.frozen == {"img/embedding/kernel"}
+    out = step._block_norms(grads, tx.frozen)
+    np.testing.assert_allclose(float(out["l2_grad_embedding"]),
+                               np.sqrt(3 * 4.0))
+    # the JAX package's subtree names: "kernel", which the pattern misses
+    sub = {"kernel": np.ones((2, 2)), "bias": np.full(3, 2.0)}
+    with pytest.raises(ValueError, match="cover all params"):
+        jax_optim.replace_frozen(config.schedule[:1], sub, 0.0)
+    ref = jax_optim.replace_frozen(config.schedule, sub, 0.0)
+    assert float(np.asarray(ref["kernel"]).max()) == 1.0
 
 
 def test_pretrain_config_builds_the_jax_model():
