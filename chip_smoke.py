@@ -192,8 +192,10 @@ and the least time the card could take for the same work.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -223,6 +225,10 @@ FINETUNE = "img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128"
 # defaults but the batch): 1 + int(256 x 0.7) = 180 image tokens, the
 # config's `auto` route (the fused forward and the backward's long scheme).
 FINETUNE_H14 = "img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64"
+# ... and the release's last stage, at 336 px and mask 0.4: 1 + int(576 x
+# 0.6) = 346 image tokens (the backward's long scheme, the forward fused).
+FINETUNE_H14_336 = ("img=H/14,res=336,token_len=32,mask_ratio=0.4,"
+                    "batchsize=32")
 # Fused launches per H/14 fine-tune step: the forward once per image layer
 # and once more in remat's recompute, the backward once per layer; the text
 # tower (32 tokens) on the einsum path, the flash kernels never.
@@ -260,13 +266,15 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
 # Phase 2's timed cases of the fused forward, (name, b, l, d, h, bias,
 # exact): the three main-path shapes (serving bucket 256 at H/14 @224, the
 # pretrain step, the fine-tune step's `auto` route), the exact form
-# without biases that SDPA also computes, and the H/14 unmask-tuning
-# stages (224 px at mask 0.3: L = 180, B = 64 as in phase 12; 336 px at
-# mask 0.4: L = 346, B = 16)
+# without biases that SDPA also computes (at bucket 256, and at the
+# pretrain step's shape, the attention sweep's of phase 10), and the H/14
+# unmask-tuning stages (224 px at mask 0.3: L = 180, B = 64 as in phase
+# 12; 336 px at mask 0.4: L = 346, B = 16)
 FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
                 ("bucket 256 exact", 256, 257, 1280, 16, False, True),
+                ("L/16 @112 exact", 384, 50, 1024, 16, False, True),
                 ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
                 ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False))
 
@@ -554,18 +562,28 @@ def _set_attn_impl(tower, impl):
             m.attn_impl = impl
 
 
-def _grads(model, params, batch, mask_ratio=0.0, generator=None):
+def _grads(model, params, batch, mask_ratio=0.0, generator=None,
+           teacher=None):
     """(loss, {name: fp32 grad}) of the training loss at the current state;
-    image tokens masked at `mask_ratio` with noise from `generator`."""
+    image tokens masked at `mask_ratio` with noise from `generator`; with a
+    `teacher`, the distillation loss against its forward (eval mode, no
+    graph, the unmasked images), as the update step computes it."""
     import torch
     from clipa_tpu_torch import losses
     from clipa_tpu_torch.ops import preprocess
+    images = preprocess.normalize_uint8(batch["image"])
     model.train()
-    zi, zt, out = model(preprocess.normalize_uint8(batch["image"]),
-                        batch["labels"], mask_ratio=mask_ratio,
+    zi, zt, out = model(images, batch["labels"], mask_ratio=mask_ratio,
                         generator=generator)
-    loss, _ = losses.bidirectional_contrastive_loss(zi, zt, out["t"],
-                                                    reduction=True)
+    if teacher is None:
+        loss, _ = losses.bidirectional_contrastive_loss(zi, zt, out["t"],
+                                                        reduction=True)
+    else:
+        teacher.eval()
+        with torch.no_grad():
+            t_zi, t_zt, t_out = teacher(images, batch["labels"])
+        loss, _ = losses.distill_contrastive_loss(zi, zt, out["t"], t_zi,
+                                                  t_zt, t_out["t"])
     names = list(params)
     found = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.item(), {n: g.float() for n, g in zip(names, found)}
@@ -866,7 +884,6 @@ def _finetune_batch(config):
 def _transition(pretrained_model):
     """Phase 7: the fine-tune model initialized by masked_init from the
     pretrain model's parameters written to npz (the JAX layout)."""
-    import tempfile
     import numpy as np
     import torch
     from clipa_tpu_torch import convert, optim
@@ -936,6 +953,50 @@ def _attention_counters():
         return {name: fn.launches for name, fn in counters.items()}
 
     return reset, read
+
+
+def _counting(per_step, stamps):
+    """A stand-in for step.make_update_fn whose update records each step's
+    kernel launches and end time."""
+    import torch
+    from clipa_tpu_torch.train import step
+    reset, read = _attention_counters()
+    make_update_fn = step.make_update_fn
+
+    def counted(*args, **kw):
+        update = make_update_fn(*args, **kw)
+
+        def run(state, batch):
+            reset()
+            state, meas = update(state, batch)
+            per_step.append(read())
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return state, meas
+        return run
+    return counted
+
+
+class _Patched:
+    """Sets attributes of modules for the length of a `with` block:
+    _Patched((module, name, value), ...)."""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for module, name, value in self.patches:
+            setattr(module, name, value)
+
+    def __exit__(self, *exc):
+        for module, name, value in self.saved:
+            setattr(module, name, value)
+
+
+def _rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
 
 
 def _finetune(card, model, state, config):
@@ -1063,13 +1124,14 @@ def _finetune(card, model, state, config):
             "learning": [curve[0], curve[-1]]}
 
 
-def _finetune_h14(card):
-    """Phase 12: CLIPA-v2's H/14 unmask-tuning step (FINETUNE_H14: ViT-H/14
-    at 224 px, 32 layers, D 1280, 16 heads of 80; the H text tower at 32
-    tokens; remat "minimal", bf16 compute, Adam with a bf16 first moment;
-    seeded random weights) on the config's `auto` route: the fused forward
-    and the backward's long scheme at L = 180. The kernel path against the
-    plain path from the same state and mask noise, the launches of one
+def _finetune_h14(card, spec):
+    """Phase 12: CLIPA-v2's H/14 unmask-tuning step (`spec`: FINETUNE_H14,
+    ViT-H/14 at 224 px and mask 0.3, or FINETUNE_H14_336, 336 px at mask
+    0.4; 32 layers, D 1280, 16 heads of 80; the H text tower at 32 tokens;
+    remat "minimal", bf16 compute, Adam with a bf16 first moment; seeded
+    random weights) on the config's `auto` route: the fused forward and
+    the backward's long scheme at L = 180 or 346. The kernel path against
+    the plain path from the same state and mask noise, the launches of one
     update step, pairs/s and peak device memory."""
     import torch
     from clipa_tpu_torch import optim
@@ -1078,7 +1140,7 @@ def _finetune_h14(card):
     from clipa_tpu_torch.train import step
 
     reset, read = _attention_counters()
-    config = clipa_finetune.get_config(FINETUNE_H14)
+    config = clipa_finetune.get_config(spec)
     batch_size = config.input.batch_size
     t0 = time.perf_counter()
     model = step.create_model(config, device="cuda")
@@ -1094,7 +1156,7 @@ def _finetune_h14(card):
                      * (1 - config.mask_ratio))
     plan = ba.bwd_plan(tokens, model.img.width // block.num_heads)
     torch.cuda.synchronize()
-    print(f"H/14 fine-tune: clipa_finetune.py:{FINETUNE_H14}, "
+    print(f"H/14 fine-tune: clipa_finetune.py:{spec}, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M fp32 "
           f"parameters, compute {model.img.dtype}, image attn_impl "
           f"{block.attn_impl}, remat {model.img.Transformer.remat_policy}, "
@@ -1145,9 +1207,10 @@ def _finetune_h14(card):
     # pairs/s: best of two runs of 3 synchronous steps
     rate = max(batch_size * _steps_per_s(update, state, batch, 3)
                for _ in range(2))
-    print(f"{card}: H/14 fine-tune pairs/s at B={batch_size} (auto route) "
-          f"{rate:.2f}", flush=True)
-    return {"launches": launches, "pairs_per_s": rate, "peak_gb": peak_gb,
+    print(f"{card}: H/14 fine-tune pairs/s at B={batch_size}, L={tokens} "
+          f"(auto route) {rate:.2f}", flush=True)
+    return {"tokens": tokens, "launches": launches, "pairs_per_s": rate,
+            "peak_gb": peak_gb,
             "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
             "plan": list(plan)}
 
@@ -1228,7 +1291,7 @@ def _bits_equal(a, b):
     return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
 
 
-def _trainer(card, phase5_rate):
+def _trainer(card, phase5_rate, keep_dir=None):
     """Phase 13: the trainer entry point (``train.loop.main``, the function
     behind ``python -m clipa_tpu_torch.train``) at the pretrain config's
     full width (L/16 @112, B = 384) from the data pipeline: synthetic
@@ -1237,8 +1300,8 @@ def _trainer(card, phase5_rate):
     TRAINER_STEPS[0] steps, run 2 to TRAINER_STEPS[1] resuming from run 1's
     checkpoint. Checks the metrics, the launches of every step, the resumed
     state bit for bit and the npz export; times the trainer, the pipeline
-    alone and the checkpoint."""
-    import tempfile
+    alone and the checkpoint. With `keep_dir`, the run's params.npz is
+    copied there (phase 16 starts from it)."""
     import numpy as np
     import torch
     from clipa_tpu_torch import convert, optim, registry
@@ -1247,21 +1310,7 @@ def _trainer(card, phase5_rate):
     from clipa_tpu_torch.data import pipeline
     from clipa_tpu_torch.train import checkpoint, loop, metrics, step
 
-    reset, read = _attention_counters()
     per_step, stamps = [], []
-    make_update_fn = step.make_update_fn
-
-    def counted(*args, **kw):   # each step's launches and end time
-        update = make_update_fn(*args, **kw)
-
-        def run(state, batch):
-            reset()
-            state, meas = update(state, batch)
-            per_step.append(read())
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            return state, meas
-        return run
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trainer_config.py")
@@ -1271,22 +1320,18 @@ def _trainer(card, phase5_rate):
                 steps=TRAINER_STEPS[0], ckpt=TRAINER_STEPS[0]))
         workdir = os.path.join(tmp, "run")
         argv = [f"--config={path}", f"--workdir={workdir}", "--device=cuda"]
-        step.make_update_fn = counted
         runs = []
-        try:
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()
+        with _Patched((step, "make_update_fn", _counting(per_step, stamps))):
             for total in TRAINER_STEPS:
                 t0 = time.perf_counter()
                 final = loop.main(argv + [f"--config.total_steps={total}"])
                 runs.append({"final": final,
                              "seconds": time.perf_counter() - t0})
-        finally:
-            step.make_update_fn = make_update_fn
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
         # metrics.jsonl: steps 1-8 once each, the JAX loop's keys, finite
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
+        rows = _rows(os.path.join(workdir, "metrics.jsonl"))
         logged = [r["step"] for r in rows]
         if logged != list(range(1, TRAINER_STEPS[1] + 1)):
             raise RuntimeError(f"metrics.jsonl logs steps {logged}, "
@@ -1387,6 +1432,8 @@ def _trainer(card, phase5_rate):
         pipeline_rate = PIPELINE_BATCHES / (time.perf_counter() - t0)
         batches.close()
         shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in batch.items()}
+        if keep_dir:
+            shutil.copy(os.path.join(workdir, "params.npz"), keep_dir)
 
     batch_size = config.input.batch_size
     rates = [batch_size * 3 / (stamps[i + 3] - stamps[i])
@@ -1550,7 +1597,6 @@ def _evals(card, phase13_losses):
     seeded random weights. Checks the accuracies, the launches of every
     zero-shot run, and that the evals leave training bit for bit as phase
     13's run 1."""
-    import tempfile
     import numpy as np
     import torch
     from clipa_tpu_torch import convert
@@ -1607,8 +1653,7 @@ def _evals(card, phase13_losses):
         finally:
             step.make_update_fn = make_update_fn
             undo()
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
+        rows = _rows(os.path.join(workdir, "metrics.jsonl"))
         decode = _decode_cost(load_config(path).evals.disclf.pp_img,
                               data_dir)
 
@@ -1855,7 +1900,7 @@ def _pipeline_rates(pattern, pp):
     return rates
 
 
-def _jpeg_trainer(card, phase13):
+def _jpeg_trainer(card, phase13, keep_dir=None):
     """Phase 15: (a) JPEG tfrecords in the layout tools/laion writes; (b)
     the pipeline alone on the config's pp by route; (c) the trainer
     (train.loop.main) on clipa_pretrain.py at B = 1536 from those shards,
@@ -1864,8 +1909,8 @@ def _jpeg_trainer(card, phase13):
     JPEG on the native decode, the native WordPiece; (d) 4 x 96
     accumulated against one pass on one state and one B = 384 batch; (e)
     one step each of the chunked (against the softmax) and the sigmoid
-    loss (the towers' b) at B = 384."""
-    import tempfile
+    loss (the towers' b) at B = 384. With `keep_dir`, the shards are
+    written under it (phase 16 trains from them)."""
     import numpy as np
     import torch
     from clipa_tpu_torch import native, optim
@@ -1874,26 +1919,11 @@ def _jpeg_trainer(card, phase13):
     from clipa_tpu_torch.tools import bench_pipeline
     from clipa_tpu_torch.train import loop, step
 
-    reset, read = _attention_counters()
     per_step, stamps = [], []
-    make_update_fn = step.make_update_fn
-
-    def counted(*args, **kw):   # each step's launches and end time
-        update = make_update_fn(*args, **kw)
-
-        def run(state, batch):
-            reset()
-            state, meas = update(state, batch)
-            per_step.append(read())
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            return state, meas
-        return run
-
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # (a) the shards: jpg (256 x 256 random pixels) and txt features
-        data_dir = os.path.join(tmp, "laion")
+        data_dir = os.path.join(keep_dir or tmp, "laion")
         os.makedirs(data_dir)
         t0 = time.perf_counter()
         pattern = bench_pipeline.make_jpeg_shards(
@@ -1917,21 +1947,17 @@ def _jpeg_trainer(card, phase13):
                 "--device=cuda", f"--config.grad_accum_steps={ACCUM_STEPS}"]
         ops_image.native_decodes = ops_image.pil_decodes = 0
         ops_text.native_encodes = ops_text.python_encodes = 0
-        step.make_update_fn = counted
-        try:
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()
+        with _Patched((step, "make_update_fn", _counting(per_step, stamps))):
             t0 = time.perf_counter()
             loop.main(argv)
             run_s = time.perf_counter() - t0
-        finally:
-            step.make_update_fn = make_update_fn
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         decodes = {"native": ops_image.native_decodes,
                    "pil": ops_image.pil_decodes}
         encodes = {"native": ops_text.native_encodes,
                    "python": ops_text.python_encodes}
-        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
+        rows = _rows(os.path.join(tmp, "run", "metrics.jsonl"))
     torch.cuda.empty_cache()
 
     losses = [r["training_loss"] for r in rows]
@@ -2077,6 +2103,483 @@ def _jpeg_trainer(card, phase13):
             "chunked_min_cosine": chunked["min_cosine"],
             "sigmoid_loss": loss_s, "sigmoid_b_grad": b_grad,
             "phase_s": phase_s}
+
+
+# Phase 16: CLIPA-v2's 224 -> 336 unmask-tuning chain through the trainer
+# (train.loop.main) at ViT-L/16 full width, on file:// workdirs, from phase
+# 13's params.npz and phase 15's JPEG tfrecords through the config's own pp
+# (decode_jpeg_and_inception_crop, the SimCLR jitter, bert_tokenize at 32
+# tokens). The 224 stage trains CHAIN_STEPS_224[0] steps, loses its local
+# stage (a restart on a fresh host) and resumes from the URL to
+# CHAIN_STEPS_224[1]; the 336 stage takes the 224 stage's params.npz
+# through masked_init from its URL and trains CHAIN_STEPS_336 steps.
+CHAIN_224 = "img=L/16,res=224,token_len=32,mask_ratio=0.3,batchsize=128"
+CHAIN_336 = "img=L/16,res=336,token_len=32,mask_ratio=0.4,batchsize=128"
+CHAIN_STEPS_224 = (2, 4)
+CHAIN_STEPS_336 = 3
+CHAIN_SYNC_SECONDS = 2.0
+# per step at 224 (L = 138: the backward's whole-head scheme) and at 336
+# (L = 1 + int(441 x 0.6) = 265: its long scheme): the fused forward once
+# per image layer and once more in remat's recompute, the backward once per
+# layer; the 32-token text tower on the einsum path
+CHAIN_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                  "fused_fwd": 2 * TRAIN_IMAGE_LAYERS,
+                  "fused_bwd": TRAIN_IMAGE_LAYERS}
+
+_CHAIN_CONFIG = """
+from clipa_tpu_torch.configs import clipa_finetune
+
+
+def get_config(arg=None):
+    config = clipa_finetune.get_config(arg)
+    # two batches in the shuffle buffer (the config's 250 000 is 30x the
+    # shards)
+    config.input.shuffle_buffer_size = 2 * config.input.batch_size
+    # the config's warmup (204 800 steps at B = 128) must be fewer than
+    # total_steps
+    config.schedule = [(".*", dict(decay_type="cosine", warmup_steps=1))]
+    config.log_training_steps = 1
+    # the config's zero-shot eval wants ImageNet tfrecords in data_dir:
+    # phase 14 runs it
+    config.evals = {{}}
+    config.ckpt_steps = {ckpt}
+    config.keep_ckpts = 2
+    config.save_ckpt = config.export_npz = {save}
+    config.local_stage_dir = {stage!r}
+    config.remote_sync = dict(every_seconds={every})
+    return config
+"""
+
+
+def _unmask_chain(card, pretrain_npz, data_dir):
+    """Phase 16: (a) the 224 stage (CHAIN_224, init=file://<phase 13's
+    params.npz>) on a file:// workdir mirrored every CHAIN_SYNC_SECONDS:
+    run 1 trains 2 steps and checkpoints; the local stage is deleted; run 2
+    pulls the URL, restores a state equal bit for bit to the pushed
+    checkpoint and trains steps 3-4. (b) the 336 stage (CHAIN_336,
+    init=<the 224 stage's URL>/params.npz): every tensor from the URL's npz
+    through masked_init, 3 steps; the launches of every step of both
+    stages; at 336, the kernel path against the plain path on one batch
+    from the same state and mask noise, pairs/s from the pipeline and with
+    the batch on the device, peak device memory, the npz save, load and
+    sync seconds."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import convert, optim
+    from clipa_tpu_torch import utils as u
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.train import checkpoint, loop, step
+
+    reset, read = _attention_counters()
+    t_phase = time.perf_counter()
+    per_step, stamps, syncers, restored, models = [], [], [], [], []
+    seconds = {"save_params": [], "masked_init": []}
+    masked_init, save_params = checkpoint.masked_init, checkpoint.save_params
+    start_sync, restore = loop._start_sync, loop.restore
+    create_model = step.create_model
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def keep_syncer(*args, **kw):
+        syncers.append(start_sync(*args, **kw))
+        return syncers[-1]
+
+    def keep_model(*args, **kw):
+        models.append(create_model(*args, **kw))
+        return models[-1]
+
+    with tempfile.TemporaryDirectory() as root:
+        url224, url336 = f"file://{root}/ft224", f"file://{root}/ft336"
+        stage = os.path.join(root, "stage")
+        paths = {}
+        for save in (True, False):
+            paths[save] = os.path.join(root, f"chain_{save}.py")
+            with open(paths[save], "w") as f:
+                f.write(_CHAIN_CONFIG.format(
+                    ckpt=CHAIN_STEPS_224[0], save=save, stage=stage,
+                    every=CHAIN_SYNC_SECONDS))
+        pushed = f"{url224}/checkpoints/{CHAIN_STEPS_224[0]}"
+
+        def restore_and_check(saved, state, tx, chrono):
+            """loop.restore, then the live state against the checkpoint
+            the first run pushed to the URL, bit for bit."""
+            at = restore(saved, state, tx, chrono)
+            ref = checkpoint.load_state(pushed)
+            opt = tx.state_dict()
+            restored.append({
+                "step": at == ref["step"] == CHAIN_STEPS_224[0],
+                "params": all(_bits_equal(state["params"][n], p.cuda())
+                              for n, p in ref["params"].items()),
+                **{k: all(_bits_equal(opt[k][n], m.cuda())
+                          for n, m in ref["opt"][k].items())
+                   for k in ("mu", "nu")},
+                "count": opt["count"] == ref["opt"]["count"]})
+            return at
+
+        # (a) the 224 stage: 2 steps, a lost stage, resumed to 4 from the URL
+        spec = f"{CHAIN_224},init=file://{pretrain_npz},data_dir={data_dir}"
+        argv = [f"--config={paths[True]}:{spec}", f"--workdir={url224}",
+                "--device=cuda"]
+        runs_s = []
+        with _Patched((step, "make_update_fn", _counting(per_step, stamps)),
+                      (checkpoint, "save_params",
+                       timed(save_params, "save_params")),
+                      (loop, "_start_sync", keep_syncer),
+                      (loop, "restore", restore_and_check)):
+            for total in CHAIN_STEPS_224:
+                t0 = time.perf_counter()
+                loop.main(argv + [f"--config.total_steps={total}"])
+                runs_s.append(time.perf_counter() - t0)
+                torch.cuda.empty_cache()
+                if total == CHAIN_STEPS_224[0]:
+                    pushed_files = sorted(
+                        os.path.relpath(os.path.join(d, f), root + "/ft224")
+                        for d, _, files in os.walk(root + "/ft224")
+                        for f in files)
+                    shutil.rmtree(stage)   # a restart on a fresh host
+        rows = _rows(os.path.join(root, "ft224", "metrics.jsonl"))
+        logged = [r["step"] for r in rows]
+        print(f"unmask chain, 224 stage (clipa_finetune.py:{CHAIN_224}): "
+              f"run 1 pushed {pushed_files}; run 2 restored {restored}; "
+              f"{url224}/metrics.jsonl logs steps {logged}; runs "
+              f"{' and '.join(f'{s:.2f} s' for s in runs_s)}", flush=True)
+        want = [f"checkpoints/{CHAIN_STEPS_224[0]}/state.pt", "config.json",
+                "metrics.jsonl", "params.npz"]
+        if pushed_files != want:
+            raise RuntimeError(f"run 1 pushed {pushed_files}, expected "
+                               f"{want}")
+        if logged != list(range(1, CHAIN_STEPS_224[1] + 1)):
+            raise RuntimeError(f"the 224 stage logs steps {logged}: run 2 "
+                               f"did not resume from the pull")
+        if len(restored) != 1 or not all(restored[0].values()):
+            raise RuntimeError(f"the state run 2 restored differs from the "
+                               f"pushed checkpoint: {restored}")
+        losses_224 = [r["training_loss"] for r in rows]
+
+        # (b) the 336 stage from the 224 stage's npz, through its URL
+        spec = (f"{CHAIN_336},init={url224}/params.npz,"
+                f"data_dir={data_dir}")
+        argv = [f"--config={paths[False]}:{spec}", f"--workdir={url336}",
+                "--device=cuda", f"--config.total_steps={CHAIN_STEPS_336}"]
+        first_336 = len(per_step)
+        lines, init_equal = [], []
+
+        def logged_init(model, path, log=None, **kw):
+            """masked_init, timed, its line kept; then every parameter
+            against the npz at `path`, bit for bit."""
+            del log
+            timed(masked_init, "masked_init")(model, path, log=lambda m: (
+                lines.append(m), print(m, flush=True)), **kw)
+            loaded = dict(u.tree_flatten_with_names(
+                checkpoint.load_params(path)))
+            got = convert.to_jax_params(model)
+            init_equal.append(set(got) == set(loaded) and all(
+                _bits_equal(got[n], x.cuda()) for n, x in loaded.items()))
+            return model
+
+        torch.cuda.reset_peak_memory_stats()
+        with _Patched((step, "make_update_fn", _counting(per_step, stamps)),
+                      (step, "create_model", keep_model),
+                      (checkpoint, "masked_init", logged_init),
+                      (loop, "_start_sync", keep_syncer)):
+            t0 = time.perf_counter()
+            loop.main(argv)
+            runs_s.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = _rows(os.path.join(root, "ft336", "metrics.jsonl"))
+        losses_336 = [r["training_loss"] for r in rows]
+        (model,) = models
+        config = load_config(f"{paths[False]}:{spec}")
+
+    if [r["step"] for r in rows] != list(range(1, CHAIN_STEPS_336 + 1)) \
+            or not np.isfinite(losses_224 + losses_336).all():
+        raise RuntimeError(f"the 336 stage logs {rows}")
+    if len(lines) != 1 or "kept at init []" not in lines[0] \
+            or "resampled []" not in lines[0] or init_equal != [True]:
+        raise RuntimeError(f"the 336 stage's masked_init: {lines}, every "
+                           f"tensor equal to the npz {init_equal}")
+    if per_step != [CHAIN_LAUNCHES] * (CHAIN_STEPS_224[1] + CHAIN_STEPS_336):
+        raise RuntimeError(f"the chain's steps launched {per_step}, "
+                           f"expected {CHAIN_LAUNCHES} each")
+    failed = [p for s in syncers for p in s.passes if not p[0]]
+    if len(syncers) != 3 or failed:
+        raise RuntimeError(f"{len(syncers)} syncers, failed passes {failed}")
+
+    # at 336: the long scheme, the kernel path against the plain path
+    params = optim.named_parameters(model)
+    block = model.img.Transformer.encoderblock_0.MultiHeadDotProductAttention_0
+    tokens = 1 + int(model.img.grid[0] * model.img.grid[1]
+                     * (1 - config.mask_ratio))
+    plan = ba.bwd_plan(tokens, model.img.width // block.num_heads)
+    if plan.scheme != ba.BWD_LONG or block.attn_impl != "auto":
+        raise RuntimeError(f"at L = {tokens} the route is {block.attn_impl} "
+                           f"and the backward plan {plan}")
+    batch = _finetune_batch(config)
+
+    def grads():   # the same mask noise every time: step 0's generator
+        return _grads(model, params, batch, config.mask_ratio,
+                      step.mask_generator(config, 0, "cuda"))
+
+    loss_k, grads_k = grads()
+    before = read()
+    _set_attn_impl(model.img, "plain")
+    loss_p, grads_p = grads()
+    _set_attn_impl(model.img, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare(f"336 stage at L={tokens}, fused kernels vs plain",
+                   loss_k, loss_p, cmp, LOSS_RTOL)
+    del grads_k, grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the 336 stage's kernel path differs from the "
+                           "plain path's")
+    batch_size = config.input.batch_size
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=batch_size))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    state = {"params": params, "step": 0}
+    update(state, batch)   # warm-up
+    step_rate = batch_size * max(_steps_per_s(update, state, batch, 3)
+                                 for _ in range(2))
+    del model, models, tx, update, state, params, batch
+    torch.cuda.empty_cache()
+
+    s336 = stamps[first_336:]
+    rate = batch_size * (len(s336) - 1) / (s336[-1] - s336[0])
+    # the 224 stage: seconds of each run's second step (its first waits for
+    # the shuffle buffer)
+    step_s_224 = [stamps[i + 1] - stamps[i] for i in (0, 2)]
+    sync_s = [p[1] for s in syncers for p in s.passes]
+    phase_s = time.perf_counter() - t_phase
+    print(f"{card}: the 336 stage (clipa_finetune.py:{CHAIN_336}, L = "
+          f"{tokens}, backward plan {plan}): trainer pairs/s from the "
+          f"pipeline over steps 2-{CHAIN_STEPS_336} {rate:.2f}; the step "
+          f"alone with the batch on the device {step_rate:.2f}; peak device "
+          f"memory {peak_gb:.2f} GiB; launches per step {per_step[-1]}; the "
+          f"224 stage's second step of each run "
+          f"{' and '.join(f'{x:.3f}' for x in step_s_224)} s from the "
+          f"pipeline; losses 224 "
+          f"{' '.join(f'{x:.4f}' for x in losses_224)}, 336 "
+          f"{' '.join(f'{x:.4f}' for x in losses_336)}", flush=True)
+    print(f"{card}: chain IO: params.npz saves "
+          f"{' '.join(f'{s:.2f}' for s in seconds['save_params'])} s; the "
+          f"336 stage's masked_init from the URL "
+          f"{seconds['masked_init'][0]:.2f} s; {len(sync_s)} sync passes "
+          f"{' '.join(f'{s:.2f}' for s in sync_s)} s; runs "
+          f"{' '.join(f'{s:.2f}' for s in runs_s)} s; phase 16 in "
+          f"{phase_s:.2f} s", flush=True)
+    return {"launches": per_step[-1], "steps": len(per_step),
+            "tokens_336": tokens, "plan_336": list(plan),
+            "pairs_per_s_336": rate, "step_pairs_per_s_336": step_rate,
+            "step_s_224": step_s_224,
+            "peak_gb_336": peak_gb, "loss_rel": cmp["loss_rel"],
+            "min_cosine": cmp["min_cosine"], "restored": restored[0],
+            "save_params_s": seconds["save_params"],
+            "masked_init_s": seconds["masked_init"][0], "sync_s": sync_s,
+            "runs_s": runs_s, "phase_s": phase_s}
+
+
+# Phase 17: distillation and layer-wise lr decay through the trainer: the
+# pretrain config at L/16 @112 (phase 13's synthetic source) with
+# --config.lwd=DISTILL_LWD, distilled from a ViT-H/14 two-towers (the H
+# text tower; the student's input shapes, so L = 65 at hd 80) whose seeded
+# weights are written as a JAX-layout npz under a file:// URL and read back
+# through distill.model_init.
+DISTILL_TEACHER = "img=H/14,res=112,token_len=8,batchsize=384"
+DISTILL_STEPS = 3
+DISTILL_LWD = 0.85
+# per step: the student's 24 image layers forward and backward, the
+# teacher's 32 forward only (no graph); both text towers on the einsum path
+DISTILL_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                    "fused_fwd": TRAIN_IMAGE_LAYERS + IMAGE_LAYERS,
+                    "fused_bwd": TRAIN_IMAGE_LAYERS}
+# The names whose lr multipliers are printed: lwd ** (24 - i) for block i,
+# lwd ** 25 for the stem
+DISTILL_NAMES = {
+    "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel":
+        DISTILL_LWD ** TRAIN_IMAGE_LAYERS,
+    "img/Transformer/encoderblock_23/MlpBlock_0/Dense_0/kernel":
+        DISTILL_LWD,
+    "img/embedding/kernel": DISTILL_LWD ** (TRAIN_IMAGE_LAYERS + 1)}
+
+_DISTILL_CONFIG = _TRAINER_CONFIG.replace("    return config\n", """\
+    teacher = clipa_pretrain.get_config({teacher!r})
+    config.distill = dict(model_name="two_towers", model=teacher.model,
+                          seed={seed}, model_init={init!r})
+    config.save_ckpt = config.export_npz = False
+    return config
+""")
+
+
+def _distill(card):
+    """Phase 17: the trainer with a frozen H/14 teacher and lwd: the
+    teacher's seeded weights written to a file:// npz (the JAX layout) and
+    read back through distill.model_init; DISTILL_STEPS steps. Raises
+    unless distill_loss and contrastive_loss are logged finite every step,
+    every step launches DISTILL_LAUNCHES, the teacher equals the written
+    weights bit for bit after the steps, the optimizer's lr multipliers are
+    lwd's (DISTILL_NAMES; every txt/ name 1) and, on one batch from the same
+    state, the kernel path's distilled loss and gradients agree with the
+    plain path's. Prints pairs/s of the distilled and the plain step with
+    the batch on the device (the teacher's share) and peak memory."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import convert, optim
+    from clipa_tpu_torch.config import apply_overrides, load_config
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.train import checkpoint, loop, step
+
+    reset, read = _attention_counters()
+    t_phase = time.perf_counter()
+    per_step, stamps, teachers, models, txs = [], [], [], [], []
+    build_teacher, create_model = loop._build_teacher, step.create_model
+    make_optimizer = optim.make
+
+    def keep(store, fn):
+        def run(*args, **kw):
+            store.append(fn(*args, **kw))
+            return store[-1]
+        return run
+
+    with tempfile.TemporaryDirectory() as root:
+        # the teacher's weights: seeded, written to a URL in the JAX layout
+        tcfg = clipa_pretrain.get_config(DISTILL_TEACHER)
+        source = step.create_model(tcfg, device="cuda")
+        step.init_train_state(source, tcfg, torch.Generator(
+            device="cuda").manual_seed(SEED + 3), "cuda")
+        written = {n: t.detach().cpu() for n, t in
+                   convert.to_jax_params(source).items()}
+        del source
+        torch.cuda.empty_cache()
+        url = f"file://{root}/teacher/params.npz"
+        t0 = time.perf_counter()
+        checkpoint.save_params(written, url)
+        write_s = time.perf_counter() - t0
+        npz_gb = os.path.getsize(f"{root}/teacher/params.npz") / 2 ** 30
+
+        path = os.path.join(root, "distill_config.py")
+        with open(path, "w") as f:
+            f.write(_DISTILL_CONFIG.format(
+                pretrain=PRETRAIN, captions=TRAINER_CAPTIONS,
+                steps=DISTILL_STEPS, ckpt=DISTILL_STEPS,
+                teacher=DISTILL_TEACHER, seed=SEED + 4, init=url))
+        overrides = [f"--config.lwd={DISTILL_LWD}"]
+        argv = [f"--config={path}", f"--workdir={root}/run",
+                "--device=cuda", *overrides]
+        torch.cuda.reset_peak_memory_stats()
+        with _Patched((step, "make_update_fn", _counting(per_step, stamps)),
+                      (loop, "_build_teacher", keep(teachers, build_teacher)),
+                      (step, "create_model", keep(models, create_model)),
+                      (optim, "make", keep(txs, make_optimizer))):
+            t0 = time.perf_counter()
+            loop.main(argv)
+            run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = _rows(os.path.join(root, "run", "metrics.jsonl"))
+        config = apply_overrides(load_config(path), overrides)
+
+    (teacher,) = teachers
+    model = models[0]   # the student; the teacher's came second
+    (tx, _), = txs
+    del models, txs
+    keys = ("training_loss", "contrastive_loss", "distill_loss")
+    if [r["step"] for r in rows] != list(range(1, DISTILL_STEPS + 1)) or \
+            not all(np.isfinite(r[k]) for r in rows for k in keys):
+        raise RuntimeError(f"metrics.jsonl: {rows}")
+    if per_step != [DISTILL_LAUNCHES] * DISTILL_STEPS:
+        raise RuntimeError(f"distilled steps launched {per_step}, expected "
+                           f"{DISTILL_LAUNCHES} each")
+    held = convert.to_jax_params(teacher)
+    frozen = set(held) == set(written) and all(
+        _bits_equal(held[n], w.cuda()) for n, w in written.items())
+    mults = {n: tx.lr_mults.get(n, 1.0) * tx.lwd.get(n, 1.0)
+             for n in tx.params}
+    text = {mults[n] for n in mults if n.startswith("txt/")}
+    n_teacher = sum(p.numel() for p in teacher.parameters())
+    print(f"distillation: teacher clipa_pretrain.py:{DISTILL_TEACHER}'s "
+          f"two-towers ({n_teacher / 1e6:.1f}M parameters) from {url} "
+          f"({npz_gb:.2f} GiB, written in {write_s:.2f} s); after "
+          f"{DISTILL_STEPS} steps equal to the written weights bit for bit: "
+          f"{frozen}; lr multipliers "
+          f"{ {n: mults[n] for n in DISTILL_NAMES} } (expected "
+          f"{DISTILL_NAMES}), every txt/ name {text}", flush=True)
+    if not frozen or any(p.requires_grad for p in teacher.parameters()):
+        raise RuntimeError("the teacher moved or takes gradients")
+    if text != {1.0} or not all(
+            abs(mults[n] / w - 1) < 1e-12 for n, w in DISTILL_NAMES.items()):
+        raise RuntimeError("the optimizer's lr multipliers are not lwd's")
+
+    # the kernel path against the plain path, one batch, the same state
+    params = optim.named_parameters(model)
+    rng = np.random.RandomState(SEED)
+    res, tokens = config.init_shapes[0][1], config.init_shapes[1][1]
+    b = config.input.batch_size
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 255, (b, res, res, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(rng.randint(
+                 0, 32000, (b, tokens)).astype(np.int32)).cuda()}
+    loss_k, grads_k = _grads(model, params, batch, teacher=teacher)
+    before = read()
+    for tower in (model.img, teacher.img):
+        _set_attn_impl(tower, "plain")
+    loss_p, grads_p = _grads(model, params, batch, teacher=teacher)
+    for tower in (model.img, teacher.img):
+        _set_attn_impl(tower, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("distilled step, fused kernels vs plain (student and "
+                   "teacher)", loss_k, loss_p, cmp, LOSS_RTOL)
+    del grads_k, grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the distilled kernel path differs from the "
+                           "plain path")
+
+    # the distilled step and the plain step, the batch on the device
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=b))
+    updates = {"distilled": step.make_update_fn(model, tx, config,
+                                                teacher_model=teacher),
+               "undistilled": step.make_update_fn(model, tx, config)}
+    state = {"params": params, "step": 0}
+    rates = {k: 0.0 for k in updates}
+    for name in ("distilled", "undistilled") * 2:
+        if rates[name] == 0.0:
+            updates[name](state, batch)   # warm-up
+        rates[name] = max(rates[name], b * _steps_per_s(
+            updates[name], state, batch, 3))
+    share = 1 - rates["distilled"] / rates["undistilled"]
+    del model, teacher, tx, updates, state, params, batch
+    torch.cuda.empty_cache()
+    rate = b * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    phase_s = time.perf_counter() - t_phase
+    print(f"{card}: distilled trainer at B={b} "
+          f"(clipa_pretrain.py:{PRETRAIN}, lwd {DISTILL_LWD}, teacher "
+          f"clipa_pretrain.py:{DISTILL_TEACHER}'s model): pairs/s from the "
+          f"pipeline over steps 2-{DISTILL_STEPS} {rate:.2f}; with the batch "
+          f"on the device distilled {rates['distilled']:.2f}, undistilled "
+          f"{rates['undistilled']:.2f} (the teacher's share of a distilled "
+          f"step {share:.3f}); peak device memory {peak_gb:.2f} GiB; "
+          f"launches per step {per_step[0]}; losses "
+          f"{[{k: round(r[k], 4) for k in keys} for r in rows]}; run "
+          f"{run_s:.2f} s; phase 17 in {phase_s:.2f} s", flush=True)
+    return {"launches": per_step[0], "steps": len(per_step),
+            "pairs_per_s": rate, "step_pairs_per_s": rates,
+            "teacher_share": share, "peak_gb": peak_gb,
+            "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
+            "lr_mults": {n: mults[n] for n in DISTILL_NAMES},
+            "teacher_npz_gb": npz_gb, "teacher_write_s": write_s,
+            "run_s": run_s, "phase_s": phase_s}
 
 
 def _patch_embed(gen):
@@ -2246,9 +2749,10 @@ def main() -> int:
 
     card = _card()
     print(card)
+    import fsspec
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
-          flush=True)
+          f"cuda {torch.version.cuda} fsspec {fsspec.__version__} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2431,20 +2935,35 @@ def main() -> int:
     sweep = _sweep()
     tools = _tools()
 
-    # 12. the H/14 unmask-tuning step
+    # 12. the H/14 unmask-tuning steps at 224 and 336 px
     torch.cuda.empty_cache()
-    h14 = _finetune_h14(card)
+    t0 = time.perf_counter()
+    h14 = _finetune_h14(card, FINETUNE_H14)
     torch.cuda.empty_cache()
+    h14_336 = _finetune_h14(card, FINETUNE_H14_336)
+    torch.cuda.empty_cache()
+    print(f"phase 12 in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 13. the trainer from the data pipeline
-    trainer = _trainer(card, train["pairs_per_s"]["kernel"])
+    # 13. the trainer from the data pipeline (its params.npz kept for 16)
+    keep = tempfile.TemporaryDirectory()
+    trainer = _trainer(card, train["pairs_per_s"]["kernel"], keep.name)
 
     # 14. the trainer with CLIPA's evals, eval_only, tools/eval_zeroshot
     evals = _evals(card, trainer["losses"])
 
     # 15. the trainer from JPEG tfrecords at B = 1536 (4 x 384), the native
     # host library, the pipeline by route, the chunked and sigmoid losses
-    jpeg = _jpeg_trainer(card, trainer)
+    # (the shards kept for 16)
+    jpeg = _jpeg_trainer(card, trainer, keep.name)
+
+    # 16. CLIPA-v2's 224 -> 336 unmask-tuning chain through the trainer on
+    # file:// workdirs
+    chain = _unmask_chain(card, os.path.join(keep.name, "params.npz"),
+                          os.path.join(keep.name, "laion"))
+    keep.cleanup()
+
+    # 17. distillation from a frozen H/14 teacher, and lwd, in the trainer
+    distill = _distill(card)
 
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
@@ -2458,6 +2977,13 @@ def main() -> int:
         "image_attn_impl": "auto",
         **{k: h14[k] for k in ("launches", "pairs_per_s", "peak_gb",
                                "loss_rel", "min_cosine", "plan")},
+    }, "finetune_h14_336": {
+        "config": f"clipa_tpu_torch/configs/clipa_finetune.py:"
+                  f"{FINETUNE_H14_336}",
+        "image_attn_impl": "auto",
+        **{k: h14_336[k] for k in ("tokens", "launches", "pairs_per_s",
+                                   "peak_gb", "loss_rel", "min_cosine",
+                                   "plan")},
     }, "trainer": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "source": "synthetic, 144 px uint8, 16 captions",
@@ -2472,6 +2998,15 @@ def main() -> int:
                   f"--config.grad_accum_steps={ACCUM_STEPS}",
         "source": f"{JPEG_IMAGES} JPEGs of {JPEG_SIZE} px, random pixels",
         **{k: v for k, v in jpeg.items() if k != "losses"},
+    }, "unmask_chain": {
+        "configs": [f"clipa_tpu_torch/configs/clipa_finetune.py:{spec}"
+                    for spec in (CHAIN_224, CHAIN_336)],
+        "source": "phase 15's JPEG tfrecords; file:// workdirs", **chain,
+    }, "distill": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN} "
+                  f"--config.lwd={DISTILL_LWD}",
+        "teacher": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                   f"{DISTILL_TEACHER} (model)", **distill,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -2480,13 +3015,18 @@ def main() -> int:
         "replaces": "clipa_tpu/ops/block_attention.py:165",
         "launches": (launches + train["launches"]["fwd"]
                      + evals["zeroshot_launches"]["fused_fwd"]
-                     + evals["tool_launches"]["fused_fwd"]),
+                     + evals["tool_launches"]["fused_fwd"]
+                     + chain["launches"]["fused_fwd"]
+                     + distill["launches"]["fused_fwd"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
             "finetune_h14_step": h14["launches"]["fused_fwd"],
+            "finetune_h14_336_step": h14_336["launches"]["fused_fwd"],
             "trainer_step": trainer["launches"]["fused_fwd"],
             "trainer_accumulated_step": jpeg["launches"]["fused_fwd"],
+            "unmask_chain_trainer_step": chain["launches"]["fused_fwd"],
+            "distilled_trainer_step": distill["launches"]["fused_fwd"],
             "zeroshot_eval": evals["zeroshot_launches"]["fused_fwd"],
             "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
@@ -2508,13 +3048,18 @@ def main() -> int:
         "route": "cuda",
         "source": "clipa_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "clipa_tpu/ops/block_attention.py:672",
-        "launches": train["launches"]["bwd"],
+        "launches": (train["launches"]["bwd"]
+                     + chain["launches"]["fused_bwd"]
+                     + distill["launches"]["fused_bwd"]),
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
             "finetune_h14_step": h14["launches"]["fused_bwd"],
+            "finetune_h14_336_step": h14_336["launches"]["fused_bwd"],
             "trainer_step": trainer["launches"]["fused_bwd"],
-            "trainer_accumulated_step": jpeg["launches"]["fused_bwd"]},
+            "trainer_accumulated_step": jpeg["launches"]["fused_bwd"],
+            "unmask_chain_trainer_step": chain["launches"]["fused_bwd"],
+            "distilled_trainer_step": distill["launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],
@@ -2584,6 +3129,11 @@ def main() -> int:
         "bound_by": bwd_main["bound"][1],
         "library_ms": None,   # clip-mode softmax: no one PyTorch call
         "sweep_ms": {n: r["ms"] for n, r in sweep["rows"].items()},
+        # SDPA at the sweep's shape in the exact form without biases (the
+        # sweep's exact variants compute it with them)
+        "sdpa_exact_ms": {
+            "fwd": by_shape["L/16 @112 exact"]["library_ms"],
+            "bwd": bwd_by_shape["L/16 @112 exact"]["library_ms"]},
     }], "training": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],

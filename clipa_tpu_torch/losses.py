@@ -11,8 +11,9 @@ product whatever the process-wide setting is. The chunked InfoNCE is
 :func:`weighted_softmax_xent`) are the ones the classification evaluator
 resolves by name; each returns the per-row loss under ``reduction=False``.
 
-Not ported yet: the local, CoCa and distillation contrastive losses and
-the ring InfoNCE (``ops/ring_infonce.py``).
+:func:`distill_contrastive_loss` adds soft-label distillation from a
+frozen teacher's logits. Not ported yet: the local and CoCa contrastive
+losses and the ring InfoNCE (``ops/ring_infonce.py``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,45 @@ def bidirectional_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
         def redux(x):
             return x
     return redux(loss), {"ncorrect": redux(ncorrect)}
+
+
+def distill_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
+                             t: torch.Tensor, t_zimg: torch.Tensor,
+                             t_ztxt: torch.Tensor, t_t: torch.Tensor):
+    """InfoNCE plus soft-label distillation from a teacher two-tower (the
+    JAX package's ``distill_contrastive_loss``, the reference's
+    DistillClipLoss with the trainer summing both terms).
+
+    The teacher's B x B logits, at its own temperature `t_t`, give soft
+    targets for the student's logits in both directions (soft
+    cross-entropy); the contrastive term keeps weight 1. The teacher's
+    inputs are detached: no gradient reaches them.
+
+    Returns (total, {"contrastive_loss", "distill_loss", "ncorrect"}).
+    """
+    t_zimg, t_ztxt, t_t = t_zimg.detach(), t_ztxt.detach(), t_t.detach()
+    logits_img = _Fp32MatmulT.apply(zimg.float(), ztxt.float()) * t
+    logits_txt = logits_img.T
+    with full_fp32_matmul():
+        d_logits_img = (t_zimg.float() @ t_ztxt.float().T) * t_t
+    d_logits_txt = d_logits_img.T
+
+    contrastive = 0.5 * (
+        -torch.diagonal(torch.log_softmax(logits_img, dim=1))
+        - torch.diagonal(torch.log_softmax(logits_txt, dim=1))).mean()
+
+    def soft_ce(teacher_logits, student_logits):
+        p = torch.softmax(teacher_logits, dim=1)
+        return (-(p * torch.log_softmax(student_logits, dim=1)).sum(
+            dim=1)).mean()
+
+    distill = 0.5 * (soft_ce(d_logits_img, logits_img)
+                     + soft_ce(d_logits_txt, logits_txt))
+    labels = torch.arange(logits_img.shape[0], device=logits_img.device)
+    ncorrect = (logits_img.argmax(dim=1) == labels).float().mean()
+    return contrastive + distill, {"contrastive_loss": contrastive,
+                                   "distill_loss": distill,
+                                   "ncorrect": ncorrect}
 
 
 def sigmoid_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,

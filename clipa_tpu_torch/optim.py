@@ -9,7 +9,7 @@ parameter, in optax's stage order, which is the contract
     clip_by_global_norm (config.grad_clip_norm)  -- over the unfrozen leaves
     -> Adam direction (config.optax)              -- unfrozen leaves
     -> + wd * mult * param (config.wd, wd_mults)  -- decoupled weight decay
-    -> x lr -> x lr_mults -> x schedule(count) per group
+    -> x lr -> x lr_mults -> x lwd -> x schedule(count) per group
     -> zero the frozen (schedule None) -> negate
 
 Masks are first-match-wins ``fullmatch`` regexes over the JAX flat names
@@ -17,6 +17,13 @@ Masks are first-match-wins ``fullmatch`` regexes over the JAX flat names
 the JAX package (the Dense, projection, patch-stem and head kernels; not
 LayerNorm scales, ``Embed_0/embedding``, ``pos_embedding``, ``cls`` or
 ``t``).
+
+``config.lwd`` (layer-wise lr decay, :func:`layerwise_decay`) scales the
+image tower's encoder block i by ``lwd ** (depth - i)`` and its stem,
+``cls`` and learned position embedding by ``lwd ** (depth + 1)``. The JAX
+package means the same but names the stem by patterns (``embedding.*``,
+``cls.*``) that never fullmatch a two-towers name (``img/...``), so there
+the stem trains at the full rate (ROADMAP C).
 
 Adam is optax's ``scale_by_adam`` to the rounding: fp32 arithmetic with
 eps_root inside the square root, bias correction by the incremented count,
@@ -163,6 +170,24 @@ def _first_match(names, patterns_values) -> dict[str, Any]:
     return out
 
 
+def layerwise_decay(config, names) -> dict[str, float]:
+    """{name: lr multiplier} of ``config.lwd`` (the JAX package's
+    ``_layerwise_decay_txs``), first match wins: the image tower's encoder
+    block i gets ``lwd ** (depth - i)``, with `depth` the image variant's
+    (``models/vit.decode_variant``, as in the JAX package, whatever
+    ``config.model.image.depth`` says); its head and ``encoder_norm`` 1;
+    its patch stem, ``cls`` and a learned ``pos_embedding``
+    ``lwd ** (depth + 1)``. The text tower and ``t`` are untouched."""
+    from clipa_tpu_torch.models.vit import decode_variant
+    depth = decode_variant(config.model.image.variant)["depth"]
+    lwd = config.lwd
+    patterns = [(rf"img/.*encoderblock_{i}/.*", lwd ** (depth - i))
+                for i in range(depth)]
+    patterns += [(r"img/head/.*", 1.0), (r"img/.*encoder_norm/.*", 1.0),
+                 (r"img/(embedding/.*|pos_embedding|cls)", lwd ** (depth + 1))]
+    return _first_match(names, patterns)
+
+
 class Optimizer:
     """The optax chain of ``clipa_tpu.optim.make`` over named parameters.
 
@@ -176,9 +201,6 @@ class Optimizer:
                  sched_kw: dict):
         if "weight_decay" in config:
             raise ValueError("Use config.wd (decoupled), not weight_decay.")
-        if config.get("lwd"):
-            raise NotImplementedError("config.lwd (layer-wise lr decay) is "
-                                      "not ported yet (ROADMAP.md A6)")
         self.params = params
         names = list(params)
 
@@ -211,6 +233,7 @@ class Optimizer:
             if not all(m > 0 for _, m in config.lr_mults):
                 raise ValueError("Use schedule=None to freeze, not "
                                  "lr_mults=0.")
+        self.lwd = layerwise_decay(config, names) if config.get("lwd") else {}
         self.wd = {}
         if config.get("wd"):
             mults = _first_match(
@@ -289,6 +312,8 @@ class Optimizer:
             x = x * self.lr
             if n in self.lr_mults:
                 x = x * self.lr_mults[n]
+            if n in self.lwd:
+                x = x * self.lwd[n]
             x = x * sched[self.group[n]]
             updates[n] = -x
         self.count = c

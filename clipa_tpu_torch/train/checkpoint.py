@@ -1,27 +1,31 @@
 """Checkpoints: flat npz files and the trainer's resumable step directories.
 
-Port of ``clipa_tpu/train/checkpoint.py``, on local paths (a remote URL
-raises, ROADMAP A4):
+Port of ``clipa_tpu/train/checkpoint.py``:
 
-  * **flat npz**: keys are slash-joined parameter names, bf16 stored as
-    ``V2`` void bytes, written atomically (:func:`npsave`,
+  * **flat npz**, on a local path or a URL (``gs://``, ``file://``, ...,
+    through ``pathio``): keys are slash-joined parameter names, bf16
+    stored as ``V2`` void bytes, written atomically (:func:`npsave`,
     :func:`save_params`, or in the background by
     :class:`AsyncCheckpointWriter`) and read (:func:`load_params`, with the
-    ``file.npz:subtree`` syntax): wire-compatible with the JAX package's
-    files and released CLIPA weights when the tensors are in the JAX
-    layout (``convert.to_jax_params`` of a model; a train state's
-    ``params`` are the model's own, in torch layout).
+    ``file.npz:subtree`` syntax, also after a URL's scheme):
+    wire-compatible with the JAX package's files and released CLIPA
+    weights when the tensors are in the JAX layout
+    (``convert.to_jax_params`` of a model; a train state's ``params`` are
+    the model's own, in torch layout).
     :func:`masked_init` is the trainer's cross-resolution initialization
     (``config.masked_init``).
   * **resumable**: :class:`CheckpointManager` keeps ``<dir>/<step>/state.pt``
-    step directories (``torch.save`` in place of Orbax), each written in the
-    background to a temporary directory and renamed into place, the newest
-    `max_to_keep` kept. The trainer stores {params, optimizer state, step,
-    chrono} there; every tensor comes back bit for bit, bf16 included.
+    step directories (``torch.save`` in place of Orbax) on a local path (a
+    remote workdir's stage), each written in the background to a temporary
+    directory whose name holds :data:`IN_FLIGHT_MARKER` and renamed into
+    place, the newest `max_to_keep` kept. The trainer stores {params,
+    optimizer state, step, chrono} there; every tensor comes back bit for
+    bit, bf16 included.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import shutil
 import tempfile
@@ -36,9 +40,20 @@ from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.models import common
 
 
+# The name of a step directory that is being written contains this; the
+# remote sync never mirrors such a directory (a torn step).
+IN_FLIGHT_MARKER = "-TEMPORARY-"
+
+
 def npsave(data: dict, path: str) -> None:
     """Atomic np.savez of a flat {name: np.ndarray} dict: written to a
-    temporary file beside `path`, then renamed over it."""
+    temporary file beside `path`, then renamed over it (a URL: written
+    whole to ``<path>-TEMPORARY`` and moved, as the JAX package does)."""
+    if pathio.is_remote(path):
+        with io.BytesIO() as buf:
+            np.savez(buf, **data)
+            pathio.write_bytes_atomic(path, buf.getvalue())
+        return
     parent = pathio.dirname(path)
     os.makedirs(parent, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=parent, suffix=".npz-TEMPORARY")
@@ -69,10 +84,12 @@ def save_params(params: Any, path: str) -> None:
 
 
 def npload(path: str) -> dict:
-    """Reads an npz file into a flat {name: np.ndarray} dict."""
-    with pathio.open_file(path) as f, \
-            np.load(f, allow_pickle=False) as checkpoint:
-        return {k: checkpoint[k] for k in checkpoint.files}
+    """Reads an npz file (a local path or a URL, read whole first) into a
+    flat {name: np.ndarray} dict."""
+    with pathio.open_file(path) as f:
+        data = io.BytesIO(f.read()) if pathio.is_remote(path) else f
+        with np.load(data, allow_pickle=False) as checkpoint:
+            return {k: checkpoint[k] for k in checkpoint.files}
 
 
 def load_checkpoint(path: str) -> dict:
@@ -83,14 +100,16 @@ def load_checkpoint(path: str) -> dict:
 
 
 def load_params(path: str) -> dict:
-    """Loads params from `file.npz` or `file.npz:subtree/key`.
+    """Loads params from `file.npz` or `file.npz:subtree/key`, where the
+    file may be a URL (``file:///run/params.npz:img``: the scheme's ``:``
+    is not a subtree's).
 
     Accepts checkpoints that are a bare params tree or a full train
     checkpoint containing a `params/` prefix. Returns a nested dict of CPU
     tensors (or one tensor, when the subtree key names a leaf).
     """
     key = None
-    if ":" in path and not pathio.is_remote(path):
+    if path.count(":") > (1 if pathio.is_remote(path) else 0):
         path, _, key = path.rpartition(":")
     tree = load_checkpoint(path)
     if "params" in tree and isinstance(tree["params"], dict) and \
@@ -103,21 +122,39 @@ def load_params(path: str) -> dict:
 
 
 def masked_init(model: torch.nn.Module, path: str,
-                dont_load: Sequence = ()) -> torch.nn.Module:
+                dont_load: Sequence = (), log=None) -> torch.nn.Module:
     """Initializes `model`'s parameters in place from the checkpoint at
-    `path` (the JAX layout, as the JAX package and :func:`save_params` of
-    ``convert.to_jax_params`` write it): the trainer's
-    ``config.masked_init`` branch (clipa_tpu/train/loop.py). The checkpoint
-    is merged into the model's parameters, mapped to the JAX layout, by
-    :func:`common.merge_params` under `dont_load`
+    `path` (a local path or a URL; the JAX layout, as the JAX package and
+    :func:`save_params` of ``convert.to_jax_params`` write it): the
+    trainer's ``config.masked_init`` branch (clipa_tpu/train/loop.py). The
+    checkpoint is merged into the model's parameters, mapped to the JAX
+    layout, by :func:`common.merge_params` under `dont_load`
     (``config.masked_no_load``): every tensor is copied, except position
     embeddings of another length, which are resampled (the pretrain text
     tower's 8 positions to the fine-tune's 32), and what `dont_load` keeps
-    at its init. Returns `model`.
+    at its init. `log` (a print-like callable) gets one line: how many
+    tensors were copied, and which were resampled or kept. Returns
+    `model`.
     """
-    merged = common.merge_params(load_params(path),
-                                 convert.to_jax_params(model), dont_load)
+    loaded = load_params(path)
+    inited = convert.to_jax_params(model)
+    merged = common.merge_params(loaded, inited, dont_load)
     convert.load_jax_params(model, merged)
+    if log is not None:   # merge_params's three cases, counted
+        shapes = {n: tuple(x.shape)
+                  for n, x in u.tree_flatten_with_names(loaded)}
+        skip = u.check_and_compile_patterns(dont_load)
+        copied, resampled, kept = [], [], []
+        for n, x in inited.items():
+            if n in shapes and shapes[n] == tuple(x.shape) and not any(
+                    p.fullmatch(n) for p in skip):
+                copied.append(n)
+            elif n.endswith("pos_embedding") and n in shapes:
+                resampled.append(n)
+            else:
+                kept.append(n)
+        log(f"masked_init from {path}: {len(copied)} of {len(inited)} "
+            f"tensors copied, resampled {resampled}, kept at init {kept}")
     return model
 
 
@@ -161,8 +198,15 @@ class AsyncCheckpointWriter:
 
 def load_state(path: str) -> dict:
     """Reads a resumable checkpoint: a :class:`CheckpointManager` step
-    directory or its ``state.pt`` (``config.resume``), onto the CPU."""
-    if os.path.isdir(pathio.local_path(path)):
+    directory or its ``state.pt`` (``config.resume``; a local path or a
+    URL), onto the CPU."""
+    if pathio.is_remote(path):
+        if not path.endswith(CheckpointManager.STATE):
+            path = pathio.join(path, CheckpointManager.STATE)
+        with pathio.open_file(path) as f:
+            return torch.load(io.BytesIO(f.read()), map_location="cpu",
+                              weights_only=True)
+    if os.path.isdir(path):
         path = os.path.join(path, CheckpointManager.STATE)
     return torch.load(path, map_location="cpu", weights_only=True)
 
@@ -177,7 +221,8 @@ class CheckpointManager:
     place when whole, so a step directory is complete or absent; then only
     the newest `max_to_keep` steps are kept. Saving a step that exists is a
     no-op. :meth:`restore` reads a step (the latest by default) onto the
-    CPU.
+    CPU. `directory` is a local path: a remote workdir's checkpoints live
+    on its local stage (a URL raises, it is never made absolute).
     """
 
     STATE = "state.pt"
@@ -211,7 +256,7 @@ class CheckpointManager:
 
     def _write(self, step: int, host: dict) -> None:
         tmp = tempfile.mkdtemp(dir=self.directory,
-                               prefix=f".{step}-TEMPORARY-")
+                               prefix=f".{step}{IN_FLIGHT_MARKER}")
         try:
             torch.save(host, os.path.join(tmp, self.STATE))
             os.replace(tmp, self.step_dir(step))

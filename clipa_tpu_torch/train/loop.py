@@ -16,17 +16,27 @@ Port of ``clipa_tpu/train/loop.py`` (``python -m clipa_tpu_torch.train``):
     directories, and a flat-npz export of the params in the JAX layout
     (``params.npz``), wire-compatible with the JAX package's and released
     CLIPA weights (model_init and masked_init read that layout),
-  * a ``torch.profiler`` trace at ``config.profile_at_step``.
+  * a ``torch.profiler`` trace at ``config.profile_at_step``,
+  * a remote workdir (``gs://``, ``s3://``, ``file://``): staged on local
+    disk (``pathio.stage_dir_for``, under ``config.local_stage_dir``) and
+    pulled before resume, so a run restarted on a fresh host resumes from
+    the URL's checkpoint (a failed pull raises, never starts afresh);
+    mirrored to the URL (or to ``config.remote_sync.path``) by
+    ``remote_sync.SyncThread`` every ``remote_sync.every_seconds`` and
+    once at the end (a failed final pass raises),
+  * distillation (``config.distill``): a frozen teacher two-tower built
+    from ``distill.model`` (``model_name``, ``seed``, ``model_init`` with
+    ``model_load``), rebuilt on every start; never in the optimizer, the
+    checkpoints or the npz export.
 
 As in the JAX loop, a resumed run restarts the data stream from its seed:
 the batches after a resume are the first batches of the stream, not those
 the stopped run would have seen next.
 
 The card is the default device; ``device="cpu"`` (``--device cpu``) is how
-tests ask for the CPU, and no path falls back to it. Not ported yet (they
-raise ``NotImplementedError``): distillation (ROADMAP A5), remote workdirs
-and ``remote_sync`` (A4), wandb, and ``fsdp > 1`` or several processes
-(A8).
+tests ask for the CPU, and no path falls back to it. Not ported (they
+raise ``NotImplementedError``): wandb (metrics go to metrics.jsonl), and
+``fsdp > 1`` or several processes (ROADMAP A8).
 
 CLI: python -m clipa_tpu_torch.train --config=<file.py>[:args] \
     --workdir=/tmp/run [--device cpu] [--config.input.batch_size=256 ...]
@@ -54,18 +64,14 @@ from clipa_tpu_torch.evaluators import common as eval_common
 from clipa_tpu_torch.models import get_model_module
 from clipa_tpu_torch.train import checkpoint as ckpt_lib
 from clipa_tpu_torch.train import metrics as metrics_lib
+from clipa_tpu_torch.train import remote_sync as sync_lib
 from clipa_tpu_torch.train import step as step_lib
 
 
-def _refuse_unported(config: ConfigDict, workdir: Optional[str]) -> None:
+def _refuse_unported(config: ConfigDict) -> None:
     """Raises NotImplementedError for what the JAX loop does and this one
-    does not yet, naming the ROADMAP item."""
+    does not, naming the ROADMAP item."""
     refused = [
-        (bool(config.get("distill")), "config.distill (distillation: "
-                                      "ROADMAP A5)"),
-        (bool(workdir) and pathio.is_remote(workdir),
-         f"remote workdir {workdir!r} (ROADMAP A4)"),
-        (bool(config.get("remote_sync")), "config.remote_sync (ROADMAP A4)"),
         (bool(config.get_path("wandb.log_wandb")),
          "wandb.log_wandb (metrics go to metrics.jsonl)"),
         (int(config.get("fsdp", 1)) > 1, "config.fsdp > 1 (multi-GPU: "
@@ -119,8 +125,12 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
     name: the model's parameter (torch layout)}, "opt": the optimizer's
     state dict, "step": int}, on the device."""
     device = u.resolve_device(device, "train")
-    _refuse_unported(config, workdir)
+    _refuse_unported(config)
     write_note = print if u.process_index() == 0 else (lambda *_: None)
+    remote_workdir = None
+    if workdir and pathio.is_remote(workdir):
+        remote_workdir = workdir
+        workdir = _stage_remote_workdir(remote_workdir, config, write_note)
     batch_size = config.input.batch_size
 
     # ----- data -------------------------------------------------------------
@@ -144,7 +154,8 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
     train_iter = pipeline_lib.start_input_pipeline(
         batches, device, n_prefetch=config.get("prefetch_to_device", 2))
 
-    metric = manager = profiler = None
+    metric = manager = profiler = syncer = None
+    completed = False
     try:
         total_steps = steps_cfg("total", config, ntrain, batch_size)
         write_note(f"Training for {total_steps} steps "
@@ -170,14 +181,21 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                                          data_size=ntrain))
         n_params = sum(p.numel() for p in state["params"].values())
         write_note(f"Model has {n_params / 1e6:.1f}M params")
+        teacher = (_build_teacher(config, device, write_note)
+                   if config.get("distill") else None)
         update_fn = step_lib.make_update_fn(model, tx, config,
-                                            total_steps=total_steps)
+                                            total_steps=total_steps,
+                                            teacher_model=teacher)
         predict_fn = step_lib.make_predict_fn(
             model, normalize=bool(config.get("cpu_unit8", True)))
 
         # ----- metrics / chrono ---------------------------------------------
         metric = metrics_lib.MetricWriter(workdir)
         metric.write_config(config)
+        if workdir and (config.get("remote_sync") or remote_workdir) and \
+                u.process_index() == 0:
+            syncer = _start_sync(workdir, config.get("remote_sync"),
+                                 remote_workdir)
         chrono = metrics_lib.Chrono(device)
         profiler = metrics_lib.Profiler(
             workdir, start_step=config.get("profile_at_step", 10),
@@ -200,18 +218,14 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                                  tx, chrono)
         elif config.get("model_init"):
             write_note(f"Initializing towers from {config.model_init}...")
-            jax_params = convert.to_jax_params(model)
-            tree = u.recover_tree(list(jax_params), list(jax_params.values()))
-            tree = get_model_module(config.get("model_name", "two_towers")
-                                    ).load(tree, config.model_init,
-                                           config.model,
-                                           **dict(config.get("model_load",
-                                                             {})))
-            convert.load_jax_params(model, tree)
+            _load_model_init(model, config.get("model_name", "two_towers"),
+                             config.model_init, config.model,
+                             config.get("model_load", {}))
         elif config.get("masked_init"):
             write_note(f"Masked-init (cross-resolution) from "
                        f"{config.masked_init}...")
             ckpt_lib.masked_init(model, config.masked_init,
+                                 log=write_note,
                                  **dict(config.get("masked_no_load",
                                                    {"dont_load": []})))
 
@@ -246,6 +260,7 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
             metric.step_start(first_step)
             run_evals(first_step, force=True)
             metric.step_end()
+            completed = True
             return {"params": state["params"], "opt": tx.state_dict(),
                     "step": state["step"]}
 
@@ -290,6 +305,7 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                 u.process_index() == 0:
             ckpt_lib.save_params({"params": convert.to_jax_params(model)},
                                  os.path.join(workdir, "params.npz"))
+        completed = True
         return {"params": state["params"], "opt": tx.state_dict(),
                 "step": state["step"]}
     finally:
@@ -297,6 +313,76 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
         for closing in (profiler, manager, metric):
             if closing is not None:
                 closing.close()
+        # the last pass mirrors a finished run's artifacts; a failed run
+        # stops the thread and pushes nothing more
+        if syncer is not None and not syncer.stop(final_sync=completed):
+            raise RuntimeError(f"the final sync of {workdir} to "
+                               f"{syncer.remote_dir} failed")
+
+
+def _stage_remote_workdir(remote: str, config: ConfigDict,
+                          write_note) -> str:
+    """The local stage of a remote workdir, pulled from `remote`: the step
+    directories, metrics.jsonl and params.npz of an earlier run are there
+    before resume. Raises RuntimeError if the pull fails: a fresh start
+    would discard the run's checkpoints on the next push."""
+    stage = pathio.stage_dir_for(remote, config.get("local_stage_dir"))
+    os.makedirs(stage, exist_ok=True)
+    write_note(f"Remote workdir {remote} staged at {stage}")
+    if not sync_lib.pull(remote, stage):
+        raise RuntimeError(f"Failed to pull remote workdir {remote}; "
+                           "refusing to train (a fresh start would discard "
+                           "the run's checkpoints on the next push)")
+    return stage
+
+
+def _start_sync(workdir: str, remote_sync, remote_workdir: Optional[str]
+                ) -> sync_lib.SyncThread:
+    """Mirrors `workdir` to ``remote_sync.path`` (a URL or a path; the
+    remote workdir where not given) every ``remote_sync.every_seconds``
+    (default 300)."""
+    rs = remote_sync or {}
+    rs = {"path": rs} if isinstance(rs, str) else dict(rs)
+    target = rs.get("path") or remote_workdir
+    if not target:
+        raise ValueError("config.remote_sync needs a path")
+    return sync_lib.SyncThread(
+        workdir, target,
+        every_seconds=float(rs.get("every_seconds", 300))).start()
+
+
+def _load_model_init(model: torch.nn.Module, model_name: str, init,
+                     model_cfg, model_load) -> None:
+    """``config.model_init``: the model module's ``load`` merges the
+    checkpoint(s) (the JAX layout; paths or URLs) into the model's
+    parameters under ``model_load`` (``dont_load`` per tower)."""
+    jax_params = convert.to_jax_params(model)
+    tree = u.recover_tree(list(jax_params), list(jax_params.values()))
+    tree = get_model_module(model_name).load(tree, init, model_cfg,
+                                             **dict(model_load or {}))
+    convert.load_jax_params(model, tree)
+
+
+def _build_teacher(config: ConfigDict, device, write_note
+                   ) -> torch.nn.Module:
+    """The frozen distillation teacher of ``config.distill``: its model
+    config at the student's input shapes (the reference assumes teacher
+    and student share the tokenizer and the transforms), drawn from
+    ``distill.seed``, then ``distill.model_init`` where set; in eval mode,
+    no parameter requiring a gradient."""
+    dcfg = config.distill
+    tcfg = ConfigDict(model_name=dcfg.get("model_name", "two_towers"),
+                      model=dcfg.model, init_shapes=config.init_shapes)
+    teacher = step_lib.create_model(tcfg, device)
+    step_lib.init_train_state(teacher, tcfg, torch.Generator(
+        device=device).manual_seed(int(dcfg.get("seed", 0))), device)
+    if dcfg.get("model_init"):
+        write_note(f"Loading distillation teacher from "
+                   f"{dcfg.model_init}...")
+        _load_model_init(teacher, tcfg.model_name, dcfg.model_init,
+                         dcfg.model, dcfg.get("model_load", {}))
+    teacher.requires_grad_(False)
+    return teacher.eval()
 
 
 def main(argv=None) -> dict:

@@ -48,8 +48,18 @@ device seeded from ``(config.seed, s)``: the counterpart of the JAX step's
 ``fold_in(rng, step)``. The two give different streams of the same
 distribution.
 
+With a `teacher_model` (``config.distill``), the step distills from that
+frozen two-tower as the JAX step does: the teacher's forward runs in eval
+mode under ``torch.no_grad()`` on the normalized, unmasked images and the
+same labels (only the student takes ``mask_ratio``), and the loss is
+``losses.distill_contrastive_loss``: the InfoNCE plus the soft
+cross-entropy to the teacher's logits at its own temperature, adding
+``contrastive_loss`` and ``distill_loss`` to the measurements. As in the
+JAX step (and the reference trainer), distillation takes ``loss=softmax``
+and no gradient accumulation (ValueError otherwise).
+
 Not ported yet (they raise, naming the ROADMAP item): the ring losses
-(multi-GPU, A8), the CoCa loss (its model, A10) and distillation (A5).
+(multi-GPU, A8) and the CoCa loss (its model, A10).
 """
 
 from __future__ import annotations
@@ -125,7 +135,9 @@ LOSSES = ("softmax", "sigmoid", "chunked")
 
 def _make_loss_dispatch(loss_kind: str, config) -> Callable:
     """Maps ``config.loss`` to its implementation, as the JAX step's
-    dispatch: apply_loss(zimg, ztxt, extras) -> (loss, extras dict). Raises
+    dispatch: apply_loss(zimg, ztxt, extras, teacher_out=None) -> (loss,
+    extras dict); a `teacher_out` triple (the teacher's zimg, ztxt, t)
+    switches on distillation. Raises
     NotImplementedError for the losses not ported yet and ValueError for an
     unknown name."""
     if loss_kind in _REFUSED_LOSSES:
@@ -137,7 +149,10 @@ def _make_loss_dispatch(loss_kind: str, config) -> Callable:
                          f"{LOSSES})")
     chunk_size = int(config.get("loss_chunk_size", 4096))
 
-    def apply_loss(zimg, ztxt, extras):
+    def apply_loss(zimg, ztxt, extras, teacher_out=None):
+        if teacher_out is not None:
+            return losses_lib.distill_contrastive_loss(
+                zimg, ztxt, extras["t"], *teacher_out)
         if loss_kind == "sigmoid":
             return losses_lib.sigmoid_contrastive_loss(
                 zimg, ztxt, extras["t"], bias=extras.get("b", 0.0),
@@ -186,7 +201,9 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
     `tx` was made over. `batch`: {"image": (B, H, W, 3) uint8 or float,
     "labels": (B, l) token ids}, tensors on the model's device; B must
     divide by ``config.grad_accum_steps``. `total_steps` (when known) lets
-    the gated norm metrics fire on the last step too.
+    the gated norm metrics fire on the last step too. `teacher_model`: a
+    frozen two-tower on the same device to distill from (its parameters
+    are never updated: it is not in `tx`).
     """
     mask_ratio = float(config.get("mask_ratio", 0.0))
     normalize_on_device = bool(config.get("cpu_unit8", True))
@@ -197,15 +214,21 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
     temperature_clamp = config.get("temperature_clamp", False)
     t_clamp_max = (float(np.log(100.0)) if temperature_clamp is True
                    else float(temperature_clamp or 0.0))
-    apply_loss = _make_loss_dispatch(config.get("loss", "softmax"), config)
+    loss_kind = config.get("loss", "softmax")
+    apply_loss = _make_loss_dispatch(loss_kind, config)
     if teacher_model is not None:
-        raise NotImplementedError("distillation is not ported yet "
-                                  "(ROADMAP A5)")
+        # the JAX step's guards (the reference trainer's limits too)
+        if loss_kind != "softmax":
+            raise ValueError(f"config.distill requires loss='softmax', got "
+                             f"{loss_kind!r}")
+        if accum_steps > 1:
+            raise ValueError("config.distill is incompatible with "
+                             "grad_accum_steps > 1")
     if norm_metrics not in ("log", "always", "never"):
         raise ValueError(f"unknown norm_metrics {norm_metrics!r}")
 
-    def loss_and_measurements(zimg, ztxt, extras):
-        loss, l_extras = apply_loss(zimg, ztxt, extras)
+    def loss_and_measurements(zimg, ztxt, extras, teacher_out=None):
+        loss, l_extras = apply_loss(zimg, ztxt, extras, teacher_out)
         return loss, {
             "t": extras["t"][0].detach(),
             "t/parameter": extras["t/parameter"][0].detach().clone(),
@@ -227,13 +250,22 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
         if normalize_on_device and images.dtype == torch.uint8:
             images = preprocess.normalize_uint8(images)
 
+        teacher_out = None
+        if teacher_model is not None:
+            # the frozen teacher: eval mode, no graph, unmasked images
+            teacher_model.eval()
+            with torch.no_grad():
+                t_zimg, t_ztxt, t_extras = teacher_model(images, labels)
+            teacher_out = (t_zimg, t_ztxt, t_extras["t"])
+
         model.train()
         if accum_steps <= 1:
             generator = (mask_generator(config, state["step"], images.device)
                          if mask_ratio > 0 else None)
             zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio,
                                        generator=generator)
-            loss, measurements = loss_and_measurements(zimg, ztxt, extras)
+            loss, measurements = loss_and_measurements(zimg, ztxt, extras,
+                                                       teacher_out)
             grads = gradients(loss, params, names)
         else:
             if images.shape[0] % accum_steps:

@@ -373,18 +373,20 @@ def test_start_input_pipeline_surfaces_errors_and_stops_on_close():
 
 
 def test_pathio_is_local_only(tmp_path):
+    """Local paths read as files; `local_path`, for callers that need a
+    real file, refuses a URL (remote IO: tests/test_torch_pathio.py)."""
     path = str(tmp_path / "f.bin")
     with open(path, "wb") as f:
         f.write(b"abc")
     with pathio.open_file(path) as f:
         assert f.read() == b"abc"
     assert pathio.dirname(path) == str(tmp_path)
+    assert pathio.local_path(path) == path
     assert pathio.is_remote("gs://bucket/x") and not pathio.is_remote(path)
-    for fn in (pathio.open_file, pathio.dirname, pathio.local_path):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            fn("gs://bucket/x")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        checkpoint.load_params("gs://bucket/params.npz")
+    with pytest.raises(NotImplementedError, match="local path is required"):
+        pathio.local_path("gs://bucket/x")
+    with pytest.raises(NotImplementedError, match="local path is required"):
+        checkpoint.CheckpointManager("gs://bucket/run/checkpoints")
 
 
 def test_tokenization_is_thread_safe():

@@ -300,7 +300,8 @@ def test_laion_rename_and_urls(tmp_path, capsys):
     for argv in (["count", "--pattern", "gs://bucket/*.tfrecord"],
                  ["convert-webdataset", "--pattern", str(tmp_path / "x"),
                   "--out-dir", "s3://bucket/out"]):
-        with pytest.raises(NotImplementedError, match="A4"):
+        # the tool reads and writes local files only, as the JAX tool's glob
+        with pytest.raises(NotImplementedError, match="local path"):
             laion.main(argv)
     with pytest.raises(SystemExit, match="no files match"):
         laion.main(["count", "--pattern", str(tmp_path / "nothing*")])

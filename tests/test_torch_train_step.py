@@ -221,8 +221,10 @@ def test_norm_metrics_gating_and_refusals():
         bad.loss = loss
         with pytest.raises(NotImplementedError, match=item):
             step.make_update_fn(port, tx, bad)
-    with pytest.raises(NotImplementedError, match="A5"):
-        step.make_update_fn(port, tx, tiny_config(), teacher_model=port)
+    bad = tiny_config()
+    bad.loss = "sigmoid"   # distillation takes the softmax loss only
+    with pytest.raises(ValueError, match="softmax"):
+        step.make_update_fn(port, tx, bad, teacher_model=port)
     bad = tiny_config()
     bad.loss = "softmx"
     with pytest.raises(ValueError, match="softmx"):
