@@ -17,9 +17,12 @@ H/14 unmask-tuning step of ``clipa_finetune.py`` at
 ``img=H/14,res=224,token_len=32,mask_ratio=0.3,batchsize=64`` on the
 config's ``auto`` route (the fused kernels; the backward's long scheme),
 the trainer from the data pipeline, CLIPA's zero-shot ImageNet eval in
-the trainer and in ``tools/eval_zeroshot``, and the trainer from JPEG
+the trainer and in ``tools/eval_zeroshot``, the trainer from JPEG
 tfrecords at a batch of 1536 through two-pass gradient accumulation on the
-native host library.
+native host library, CLIPA-v2's 224 -> 336 chain, distillation, and
+CLIPA-v1's ``ViT-L-16-CL8-Syntax-GAP`` and open_clip's ``ViT-L-14``
+exported to open_clip checkpoints, loaded back and served behind one
+``MultiModelService``.
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
@@ -183,6 +186,38 @@ native host library.
      1536 with the batch on the device (pairs/s, best of two runs of 2
      steps); one step of ``loss=sigmoid`` with ``bias_init=-10`` (finite,
      ``b`` gets a gradient).
+ 16. CLIPA-v2's 224 -> 336 unmask-tuning chain at L/16 through
+     ``train.loop.main`` on ``file://`` workdirs from phase 15's shards: the
+     224 stage from phase 13's params.npz (2 steps, its local stage
+     deleted, resumed to 4 from the pull: the restored state bit for bit
+     the pushed checkpoint), the 336 stage (L = 265, the backward's long
+     scheme) 3 steps from the 224 stage's npz URL, kernel against plain on
+     one batch, pairs/s, peak memory, the npz and sync seconds;
+ 17. distillation from a frozen H/14 teacher (a ``file://`` npz) with
+     ``--config.lwd=0.85`` in the trainer: 56 fused forwards and 24
+     backwards per step, the teacher bit for bit after the steps, lwd's
+     multipliers, kernel against plain, the teacher's share of a step;
+ 18. open_clip interop at full width, seeded weights: CLIPA-v1's
+     ``ViT-L-16-CL8-Syntax-GAP`` (@224, L = 197, ``gap_all``; the 8-token
+     text tower, BPE with syntax masking) and open_clip's ``ViT-L-14``
+     (L = 257, ``ln_pre``, class-token pool; the causal 77-token text tower
+     pooled at eot): each exported with ``compat.export.save_open_clip``
+     (which allocates nothing on the card) and loaded back with ``create_model(..., pretrained=<.bin>)``, every
+     tensor bit for bit; ViT-L-14's state dict under OpenAI's keys through
+     ``load_openai_model``, its embeddings bit for bit those of
+     ``create_model("ViT-L-14-quickgelu", <.bin>)``; both served from
+     their .bin files by one ``MultiModelService(max_live=1)`` with the BPE
+     tokenizer on a merges file of 48 894 merges written here: requests of
+     5, 64 and 300 uint8 images and caption batches (some past the 8-token
+     budget: syntax sampling bites), shapes, finite values, unit norms, 24
+     fused forwards per image chunk, each switch evicts the other model
+     (the device's live tensors within one model's weights plus 10%),
+     ``embed_*_to`` .npy equal to the in-RAM path, cosine >= 0.999 against
+     the plain attention path; images/s at bucket 256 per model, and
+     texts/s on 2048 distinct seeded captions, the tokenizer's word cache
+     cold and then warm, with the tokenizer's seconds and the text tower's
+     apart; peak memory, the export, save and load seconds. Phase 2 times
+     the fused forward at both image towers' bucket-256 shapes.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -267,16 +302,19 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
 # exact): the three main-path shapes (serving bucket 256 at H/14 @224, the
 # pretrain step, the fine-tune step's `auto` route), the exact form
 # without biases that SDPA also computes (at bucket 256, and at the
-# pretrain step's shape, the attention sweep's of phase 10), and the H/14
+# pretrain step's shape, the attention sweep's of phase 10), the H/14
 # unmask-tuning stages (224 px at mask 0.3: L = 180, B = 64 as in phase
-# 12; 336 px at mask 0.4: L = 346, B = 16)
+# 12; 336 px at mask 0.4: L = 346, B = 16), and phase 18's image towers at
+# bucket 256 (ViT-L/16 @224: L = 197; ViT-L/14 @224: L = 257; D = 1024)
 FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
                 ("bucket 256 exact", 256, 257, 1280, 16, False, True),
                 ("L/16 @112 exact", 384, 50, 1024, 16, False, True),
                 ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
-                ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False))
+                ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
+                ("L/16 @224 bucket 256", 256, 197, 1024, 16, True, False),
+                ("L/14 @224 bucket 256", 256, 257, 1024, 16, True, False))
 
 # Phase 3's timed cases of the fused backward, (name, b, l, d, h, bias,
 # exact): the pretrain step's (L/16 @112), the H/14 @84 headline pretrain
@@ -2582,6 +2620,373 @@ def _distill(card):
             "run_s": run_s, "phase_s": phase_s}
 
 
+# Phase 18: CLIPA-v1's ViT-L/16 (8 BPE tokens, syntax masking, open_clip's
+# gap_all pool) and open_clip's ViT-L/14 (ln_pre, class-token pool, a causal
+# text tower of 77 tokens pooled at eot), both @224 with 24 image layers:
+# L = 197 and L = 257, D = 1024, 16 heads of 64, on the fused forward.
+INTEROP_MODELS = ("ViT-L-16-CL8-Syntax-GAP", "ViT-L-14")
+INTEROP_LAYERS = 24
+# OpenAI's ViT-L/14 release runs QuickGELU: open_clip registers its weights
+# under this config (compat/pretrained.py's -quickgelu aliases).
+OPENAI_CONFIG = "ViT-L-14-quickgelu"
+# bpe_simple_vocab_16e6's merge count: 256 bytes x 2 + 48 894 merges + 2
+# specials = the configs' 49 408 rows, <end_of_text> = 49 407.
+BPE_MERGES = 48894
+# The service's live weights after a switch, against one model's: the
+# evicted model's tensors must be gone.
+SWITCH_SLACK = 0.10
+# captions per timed text request (8 chunks of bucket 256)
+TEXT_REQUEST = 2048
+INTEROP_CAPTIONS = (
+    "a photo of a cat",
+    "a small brown dog running on the green grass near a quiet river",
+    "two red cars parked beside an old stone church at night",
+    "close up of a bright yellow flower with morning dew",
+    "an aerial view of a fishing village on a rocky coastline",
+    "people walking on a busy street in the rain with umbrellas",
+    "a plate of pasta",
+    "the tallest building in the city reflected in a calm lake at sunset",
+)
+
+
+def _seeded_captions(rng, n):
+    """n captions of 4-20 pseudo-words of 3-10 lowercase letters, drawn from
+    `rng`. Few words recur (three-letter ones can), so a tokenizer's word
+    cache (SimpleTokenizer.cache) meets almost every word for the first
+    time."""
+    import numpy as np
+    n_words = rng.randint(4, 21, n)
+    lengths = rng.randint(3, 11, int(n_words.sum()))
+    letters = rng.randint(0, 26, int(lengths.sum())).astype(np.uint8) + 97
+    text, ends = letters.tobytes().decode(), np.cumsum(lengths)
+    words = [text[e - k:e] for e, k in zip(ends, lengths)]
+    cuts = np.concatenate([[0], np.cumsum(n_words)])
+    return [" ".join(words[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _text_seconds(live, texts):
+    """(tokenizer s, text tower s) of one request: the host's tokenizer
+    alone, then the tower alone on its ids (embed_texts runs the two in
+    turn)."""
+    t0 = time.perf_counter()
+    ids = live._tokenize(texts)
+    t1 = time.perf_counter()
+    live._run_bucketed(live._embed_texts, ids)
+    return t1 - t0, time.perf_counter() - t1
+
+
+def _write_merges(path, count=BPE_MERGES):
+    """Writes a BPE merges file of `count` merges over the lowercase letters
+    (no merges file ships in the repository): every letter pair, inside a
+    word and at its end ("a b", "a b</w>"), then every pair + letter, then
+    pair + pair in order, until `count`. Every merge makes a new token, so
+    SimpleTokenizer's vocab has 512 + count + 2 entries, and words split
+    into multi-letter ids as with OpenAI's file."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pairs = [a + b for a in letters for b in letters]
+    merges = [f"{p[0]} {p[1]}{end}" for p in pairs for end in ("", "</w>")]
+    merges += [f"{p} {c}{end}" for p in pairs for c in letters
+               for end in ("", "</w>")]
+    merges += [f"{p} {q}{end}" for p in pairs for q in pairs
+               for end in ("", "</w>")][:max(0, count - len(merges))]
+    with open(path, "w") as f:
+        f.write("\n".join(["#version: 0.2 (letter n-grams)"]
+                          + merges[:count]))
+
+
+def _bit_equal_models(a, b, what):
+    """Raises unless two modules hold the same tensors, bit for bit."""
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa.keys() != sb.keys():
+        raise RuntimeError(f"{what}: keys differ: "
+                           f"{sorted(sa.keys() ^ sb.keys())[:5]}")
+    bad = [k for k in sa if sa[k].dtype != sb[k].dtype
+           or not torch.equal(sa[k], sb[k])]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} tensors differ: {bad[:5]}")
+    return len(sa)
+
+
+def _bytes_allocated():
+    """Bytes the caching allocator has handed out since the process began
+    (a running total: frees do not lower it)."""
+    import torch
+    return torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+
+
+def _weight_bytes(module):
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+def _interop(card):
+    """Phase 18: open_clip interop at full width, seeded weights.
+
+    (a) builds INTEROP_MODELS (fp32, seeded); (b) exports each with
+    ``save_open_clip`` (no byte allocated on the card) and loads it back
+    with ``create_model(..., pretrained=<.bin>)`` (every tensor bit for
+    bit), saves ViT-L-14's state dict under OpenAI's keys (with the
+    release's metadata scalars) and loads it through
+    ``load_openai_model``: its image and text embeddings equal
+    ``create_model(OPENAI_CONFIG, <.bin>)``'s bit for bit; (c) serves both
+    from their .bin files through one ``MultiModelService(max_live=1)``
+    with the BPE tokenizer on a merges file written here (BPE_MERGES):
+    requests of 5, 64 and 300 uint8 images and caption batches (some past
+    the 8-token tower's budget, so syntax sampling bites), shapes, finite
+    values, unit norms, INTEROP_LAYERS fused forwards per image chunk,
+    eviction on each switch (the live tensors within one model's weights
+    plus SWITCH_SLACK), ``embed_images_to`` / ``embed_texts_to`` into .npy
+    equal to the in-RAM path, the image embeddings against a service on
+    the plain attention path (per-row cosine >= MIN_COSINE); (d) prints
+    images/s at bucket 256 per model; texts/s on TEXT_REQUEST distinct
+    seeded captions (``_seeded_captions``), the tokenizer's word cache
+    cold and then warm, and the tokenizer's seconds apart from the text
+    tower's (``_text_seconds``); peak memory and the export, save and load
+    seconds."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch.compat import export, openclip
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.pp.bpe_tokenizer import SimpleTokenizer
+    from clipa_tpu_torch.serving import EmbeddingService, MultiModelService
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+
+    def stage_peak(stage):
+        peaks[stage] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+
+    work = tempfile.TemporaryDirectory()
+    merges = os.path.join(work.name, "bpe_merges.txt")
+    _write_merges(merges)
+    bpe = SimpleTokenizer(merges)
+    if (len(bpe.encoder), bpe.eot) != (49408, 49407):
+        raise RuntimeError(f"the merges file gives {len(bpe.encoder)} ids, "
+                           f"<end_of_text> {bpe.eot}")
+    seconds, bins, out = {}, {}, {"models": {}}
+
+    # (a), (b): build, export, load back
+    for i, name in enumerate(INTEROP_MODELS):
+        t0 = time.perf_counter()
+        built = openclip.create_model(name, device="cuda", seed=SEED + i)
+        torch.cuda.synchronize()
+        seconds[f"{name} build"] = time.perf_counter() - t0
+        allocated = _bytes_allocated()
+        t0 = time.perf_counter()
+        sd = openclip.export_torch_state_dict(built)
+        seconds[f"{name} export"] = time.perf_counter() - t0
+        del sd
+        folder = os.path.join(work.name, f"model{i}")
+        t0 = time.perf_counter()
+        export.save_open_clip(built, name, folder)
+        seconds[f"{name} save_open_clip"] = time.perf_counter() - t0
+        if _bytes_allocated() != allocated:
+            raise RuntimeError(
+                f"{name}: the export allocated "
+                f"{_bytes_allocated() - allocated} bytes on the card")
+        bins[name] = os.path.join(folder, export.WEIGHTS_FILENAME)
+        t0 = time.perf_counter()
+        loaded = openclip.create_model(name, bins[name], device="cuda")
+        torch.cuda.synchronize()
+        seconds[f"{name} load"] = time.perf_counter() - t0
+        n = _bit_equal_models(built.model, loaded.model,
+                              f"{name} exported and loaded back")
+        out["models"][name] = {
+            "tensors_bit_for_bit": n,
+            "bin_gb": os.path.getsize(bins[name]) / 2 ** 30}
+        del built, loaded
+    stage_peak("export and load back")
+    torch.cuda.empty_cache()
+
+    # ViT-L-14 under OpenAI's keys, through load_openai_model
+    l14 = INTEROP_MODELS[1]
+    sd = torch.load(bins[l14], map_location="cpu", weights_only=True)
+    sd.update(input_resolution=torch.tensor(224),
+              context_length=torch.tensor(77),
+              vocab_size=torch.tensor(49408))
+    openai_path = os.path.join(work.name, "ViT-L-14-openai.pt")
+    torch.save(sd, openai_path)
+    del sd
+    t0 = time.perf_counter()
+    oa = openclip.load_openai_model(openai_path, device="cuda")
+    torch.cuda.synchronize()
+    seconds["load_openai_model"] = time.perf_counter() - t0
+    ref = openclip.create_model(OPENAI_CONFIG, bins[l14], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(8, 224, 224, 3, device="cuda", generator=gen)
+    tok = openclip.get_tokenizer(l14, vocab_path=merges)
+    ids = tok(list(INTEROP_CAPTIONS))
+    for what, za, zb in (("images", oa.encode_image(x), ref.encode_image(x)),
+                         ("texts", oa.encode_text(ids),
+                          ref.encode_text(ids))):
+        if not torch.equal(za, zb):
+            raise RuntimeError(
+                f"load_openai_model's {what} embeddings differ from "
+                f"create_model({OPENAI_CONFIG}): max "
+                f"{(za - zb).abs().max().item()}")
+    _bit_equal_models(oa.model, ref.model, "load_openai_model")
+    del oa, ref, x
+    stage_peak("load_openai_model")
+    torch.cuda.empty_cache()
+    print(f"{card}: open_clip interop: {INTEROP_MODELS} exported and loaded "
+          f"back bit for bit ({out['models']}), load_openai_model equals "
+          f"create_model({OPENAI_CONFIG}) bit for bit; seconds "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }", flush=True)
+
+    # (c) one MultiModelService, one model live
+    svc = MultiModelService({name: dict(
+        model_name=name, pretrained=bins[name], vocab_path=merges,
+        device="cuda", precision="bfloat16", seed=SEED, num_workers=0)
+        for name in INTEROP_MODELS}, max_live=1)
+    rng = np.random.RandomState(SEED)
+    requests = [rng.randint(0, 256, (n, 224, 224, 3), np.uint8)
+                for n in (5, 64, 300)]
+    captions = list(INTEROP_CAPTIONS) * 5
+    batch = rng.randint(0, 256, (1024, 224, 224, 3), np.uint8)
+    baseline = torch.cuda.memory_allocated()
+    served = {}
+    for name in INTEROP_MODELS + INTEROP_MODELS[:1]:   # switch, and back
+        t0 = time.perf_counter()
+        live = svc.get(name)
+        torch.cuda.synchronize()
+        switch_s = time.perf_counter() - t0
+        weights = _weight_bytes(live.clip.model)
+        held = torch.cuda.memory_allocated() - baseline
+        if list(svc._live) != [name]:
+            raise RuntimeError(f"live services {list(svc._live)} after "
+                               f"switching to {name}")
+        if held > (1 + SWITCH_SLACK) * weights:
+            raise RuntimeError(
+                f"after switching to {name} the device holds {held} bytes "
+                f"beyond the baseline, its weights {weights}: the evicted "
+                f"model was not freed")
+        print(f"{card}: switched to {name} in {switch_s:.2f} s: "
+              f"{held / 2 ** 30:.3f} GiB held, its weights "
+              f"{weights / 2 ** 30:.3f} GiB", flush=True)
+        if name in served:   # the second visit: the same embeddings
+            again = [live.embed_images(r) for r in requests[:2]]
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(again, served[name]["images"])):
+                raise RuntimeError(f"{name} served other embeddings after "
+                                   f"its eviction")
+            continue
+        chunks = sum(len(list(live._chunks(r))) for r in requests)
+        ba.fused_attention.launches = 0
+        z_images = [live.embed_images(r) for r in requests]
+        launches = ba.fused_attention.launches
+        z_texts = [live.embed_texts(captions[:7]), live.embed_texts(captions)]
+        if ba.fused_attention.launches != launches:
+            raise RuntimeError(f"{name}'s text tower launched the fused "
+                               f"kernel")
+        dim = live.embed_dim
+        for r, z in zip(requests, z_images):
+            _check_embeddings(z, len(r), dim, f"{name}: {len(r)} images")
+        _check_embeddings(z_texts[0], 7, dim, f"{name}: 7 texts")
+        _check_embeddings(z_texts[1], len(captions), dim,
+                          f"{name}: {len(captions)} texts")
+        if launches != INTEROP_LAYERS * chunks:
+            raise RuntimeError(f"{name}: the fused forward launched "
+                               f"{launches} times over {chunks} chunks, "
+                               f"expected {INTEROP_LAYERS * chunks}")
+        ctx = live.clip.context_length
+        long = sum(len(bpe.encode(c)) > ctx - 2 for c in INTEROP_CAPTIONS)
+        sampled = int((live.tokenizer(captions)
+                       != bpe(captions, ctx)).any(1).sum())
+        if name == INTEROP_MODELS[0] and not (long and sampled):
+            raise RuntimeError(f"{name}: syntax sampling did not bite "
+                               f"({long} long captions, {sampled} rows "
+                               f"unlike plain truncation)")
+        npy = os.path.join(work.name, "images.npy")
+        tnpy = os.path.join(work.name, "texts.npy")
+        live.embed_images_to(requests[1], npy)
+        live.embed_texts_to(captions, tnpy)
+        if not (np.array_equal(np.load(npy), z_images[1])
+                and np.array_equal(np.load(tnpy), z_texts[1])):
+            raise RuntimeError(f"{name}: embed_*_to's .npy differs from "
+                               f"the in-RAM path")
+        img_rate = _rate(lambda: live.embed_images(batch), len(batch))
+        # texts at bucket 256: TEXT_REQUEST distinct seeded captions, each
+        # word new to the tokenizer's cache, then the same request again
+        # with the cache warm; and each split into the tokenizer's seconds
+        # and the tower's on a second fresh request and its repeat
+        texts = _seeded_captions(rng, TEXT_REQUEST)
+        t0 = time.perf_counter()
+        live.embed_texts(texts)
+        txt_rate = len(texts) / (time.perf_counter() - t0)
+        txt_rate_warm = _rate(lambda: live.embed_texts(texts), len(texts))
+        fresh = _seeded_captions(rng, TEXT_REQUEST)
+        split = {"cold": _text_seconds(live, fresh),
+                 "warm": _text_seconds(live, fresh)}
+        served[name] = {"images": z_images[:2], "chunks": chunks,
+                        "launches": launches, "weights_gb": weights / 2 ** 30,
+                        "switch_s": switch_s,
+                        "images_per_s": img_rate, "texts_per_s": txt_rate,
+                        "texts_per_s_warm_cache": txt_rate_warm,
+                        "text_seconds": {k: {"tokenizer": a, "tower": b}
+                                         for k, (a, b) in split.items()},
+                        "captions_past_budget": long,
+                        "syntax_sampled_rows": sampled}
+        print(f"{card}: {name} served {sum(len(r) for r in requests)} "
+              f"images in {chunks} chunks ({launches} fused forwards) and "
+              f"{7 + len(captions)} texts ({long} of "
+              f"{len(INTEROP_CAPTIONS)} captions past the {ctx - 2}-id "
+              f"budget, {sampled} of {len(captions)} rows syntax-sampled); "
+              f"images/s at bucket 256 {img_rate:.2f}; texts/s at "
+              f"bucket 256 over {len(texts)} distinct seeded captions "
+              f"{txt_rate:.2f} (tokenizer's cache cold), "
+              f"{txt_rate_warm:.2f} (warm); {len(fresh)} texts: "
+              f"tokenizer {split['cold'][0]:.4f} s, tower "
+              f"{split['cold'][1]:.4f} s (cold), tokenizer "
+              f"{split['warm'][0]:.4f} s, tower {split['warm'][1]:.4f} s "
+              f"(warm)", flush=True)
+        del live
+    del svc
+    stage_peak("serving")
+    torch.cuda.empty_cache()
+
+    # the plain attention path, one model at a time
+    for name in INTEROP_MODELS:
+        plain = EmbeddingService(name, bins[name], vocab_path=merges,
+                                 device="cuda", precision="bfloat16",
+                                 num_workers=0, attn_impl="plain")
+        before = ba.fused_attention.launches
+        cos_min = 1.0
+        for r, z in zip(requests[:2], served[name]["images"]):
+            zp = plain.embed_images(r)
+            cos = (z * zp).sum(1) / (np.linalg.norm(z, axis=1)
+                                     * np.linalg.norm(zp, axis=1))
+            cos_min = min(cos_min, float(cos.min()))
+        if ba.fused_attention.launches != before:
+            raise RuntimeError("the plain path launched the kernel")
+        print(f"{name}: kernel vs plain attention path, per-row cosine min "
+              f"{cos_min:.6f}", flush=True)
+        if cos_min < MIN_COSINE:
+            raise RuntimeError(f"{name}: service embeddings differ from the "
+                               f"plain path: cosine {cos_min} < "
+                               f"{MIN_COSINE}")
+        served[name]["min_cosine"] = cos_min
+        del plain
+        torch.cuda.empty_cache()
+    stage_peak("plain path")
+    work.cleanup()
+    peak_gb = max(peaks.values())
+    phase_s = time.perf_counter() - t_phase
+    print(f"{card}: phase 18 peak device memory {peak_gb:.2f} GiB (by "
+          f"stage: { {k: round(v, 3) for k, v in peaks.items()} }); phase "
+          f"18 in {phase_s:.2f} s", flush=True)
+    for name, s in served.items():
+        s.pop("images")
+        out["models"][name].update(s)
+    return {**out, "seconds": seconds, "peak_gb": peak_gb,
+            "peak_gb_by_stage": peaks,
+            "launches": sum(s["launches"] for s in served.values()),
+            "phase_s": phase_s}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -2965,6 +3370,10 @@ def main() -> int:
     # 17. distillation from a frozen H/14 teacher, and lwd, in the trainer
     distill = _distill(card)
 
+    # 18. open_clip interop: CLIPA-v1's L/16 and open_clip's L/14 exported,
+    # loaded back and served behind one MultiModelService
+    interop = _interop(card)
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -3007,6 +3416,9 @@ def main() -> int:
                   f"--config.lwd={DISTILL_LWD}",
         "teacher": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
                    f"{DISTILL_TEACHER} (model)", **distill,
+    }, "interop": {
+        "configs": list(INTEROP_MODELS), "openai_config": OPENAI_CONFIG,
+        "bpe_merges": BPE_MERGES, **interop,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -3017,7 +3429,8 @@ def main() -> int:
                      + evals["zeroshot_launches"]["fused_fwd"]
                      + evals["tool_launches"]["fused_fwd"]
                      + chain["launches"]["fused_fwd"]
-                     + distill["launches"]["fused_fwd"]),
+                     + distill["launches"]["fused_fwd"]
+                     + interop["launches"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
@@ -3028,7 +3441,9 @@ def main() -> int:
             "unmask_chain_trainer_step": chain["launches"]["fused_fwd"],
             "distilled_trainer_step": distill["launches"]["fused_fwd"],
             "zeroshot_eval": evals["zeroshot_launches"]["fused_fwd"],
-            "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"]},
+            "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"],
+            **{f"interop_serving {name}": m["launches"]
+               for name, m in interop["models"].items()}},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],

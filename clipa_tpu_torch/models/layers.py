@@ -127,11 +127,13 @@ def _cast(x: Optional[torch.Tensor], dtype: torch.dtype):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax LayerNorm semantics: fp32 statistics and affine with fp32
-    parameters; the output takes the input's dtype."""
+    """flax LayerNorm semantics: statistics and affine in fp32 (float64 for
+    a float64 input, with float64 parameters); the output takes the input's
+    dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+        stats = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(stats), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(x.dtype)
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import functools
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
@@ -132,15 +133,25 @@ def _tag_priority(tag: str) -> int:
     return 4
 
 
-@functools.lru_cache(maxsize=1)
-def _nltk_tagger():
-    """Returns nltk.pos_tag if its model data is installed, else None."""
+def _find_nltk_tagger():
     try:
         import nltk
         nltk.data.find("taggers/averaged_perceptron_tagger")
         return nltk.pos_tag
     except Exception:
         return None
+
+
+@functools.lru_cache(maxsize=1)
+def _nltk_tagger():
+    """Returns nltk.pos_tag if its model data is installed, else None.
+
+    nltk is imported on a thread of its own: its import keeps an ImportError
+    (a default argument in nltk/parse/bllip.py) whose traceback pins every
+    frame of the importing stack, and with them whatever the caller's frames
+    hold (a served model's weights on the card, for one)."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        return pool.submit(_find_nltk_tagger).result()
 
 
 _ADJ_SUFFIXES = ("ous", "ful", "ive", "able", "ible", "al", "ic", "ish",

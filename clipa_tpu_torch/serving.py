@@ -9,18 +9,23 @@ Port of ``clipa_tpu/serving.py``:
     non-blocking copy to the device, kernel launches) while the device still
     computes chunk i, then drains chunk i's embeddings.
   * streaming extraction (:meth:`EmbeddingService.embed_images_to` /
-    :meth:`embed_texts_to`) into a memory-mapped ``.npy``, so corpus size is
-    bounded by disk, not host RAM.
+    :meth:`embed_texts_to`) into a memory-mapped ``.npy`` or a zarr array
+    (``fmt="zarr"``, through ``tensorstore``, imported only then), so corpus
+    size is bounded by disk, not host RAM.
+  * :class:`MultiModelService` -- several checkpoints behind one object,
+    built lazily, with an LRU cap on how many hold weights on the device.
   * a CLI that embeds a directory of images and/or a text file of captions:
 
       python -m clipa_tpu_torch.serving --model ViT-H-14-CL32-GAP-BigVision \
           --pretrained /ckpt/params.npz --vocab data/vocab.txt \
           --images '/data/*.jpg' --texts captions.txt --out /tmp/emb
 
-    Without ``--pretrained`` the weights are random, drawn from ``--seed``.
+    ``--pretrained`` also takes an open_clip state dict (``.bin``, ``.pt``)
+    or a registry tag; the CLIPA-v1 (BPE) models take the merges file as
+    ``--vocab``. Without ``--pretrained`` the weights are random, drawn
+    from ``--seed``. ``--format zarr`` writes zarr stores.
 
-Not ported yet: the zarr ``TensorStoreWriter``, ``MultiModelService`` and
-sharding one service over several GPUs (ROADMAP.md).
+Not ported yet: sharding one service over several GPUs (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import contextlib
 import glob
 import io
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence, Tuple
 
@@ -66,12 +72,68 @@ class MemmapWriter:
         return self._row
 
 
+class TensorStoreWriter:
+    """Row-streaming writer into a chunked zarr array (via tensorstore,
+    imported here: it is an optional dependency).
+
+    Zarr chunks land on disk as they complete, so downstream consumers
+    (ANN index builders, dataloaders) can start reading a partially
+    written corpus.
+    """
+
+    def __init__(self, path: str, num_rows: int, dim: int,
+                 dtype: str = "float32", chunk_rows: int = 8192):
+        import tensorstore as ts
+        self._store = ts.open({
+            "driver": "zarr",
+            "kvstore": {"driver": "file", "path": os.path.abspath(path)},
+            "metadata": {
+                "shape": [num_rows, dim],
+                "chunks": [min(chunk_rows, num_rows or 1), dim],
+                "dtype": np.dtype(dtype).str,
+            },
+            "create": True,
+            "delete_existing": True,
+        }).result()
+        self._row = 0
+        self._pending = []
+        self.path = path
+
+    def write(self, block: np.ndarray) -> None:
+        n = block.shape[0]
+        # Async writes; completion collected at close().
+        self._pending.append(
+            self._store[self._row:self._row + n, :].write(block))
+        self._row += n
+
+    def close(self) -> None:
+        for fut in self._pending:
+            fut.result()
+        self._pending.clear()
+
+    @property
+    def rows_written(self) -> int:
+        return self._row
+
+
+def _make_writer(path: str, fmt: str, num_rows: int, dim: int):
+    if fmt == "npy":
+        return MemmapWriter(path, num_rows, dim)
+    if fmt == "zarr":
+        return TensorStoreWriter(path, num_rows, dim)
+    raise ValueError(f"unknown embedding store format {fmt!r} "
+                     "(expected 'npy' or 'zarr')")
+
+
 class EmbeddingService:
     """Warm CLIP encoders on one device with bucketed batching.
 
-    `pretrained` is a flat npz in the JAX package's format; None draws random
-    weights from `seed`. `device` is explicit: a CUDA device runs the
-    attention kernel, the CPU runs its plain version (tests). `attn_impl`
+    `pretrained` is what ``compat.openclip.create_model`` takes (a flat npz
+    in the JAX package's format, an open_clip state dict, a registry tag);
+    None draws random weights from `seed`. `vocab_path` is the WordPiece
+    vocab or, for the BPE configs, the merges file. `device` is explicit:
+    a CUDA device runs the attention kernel, the CPU runs its plain
+    version (tests). `attn_impl`
     selects the towers' attention path ("plain" serves through the plain
     PyTorch version on any device: the reference the kernel is held to).
     """
@@ -189,8 +251,8 @@ class EmbeddingService:
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         return self._run_bucketed(self._embed_texts, self._tokenize(texts))
 
-    def embed_images_to(self, images, path: str) -> int:
-        """Streams image embeddings to `path` (.npy memmap).
+    def embed_images_to(self, images, path: str, fmt: str = "npy") -> int:
+        """Streams image embeddings to `path` (.npy memmap or zarr dir).
 
         Decode runs on host threads per chunk, so only one bucket of pixels
         (plus the chunks in flight) is ever resident. Returns the number of
@@ -203,16 +265,17 @@ class EmbeddingService:
             images = list(images)
             n = len(images)
             chunks_src = _LazyImageLoader(self, images)
-        writer = MemmapWriter(path, n, self.embed_dim)
+        writer = _make_writer(path, fmt, n, self.embed_dim)
         try:
             self._run_bucketed(self._embed_images, chunks_src, writer=writer)
         finally:
             writer.close()
         return n
 
-    def embed_texts_to(self, texts: Sequence[str], path: str) -> int:
+    def embed_texts_to(self, texts: Sequence[str], path: str,
+                       fmt: str = "npy") -> int:
         tokens = self._tokenize(texts)
-        writer = MemmapWriter(path, tokens.shape[0], self.embed_dim)
+        writer = _make_writer(path, fmt, tokens.shape[0], self.embed_dim)
         try:
             self._run_bucketed(self._embed_texts, tokens, writer=writer)
         finally:
@@ -278,37 +341,102 @@ class _LazyImageLoader:
         return self._svc._load_images(self._items[idx])
 
 
+class MultiModelService:
+    """Several models behind one object.
+
+    Construct with ``{name: kwargs-for-EmbeddingService}``; services build
+    lazily on first use and an LRU cap bounds how many stay live. An
+    evicted service is dropped: nothing here keeps a reference, so its
+    weights and decode threads go with the last reference to it
+    (``torch.cuda.memory_allocated`` falls once no caller still holds it,
+    and a caller that does can go on using it).
+
+        svc = MultiModelService({
+            "clipa-v1-l16": dict(model_name="ViT-L-16-CL8-Syntax-GAP",
+                                 pretrained="/ckpt/open_clip_model.bin",
+                                 vocab_path="/data/bpe_simple_vocab.txt.gz"),
+            "clipa-v2-h14": dict(model_name="ViT-H-14-CL32-GAP-BigVision",
+                                 pretrained="/ckpt/h14.npz",
+                                 vocab_path="data/vocab.txt"),
+        }, max_live=1)
+        z = svc.embed_images("clipa-v1-l16", imgs)
+    """
+
+    def __init__(self, specs: dict, max_live: int = 2):
+        if max_live < 1:
+            raise ValueError("max_live must be >= 1")
+        self._specs = dict(specs)
+        self._max_live = max_live
+        self._live = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    @property
+    def names(self):
+        return sorted(self._specs)
+
+    def get(self, name: str) -> EmbeddingService:
+        with self._lock:
+            if name in self._live:
+                self._live.move_to_end(name)
+                return self._live[name]
+            if name not in self._specs:
+                raise KeyError(
+                    f"unknown model {name!r}; registered: {self.names}")
+            # evict first, dropping our reference before the new weights
+            # load: unless a caller still holds an evicted service, the
+            # device never holds max_live + 1 models
+            while len(self._live) >= self._max_live:
+                self._live.popitem(last=False)
+            svc = EmbeddingService(**self._specs[name])
+            self._live[name] = svc
+            return svc
+
+    def embed_images(self, name: str, images) -> np.ndarray:
+        return self.get(name).embed_images(images)
+
+    def embed_texts(self, name: str, texts) -> np.ndarray:
+        return self.get(name).embed_texts(texts)
+
+    def similarity(self, name: str, images, texts) -> np.ndarray:
+        return self.get(name).similarity(images, texts)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", required=True)
     p.add_argument("--pretrained", default=None,
-                   help="flat npz checkpoint; omitted: random weights")
+                   help="flat npz, open_clip state dict (.bin, .pt) or "
+                        "registry tag; omitted: random weights")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights without --pretrained")
-    p.add_argument("--vocab", default=None)
+    p.add_argument("--vocab", default=None,
+                   help="WordPiece vocab, or the BPE merges file")
     p.add_argument("--images", default=None, help="glob of image files")
     p.add_argument("--texts", default=None, help="file with one caption/line")
     p.add_argument("--out", required=True, help="output directory")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--format", default="npy", choices=("npy", "zarr"),
+                   help="embedding store: streamed .npy memmap or zarr dir")
     args = p.parse_args(argv)
 
     svc = EmbeddingService(args.model, args.pretrained,
                            vocab_path=args.vocab, image_size=args.image_size,
                            device=args.device, seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
+    suffix = "." + args.format
     if args.images:
         files = sorted(glob.glob(args.images))
-        out_path = os.path.join(args.out, "image_embeddings.npy")
-        n = svc.embed_images_to(files, out_path)
+        out_path = os.path.join(args.out, "image_embeddings" + suffix)
+        n = svc.embed_images_to(files, out_path, fmt=args.format)
         with open(os.path.join(args.out, "image_files.txt"), "w") as f:
             f.write("\n".join(files))
         print(f"embedded {n} images -> {out_path}")
     if args.texts:
         with open(args.texts) as f:
             texts = [line.rstrip("\n") for line in f if line.strip()]
-        out_path = os.path.join(args.out, "text_embeddings.npy")
-        n = svc.embed_texts_to(texts, out_path)
+        out_path = os.path.join(args.out, "text_embeddings" + suffix)
+        n = svc.embed_texts_to(texts, out_path, fmt=args.format)
         print(f"embedded {n} texts -> {out_path}")
 
 

@@ -6,8 +6,9 @@ package's, on the same inputs: all exact.
     edges; 2-D and float inputs as the JAX package's ``_to_pil`` takes
     them);
   * every registered op against its JAX counterpart on the same sample and
-    the same seeded ``_rng``: equal outputs, dtypes and generator states
-    after the op (the same draws, in the same order);
+    the same seeded ``_rng`` (AutoAugment, Cutout and RandAugment
+    included): equal outputs, dtypes and generator states after the op
+    (the same draws, in the same order);
   * syntax_tokenize on the golden caption corpus;
   * the pretrain and smoke pp strings end to end, JPEG bytes included.
 
@@ -219,6 +220,15 @@ OP_CASES = {
     "noun_tokenize": ['noun_tokenize(vocab_path="{vocab}", max_len=6)'],
     "lower": ['lower(inkey="txt")', 'lower(inkey="nested_text")'],
     "clip_i1k_label_names": ["clip_i1k_label_names"],
+    "autoaug": ["autoaug", 'autoaug(policy="test")',
+                'autoaug(inkey="image", outkey="aug")'],
+    "cutout": ["cutout", "cutout(pad_size=20)", "cutout(pad_size=100)"],
+    "randaug": ["randaug", "randaug(num_layers=3, magnitude=30)",
+                "randaug(magnitude=9, magnitude_std=0.0, prob=0.5)",
+                "randaug(num_layers=6, magnitude=15, magnitude_std=4.0)"],
+    "randaug_timm": ["randaug_timm(2, 9)",
+                     'randaug_timm(num_layers=4, magnitude=20, '
+                     'inkey="image", outkey="aug")'],
 }
 SPECS = [(name, spec) for name, specs in OP_CASES.items() for spec in specs]
 
@@ -230,10 +240,9 @@ def test_every_registered_op_has_a_case():
     jax_ops = {k.split(".", 1)[1]: fn.__module__
                for k, fn in jax_registry.Registry._registry.items()
                if k.startswith("preprocess_ops.")}
-    # not ported: the AutoAugment/RandAugment modules' ops (ROADMAP A3)
-    assert {m for n, m in jax_ops.items() if n not in ported} == {
-        "clipa_tpu.pp.autoaugment", "clipa_tpu.pp.randaugment"}
-    assert ported <= set(jax_ops)
+    # every JAX op is ported (the AutoAugment/RandAugment modules' ops last)
+    assert {m for n, m in jax_ops.items() if n not in ported} == set()
+    assert ported == set(jax_ops)
 
 
 @pytest.mark.parametrize("name,spec", SPECS)

@@ -237,3 +237,243 @@ print("jax-free")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "jax-free" in proc.stdout
+
+
+def _multi(tiny, max_live=1):
+    from clipa_tpu_torch.serving import MultiModelService
+    cfg_path, ckpt_path, vocab_path = tiny
+    spec = dict(model_name=cfg_path, pretrained=ckpt_path,
+                vocab_path=vocab_path, buckets=(4,), num_workers=1,
+                device="cpu")
+    return MultiModelService({"a": spec, "b": dict(spec),
+                              "c": dict(spec, seed=1, pretrained=None)},
+                             max_live=max_live)
+
+
+def test_multi_model_service_evicts_least_recently_used(tiny):
+    """The JAX package's LRU: services build on first use, at most max_live
+    stay, a hit refreshes; nothing keeps an evicted service's model or
+    decode pool (weakrefs die without a gc pass), so its weights go back to
+    the allocator."""
+    import weakref
+
+    svc = _multi(tiny, max_live=2)
+    assert svc.names == ["a", "b", "c"]
+    imgs = _images(2, seed=5)
+    za = svc.embed_images("a", imgs)
+    model_a = weakref.ref(svc.get("a").clip.model)
+    pool_a = weakref.ref(svc.get("a")._pool)
+    zb = svc.embed_images("b", imgs)
+    np.testing.assert_array_equal(za, zb)   # the same weights
+    svc.embed_texts("b", TEXTS)
+    assert list(svc._live) == ["a", "b"]
+    svc.get("a")                            # a hit: "b" is now the oldest
+    assert list(svc._live) == ["b", "a"]
+    zc = svc.embed_images("c", imgs)        # evicts "b"
+    assert list(svc._live) == ["a", "c"]
+    assert np.abs(zc - za).max() > 1e-3     # other (seeded) weights
+    svc.embed_texts("c", TEXTS)
+    svc.get("b")                            # evicts "a"
+    assert list(svc._live) == ["c", "b"]
+    assert model_a() is None and pool_a() is None
+    assert svc.similarity("b", imgs, TEXTS).shape == (2, len(TEXTS))
+    with pytest.raises(KeyError, match="registered"):
+        svc.get("missing")
+    with pytest.raises(ValueError):
+        _multi(tiny, max_live=0)
+
+
+def test_multi_model_service_evicts_under_a_running_request(tiny,
+                                                             tmp_path):
+    """Thread B switches models while thread A streams paths through the
+    service it got: A's request runs on to its end on the evicted service,
+    chunk after chunk through its decode pool, and writes what the
+    in-RAM path gives."""
+    import threading
+    from PIL import Image
+
+    svc = _multi(tiny, max_live=1)
+    files = []
+    for i, img in enumerate(_images(9, seed=7)):   # buckets of 4: 3 chunks
+        files.append(str(tmp_path / f"{i}.png"))
+        Image.fromarray(img).save(files[-1])
+    held = svc.get("a")
+    want = held.embed_images(files)
+    switched = threading.Event()
+
+    def switch():
+        svc.get("b")
+        switched.set()
+
+    load = held._load_image
+
+    def load_then_wait_for_switch(item):
+        if item == files[0]:
+            threading.Thread(target=switch).start()
+            assert switched.wait(60)
+        return load(item)
+
+    held._load_image = load_then_wait_for_switch
+    out = str(tmp_path / "a.npy")
+    result = {}
+    thread_a = threading.Thread(
+        target=lambda: result.update(n=held.embed_images_to(files, out)))
+    thread_a.start()
+    thread_a.join(120)
+    assert switched.is_set() and list(svc._live) == ["b"]
+    assert result.get("n") == len(files)
+    np.testing.assert_array_equal(np.load(out), want)
+
+
+def test_multi_model_service_matches_jax(tiny):
+    """max_live=1 against the JAX package's MultiModelService on the same
+    checkpoint: the same embeddings (fp32: atol 1e-4), one model live."""
+    from clipa_tpu.serving import MultiModelService as JaxMulti
+
+    cfg_path, ckpt_path, vocab_path = tiny
+    ref = JaxMulti({"a": dict(model_name=cfg_path, pretrained=ckpt_path,
+                              vocab_path=vocab_path, buckets=(4,),
+                              num_workers=0, precision="float32")},
+                   max_live=1)
+    from clipa_tpu_torch.serving import MultiModelService
+    svc = MultiModelService({"a": dict(
+        model_name=cfg_path, pretrained=ckpt_path, vocab_path=vocab_path,
+        buckets=(4,), num_workers=0, precision="float32", device="cpu")},
+        max_live=1)
+    imgs = _images(5, seed=6)
+    with jax.default_matmul_precision("highest"):
+        want_img = ref.embed_images("a", imgs)
+        want_txt = ref.embed_texts("a", TEXTS)
+    np.testing.assert_allclose(svc.embed_images("a", imgs), want_img,
+                               atol=1e-4)
+    np.testing.assert_allclose(svc.embed_texts("a", TEXTS), want_txt,
+                               atol=1e-4)
+
+
+def test_streaming_zarr_matches_npy(tiny, tmp_path):
+    """fmt="zarr" streams to a TensorStore zarr array equal to the .npy
+    path and to the in-RAM path (tensorstore is optional: the op imports it
+    only when asked)."""
+    ts = pytest.importorskip("tensorstore")
+    svc = _service(tiny, buckets=(4,))
+    imgs = _images(6, seed=8)
+    for fmt, name in (("zarr", "img.zarr"), ("npy", "img.npy")):
+        assert svc.embed_images_to(imgs, str(tmp_path / name), fmt=fmt) == 6
+    assert svc.embed_texts_to(TEXTS, str(tmp_path / "txt.zarr"),
+                              fmt="zarr") == len(TEXTS)
+
+    def read(path):
+        return ts.open({"driver": "zarr", "kvstore": {
+            "driver": "file", "path": str(path)}}).result().read().result()
+
+    np.testing.assert_array_equal(read(tmp_path / "img.zarr"),
+                                  np.load(tmp_path / "img.npy"))
+    np.testing.assert_allclose(read(tmp_path / "img.zarr"),
+                               svc.embed_images(imgs), atol=1e-6)
+    np.testing.assert_allclose(read(tmp_path / "txt.zarr"),
+                               svc.embed_texts(TEXTS), atol=1e-6)
+    with pytest.raises(ValueError, match="format"):
+        svc.embed_images_to(imgs, str(tmp_path / "x"), fmt="parquet")
+
+
+def test_cli_zarr(tiny, tmp_path):
+    ts = pytest.importorskip("tensorstore")
+    cfg_path, ckpt_path, vocab_path = tiny
+    for i in range(3):
+        Image.fromarray(_images(1, seed=i)[0]).save(str(tmp_path / f"{i}.png"))
+    captions = tmp_path / "captions.txt"
+    captions.write_text("a photo of a cat\na dog\n")
+    out = tmp_path / "out"
+    main(["--model", cfg_path, "--pretrained", ckpt_path, "--vocab",
+          vocab_path, "--images", str(tmp_path / "*.png"), "--texts",
+          str(captions), "--out", str(out), "--device", "cpu",
+          "--format", "zarr"])
+    arr = ts.open({"driver": "zarr", "kvstore": {
+        "driver": "file", "path": str(out / "image_embeddings.zarr")}}
+    ).result().read().result()
+    assert arr.shape == (3, 32)
+    assert (out / "text_embeddings.zarr").is_dir()
+
+
+BPE_CFG = {
+    "embed_dim": 32,
+    "vision_cfg": {"image_size": 48, "layers": 2, "width": 64,
+                   "head_width": 16, "patch_size": 8,
+                   "global_average_pool": True},
+    "text_cfg": {"context_length": 8, "vocab_size": 49408, "width": 64,
+                 "heads": 4, "layers": 2, "text_mask": "syntax"},
+}
+
+
+def test_bpe_service_from_open_clip_checkpoint_matches_jax(tmp_path):
+    """A CLIPA-v1-style config (BPE, syntax masking at 8 tokens, gap_all)
+    served from an open_clip .bin: the JAX service's embeddings on the same
+    file and captions (fp32: atol 1e-4)."""
+    import chip_smoke
+    import jax.numpy as jnp
+    from clipa_tpu.compat import openclip as jax_openclip
+    from clipa_tpu.models import two_towers
+    from clipa_tpu.serving import EmbeddingService as JaxService
+
+    cfg_path = str(tmp_path / "Tiny-BPE.json")
+    with open(cfg_path, "w") as f:
+        json.dump(BPE_CFG, f)
+    merges = str(tmp_path / "merges.txt")
+    chip_smoke._write_merges(merges)
+    model = two_towers.Model(**jax_openclip._to_two_towers_cfg(BPE_CFG))
+    params = model.init({"params": jax.random.PRNGKey(2)},
+                        jnp.zeros((1, 48, 48, 3)),
+                        jnp.zeros((1, 8), jnp.int32))["params"]
+    sd = jax_openclip.export_torch_state_dict(params)
+    bin_path = str(tmp_path / "open_clip_pytorch_model.bin")
+    torch.save({k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in sd.items()}, bin_path)
+    captions = ["a small brown dog running on the green grass near a river",
+                "a photo of a cat", "two red cars beside an old church"]
+    kw = dict(vocab_path=merges, precision="float32", buckets=(4, 8))
+    ref = JaxService(cfg_path, bin_path, num_workers=0, **kw)
+    svc = EmbeddingService(cfg_path, bin_path, device="cpu", num_workers=0,
+                           **kw)
+    np.testing.assert_array_equal(svc._tokenize(captions),
+                                  ref._tokenize(captions))
+    imgs = _images(5, seed=9)
+    with jax.default_matmul_precision("highest"):
+        want_img = ref.embed_images(imgs)
+        want_txt = ref.embed_texts(captions)
+    np.testing.assert_allclose(svc.embed_images(imgs), want_img, atol=1e-4)
+    np.testing.assert_allclose(svc.embed_texts(captions), want_txt,
+                               atol=1e-4)
+
+
+def test_evicted_syntax_service_is_freed_in_a_fresh_process(tmp_path):
+    """The first syntax-sampled caption of a process imports nltk, whose
+    import keeps a traceback (nltk/parse/bllip.py): the port imports it on a
+    thread of its own, so the serving frames, and the evicted model, are
+    not pinned. A fresh process, where that import has not happened yet."""
+    cfg_path = str(tmp_path / "Tiny-BPE.json")
+    cfg = json.loads(json.dumps(BPE_CFG))
+    cfg["vision_cfg"]["layers"] = cfg["text_cfg"]["layers"] = 1
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    merges = str(tmp_path / "merges.txt")
+    code = f"""
+import sys, weakref
+import chip_smoke
+from clipa_tpu_torch.serving import MultiModelService
+chip_smoke._write_merges({merges!r})
+assert "nltk" not in sys.modules
+spec = dict(model_name={cfg_path!r}, vocab_path={merges!r},
+            device="cpu", num_workers=0, buckets=(4,))
+svc = MultiModelService({{"a": spec, "b": spec}}, max_live=1)
+model = weakref.ref(svc.get("a").clip.model)
+svc.embed_texts("a", ["a small brown dog running on the grass by a river"])
+svc.get("b")
+assert model() is None, "the evicted model is still referenced"
+print("freed")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "freed" in proc.stdout

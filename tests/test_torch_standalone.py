@@ -68,12 +68,15 @@ def test_no_module_imports_the_jax_package(path):
 
 
 def test_the_scan_covers_the_native_losses_and_tools_modules():
-    """The modules ported with the native library, the losses and the data
-    tools are among the scanned sources."""
+    """The modules ported with the native library, the losses, the data
+    tools and the open_clip interop are among the scanned sources."""
     for path in ("native/__init__.py", "native/wordpiece.py",
                  "ops/infonce.py", "tools/laion.py",
                  "tools/bench_pipeline.py", "losses.py", "train/step.py",
-                 "pp/ops_image.py", "data/tfrecord.py", "tokenizer.py"):
+                 "pp/ops_image.py", "data/tfrecord.py", "tokenizer.py",
+                 "compat/openclip.py", "compat/pretrained.py",
+                 "compat/export.py", "pp/bpe_tokenizer.py",
+                 "pp/autoaugment.py", "pp/randaugment.py"):
         assert os.path.join("clipa_tpu_torch", path) in SOURCES, path
 
 
@@ -266,8 +269,15 @@ def test_get_tokenizer_pads_to_the_context_length(tmp_path):
     path = str(tmp_path / "syntax_tower.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="syntax"):
-        openclip.get_tokenizer(path, vocab_path=VOCAB)
+    syntax = openclip.get_tokenizer(path, vocab_path=VOCAB)
+    ref = jax_openclip.get_tokenizer(path, vocab_path=VOCAB)
+    texts = CAPTIONS[:3] + [" ".join(CAPTIONS[:6])]   # the last past 31
+    out = syntax(texts, rng=np.random.default_rng(3))
+    assert out.shape == (4, 32) and out.dtype == np.int32
+    np.testing.assert_array_equal(
+        out, ref(texts, rng=np.random.default_rng(3)))
+    np.testing.assert_array_equal(out[:3], tok(texts[:3]))
+    assert not np.array_equal(out[3], tok(texts[3:])[0])   # words sampled
 
 
 @pytest.mark.parametrize("shape,fmt", [((50, 70, 3), "PNG"),
