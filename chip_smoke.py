@@ -22,7 +22,8 @@ tfrecords at a batch of 1536 through two-pass gradient accumulation on the
 native host library, CLIPA-v2's 224 -> 336 chain, distillation, and
 CLIPA-v1's ``ViT-L-16-CL8-Syntax-GAP`` and open_clip's ``ViT-L-14``
 exported to open_clip checkpoints, loaded back and served behind one
-``MultiModelService``.
+``MultiModelService``, and CoCa (``coca_ViT-L-14``) exported and loaded
+back, served, captioning and trained, in the step and in the trainer.
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
@@ -218,6 +219,36 @@ exported to open_clip checkpoints, loaded back and served behind one
      cold and then warm, with the tokenizer's seconds and the text tower's
      apart; peak memory, the export, save and load seconds. Phase 2 times
      the fused forward at both image towers' bucket-256 shapes.
+ 19. CoCa at ``coca_ViT-L-14``'s full width, seeded weights (the image
+     tower L/14 @224: L = 257, D = 1024, 16 heads of 64, on the fused
+     kernels; the attentional pooler, the embed_cls text tower at 75 ids
+     plus the cls and the caption decoder on the einsum path): (b) the fp32
+     model exported with ``save_open_clip`` (nothing allocated on the
+     card) and loaded back with ``create_model(..., pretrained=<.bin>)``,
+     every tensor bit for bit; (a) ``EmbeddingService`` in bf16 with
+     phase 18's merges file: requests of 5, 64 and 300 uint8 images and two
+     caption batches, shapes, finite values, unit norms, 24 fused forwards
+     per image chunk, cosine >= 0.999 against the plain attention path,
+     images/s and texts/s at bucket 256; (c) ``generate`` on 4 images:
+     beam search (6 beams in 3 groups, 30 ids) and top-k / top-p from a
+     seed, every output from sot, every beam output holding eos, 24 fused
+     forwards per call, the logits at every position of the beam outputs
+     against the plain path (cosine >= 0.999), seconds per caption; (d)
+     ``make_update_fn`` with ``model_name="coca"``, ``loss="coca"`` on
+     ``clipa_pretrain.py:img=L/16,res=224,token_len=76,batchsize=128``'s
+     optimizer (B = 128, bf16 compute, fp32 masters, 76 BPE ids): 24 fused
+     forwards and 24 backwards per step, the kernel path's loss and every
+     gradient against the plain path's (rtol 1e-2, cosine >= 0.99), the
+     image tower at remat "full" against none (every gradient bit for
+     bit, a lower peak), pairs/s (best of two), peak memory, 20 steps on
+     one batch lowering the loss below 0.9x its start and the caption
+     loss, one step at DropPath 0.1; (e) ``train.loop.main`` for 3 steps on
+     a config file setting ``model_name="coca"``, ``loss="coca"`` and the
+     model of coca_ViT-L-14 over that pretrain config at 224 px, from
+     phase 15's JPEG tfrecords (its pp: WordPiece ids, in the CoCa
+     vocabulary's range): finite losses, 24 + 24 fused launches per step.
+     Phases 2 and 3 time the fused forward and backward at the step's B =
+     128, L = 257, D = 1024.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -304,8 +335,9 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
 # without biases that SDPA also computes (at bucket 256, and at the
 # pretrain step's shape, the attention sweep's of phase 10), the H/14
 # unmask-tuning stages (224 px at mask 0.3: L = 180, B = 64 as in phase
-# 12; 336 px at mask 0.4: L = 346, B = 16), and phase 18's image towers at
-# bucket 256 (ViT-L/16 @224: L = 197; ViT-L/14 @224: L = 257; D = 1024)
+# 12; 336 px at mask 0.4: L = 346, B = 16), phase 18's image towers at
+# bucket 256 (ViT-L/16 @224: L = 197; ViT-L/14 @224: L = 257; D = 1024;
+# coca_ViT-L-14's served tower too), and phase 19's CoCa step (B = 128)
 FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
@@ -314,14 +346,16 @@ FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
                 ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
                 ("L/16 @224 bucket 256", 256, 197, 1024, 16, True, False),
-                ("L/14 @224 bucket 256", 256, 257, 1024, 16, True, False))
+                ("L/14 @224 bucket 256", 256, 257, 1024, 16, True, False),
+                ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False))
 
 # Phase 3's timed cases of the fused backward, (name, b, l, d, h, bias,
 # exact): the pretrain step's (L/16 @112), the H/14 @84 headline pretrain
 # (`bench.py` STAGES["pretrain_h14"]: hd 80), the fine-tune step's `auto`
 # route, the exact form without biases that SDPA's backward also computes,
-# and the H/14 unmask-tuning stages (the long scheme), each also in the
-# exact form without biases beside SDPA's backward
+# the H/14 unmask-tuning stages (the long scheme), each also in the exact
+# form without biases beside SDPA's backward, and phase 19's CoCa step
+# (coca_ViT-L-14 @224, B = 128, L = 257, hd 64: the long scheme)
 BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
               ("H/14 @84", 256, 37, 1280, 16, True, False),
               ("fine-tune auto", 128, 138, 1024, 16, True, False),
@@ -329,7 +363,8 @@ BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
               ("H/14 @224 mask 0.3", 64, 180, 1280, 16, True, False),
               ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
               ("H/14 @224 mask 0.3 exact", 64, 180, 1280, 16, False, True),
-              ("H/14 @336 mask 0.4 exact", 16, 346, 1280, 16, False, True))
+              ("H/14 @336 mask 0.4 exact", 16, 346, 1280, 16, False, True),
+              ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -601,11 +636,12 @@ def _set_attn_impl(tower, impl):
 
 
 def _grads(model, params, batch, mask_ratio=0.0, generator=None,
-           teacher=None):
+           teacher=None, apply_loss=None):
     """(loss, {name: fp32 grad}) of the training loss at the current state;
     image tokens masked at `mask_ratio` with noise from `generator`; with a
     `teacher`, the distillation loss against its forward (eval mode, no
-    graph, the unmasked images), as the update step computes it."""
+    graph, the unmasked images), as the update step computes it; with
+    `apply_loss` (the step's loss dispatch), that loss."""
     import torch
     from clipa_tpu_torch import losses
     from clipa_tpu_torch.ops import preprocess
@@ -613,7 +649,9 @@ def _grads(model, params, batch, mask_ratio=0.0, generator=None,
     model.train()
     zi, zt, out = model(images, batch["labels"], mask_ratio=mask_ratio,
                         generator=generator)
-    if teacher is None:
+    if apply_loss is not None:
+        loss, _ = apply_loss(zi, zt, out)
+    elif teacher is None:
         loss, _ = losses.bidirectional_contrastive_loss(zi, zt, out["t"],
                                                         reduction=True)
     else:
@@ -633,15 +671,18 @@ def _compare(loss_a, grads_a, loss_b, grads_b, key_bias_noise=True):
     out of the cosines: they get no gradient in exact arithmetic (a bias
     added to every key shifts a softmax row by a constant), so both sides
     hold rounding noise there, whose direction means nothing; their norm is
-    reported instead, as a share of the query bias's."""
+    reported instead, as a share of the query bias's. (CoCa's attentional
+    pooler's ``k_proj`` bias is such a key bias too.)"""
     import numpy as np
     import torch
-    key_bias = ([n for n in grads_a if n.endswith("/key/bias")]
+    key_bias = ([n for n in grads_a
+                 if n.endswith(("/key/bias", "/k_proj/bias"))]
                 if key_bias_noise else [])
     cosines = {n: torch.nn.functional.cosine_similarity(
         grads_a[n].flatten(), grads_b[n].flatten(), dim=0, eps=1e-30).item()
         for n in grads_a if n not in key_bias}
-    noise = max((max(g[n].norm().item() / g[n.replace("/key/", "/query/")]
+    noise = max((max(g[n].norm().item() / g[n.replace("/key/", "/query/")
+                                            .replace("/k_proj/", "/q_proj/")]
                      .norm().item() for g in (grads_a, grads_b))
                  for n in key_bias), default=0.0)
     worst = min(cosines, key=cosines.get)
@@ -2987,6 +3028,425 @@ def _interop(card):
             "phase_s": phase_s}
 
 
+# Phase 19: CoCa at coca_ViT-L-14's full width (seeded weights): the image
+# tower L/14 @224 (24 x 1024, L = 257, 16 heads of 64: the fused forward,
+# and in training the backward's long scheme), the attentional pooler (256
+# queries, 8 heads of 96), the embed_cls text tower (12 x 768, 75 ids and
+# the cls) and the caption decoder (12 x 768, vocab 49 408) on the einsum
+# path.
+COCA_MODEL = "coca_ViT-L-14"
+COCA_LAYERS = 24
+# the CoCa step at B = 128 (the release trained at 90k; one card), 224 px,
+# 76 BPE ids, with the pretrain config's optimizer (Adam b2 0.95, bf16
+# first moment, wd 0.2) over fp32 masters, bf16 compute
+COCA_TRAIN = "img=L/16,res=224,token_len=76,batchsize=128"
+COCA_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
+                 "fused_fwd": COCA_LAYERS, "fused_bwd": COCA_LAYERS}
+# the learning check's const lr: 20 steps of Adam must move the caption
+# decoder's logits by nats (3e-5, phase 5's, moves them by ~0.4)
+COCA_LEARN_LR = 3e-4
+COCA_DROP_PATH = 0.1
+COCA_TRAINER_STEPS = 3
+# caption generation: 4 images, 6 beams in 3 groups, 30 ids
+COCA_CAPTION_IMAGES = 4
+COCA_BEAMS = (6, 3)
+COCA_SEQ_LEN = 30
+COCA_TOP_K = 5
+COCA_TOP_P = 0.9
+
+_COCA_TRAINER_CONFIG = """
+from clipa_tpu_torch.compat import openclip
+from clipa_tpu_torch.configs import clipa_pretrain
+
+
+def get_config(arg=None):
+    config = clipa_pretrain.get_config({pretrain!r})
+    config.model_name = "coca"
+    config.loss = "coca"
+    config.model = dict(openclip._to_coca_cfg(openclip.get_model_config(
+        {model!r})), dtype="bfloat16")
+    # two batches in the shuffle buffer (the config's 250 000 is 30x the
+    # shards)
+    config.input.shuffle_buffer_size = 2 * config.input.batch_size
+    config.total_steps = {steps}
+    # the config's 3200 warmup steps must be fewer than total_steps
+    config.schedule = [(".*", dict(decay_type="cosine", warmup_steps=2))]
+    config.log_training_steps = 1
+    config.evals = {{}}
+    config.save_ckpt = False
+    config.export_npz = False
+    return config
+"""
+
+
+def _coca(card, data_dir):
+    """Phase 19: CoCa (coca_ViT-L-14) at full width, seeded weights.
+
+    (b) the model in fp32, exported with ``save_open_clip`` (nothing
+    allocated on the card) and loaded back with ``create_model(...,
+    pretrained=<.bin>)``: every tensor bit for bit; (a) the
+    ``EmbeddingService`` in bf16 with a BPE merges file written here:
+    requests of 5, 64 and 300 uint8 images and two caption batches, shapes,
+    finite values, unit norms, COCA_LAYERS fused forwards per image chunk,
+    per-row cosine >= MIN_COSINE against a service on the plain attention
+    path, images/s and texts/s at bucket 256; (c) ``generate`` on
+    COCA_CAPTION_IMAGES images: beam search (COCA_BEAMS) and top-k / top-p
+    sampling from SEED, every output from sot, every beam output holding
+    eos, COCA_LAYERS fused forwards per call (the images encoded once), the
+    logits at every position of the beam outputs against the plain path's
+    (cosine >= MIN_COSINE), seconds per caption; (d) the step of
+    ``make_update_fn(model_name="coca", loss="coca")`` at COCA_TRAIN: one
+    step launches COCA_LAUNCHES, the kernel path's loss and gradients
+    against the plain path's (both at remat "full"; LOSS_RTOL,
+    MIN_GRAD_COSINE), the image tower at remat "full" against none at rate
+    0 (every gradient bit for bit, a lower peak), pairs/s (best of two),
+    peak memory, 20 steps at COCA_LEARN_LR lowering the total loss below
+    LEARN_FACTOR x its start and the caption loss, one step at DropPath
+    COCA_DROP_PATH with a finite loss; (e) ``train.loop.main`` for
+    COCA_TRAINER_STEPS steps on a config file setting model_name, loss and
+    the model of COCA_MODEL over COCA_TRAIN with `data_dir` (phase 15's
+    JPEG tfrecords; the pretrain config's pp: WordPiece ids, in the CoCa
+    vocabulary's range): finite losses, COCA_LAUNCHES per step."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.compat import export, openclip
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.ops import preprocess
+    from clipa_tpu_torch.serving import EmbeddingService
+    from clipa_tpu_torch.train import loop, step
+
+    t_phase = time.perf_counter()
+    reset, read = _attention_counters()
+    work = tempfile.TemporaryDirectory()
+    merges = os.path.join(work.name, "bpe_merges.txt")
+    _write_merges(merges)
+    seconds, out = {}, {}
+    torch.cuda.empty_cache()
+
+    # (b) export and load back
+    t0 = time.perf_counter()
+    built = openclip.create_model(COCA_MODEL, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in built.model.parameters())
+    folder = os.path.join(work.name, "coca")
+    allocated = _bytes_allocated()
+    t0 = time.perf_counter()
+    export.save_open_clip(built, COCA_MODEL, folder)
+    seconds["save_open_clip"] = time.perf_counter() - t0
+    if _bytes_allocated() != allocated:
+        raise RuntimeError(f"the CoCa export allocated "
+                           f"{_bytes_allocated() - allocated} bytes on the "
+                           f"card")
+    t0 = time.perf_counter()
+    loaded = openclip.create_model(
+        COCA_MODEL, os.path.join(folder, export.WEIGHTS_FILENAME),
+        device="cuda")
+    torch.cuda.synchronize()
+    seconds["load"] = time.perf_counter() - t0
+    if not isinstance(loaded, openclip.CoCaModel):
+        raise RuntimeError(f"create_model({COCA_MODEL}) gave {type(loaded)}")
+    out["tensors_bit_for_bit"] = _bit_equal_models(
+        built.model, loaded.model, f"{COCA_MODEL} exported and loaded back")
+    del built, loaded
+    torch.cuda.empty_cache()
+    print(f"{card}: {COCA_MODEL}: {n_params / 1e6:.1f}M parameters; "
+          f"exported and loaded back, {out['tensors_bit_for_bit']} tensors "
+          f"bit for bit; seconds "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }", flush=True)
+
+    # (a) the service
+    svc = EmbeddingService(COCA_MODEL, None, vocab_path=merges,
+                           device="cuda", precision="bfloat16", seed=SEED,
+                           num_workers=0)
+    rng = np.random.RandomState(SEED)
+    requests = [rng.randint(0, 256, (n, 224, 224, 3), np.uint8)
+                for n in (5, 64, 300)]
+    captions = list(INTEROP_CAPTIONS) * 5
+    chunks = sum(len(list(svc._chunks(r))) for r in requests)
+    reset()
+    z_images = [svc.embed_images(r) for r in requests]
+    serve_launches = read()["fused_fwd"]
+    z_texts = [svc.embed_texts(captions[:7]), svc.embed_texts(captions)]
+    if read()["fused_fwd"] != serve_launches:
+        raise RuntimeError("CoCa's text tower launched the fused kernel")
+    dim = svc.embed_dim
+    for r, z in zip(requests, z_images):
+        _check_embeddings(z, len(r), dim, f"CoCa: {len(r)} images")
+    _check_embeddings(z_texts[0], 7, dim, "CoCa: 7 texts")
+    _check_embeddings(z_texts[1], len(captions), dim,
+                      f"CoCa: {len(captions)} texts")
+    if serve_launches != COCA_LAYERS * chunks:
+        raise RuntimeError(f"CoCa serving launched the fused forward "
+                           f"{serve_launches} times over {chunks} chunks, "
+                           f"expected {COCA_LAYERS * chunks}")
+    plain = EmbeddingService(COCA_MODEL, None, vocab_path=merges,
+                             device="cuda", precision="bfloat16", seed=SEED,
+                             num_workers=0, attn_impl="plain")
+    before = read()
+    serve_cos = 1.0
+    for r, z in zip(requests[:2], z_images[:2]):
+        zp = plain.embed_images(r)
+        cos = (z * zp).sum(1) / (np.linalg.norm(z, axis=1)
+                                 * np.linalg.norm(zp, axis=1))
+        serve_cos = min(serve_cos, float(cos.min()))
+    if read() != before:
+        raise RuntimeError("the plain CoCa service launched a kernel")
+    if serve_cos < MIN_COSINE:
+        raise RuntimeError(f"CoCa service embeddings differ from the plain "
+                           f"path: cosine {serve_cos} < {MIN_COSINE}")
+    batch = rng.randint(0, 256, (1024, 224, 224, 3), np.uint8)
+    texts = _seeded_captions(rng, TEXT_REQUEST)
+    img_rate = _rate(lambda: svc.embed_images(batch), len(batch))
+    img_rate_plain = _rate(lambda: plain.embed_images(batch), len(batch))
+    svc.embed_texts(texts)   # the tokenizer's word cache warm
+    txt_rate = _rate(lambda: svc.embed_texts(texts), len(texts))
+    print(f"{card}: CoCa served {sum(len(r) for r in requests)} images in "
+          f"{chunks} chunks ({serve_launches} fused forwards) and "
+          f"{7 + len(captions)} texts; per-row cosine against the plain "
+          f"path min {serve_cos:.6f}; images/s at bucket 256 {img_rate:.2f} "
+          f"(plain path {img_rate_plain:.2f}); texts/s at bucket 256 "
+          f"{txt_rate:.2f} ({len(texts)} seeded captions, cache warm)",
+          flush=True)
+    out["serving"] = {"chunks": chunks, "launches": serve_launches,
+                      "min_cosine": serve_cos, "images_per_s": img_rate,
+                      "images_per_s_plain": img_rate_plain,
+                      "texts_per_s": txt_rate}
+
+    # (c) captions
+    clip = svc.clip
+    sot, eos = 49406, 49407
+    images = preprocess.normalize_uint8(torch.from_numpy(
+        requests[0][:COCA_CAPTION_IMAGES]).cuda())
+    kinds = {"beam_search": dict(num_beams=COCA_BEAMS[0],
+                                 num_beam_groups=COCA_BEAMS[1]),
+             "top_k": dict(top_k=COCA_TOP_K, seed=SEED),
+             "top_p": dict(top_p=COCA_TOP_P, seed=SEED)}
+    captioned, caption_s, gen_launches = {}, {}, {}
+    for kind, kw in kinds.items():
+        reset()
+        t0 = time.perf_counter()
+        ids = clip.generate(images, seq_len=COCA_SEQ_LEN,
+                            generation_type=kind, **kw)
+        caption_s[kind] = (time.perf_counter() - t0) / len(ids)
+        gen_launches[kind] = read()["fused_fwd"]
+        captioned[kind] = ids
+        if ids.shape[0] != COCA_CAPTION_IMAGES or (ids[:, 0] != sot).any():
+            raise RuntimeError(f"{kind} captions {ids.shape} do not all "
+                               f"start with sot: {ids[:, :3]}")
+        if kind == "beam_search" and not (ids == eos).any(axis=1).all():
+            raise RuntimeError(f"beam outputs without eos: {ids}")
+        if gen_launches[kind] != COCA_LAYERS:
+            raise RuntimeError(f"generate ({kind}) launched the fused "
+                               f"forward {gen_launches[kind]} times, expected "
+                               f"{COCA_LAYERS} (the images once)")
+
+    def logits(impl):   # every position of the beam outputs
+        _set_attn_impl(clip.model.img, impl)
+        with torch.inference_mode():
+            _, _, tokens_img = clip.model.encode_image(images)
+            ids = torch.as_tensor(captioned["beam_search"],
+                                  device=clip.device)
+            _, _, o = clip.model(None, ids, embed_cls=False)
+            return clip.model.decoder(o["txt/tokens"], tokens_img)
+
+    lk, lp = logits("auto"), logits("plain")
+    _set_attn_impl(clip.model.img, "auto")
+    logit_cos = float(torch.nn.functional.cosine_similarity(
+        lk, lp, dim=-1).min())
+    if logit_cos < MIN_COSINE:
+        raise RuntimeError(f"CoCa's caption logits differ from the plain "
+                           f"path: cosine {logit_cos} < {MIN_COSINE}")
+    print(f"{card}: CoCa captions of {COCA_CAPTION_IMAGES} images, "
+          f"{COCA_SEQ_LEN} ids: seconds per caption "
+          f"{ {k: round(v, 4) for k, v in caption_s.items()} }; lengths "
+          f"{ {k: v.shape[1] for k, v in captioned.items()} }; fused "
+          f"forwards per call {gen_launches}; logits at every position of "
+          f"the beam outputs against the plain path: cosine min "
+          f"{logit_cos:.6f}; beam ids {captioned['beam_search'][0][:8]}",
+          flush=True)
+    out["captions"] = {"seconds_per_caption": caption_s,
+                       "lengths": {k: int(v.shape[1])
+                                   for k, v in captioned.items()},
+                       "launches": gen_launches,
+                       "logit_min_cosine": logit_cos}
+    del svc, plain, clip, lk, lp
+    torch.cuda.empty_cache()
+
+    # (d) the step
+    config = clipa_pretrain.get_config(COCA_TRAIN)
+    config.model_name, config.loss = "coca", "coca"
+    config.model = dict(openclip._to_coca_cfg(openclip.get_model_config(
+        COCA_MODEL)), dtype="bfloat16")
+    b = config.input.batch_size
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    params = state["params"]
+    tok = openclip.get_tokenizer(COCA_MODEL, vocab_path=merges)
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 255, (b, 224, 224, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(
+                 tok(_seeded_captions(rng, b))).cuda()}
+    apply_loss = step._make_loss_dispatch("coca", config)
+    encoder = model.img.Transformer
+
+    # kernel path vs plain path (the image tower rematted on both sides:
+    # the plain path's fp32 scores of 24 layers would not fit beside)
+    encoder.remat_policy = "full"
+    loss_k, grads_k = _grads(model, params, batch, apply_loss=apply_loss)
+    before = read()
+    _set_attn_impl(model.img, "plain")
+    loss_p, grads_p = _grads(model, params, batch, apply_loss=apply_loss)
+    _set_attn_impl(model.img, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("CoCa step, kernel vs plain path", loss_k, loss_p, cmp,
+                   LOSS_RTOL)
+    del grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the CoCa kernel path's step differs from the "
+                           "plain path's")
+
+    # remat "full" against none at rate 0: every gradient bit for bit
+    remat_peaks = {}
+    for policy in ("none", "full"):
+        encoder.remat_policy = policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss_r, grads_r = _grads(model, params, batch, apply_loss=apply_loss)
+        remat_peaks[policy] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if policy == "none":
+            grads_none = grads_r
+    differ = [n for n in grads_k if not _bits_equal(grads_k[n], grads_r[n])]
+    same_none = [n for n in grads_k
+                 if not _bits_equal(grads_none[n], grads_r[n])]
+    encoder.remat_policy = "none"
+    print(f"CoCa step, image tower remat full vs none: {len(same_none)} of "
+          f"{len(grads_r)} gradients differ ({same_none[:4]}); full twice: "
+          f"{len(differ)} differ; peak device memory "
+          f"{ {k: round(v, 2) for k, v in remat_peaks.items()} } GiB",
+          flush=True)
+    if same_none or differ:
+        raise RuntimeError(f"remat full changed gradients: {same_none[:5]} "
+                           f"{differ[:5]}")
+    if not remat_peaks["full"] < remat_peaks["none"]:
+        raise RuntimeError(f"remat full did not lower the peak: "
+                           f"{remat_peaks}")
+    del grads_k, grads_r, grads_none
+
+    # the main path: one update step, counters read around it
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=b))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    state, meas = update(state, batch)
+    torch.cuda.synchronize()
+    step_launches = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"CoCa step: loss {float(meas['training_loss']):.6f} (contrastive "
+          f"{float(meas['contrastive_loss']):.4f}, caption "
+          f"{float(meas['caption_loss']):.4f}); kernel launches "
+          f"{step_launches} (expected {COCA_LAUNCHES}); peak device memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    if step_launches != COCA_LAUNCHES:
+        raise RuntimeError(f"the CoCa step launched {step_launches}, "
+                           f"expected {COCA_LAUNCHES}")
+    if not all(bool(torch.isfinite(v)) for v in meas.values()):
+        raise RuntimeError(f"non-finite measurements {meas}")
+    rate = max(b * _steps_per_s(update, state, batch, 3) for _ in range(2))
+    print(f"{card}: CoCa pairs/s at B={b} {rate:.2f}", flush=True)
+
+    # DropPath in training: one step at COCA_DROP_PATH
+    rates = np.linspace(0.0, COCA_DROP_PATH, COCA_LAYERS)
+    for i in range(COCA_LAYERS):
+        getattr(encoder, f"encoderblock_{i}").drop_path.rate = float(rates[i])
+    state, meas = update(state, batch)
+    drop_loss = float(meas["training_loss"])
+    for i in range(COCA_LAYERS):
+        getattr(encoder, f"encoderblock_{i}").drop_path.rate = 0.0
+    if not np.isfinite(drop_loss):
+        raise RuntimeError(f"the DropPath step's loss is {drop_loss}")
+
+    # learning check: a fresh optimizer, const schedule, lr override
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.lr = COCA_LEARN_LR
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=LEARN_STEPS, batch_size=b))
+    update = step.make_update_fn(model, tx, config, LEARN_STEPS)
+    curve, caption = [], []
+    for _ in range(LEARN_STEPS):
+        state, meas = update(state, batch)
+        curve.append(float(meas["training_loss"]))
+        caption.append(float(meas["caption_loss"]))
+    print(f"CoCa: one step at DropPath {COCA_DROP_PATH}: loss "
+          f"{drop_loss:.4f}; learning check, {LEARN_STEPS} steps on one "
+          f"batch, const lr {COCA_LEARN_LR}: loss {curve[0]:.4f} -> "
+          f"{curve[-1]:.4f} ({' '.join(f'{x:.3f}' for x in curve)}), "
+          f"caption loss {caption[0]:.4f} -> {caption[-1]:.4f}", flush=True)
+    if not (np.isfinite(curve).all() and curve[-1] < LEARN_FACTOR * curve[0]
+            and caption[-1] < caption[0]):
+        raise RuntimeError(f"the CoCa loss did not fall: {curve} {caption}")
+    out["step"] = {"launches": step_launches, "pairs_per_s": rate,
+                   "peak_gb": peak_gb, "loss_rel": cmp["loss_rel"],
+                   "min_cosine": cmp["min_cosine"],
+                   "remat_peak_gb": remat_peaks, "drop_path_loss": drop_loss,
+                   "learning": [curve[0], curve[-1]],
+                   "caption_learning": [caption[0], caption[-1]]}
+    del model, state, tx, update, params
+    torch.cuda.empty_cache()
+
+    # (e) the trainer from phase 15's JPEG tfrecords
+    per_step, stamps = [], []
+    path = os.path.join(work.name, "coca_trainer_config.py")
+    with open(path, "w") as f:
+        f.write(_COCA_TRAINER_CONFIG.format(
+            pretrain=f"{COCA_TRAIN},data_dir={data_dir}", model=COCA_MODEL,
+            steps=COCA_TRAINER_STEPS))
+    argv = [f"--config={path}",
+            f"--workdir={os.path.join(work.name, 'run')}", "--device=cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    with _Patched((step, "make_update_fn", _counting(per_step, stamps))):
+        t0 = time.perf_counter()
+        loop.main(argv)
+        run_s = time.perf_counter() - t0
+    trainer_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = _rows(os.path.join(work.name, "run", "metrics.jsonl"))
+    rows = [r for r in rows if "training_loss" in r]
+    losses = [r["training_loss"] for r in rows]
+    if [r["step"] for r in rows] != list(range(1, COCA_TRAINER_STEPS + 1)) \
+            or not np.isfinite(losses).all() \
+            or not all(np.isfinite(r["caption_loss"]) for r in rows):
+        raise RuntimeError(f"CoCa metrics.jsonl: {rows}")
+    if per_step != [COCA_LAUNCHES] * COCA_TRAINER_STEPS:
+        raise RuntimeError(f"CoCa trainer steps launched {per_step}, "
+                           f"expected {COCA_LAUNCHES} each")
+    trainer_rate = b * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    work.cleanup()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"{card}: CoCa trainer (train.loop.main, {COCA_TRAINER_STEPS} "
+          f"steps from JPEG tfrecords): losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}, pairs/s over steps "
+          f"2-{COCA_TRAINER_STEPS} {trainer_rate:.2f}, peak "
+          f"{trainer_peak:.2f} GiB, run {run_s:.2f} s; phase 19 in "
+          f"{phase_s:.2f} s", flush=True)
+    out["trainer"] = {"losses": losses, "launches": per_step[0],
+                      "pairs_per_s": trainer_rate, "peak_gb": trainer_peak,
+                      "run_s": run_s}
+    return {**out, "seconds": seconds, "n_params": n_params,
+            "phase_s": phase_s,
+            "launches": {"serving": serve_launches,
+                         "generate": sum(gen_launches.values()),
+                         "training_step": step_launches,
+                         "trainer_step": per_step[0]}}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -3365,7 +3825,6 @@ def main() -> int:
     # file:// workdirs
     chain = _unmask_chain(card, os.path.join(keep.name, "params.npz"),
                           os.path.join(keep.name, "laion"))
-    keep.cleanup()
 
     # 17. distillation from a frozen H/14 teacher, and lwd, in the trainer
     distill = _distill(card)
@@ -3373,6 +3832,11 @@ def main() -> int:
     # 18. open_clip interop: CLIPA-v1's L/16 and open_clip's L/14 exported,
     # loaded back and served behind one MultiModelService
     interop = _interop(card)
+
+    # 19. CoCa: export and load back, serve, caption, train, the trainer
+    # (from phase 15's shards)
+    coca = _coca(card, os.path.join(keep.name, "laion"))
+    keep.cleanup()
 
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
@@ -3419,6 +3883,11 @@ def main() -> int:
     }, "interop": {
         "configs": list(INTEROP_MODELS), "openai_config": OPENAI_CONFIG,
         "bpe_merges": BPE_MERGES, **interop,
+    }, "coca": {
+        "model": COCA_MODEL,
+        "train_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                        f"{COCA_TRAIN} (model_name=coca, loss=coca)",
+        **coca,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -3430,7 +3899,11 @@ def main() -> int:
                      + evals["tool_launches"]["fused_fwd"]
                      + chain["launches"]["fused_fwd"]
                      + distill["launches"]["fused_fwd"]
-                     + interop["launches"]),
+                     + interop["launches"]
+                     + coca["launches"]["serving"]
+                     + coca["launches"]["generate"]
+                     + coca["launches"]["training_step"]["fused_fwd"]
+                     + coca["launches"]["trainer_step"]["fused_fwd"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
@@ -3443,7 +3916,13 @@ def main() -> int:
             "zeroshot_eval": evals["zeroshot_launches"]["fused_fwd"],
             "eval_zeroshot_tool": evals["tool_launches"]["fused_fwd"],
             **{f"interop_serving {name}": m["launches"]
-               for name, m in interop["models"].items()}},
+               for name, m in interop["models"].items()},
+            "coca_serving": coca["launches"]["serving"],
+            "coca_generate": coca["launches"]["generate"],
+            "coca_training_step":
+                coca["launches"]["training_step"]["fused_fwd"],
+            "coca_trainer_step":
+                coca["launches"]["trainer_step"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
@@ -3465,7 +3944,9 @@ def main() -> int:
         "replaces": "clipa_tpu/ops/block_attention.py:672",
         "launches": (train["launches"]["bwd"]
                      + chain["launches"]["fused_bwd"]
-                     + distill["launches"]["fused_bwd"]),
+                     + distill["launches"]["fused_bwd"]
+                     + coca["launches"]["training_step"]["fused_bwd"]
+                     + coca["launches"]["trainer_step"]["fused_bwd"]),
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
@@ -3474,7 +3955,11 @@ def main() -> int:
             "trainer_step": trainer["launches"]["fused_bwd"],
             "trainer_accumulated_step": jpeg["launches"]["fused_bwd"],
             "unmask_chain_trainer_step": chain["launches"]["fused_bwd"],
-            "distilled_trainer_step": distill["launches"]["fused_bwd"]},
+            "distilled_trainer_step": distill["launches"]["fused_bwd"],
+            "coca_training_step":
+                coca["launches"]["training_step"]["fused_bwd"],
+            "coca_trainer_step":
+                coca["launches"]["trainer_step"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],

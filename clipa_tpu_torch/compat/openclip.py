@@ -1,16 +1,18 @@
 """open_clip-style factory for the ported CLIPA models.
 
-Port of the ViT/text half of ``clipa_tpu/compat/openclip.py``:
+Port of the ViT/text and CoCa half of ``clipa_tpu/compat/openclip.py``:
 
   * model configs by name or ``.json`` path (``model_configs/`` beside this
-    module holds the ViT + text-transformer JSON files of
+    module holds the ViT + text-transformer and CoCa JSON files of
     ``clipa_tpu/compat/model_configs/``) and their translation to two-tower
-    kwargs;
+    and CoCa kwargs;
   * ``create_model`` (seeded random weights, a flat npz in the JAX
     package's format, an open_clip torch state dict ``.pt``/``.pth``/
     ``.bin``, or a pretrained-registry tag), ``create_model_and_transforms``,
     ``create_model_from_pretrained``, ``image_transform``, ``create_loss``;
-  * ``CLIPModel.encode_image/encode_text``;
+  * ``CLIPModel.encode_image/encode_text``, and ``CoCaModel.generate``
+    (caption generation: top-k, top-p and grouped beam search; the logits
+    processors are ``compat/_logits.py``);
   * ``get_tokenizer``: WordPiece for the BigVision configs, OpenAI's BPE for
     the 49408-vocab ones (a merges file by path), with syntax-priority word
     sampling where a config says ``text_mask: syntax``;
@@ -21,8 +23,8 @@ Port of the ViT/text half of ``clipa_tpu/compat/openclip.py``:
     CLIP releases (a plain state dict or a TorchScript archive).
 
 Not ported yet (ROADMAP A10, each raises NotImplementedError naming it):
-timm, ModifiedResNet, HF-text and CoCa towers, their state-dict maps and
-tokenizers.
+timm, ModifiedResNet and HF-text towers (coca_roberta-ViT-B-32 among
+them), their state-dict maps and tokenizers.
 """
 
 from __future__ import annotations
@@ -75,8 +77,6 @@ def _to_two_towers_cfg(cfg: dict, *, image_size: Optional[int] = None,
     """open_clip JSON fields -> clipa_tpu_torch.models.two_towers kwargs
     (the ViT/text branch of the JAX translation)."""
     v, t = cfg["vision_cfg"], cfg["text_cfg"]
-    if "multimodal_cfg" in cfg:
-        raise _unported("the CoCa model")
     if "timm_model_name" in v:
         raise _unported(f"the timm vision trunk {v['timm_model_name']!r}")
     if isinstance(v["layers"], (list, tuple)):
@@ -116,6 +116,50 @@ def _to_two_towers_cfg(cfg: dict, *, image_size: Optional[int] = None,
                 temperature_init=1 / 0.07)
 
 
+def _to_coca_cfg(cfg: dict, *, image_size: Optional[int] = None) -> dict:
+    """coca_*.json -> clipa_tpu_torch.models.coca.Model kwargs. The text
+    tower is the ``embed_cls`` one with ``context_length + 1`` positions;
+    the decoder's vocabulary is the multimodal config's, else the text
+    config's (default 49408)."""
+    v, t, m = cfg["vision_cfg"], cfg["text_cfg"], cfg["multimodal_cfg"]
+    if "hf_model_name" in t:
+        raise _unported(f"the HF text tower {t['hf_model_name']!r} under "
+                        "the CoCa decoder (hf_text)")
+    quick = bool(cfg.get("quick_gelu"))
+    width = v["width"]
+    image = dict(
+        variant=None,
+        image_size=image_size or v["image_size"],
+        width=width,
+        depth=v["layers"],
+        num_heads=width // v.get("head_width", 64),
+        mlp_dim=int(round(width * v.get("mlp_ratio", 4.0))),
+        patch_size=(v["patch_size"], v["patch_size"]),
+        posemb="learn",
+        ln_pre=bool(v.get("ln_pre", True)),
+        gelu_approx="quick" if quick else
+        (v.get("gelu_approximate", "none") == "tanh"),
+        ln_eps=1e-5,
+    )
+    text = {**_text_tower_cfg(t, quick), "embed_cls": True}
+    mm = dict(
+        vocab_size=m.get("vocab_size", t.get("vocab_size", 49408)),
+        width=m["width"],
+        depth=m["layers"],
+        num_heads=m["heads"],
+        mlp_dim=int(round(m["width"] * m.get("mlp_ratio", 4.0))),
+        gelu_approx="quick" if quick else False,
+    )
+    return dict(
+        image=image, text=text, multimodal_cfg=mm,
+        out_dim=cfg["embed_dim"],
+        attentional_pool=bool(v.get("attentional_pool")),
+        n_queries=int(v.get("n_queries", 256)),
+        attn_pooler_heads=int(v.get("attn_pooler_heads", 8)),
+        temperature_init=1 / 0.07,
+    )
+
+
 def _text_tower_cfg(t: dict, quick: bool) -> dict:
     text_pool = {"big_vision_last": "last", "big_vision_tok": "tok",
                  "open_clip": "eot"}[t.get("pool_style", "open_clip")]
@@ -136,7 +180,8 @@ def _text_tower_cfg(t: dict, quick: bool) -> dict:
 
 
 class CLIPModel:
-    """A two-tower model on its device plus the config it was built from."""
+    """A two-tower (or CoCa) model on its device plus the config it was
+    built from."""
 
     def __init__(self, model, config: dict, image_size: int,
                  context_length: int, device: torch.device):
@@ -146,16 +191,21 @@ class CLIPModel:
         self.context_length = context_length
         self.device = device
 
-    @torch.inference_mode()
-    def encode_image(self, image) -> torch.Tensor:
-        """Normalized float images, (N, H, W, 3) or (N, 3, H, W) (or one
-        image without N) -> (N, C) unit-norm fp32 embeddings."""
+    def _images(self, image) -> torch.Tensor:
+        """(N, H, W, 3) or (N, 3, H, W) images (or one without N) on the
+        model's device, NHWC."""
         image = torch.as_tensor(image, device=self.device)
         if image.dim() == 3:
             image = image[None]
         if image.shape[1] == 3 and image.shape[-1] != 3:
             image = image.permute(0, 2, 3, 1)  # accept NCHW
-        zimg, _, _ = self.model(image, None)
+        return image
+
+    @torch.inference_mode()
+    def encode_image(self, image) -> torch.Tensor:
+        """Normalized float images, (N, H, W, 3) or (N, 3, H, W) (or one
+        image without N) -> (N, C) unit-norm fp32 embeddings."""
+        zimg, _, _ = self.model(self._images(image), None)
         return zimg
 
     @torch.inference_mode()
@@ -175,20 +225,188 @@ class CLIPModel:
         return zimg, ztxt, self.logit_scale
 
 
+class CoCaModel(CLIPModel):
+    """CLIPModel plus caption generation (the JAX package's
+    ``CoCaModel.generate``, the reference CoCa.generate).
+
+    Each step's logits run on the model's device over the prefix padded to
+    `seq_len` (causal masking makes the pad suffix inert, so one shape
+    serves every step); the images are encoded once per call. The
+    processors (``compat/_logits.py``), sampling (``np.random.default_rng(
+    seed)``) and the beam bookkeeping run on the host, as in the JAX code.
+    """
+
+    @torch.inference_mode()
+    def generate(self, image, text=None, seq_len=30, max_seq_len=77,
+                 temperature=1.0, generation_type="beam_search",
+                 top_p=0.1, top_k=1, pad_token_id=None, eos_token_id=None,
+                 sot_token_id=None, num_beams=6, num_beam_groups=3,
+                 min_seq_len=5, repetition_penalty=1.0,
+                 fixed_output_length=False, seed=0) -> np.ndarray:
+        """Captions of normalized float images: (N, length) int64 ids,
+        each starting with sot. `generation_type` is "beam_search"
+        (`num_beams` in `num_beam_groups` groups; every output ends with
+        eos), "top_k" or "top_p" (sampling at `temperature` from `seed`;
+        `text` may give each row's prefix)."""
+        from clipa_tpu_torch.compat import _logits
+
+        sot = 49406 if sot_token_id is None else int(sot_token_id)
+        eos = 49407 if eos_token_id is None else int(eos_token_id)
+        pad = (int(self.config.get("pad_id", 0)) if pad_token_id is None
+               else int(pad_token_id))
+        if seq_len <= min_seq_len:
+            raise ValueError("seq_len must exceed min_seq_len")
+        _, _, image_tokens = self.model.encode_image(self._images(image))
+        b = image_tokens.shape[0]
+
+        def processors(prefix, scores):
+            scores = _logits.min_length(prefix, scores,
+                                        min_length=min_seq_len,
+                                        eos_token_id=eos)
+            return _logits.repetition_penalty(prefix, scores,
+                                              penalty=repetition_penalty)
+
+        def step_logits(tokens_np, cur_len, tokens_img):
+            """Next-token logits for each row of a (b', cur_len) prefix."""
+            buf = np.full((tokens_np.shape[0], seq_len), pad, np.int64)
+            buf[:, :cur_len] = tokens_np
+            _, _, out = self.model(
+                None, torch.as_tensor(buf, device=self.device),
+                embed_cls=False)
+            logits = self.model.decoder(out["txt/tokens"], tokens_img)
+            return logits[:, cur_len - 1].float().cpu().numpy()
+
+        if generation_type == "beam_search":
+            out = _beam_search(
+                lambda t, n: step_logits(t, n, image_tokens.repeat_interleave(
+                    num_beams, dim=0)),
+                batch_size=b, num_beams=num_beams,
+                num_beam_groups=num_beam_groups, seq_len=seq_len, sot=sot,
+                eos=eos, pad=pad, processors=processors)
+            if fixed_output_length and out.shape[1] < seq_len:
+                out = np.concatenate(
+                    [out, np.full((b, seq_len - out.shape[1]), pad,
+                                  out.dtype)], axis=1)
+            return out
+
+        if generation_type == "top_p":
+            warper = functools.partial(_logits.top_p, top_p=top_p)
+        elif generation_type == "top_k":
+            warper = functools.partial(_logits.top_k, top_k=top_k)
+        else:
+            raise ValueError(
+                "generation_type must be top_k | top_p | beam_search")
+
+        rng = np.random.default_rng(seed)
+        if text is None:
+            out = np.full((b, 1), sot, np.int64)
+        else:
+            out = np.asarray(text, np.int64)
+            if out.ndim == 1:
+                out = out[None]
+        while out.shape[1] < seq_len:
+            cur = out[:, -max_seq_len:]
+            logits = step_logits(cur, cur.shape[1], image_tokens)
+            done = (out[:, -1] == eos) | (out[:, -1] == pad)
+            if done.all() and not fixed_output_length:
+                break
+            prefix = torch.tensor(cur)
+            filtered = warper(prefix, processors(prefix,
+                                                 torch.tensor(logits)))
+            probs = torch.softmax(filtered / temperature, dim=-1).numpy()
+            if out.shape[1] + 1 == seq_len:
+                sample = np.full((b,), eos, np.int64)
+            else:
+                sample = np.array(
+                    [rng.choice(probs.shape[1], p=p / p.sum())
+                     for p in probs], np.int64)
+            sample = np.where(done, pad, sample)
+            out = np.concatenate([out, sample[:, None]], axis=1)
+        return out
+
+
+def _beam_search(step_logits, *, batch_size, num_beams, num_beam_groups,
+                 seq_len, sot, eos, pad, processors) -> np.ndarray:
+    """The reference's grouped beam search on the host: groups of g =
+    num_beams / num_beam_groups beams, the first of each group live at the
+    start, 2 x g candidates per group and step, a candidate ending in eos
+    finished at its mean log-prob; at the end the open beams compete with
+    the finished ones; the best of each row gets eos appended."""
+    g = num_beams // num_beam_groups
+    tokens = np.full((batch_size * num_beams, 1), sot, np.int64)
+    scores = np.full((batch_size, num_beams), -1e9, np.float32)
+    scores[:, ::g] = 0.0
+    scores = scores.reshape(-1)
+    done_hyps = [[] for _ in range(batch_size)]  # (score, tokens)
+
+    for cur_len in range(1, seq_len):
+        logits = step_logits(tokens, cur_len)
+        logp = torch.log_softmax(torch.tensor(logits), dim=-1)
+        logp = processors(torch.tensor(tokens), logp).numpy()
+        vocab = logp.shape[-1]
+        next_tokens = np.zeros((batch_size * num_beams,), np.int64)
+        reorder = np.arange(batch_size * num_beams)
+        for grp in range(num_beam_groups):
+            idx = np.concatenate(
+                [np.arange(grp * g, grp * g + g) + bi * num_beams
+                 for bi in range(batch_size)])
+            cand = (logp[idx] + scores[idx, None]).reshape(batch_size,
+                                                           g * vocab)
+            top = np.argsort(-cand, axis=1)[:, :2 * g]
+            top_scores = np.take_along_axis(cand, top, axis=1)
+            for bi in range(batch_size):
+                kept = 0
+                for rank in range(2 * g):
+                    beam = int(top[bi, rank] // vocab)
+                    tok = int(top[bi, rank] % vocab)
+                    sc = float(top_scores[bi, rank])
+                    src = bi * num_beams + grp * g + beam
+                    if tok == eos:
+                        done_hyps[bi].append((sc / cur_len,
+                                              tokens[src].copy()))
+                        continue
+                    dst = bi * num_beams + grp * g + kept
+                    reorder[dst] = src
+                    next_tokens[dst] = tok
+                    scores[dst] = sc
+                    kept += 1
+                    if kept == g:
+                        break
+        tokens = np.concatenate([tokens[reorder], next_tokens[:, None]],
+                                axis=1)
+    for bi in range(batch_size):
+        for beam in range(num_beams):
+            src = bi * num_beams + beam
+            done_hyps[bi].append((scores[src] / (seq_len - 1),
+                                  tokens[src].copy()))
+    best = [max(h, key=lambda x: x[0])[1] for h in done_hyps]
+    width = max(len(t) for t in best) + 1
+    out = np.full((batch_size, width), pad, np.int64)
+    for bi, t in enumerate(best):
+        out[bi, :len(t)] = t
+        out[bi, len(t)] = eos
+    return out
+
+
 def _build(cfg: dict, image_size: int, *, precision: str, device,
            attn_impl: str, pos_embed: Optional[str] = None):
-    """The two-tower model of an open_clip config on `device` (parameters
-    uninitialized) and its compute dtype."""
-    from clipa_tpu_torch.models import two_towers
+    """The two-tower (or, for a config with a ``multimodal_cfg``, CoCa)
+    model of an open_clip config on `device` (parameters uninitialized)
+    and its compute dtype."""
+    from clipa_tpu_torch.models import coca, two_towers
 
     dtype = {"float32": None, "bf16": torch.bfloat16,
              "bfloat16": torch.bfloat16}[precision]
-    tt_cfg = _to_two_towers_cfg(cfg, image_size=image_size,
-                                pos_embed=pos_embed)
-    tt_cfg["image"]["attn_impl"] = attn_impl
-    tt_cfg["text"]["attn_impl"] = attn_impl
+    if "multimodal_cfg" in cfg:
+        kwargs, make = _to_coca_cfg(cfg, image_size=image_size), coca.Model
+    else:
+        kwargs = _to_two_towers_cfg(cfg, image_size=image_size,
+                                    pos_embed=pos_embed)
+        make = two_towers.Model
+    kwargs["image"]["attn_impl"] = attn_impl
+    kwargs["text"]["attn_impl"] = attn_impl
     with device:
-        model = two_towers.Model(**tt_cfg, dtype=dtype)
+        model = make(**kwargs, dtype=dtype)
     return model, dtype
 
 
@@ -197,7 +415,8 @@ def _finish(model, dtype, cfg: dict, image_size: int, device) -> CLIPModel:
         model.set_compute_dtype(dtype)
     model.eval().requires_grad_(False)
     ctx = cfg["text_cfg"].get("context_length", 77)
-    return CLIPModel(model, cfg, image_size, ctx, device)
+    kind = CoCaModel if "multimodal_cfg" in cfg else CLIPModel
+    return kind(model, cfg, image_size, ctx, device)
 
 
 def _resolve_pretrained(model_name: str, pretrained: str) -> str:
@@ -293,12 +512,14 @@ def _numpy_state_dict(sd: dict) -> dict[str, np.ndarray]:
 
 
 def _heads_of(model: torch.nn.Module) -> dict:
-    """{tower: head count} of a port two-tower model's first blocks."""
+    """{tower: head count} of a port model's first blocks (the towers, and
+    CoCa's caption decoder)."""
     heads = {}
-    for tower in ("img", "txt"):
-        encoder = getattr(getattr(model, tower, None), "Transformer", None)
-        if encoder is not None:
-            heads[tower] = encoder.encoderblock_0.\
+    for tower in ("img", "txt", "decoder"):
+        blocks = getattr(model, tower, None)
+        blocks = getattr(blocks, "Transformer", blocks)
+        if blocks is not None:
+            heads[tower] = blocks.encoderblock_0.\
                 MultiHeadDotProductAttention_0.num_heads
     return heads
 
@@ -353,11 +574,14 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     JAX package's layout and names (numpy arrays).
 
     Handles both `CLIP` (text attrs at top level) and `CustomTextCLIP`
-    (`text.`-prefixed) layouts of the ViT and text-transformer towers, with
-    any ``module.`` (DataParallel) prefix stripped. timm, ModifiedResNet,
-    CoCa and HF-text state dicts raise NotImplementedError (ROADMAP A10).
-    Raises if any state-dict tensor other than known non-weight buffers is
-    left unconsumed.
+    (`text.`-prefixed) layouts of the ViT and text-transformer towers, and
+    CoCa's (its visual ``ln_post`` / ``proj`` to ``img_encoder_norm`` /
+    ``img_head``, the attentional pooler to ``img_pool``, ``cls_emb``, the
+    caption decoder's ``text_decoder.*`` to ``decoder``), with any
+    ``module.`` (DataParallel) prefix stripped. timm, ModifiedResNet and
+    HF-text state dicts raise NotImplementedError (ROADMAP A10). Raises if
+    any state-dict tensor other than known non-weight buffers is left
+    unconsumed.
     """
     from clipa_tpu_torch import utils as u
 
@@ -367,9 +591,7 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
         raise _unported("converting a timm vision trunk (visual.trunk.*)")
     if "visual.attnpool.positional_embedding" in sd:
         raise _unported("converting the ModifiedResNet vision tower")
-    if (any(k.startswith("text_decoder.") for k in sd)
-            or "visual.attn_pool.query" in sd):
-        raise _unported("converting a CoCa model")
+    is_coca = any(k.startswith("text_decoder.") for k in sd)
     if any(k.startswith("text.transformer") for k in sd):
         tprefix = "text."
     else:
@@ -389,13 +611,17 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     put("img/embedding/kernel", conv.transpose(2, 3, 1, 0))
     put("img/cls", sd["visual.class_embedding"].reshape(1, 1, -1))
     put("img/pos_embedding", sd["visual.positional_embedding"][None])
+    ln_post = "img_encoder_norm" if is_coca else "img/encoder_norm"
     if "visual.proj" in sd:
-        put("img/head/kernel", sd["visual.proj"])
+        put("img_head/kernel" if is_coca else "img/head/kernel",
+            sd["visual.proj"])
     if "visual.ln_pre.weight" in sd:
         put("img/ln_pre/scale", sd["visual.ln_pre.weight"])
         put("img/ln_pre/bias", sd["visual.ln_pre.bias"])
-    put("img/encoder_norm/scale", sd["visual.ln_post.weight"])
-    put("img/encoder_norm/bias", sd["visual.ln_post.bias"])
+    put(f"{ln_post}/scale", sd["visual.ln_post.weight"])
+    put(f"{ln_post}/bias", sd["visual.ln_post.bias"])
+    if "visual.attn_pool.query" in sd:
+        _convert_attn_pooler(sd, "visual.attn_pool", "img_pool", put)
     _convert_blocks(sd, "visual.transformer.resblocks", "img/Transformer",
                     put, heads=(heads or {}).get("img"))
 
@@ -410,6 +636,17 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     _convert_blocks(sd, f"{tprefix}transformer.resblocks", "txt/Transformer",
                     put, heads=(heads or {}).get("txt"))
 
+    # ---- caption decoder (CoCa) ----
+    if is_coca:
+        heads_dec = (heads or {}).get("decoder")
+        _convert_blocks(sd, "text_decoder.resblocks", "decoder", put,
+                        heads=heads_dec)
+        _convert_blocks(sd, "text_decoder.cross_attn", "decoder", put,
+                        heads=heads_dec, block="crossblock")
+        put("decoder/encoder_norm/scale", sd["text_decoder.ln_final.weight"])
+        put("decoder/encoder_norm/bias", sd["text_decoder.ln_final.bias"])
+        put("decoder/head/kernel", sd["text_decoder.text_projection"])
+
     leftover = [k for k in sd.unconsumed()
                 if not k.endswith(_IGNORABLE_TORCH_KEYS)]
     if leftover:
@@ -421,12 +658,39 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
                                      list(flat.values()))}
 
 
-def _convert_blocks(sd, prefix, dst, put, heads=None):
-    """dst is the destination scope holding encoderblock_i (e.g.
-    "img/Transformer", "txt/Transformer")."""
+def _convert_attn_pooler(sd, src, dst, put):
+    """CoCa's AttentionalPooler: torch MultiheadAttention with kdim = the
+    context width (separate q/k/v weights; one packed in_proj_weight where
+    the widths agree) -> the port's q/k/v/out Dense layers."""
+    put(f"{dst}/query", sd[f"{src}.query"])
+    for ln in ("ln_q", "ln_k"):
+        put(f"{dst}/{ln}/scale", sd[f"{src}.{ln}.weight"])
+        put(f"{dst}/{ln}/bias", sd[f"{src}.{ln}.bias"])
+    if f"{src}.attn.in_proj_weight" in sd:
+        w = sd[f"{src}.attn.in_proj_weight"]
+        d = w.shape[0] // 3
+        wq, wk, wv = w[:d], w[d:2 * d], w[2 * d:]
+    else:
+        wq = sd[f"{src}.attn.q_proj_weight"]
+        wk = sd[f"{src}.attn.k_proj_weight"]
+        wv = sd[f"{src}.attn.v_proj_weight"]
+        d = wq.shape[0]
+    b = sd[f"{src}.attn.in_proj_bias"]
+    for name, w_, b_ in (("q_proj", wq, b[:d]), ("k_proj", wk, b[d:2 * d]),
+                         ("v_proj", wv, b[2 * d:])):
+        put(f"{dst}/{name}/kernel", w_.T)
+        put(f"{dst}/{name}/bias", b_)
+    put(f"{dst}/out_proj/kernel", sd[f"{src}.attn.out_proj.weight"].T)
+    put(f"{dst}/out_proj/bias", sd[f"{src}.attn.out_proj.bias"])
+
+
+def _convert_blocks(sd, prefix, dst, put, heads=None, block="encoderblock"):
+    """dst is the destination scope holding <block>_i (e.g.
+    "img/Transformer", "txt/Transformer", "decoder"); CoCa's cross blocks
+    (block="crossblock") carry ``ln_1_kv`` as ``ln_kv``."""
+    width = sd[f"{prefix}.0.ln_1.weight"].shape[0]
     depth = 1 + max(int(k.split(".")[len(prefix.split("."))])
                     for k in sd if k.startswith(prefix))
-    width = sd[f"{prefix}.0.ln_1.weight"].shape[0]
     if heads is None:
         # head count is not in the state dict; infer a canonical head_width
         # of 64 unless width is known 80-per-head (H) or 104 (bigG). Callers
@@ -435,7 +699,10 @@ def _convert_blocks(sd, prefix, dst, put, heads=None):
     head_width = width // heads
     for i in range(depth):
         b = f"{prefix}.{i}"
-        o = f"{dst}/encoderblock_{i}"
+        o = f"{dst}/{block}_{i}"
+        if block == "crossblock":
+            put(f"{o}/ln_kv/scale", sd[f"{b}.ln_1_kv.weight"])
+            put(f"{o}/ln_kv/bias", sd[f"{b}.ln_1_kv.bias"])
         put(f"{o}/LayerNorm_0/scale", sd[f"{b}.ln_1.weight"])
         put(f"{o}/LayerNorm_0/bias", sd[f"{b}.ln_1.bias"])
         put(f"{o}/LayerNorm_1/scale", sd[f"{b}.ln_2.weight"])
@@ -486,8 +753,9 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
     """A port model, or a JAX-layout parameter tree, -> the open_clip torch
     state_dict layout (numpy arrays): the inverse of
     :func:`convert_torch_variables`, for users moving checkpoints the other
-    way. Raises on a parameter it would not write (a tower of ROADMAP A10,
-    LayerScale, the sigmoid loss's ``b``): an export never drops weights.
+    way; CoCa in its ``text.``-prefixed layout. Raises on a parameter it
+    would not write (a tower of ROADMAP A10, LayerScale, the sigmoid loss's
+    ``b``): an export never drops weights.
     """
     flat = _ConsumingDict(_jax_layout_flat(params))
     if "img/attnpool/pos_embedding" in flat:
@@ -496,21 +764,36 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
             or "img/patch_norm/scale" in flat
             or "img/blocks0/rel_pos/fc1/kernel" in flat):
         raise _unported("exporting a timm vision trunk")
-    if any(k.startswith(("decoder/", "img_pool/")) for k in flat):
-        raise _unported("exporting a CoCa model")
+    is_coca = any(k.startswith("decoder/") for k in flat)
     sd: dict[str, np.ndarray] = {}
     sd["logit_scale"] = np.asarray(flat["t"]).reshape(())
-    _export_vit_visual(flat, sd)
+    _export_vit_visual(flat, sd, coca=is_coca)
     _export_blocks(flat, sd, "img/Transformer", "visual.transformer.resblocks")
 
-    sd["token_embedding.weight"] = np.asarray(flat["txt/Embed_0/embedding"])
-    sd["positional_embedding"] = np.asarray(flat["txt/pos_embedding"])[0]
-    sd["text_projection"] = np.asarray(flat["txt/head/kernel"])
-    sd["ln_final.weight"] = np.asarray(flat["txt/encoder_norm/scale"])
-    sd["ln_final.bias"] = np.asarray(flat["txt/encoder_norm/bias"])
+    # CoCa's text tower is open_clip's CustomTextCLIP layout: "text."
+    tp = "text." if is_coca else ""
+    sd[f"{tp}token_embedding.weight"] = np.asarray(
+        flat["txt/Embed_0/embedding"])
+    sd[f"{tp}positional_embedding"] = np.asarray(flat["txt/pos_embedding"])[0]
+    sd[f"{tp}text_projection"] = np.asarray(flat["txt/head/kernel"])
+    sd[f"{tp}ln_final.weight"] = np.asarray(flat["txt/encoder_norm/scale"])
+    sd[f"{tp}ln_final.bias"] = np.asarray(flat["txt/encoder_norm/bias"])
     if "txt/cls_emb" in flat:
-        sd["cls_emb"] = np.asarray(flat["txt/cls_emb"]).reshape(-1)
-    _export_blocks(flat, sd, "txt/Transformer", "transformer.resblocks")
+        sd[f"{tp}cls_emb"] = np.asarray(flat["txt/cls_emb"]).reshape(-1)
+    _export_blocks(flat, sd, "txt/Transformer", f"{tp}transformer.resblocks")
+
+    if is_coca:
+        _export_blocks(flat, sd, "decoder", "text_decoder.resblocks")
+        _export_blocks(flat, sd, "decoder", "text_decoder.cross_attn",
+                       block="crossblock")
+        sd["text_decoder.ln_final.weight"] = np.asarray(
+            flat["decoder/encoder_norm/scale"])
+        sd["text_decoder.ln_final.bias"] = np.asarray(
+            flat["decoder/encoder_norm/bias"])
+        sd["text_decoder.text_projection"] = np.asarray(
+            flat["decoder/head/kernel"])
+        if "img_pool/query" in flat:
+            _export_attn_pooler(flat, sd, "img_pool", "visual.attn_pool")
 
     leftover = flat.unconsumed()
     if leftover:
@@ -521,11 +804,14 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
     return sd
 
 
-def _export_blocks(flat, sd, tower, prefix):
+def _export_blocks(flat, sd, tower, prefix, block="encoderblock"):
     i = 0
-    while f"{tower}/encoderblock_{i}/LayerNorm_0/scale" in flat:
-        _export_one_block(flat, sd, f"{tower}/encoderblock_{i}",
-                          f"{prefix}.{i}")
+    while f"{tower}/{block}_{i}/LayerNorm_0/scale" in flat:
+        o, b = f"{tower}/{block}_{i}", f"{prefix}.{i}"
+        _export_one_block(flat, sd, o, b)
+        if block == "crossblock":
+            sd[f"{b}.ln_1_kv.weight"] = np.asarray(flat[f"{o}/ln_kv/scale"])
+            sd[f"{b}.ln_1_kv.bias"] = np.asarray(flat[f"{o}/ln_kv/bias"])
         i += 1
 
 
@@ -555,17 +841,42 @@ def _export_one_block(flat, sd, o, b):
         flat[f"{o}/MlpBlock_0/Dense_1/bias"])
 
 
-def _export_vit_visual(flat, sd):
+def _export_attn_pooler(flat, sd, src, dst):
+    """The inverse of :func:`_convert_attn_pooler`."""
+    sd[f"{dst}.query"] = np.asarray(flat[f"{src}/query"])
+    for ln in ("ln_q", "ln_k"):
+        sd[f"{dst}.{ln}.weight"] = np.asarray(flat[f"{src}/{ln}/scale"])
+        sd[f"{dst}.{ln}.bias"] = np.asarray(flat[f"{src}/{ln}/bias"])
+    wq, wk, wv = (np.asarray(flat[f"{src}/{n}/kernel"]).T
+                  for n in ("q_proj", "k_proj", "v_proj"))
+    if wk.shape[1] == wq.shape[1]:  # torch packs same-width projections
+        sd[f"{dst}.attn.in_proj_weight"] = np.concatenate([wq, wk, wv], 0)
+    else:
+        sd[f"{dst}.attn.q_proj_weight"] = wq
+        sd[f"{dst}.attn.k_proj_weight"] = wk
+        sd[f"{dst}.attn.v_proj_weight"] = wv
+    sd[f"{dst}.attn.in_proj_bias"] = np.concatenate(
+        [np.asarray(flat[f"{src}/{n}/bias"]).reshape(-1)
+         for n in ("q_proj", "k_proj", "v_proj")], 0)
+    sd[f"{dst}.attn.out_proj.weight"] = np.asarray(
+        flat[f"{src}/out_proj/kernel"]).T
+    sd[f"{dst}.attn.out_proj.bias"] = np.asarray(
+        flat[f"{src}/out_proj/bias"])
+
+
+def _export_vit_visual(flat, sd, coca: bool = False):
     sd["visual.conv1.weight"] = np.asarray(
         flat["img/embedding/kernel"]).transpose(3, 2, 0, 1)
     sd["visual.class_embedding"] = np.asarray(flat["img/cls"]).reshape(-1)
     if "img/pos_embedding" in flat:
         sd["visual.positional_embedding"] = np.asarray(
             flat["img/pos_embedding"])[0]
-    if "img/head/kernel" in flat:
-        sd["visual.proj"] = np.asarray(flat["img/head/kernel"])
-    sd["visual.ln_post.weight"] = np.asarray(flat["img/encoder_norm/scale"])
-    sd["visual.ln_post.bias"] = np.asarray(flat["img/encoder_norm/bias"])
+    ln_post = "img_encoder_norm" if coca else "img/encoder_norm"
+    proj = "img_head/kernel" if coca else "img/head/kernel"
+    if proj in flat:
+        sd["visual.proj"] = np.asarray(flat[proj])
+    sd["visual.ln_post.weight"] = np.asarray(flat[f"{ln_post}/scale"])
+    sd["visual.ln_post.bias"] = np.asarray(flat[f"{ln_post}/bias"])
     if "img/ln_pre/scale" in flat:
         sd["visual.ln_pre.weight"] = np.asarray(flat["img/ln_pre/scale"])
         sd["visual.ln_pre.bias"] = np.asarray(flat["img/ln_pre/bias"])
@@ -710,10 +1021,14 @@ def _syntax_bpe(bpe, ctx: int):
     return tokenize
 
 
-def create_loss(model_name_or_cfg, *, distill: bool = False) -> Callable:
+def create_loss(model_name_or_cfg, *, distill: bool = False,
+                coca_caption_loss_weight: float = 2.0,
+                coca_contrastive_loss_weight: float = 1.0,
+                pad_id: int = 0) -> Callable:
     """Loss selector, mirroring open_clip's create_loss: distill gets the
-    distillation loss, everything else the bidirectional InfoNCE
-    (``clipa_tpu_torch.losses``); CoCa configs raise (ROADMAP A10)."""
+    distillation loss, CoCa configs the CoCa loss at the given weights,
+    everything else the bidirectional InfoNCE (``clipa_tpu_torch.losses``).
+    """
     from clipa_tpu_torch import losses as losses_lib
 
     cfg = (get_model_config(model_name_or_cfg)
@@ -721,7 +1036,10 @@ def create_loss(model_name_or_cfg, *, distill: bool = False) -> Callable:
     if distill:
         return losses_lib.distill_contrastive_loss
     if "multimodal_cfg" in cfg:
-        raise _unported("the CoCa loss")
+        return functools.partial(
+            losses_lib.coca_loss,
+            clip_loss_weight=coca_contrastive_loss_weight,
+            caption_loss_weight=coca_caption_loss_weight, pad_id=pad_id)
     return functools.partial(losses_lib.bidirectional_contrastive_loss,
                              reduction=True)
 

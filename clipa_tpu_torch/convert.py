@@ -16,14 +16,20 @@ JAX name (shape)                                           torch leaf          t
 ``.../MultiHeadDotProductAttention_i/out/kernel``          ``.weight``         ``reshape(H*hd, d).T``
 (H, hd, d)
 ``.../MultiHeadDotProductAttention_i/out/bias`` (d,)       ``.bias``           as is
-``.../{Dense_i,head}/kernel`` (in, out)                    ``.weight``         ``.T`` (Linear layout)
-``.../{Dense_i,head}/bias`` (out,)                         ``.bias``           as is
-``.../{LayerNorm_i,encoder_norm,ln_pre}/scale``            ``.weight``         as is
-``.../{LayerNorm_i,encoder_norm,ln_pre}/bias``             ``.bias``           as is
-``img/embedding/kernel`` (p, p, 3, W)                      ``.kernel``         as is (HWIO, NHWC stem)
+``.../<Dense>/kernel`` (in, out)                           ``.weight``         ``.T`` (Linear layout)
+``.../<Dense>/bias`` (out,)                                ``.bias``           as is
+``.../<LayerNorm>/scale``                                  ``.weight``         as is
+``.../<LayerNorm>/bias``                                   ``.bias``           as is
+``img/embedding/{kernel,bias}`` (p, p, 3, W) or (P, W)     same name           as is (HWIO, NHWC stem; linear stem)
 ``txt/Embed_0/embedding`` (vocab, W)                       ``.weight``         as is
-``.../{cls,pos_embedding,ls1,ls2}``, ``t``, ``b``          same name           as is
+``.../<as is>``, ``t``, ``b``                              same name           as is
 =========================================================  ==================  =================================
+
+``<Dense>`` is ``Dense_i``, ``head`` or CoCa's ``img_head``,
+``{q,k,v,out}_proj``; ``<LayerNorm>`` is ``LayerNorm_i``, ``encoder_norm``,
+``ln_pre`` or CoCa's ``ln_kv``, ``ln_q``, ``ln_k``, ``img_encoder_norm``;
+``<as is>`` is ``cls``, ``pos_embedding``, ``ls1``, ``ls2``, CoCa's
+``cls_emb`` and pooler ``query``, and the MAP head's ``probe``.
 
 A name that matches no row raises: a weight silently dropped gives wrong
 numbers. Keys the model expects but the checkpoint lacks are caught by
@@ -41,13 +47,13 @@ torch key                                                   JAX leaf            
 ``bias`` (H*hd,)
 ``...MultiHeadDotProductAttention_i.out.weight`` (d, H*hd)  ``/kernel``         ``.T.reshape(H, hd, d)``
 ``...MultiHeadDotProductAttention_i.out.bias`` (d,)         ``/bias``           as is
-``...{Dense_i,head}.weight`` (out, in)                      ``/kernel``         ``.T``
-``...{Dense_i,head}.bias`` (out,)                           ``/bias``           as is
-``...{LayerNorm_i,encoder_norm,ln_pre}.weight``             ``/scale``          as is
-``...{LayerNorm_i,encoder_norm,ln_pre}.bias``               ``/bias``           as is
-``img.embedding.kernel`` (p, p, 3, W)                       ``/kernel``         as is
+``...<Dense>.weight`` (out, in)                             ``/kernel``         ``.T``
+``...<Dense>.bias`` (out,)                                  ``/bias``           as is
+``...<LayerNorm>.weight``                                   ``/scale``          as is
+``...<LayerNorm>.bias``                                     ``/bias``           as is
+``img.embedding.{kernel,bias}``                             same name           as is
 ``txt.Embed_0.weight`` (vocab, W)                           ``/embedding``      as is
-``...{cls,pos_embedding,ls1,ls2}``, ``t``, ``b``            same name           as is
+``...<as is>``, ``t``, ``b``                                same name           as is
 ==========================================================  ==================  ===========================================
 
 The optimizer's regexes (``optim.py``) and the parity tests run on the JAX
@@ -68,6 +74,12 @@ from clipa_tpu_torch import utils as u
 Array = Union[np.ndarray, torch.Tensor]
 
 _MHA = r"(?:.*/)?MultiHeadDotProductAttention_\d+"
+# flax Dense layers (Linear layout in torch), LayerNorms, and parameters
+# kept as they are (CoCa's pooler, decoder and cls embedding included)
+_DENSE = r"(?:Dense_\d+|head|img_head|q_proj|k_proj|v_proj|out_proj)"
+_NORM = (r"(?:LayerNorm_\d+|encoder_norm|ln_pre|ln_kv|ln_q|ln_k"
+         r"|img_encoder_norm)")
+_AS_IS = r"(?:cls|pos_embedding|ls1|ls2|cls_emb|query|probe)"
 _RULES: list[tuple[re.Pattern, str, Callable[[torch.Tensor], torch.Tensor]]] = [
     (re.compile(rf"({_MHA}/(?:query|key|value))/kernel"), r"\1/weight",
      lambda a: a.reshape(a.shape[0], -1).T),
@@ -76,19 +88,16 @@ _RULES: list[tuple[re.Pattern, str, Callable[[torch.Tensor], torch.Tensor]]] = [
     (re.compile(rf"({_MHA}/out)/kernel"), r"\1/weight",
      lambda a: a.reshape(-1, a.shape[-1]).T),
     (re.compile(rf"({_MHA}/out)/bias"), r"\1/bias", lambda a: a),
-    (re.compile(r"((?:.*/)?(?:Dense_\d+|head))/kernel"), r"\1/weight",
+    (re.compile(rf"((?:.*/)?{_DENSE})/kernel"), r"\1/weight",
      lambda a: a.T),
-    (re.compile(r"((?:.*/)?(?:Dense_\d+|head))/bias"), r"\1/bias",
+    (re.compile(rf"((?:.*/)?{_DENSE})/bias"), r"\1/bias", lambda a: a),
+    (re.compile(rf"((?:.*/)?{_NORM})/scale"), r"\1/weight", lambda a: a),
+    (re.compile(rf"((?:.*/)?{_NORM})/bias"), r"\1/bias", lambda a: a),
+    (re.compile(r"((?:.*/)?embedding)/(kernel|bias)"), r"\1/\2",
      lambda a: a),
-    (re.compile(r"((?:.*/)?(?:LayerNorm_\d+|encoder_norm|ln_pre))/scale"),
-     r"\1/weight", lambda a: a),
-    (re.compile(r"((?:.*/)?(?:LayerNorm_\d+|encoder_norm|ln_pre))/bias"),
-     r"\1/bias", lambda a: a),
-    (re.compile(r"((?:.*/)?embedding)/kernel"), r"\1/kernel", lambda a: a),
     (re.compile(r"((?:.*/)?Embed_\d+)/embedding"), r"\1/weight",
      lambda a: a),
-    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t|b)"), r"\1",
-     lambda a: a),
+    (re.compile(rf"((?:.*/)?{_AS_IS}|t|b)"), r"\1", lambda a: a),
 ]
 
 
@@ -140,16 +149,13 @@ _INVERSE: list[tuple[re.Pattern, str, str]] = [
      "in_bias"),
     (re.compile(rf"({_MHA}/out)/weight"), r"\1/kernel", "out"),
     (re.compile(rf"({_MHA}/out)/bias"), r"\1/bias", "same"),
-    (re.compile(r"((?:.*/)?(?:Dense_\d+|head))/weight"), r"\1/kernel", "t"),
-    (re.compile(r"((?:.*/)?(?:Dense_\d+|head))/bias"), r"\1/bias", "same"),
-    (re.compile(r"((?:.*/)?(?:LayerNorm_\d+|encoder_norm|ln_pre))/weight"),
-     r"\1/scale", "same"),
-    (re.compile(r"((?:.*/)?(?:LayerNorm_\d+|encoder_norm|ln_pre))/bias"),
-     r"\1/bias", "same"),
-    (re.compile(r"((?:.*/)?embedding)/kernel"), r"\1/kernel", "same"),
+    (re.compile(rf"((?:.*/)?{_DENSE})/weight"), r"\1/kernel", "t"),
+    (re.compile(rf"((?:.*/)?{_DENSE})/bias"), r"\1/bias", "same"),
+    (re.compile(rf"((?:.*/)?{_NORM})/weight"), r"\1/scale", "same"),
+    (re.compile(rf"((?:.*/)?{_NORM})/bias"), r"\1/bias", "same"),
+    (re.compile(r"((?:.*/)?embedding)/(kernel|bias)"), r"\1/\2", "same"),
     (re.compile(r"((?:.*/)?Embed_\d+)/weight"), r"\1/embedding", "same"),
-    (re.compile(r"((?:.*/)?(?:cls|pos_embedding|ls1|ls2)|t|b)"), r"\1",
-     "same"),
+    (re.compile(rf"((?:.*/)?{_AS_IS}|t|b)"), r"\1", "same"),
 ]
 
 

@@ -12,8 +12,9 @@ product whatever the process-wide setting is. The chunked InfoNCE is
 resolves by name; each returns the per-row loss under ``reduction=False``.
 
 :func:`distill_contrastive_loss` adds soft-label distillation from a
-frozen teacher's logits. Not ported yet: the local and CoCa contrastive
-losses and the ring InfoNCE (``ops/ring_infonce.py``).
+frozen teacher's logits; :func:`coca_loss` is CoCa's, the InfoNCE plus the
+caption's next-token cross-entropy. Not ported yet: the local contrastive
+loss and the ring InfoNCE (``ops/ring_infonce.py``).
 """
 
 from __future__ import annotations
@@ -152,6 +153,27 @@ def sigmoid_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
     nll = torch.nn.functional.softplus(-signs * logits)
     per_row = nll.sum(dim=1)
     return (per_row.mean() if reduction else per_row), {}
+
+
+def coca_loss(zimg: torch.Tensor, ztxt: torch.Tensor, t: torch.Tensor,
+              logits: torch.Tensor, labels: torch.Tensor, *,
+              clip_loss_weight: float = 1.0,
+              caption_loss_weight: float = 2.0, pad_id: int = 0):
+    """CoCa's objective: ``clip_loss_weight`` x the InfoNCE plus
+    ``caption_loss_weight`` x the next-token cross-entropy of `logits`
+    (B, L, V) against `labels` (B, L), averaged over the positions whose
+    label is not `pad_id` (at least one), in fp32: torch's
+    ``CrossEntropyLoss(ignore_index=pad_id)``. The extras carry both
+    weighted terms."""
+    clip_l, extras = bidirectional_contrastive_loss(zimg, ztxt, t,
+                                                    reduction=True)
+    log_p = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(log_p, -1, labels[..., None].long())[..., 0]
+    keep = (labels != pad_id).float()
+    caption_l = (nll * keep).sum() / keep.sum().clamp(min=1.0)
+    loss = clip_loss_weight * clip_l + caption_loss_weight * caption_l
+    return loss, {**extras, "contrastive_loss": clip_loss_weight * clip_l,
+                  "caption_loss": caption_loss_weight * caption_l}
 
 
 def sigmoid_xent(*, logits, labels, reduction: bool = True):

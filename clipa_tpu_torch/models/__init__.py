@@ -1,4 +1,5 @@
-"""Model zoo: two-tower CLIP with ViT image and transformer text encoders."""
+"""Model zoo: two-tower CLIP and CoCa with ViT image and transformer text
+encoders."""
 
 import importlib
 
@@ -6,14 +7,16 @@ import importlib
 def get_model_module(name: str):
     """Resolves a short model name ("vit", "text_transformer") to its module.
 
-    Only the towers of the CLIPA ViT/text models are ported; the JAX
-    package's other towers (convnext, swin, resnet, coca, ...) are listed in
-    ROADMAP.md.
+    The ViT and text-transformer towers, the two-tower model and CoCa are
+    ported; the JAX package's other towers (convnext, swin, resnet, hf_text,
+    ...) are listed in ROADMAP.md.
     """
     aliases = {
         "vit": "clipa_tpu_torch.models.vit",
         "text_transformer": "clipa_tpu_torch.models.text",
         "two_towers": "clipa_tpu_torch.models.two_towers",
+        "coca": "clipa_tpu_torch.models.coca",
+        "multimodal": "clipa_tpu_torch.models.multimodal",
     }
     if name not in aliases:
         raise NotImplementedError(

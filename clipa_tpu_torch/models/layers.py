@@ -24,17 +24,26 @@ block runs under non-reentrant ``torch.utils.checkpoint`` with a selective
 policy that keeps the outputs of the 2D products (the projections over the
 flat stream: ``aten.mm`` / ``aten.addmm``) and recomputes everything else in
 the backward, attention included (its custom Function is not a dot, as the
-``pallas_call`` is not under the JAX policy). It changes no number.
+``pallas_call`` is not under the JAX policy). Any other name but "none"
+(``"full"``, bench.py's ``"actcp"``) is ``nn.remat`` with no policy there:
+each block is recomputed whole. Neither changes a number.
 
-Not ported: ``quant`` (int8 matmuls), ``stream="ref3d"`` and the other remat
-policies. Dropout and DropPath are identities at rate 0 and in eval mode,
-and refuse to train at a rate above 0.
+Dropout and DropPath are identities at rate 0 and in eval mode. In training
+mode they draw their keep masks (``uniform < 1 - rate``, as
+``jax.random.bernoulli``) from the generators the caller hands over for the
+forward with :func:`random_streams` (the training step seeds them per step);
+remat's recompute replays the generators from their state at the block's
+entry, so it draws the same masks.
+
+Not ported: ``quant`` (int8 matmuls) and ``stream="ref3d"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -102,14 +111,6 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> None:
             p.data = p.data.to(dtype)
 
 
-def check_remat(policy: Optional[str]) -> None:
-    """The remat policies the port takes: "none" and "minimal"."""
-    if policy not in (None, "none", "minimal"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r} is not ported (only 'none' and "
-            "'minimal')")
-
-
 def _save_2d_products(ctx, op, *args, **kwargs):
     """The "minimal" policy: keep what checkpoint_dots_with_no_batch_dims
     keeps, the outputs of products without batch dims."""
@@ -137,24 +138,92 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+_STREAMS = threading.local()
+
+
+@contextlib.contextmanager
+def random_streams(dropout: Optional[torch.Generator] = None,
+                   drop_path: Optional[torch.Generator] = None):
+    """The generators training-mode Dropout and DropPath draw from while the
+    block runs (on the tensors' device). The setting is the calling
+    thread's."""
+    previous = getattr(_STREAMS, "gens", {})
+    _STREAMS.gens = {"dropout": dropout, "drop_path": drop_path}
+    try:
+        yield
+    finally:
+        _STREAMS.gens = previous
+
+
+def keep_mask(stream: str, keep: float, shape: tuple,
+              device) -> torch.Tensor:
+    """A boolean mask of `shape`, True with probability `keep`, drawn from
+    the `stream` ("dropout" or "drop_path") generator of
+    :func:`random_streams`."""
+    gen = getattr(_STREAMS, "gens", {}).get(stream)
+    if gen is None:
+        raise RuntimeError(
+            f"{stream} at a rate above 0 in training mode draws from a "
+            "generator: run the forward under layers.random_streams(...)")
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def _stream_states() -> dict:
+    return {name: (g.device, g.get_state())
+            for name, g in getattr(_STREAMS, "gens", {}).items()
+            if g is not None}
+
+
+def _replayed(states: dict) -> dict:
+    """Fresh generators at the given states: remat's recompute draws from
+    these, so the masks repeat and the live generators are not touched."""
+    return {name: torch.Generator(device=device).set_state(state)
+            for name, (device, state) in states.items()}
+
+
+def _drop(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class DropPath(nn.Module):
-    """Stochastic depth. Identity at rate 0 and in eval mode; training at a
-    rate above 0 is not ported."""
+    """Stochastic depth: drops the whole residual branch per sample. On
+    the flat (B*L, D) stream (`seq_len` set) the per-sample mask repeats
+    over each sample's rows."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                seq_len: Optional[int] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        keep = 1.0 - self.rate
+        if x.dim() == 2 and seq_len:
+            mask = keep_mask("drop_path", keep, (x.shape[0] // seq_len, 1),
+                             x.device).repeat_interleave(seq_len, dim=0)
+        else:
+            mask = keep_mask("drop_path", keep,
+                             (x.shape[0],) + (1,) * (x.dim() - 1), x.device)
+        return _drop(x, mask, keep)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout (flax ``nn.Dropout``)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0:
-            raise NotImplementedError("DropPath in training mode is not "
-                                      "ported yet")
-        return x
-
-
-class Dropout(DropPath):
-    """Dropout. Identity at rate 0 and in eval mode; training at a rate
-    above 0 is not ported."""
+        if not self.training or self.rate == 0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        return _drop(x, keep_mask("dropout", keep, tuple(x.shape), x.device),
+                     keep)
 
 
 class _ProjIn(nn.Module):
@@ -330,10 +399,10 @@ class EncoderBlock(nn.Module):
         y = self.MultiHeadDotProductAttention_0(y, y, mask=mask,
                                                 seq_len=seq_len)
         y = self._layer_scale(getattr(self, "ls1", None), y)
-        x = x + self.drop_path(self.dropout(y))
+        x = x + self.drop_path(self.dropout(y), seq_len)
         y = self.MlpBlock_0(self.LayerNorm_1(x))
         y = self._layer_scale(getattr(self, "ls2", None), y)
-        return x + self.drop_path(self.dropout(y))
+        return x + self.drop_path(self.dropout(y), seq_len)
 
 
 class Encoder(nn.Module):
@@ -343,7 +412,8 @@ class Encoder(nn.Module):
     encoder does: every block op is token-wise except attention, which
     takes `seq_len`. `block_inits` are initializer overrides for every
     block (the text tower's CLIP-paper scales). `remat_policy` "minimal"
-    recomputes each block in the backward, keeping its 2D products (module
+    recomputes each block in the backward, keeping its 2D products, and
+    any other name but "none" recomputes the whole block (module
     docstring); it may be switched on a built encoder.
     """
 
@@ -354,7 +424,6 @@ class Encoder(nn.Module):
                  ln_eps: float = 1e-6, ls_init: Optional[float] = None,
                  remat_policy: Optional[str] = "none"):
         super().__init__()
-        check_remat(remat_policy)
         self.depth = depth
         self.remat_policy = remat_policy
         dpr = np.linspace(0.0, drop_path, depth)
@@ -372,13 +441,34 @@ class Encoder(nn.Module):
         if mask is None and x.dim() == 3:
             n, seq, d = shape
             x = x.reshape(n * seq, d)
-        remat = self.remat_policy == "minimal" and torch.is_grad_enabled()
+        remat = (self.remat_policy not in (None, "none")
+                 and torch.is_grad_enabled())
         for i in range(self.depth):
             block = getattr(self, f"encoderblock_{i}")
             if remat:
-                x = checkpoint.checkpoint(block, x, mask, seq,
-                                          use_reentrant=False,
-                                          context_fn=_minimal_remat)
+                x = _rematted(block, x, mask, seq,
+                              _minimal_remat if self.remat_policy == "minimal"
+                              else checkpoint.noop_context_fn)
             else:
                 x = block(x, mask=mask, seq_len=seq)
         return x.reshape(shape)
+
+
+def _rematted(block: nn.Module, x: torch.Tensor, mask, seq,
+              context_fn) -> torch.Tensor:
+    """`block` under non-reentrant checkpoint: the forward draws from the
+    live random streams, the recompute from their replay (the same
+    masks)."""
+    states = _stream_states()
+    forward_done = False
+
+    def run(x, mask):
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return block(x, mask=mask, seq_len=seq)
+        with random_streams(**_replayed(states)):
+            return block(x, mask=mask, seq_len=seq)
+
+    return checkpoint.checkpoint(run, x, mask, use_reentrant=False,
+                                 context_fn=context_fn)

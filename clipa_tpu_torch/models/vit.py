@@ -1,18 +1,15 @@
 """ViT image tower.
 
-Port of ``clipa_tpu/models/vit.py``: conv patch stem, cls token, learned or
-sincos2d position embeddings, CLIPA's random token masking for
+Port of ``clipa_tpu/models/vit.py``: conv or linear patch stem, cls token,
+learned or sincos2d position embeddings, CLIPA's random token masking for
 unmask-tuning (:func:`random_masking`, ``mask_ratio > 0``), optional
 ``ln_pre``, pre-LN encoder over a flat residual stream (``remat_policy``
-"minimal" as in models/layers.py), pools ``gap`` / ``gap_all`` / ``tok`` /
-``0``, the no-bias projection head, and position-embedding resampling for
-checkpoints of another resolution (:func:`resample_posemb`, :func:`load`).
-Input is NHWC, as in the JAX tower. Parameters are fp32; `dtype` is the
-compute dtype (None: the image's), to which the stem, cls, posemb and every
-layer cast at use. Gradients flow in ``train()`` mode as in ``eval()`` mode
-(no dropout is ported at a rate above 0).
-
-Not ported yet: ``map`` pooling and the ``linear`` patch stem.
+and Dropout / DropPath as in models/layers.py), pools ``map`` / ``gap`` /
+``gap_all`` / ``tok`` / ``0``, the no-bias projection head, and
+position-embedding resampling for checkpoints of another resolution
+(:func:`resample_posemb`, :func:`load`). Input is NHWC, as in the JAX tower.
+Parameters are fp32; `dtype` is the compute dtype (None: the image's), to
+which the stem, cls, posemb and every layer cast at use.
 """
 
 from __future__ import annotations
@@ -70,29 +67,68 @@ def random_masking(x: torch.Tensor, mask_ratio: float,
 
 
 class PatchEmbed(nn.Module):
-    """The conv stem (``nn.Conv`` with stride = kernel = patch, VALID) as a
-    patchify reshape and one matmul against the (p, p, 3, W) HWIO kernel:
-    exact, and the same product the JAX stem computes outside any kernel."""
+    """The patch stem as a patchify reshape (``nhpwqc -> nhwpqc``) and one
+    matmul. ``conv`` (``nn.Conv`` with stride = kernel = patch, VALID,
+    no bias): the (p, p, 3, W) HWIO kernel, exact, the same product the JAX
+    stem computes outside any kernel. ``linear`` (``nn.Dense``): a
+    (p * p * 3, W) kernel and a bias, on an image the patch divides."""
 
-    def __init__(self, patch_size: Sequence[int], width: int):
+    def __init__(self, patch_size: Sequence[int], width: int,
+                 linear: bool = False):
         super().__init__()
         self.patch_size = tuple(patch_size)
-        self.kernel = nn.Parameter(torch.empty(*self.patch_size, 3, width))
+        self.linear = linear
+        ph, pw = self.patch_size
+        self.kernel = nn.Parameter(torch.empty(
+            *((ph * pw * 3,) if linear else (ph, pw, 3)), width))
+        self.bias = nn.Parameter(torch.empty(width)) if linear else None
 
     def init_own_parameters(self, generator):
         layers.lecun_normal()(self.kernel, tuple(self.kernel.shape),
                               generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, image: torch.Tensor, dtype: torch.dtype):
         """(n, H, W, 3) -> ((n, h*w, W) tokens in `dtype`, h, w)."""
         n, hh, ww, c = image.shape
         ph, pw = self.patch_size
         h, w = hh // ph, ww // pw
-        x = image[:, :h * ph, :w * pw].to(dtype)
+        x = image.to(dtype) if self.linear else \
+            image[:, :h * ph, :w * pw].to(dtype)
         x = x.reshape(n, h, ph, w, pw, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(n, h * w, ph * pw * c)
         kernel = self.kernel.reshape(-1, self.kernel.shape[-1]).to(dtype)
-        return x @ kernel, h, w
+        x = x @ kernel
+        if self.bias is not None:
+            x = x + self.bias.to(dtype)
+        return x, h, w
+
+
+class MAPHead(nn.Module):
+    """Multihead attention pooling: a learned probe attends over the
+    tokens (the cross-attention einsum path), then a residual MLP; the
+    JAX head's flax defaults (xavier inits, LayerNorm eps 1e-6, tanh
+    gelu)."""
+
+    def __init__(self, width: int, num_heads: int,
+                 mlp_dim: Optional[int] = None):
+        super().__init__()
+        self.probe = nn.Parameter(torch.empty(1, 1, width))
+        self.MultiHeadDotProductAttention_0 = layers.MultiHeadAttention(
+            width, num_heads, attn_impl="einsum")
+        self.LayerNorm_0 = layers.LayerNorm(width, eps=1e-6)
+        self.MlpBlock_0 = layers.MlpBlock(width, mlp_dim)
+
+    def init_own_parameters(self, generator):
+        layers.xavier_uniform()(self.probe, tuple(self.probe.shape),
+                                generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        probe = self.probe.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = self.MultiHeadDotProductAttention_0(probe, x)
+        x = x + self.MlpBlock_0(self.LayerNorm_0(x))
+        return x[:, 0]
 
 
 class _Model(nn.Module):
@@ -114,12 +150,10 @@ class _Model(nn.Module):
                  ls_init: Optional[float] = None, dtype: Any = None,
                  remat_policy: Optional[str] = "none"):
         super().__init__()
-        if patch_embed != "conv":
-            raise NotImplementedError(f"patch_embed={patch_embed!r} is not "
-                                      "ported yet (only 'conv')")
-        if pool_type not in ("gap", "gap_all", "tok", "0"):
-            raise NotImplementedError(f"pool_type={pool_type!r} is not "
-                                      "ported yet")
+        if patch_embed not in ("conv", "linear"):
+            raise ValueError(f"Unknown patch_embed {patch_embed!r}")
+        if pool_type not in ("map", "gap", "gap_all", "tok", "0"):
+            raise ValueError(f"Unknown pool_type {pool_type!r}")
         if posemb not in ("learn", "sincos2d"):
             raise ValueError(f"Unknown posemb {posemb!r}")
         size = ((image_size, image_size) if isinstance(image_size, int)
@@ -130,7 +164,8 @@ class _Model(nn.Module):
         self.pool_type = pool_type
         self.dtype = u.resolve_dtype(dtype)
 
-        self.embedding = PatchEmbed(patch_size, width)
+        self.embedding = PatchEmbed(patch_size, width,
+                                    linear=patch_embed == "linear")
         self.cls = nn.Parameter(torch.empty(1, 1, width))
         if posemb == "learn":
             self.pos_embedding = nn.Parameter(torch.empty(1, n_pos, width))
@@ -145,7 +180,9 @@ class _Model(nn.Module):
             gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init,
             remat_policy=remat_policy)
         self.encoder_norm = (layers.LayerNorm(width, eps=ln_eps)
-                             if pool_type != "0" else None)
+                             if pool_type not in ("0", "map") else None)
+        self.MAPHead_0 = (MAPHead(width, num_heads, mlp_dim)
+                          if pool_type == "map" else None)
         self.head = None
         if num_classes:
             self.head = layers.QuantDense(
@@ -183,7 +220,9 @@ class _Model(nn.Module):
         x = self.Transformer(x)
         out["encoded"] = x
 
-        if self.pool_type == "gap":
+        if self.pool_type == "map":
+            x = self.MAPHead_0(x)
+        elif self.pool_type == "gap":
             x = self.encoder_norm(x[:, 1:].mean(dim=1))
         elif self.pool_type == "gap_all":
             x = self.encoder_norm(x.mean(dim=1))

@@ -1,22 +1,26 @@
 """The training step on one device.
 
 Port of ``clipa_tpu/train/step.py`` for one GPU: :func:`create_model` builds
-the two-tower model a config describes (the model ``clipa_tpu/train/loop.py``
-builds, with its position tables sized from ``config.init_shapes`` as flax
-sizes them from the init inputs), :func:`init_train_state` draws its fp32
-parameters from a seeded ``torch.Generator`` on the device, and
+the two-tower or CoCa model a config describes (``config.model_name``; the
+model ``clipa_tpu/train/loop.py`` builds, with its position tables sized
+from ``config.init_shapes`` as flax sizes them from the init inputs),
+:func:`init_train_state` draws its fp32 parameters from a seeded
+``torch.Generator`` on the device, and
 :func:`make_update_fn` returns ``update(state, batch) -> (state,
 measurements)``:
 
   uint8 images normalized on the device (``config.cpu_unit8``) -> train-mode
   forward in the config's compute dtype over fp32 parameters, with CLIPA's
   random image-token masking at ``config.mask_ratio`` (unmask-tuning) and
-  the towers' ``remat_policy`` and ``attn_impl`` -> the loss
-  (``config.loss``: "softmax", the global InfoNCE; "sigmoid", with the
+  the towers' ``remat_policy``, ``attn_impl``, Dropout and DropPath -> the
+  loss (``config.loss``: "softmax", the global InfoNCE; "sigmoid", with the
   towers' ``b`` where the model has one; "chunked", ``ops/infonce.py`` at
-  ``config.loss_chunk_size``) -> autograd, through the attention kernels'
-  backward on a card -> the optax chain of ``optim.py``, applied in place
-  -> the temperature clamp.
+  ``config.loss_chunk_size``; "coca", the InfoNCE at
+  ``config.coca_contrastive_loss_weight`` plus the caption cross-entropy at
+  ``config.coca_caption_loss_weight`` over labels other than
+  ``config.pad_id``, the batch's ``labels`` being the text ids) ->
+  autograd, through the attention kernels' backward on a card -> the optax
+  chain of ``optim.py``, applied in place -> the temperature clamp.
 
 With ``config.grad_accum_steps`` = n > 1 the step is the JAX step's
 two-pass full-batch-negative accumulation (the reference torch trainer's
@@ -46,7 +50,9 @@ no gradients, uint8 images normalized as the step normalizes them.
 The masking noise of step s comes from a ``torch.Generator`` on the
 device seeded from ``(config.seed, s)``: the counterpart of the JAX step's
 ``fold_in(rng, step)``. The two give different streams of the same
-distribution.
+distribution. Dropout and DropPath draw from two more generators of the
+step (:func:`drop_generators`: the same key with a stream tag), handed to
+the model through ``layers.random_streams``.
 
 With a `teacher_model` (``config.distill``), the step distills from that
 frozen two-tower as the JAX step does: the teacher's forward runs in eval
@@ -59,7 +65,7 @@ JAX step (and the reference trainer), distillation takes ``loss=softmax``
 and no gradient accumulation (ValueError otherwise).
 
 Not ported yet (they raise, naming the ROADMAP item): the ring losses
-(multi-GPU, A8) and the CoCa loss (its model, A10).
+(multi-GPU, A8).
 """
 
 from __future__ import annotations
@@ -76,12 +82,12 @@ from clipa_tpu_torch.ops import infonce, preprocess
 
 
 def create_model(config, device="cuda") -> torch.nn.Module:
-    """The model of ``config.model`` (a two-tower config), on `device` (the
-    card unless the caller names the CPU or ``meta``; raises without a
-    card), with the towers' options as the config sets them
-    (``remat_policy``, ``attn_impl``, ...)."""
+    """The model of ``config.model`` (``config.model_name``: "two_towers" or
+    "coca"), on `device` (the card unless the caller names the CPU or
+    ``meta``; raises without a card), with the towers' options as the
+    config sets them (``remat_policy``, ``attn_impl``, ...)."""
     name = config.get("model_name", "two_towers")
-    if name != "two_towers":
+    if name not in ("two_towers", "coca"):
         raise NotImplementedError(f"model_name={name!r} is not ported to "
                                   "the training step yet")
     cfg = dict(config.model)
@@ -89,7 +95,9 @@ def create_model(config, device="cuda") -> torch.nn.Module:
     if cfg.get("image") is not None:
         cfg["image"] = {"image_size": img_shape[1:3], **cfg["image"]}
     if cfg.get("text") is not None:
-        cfg["text"] = {"context_length": txt_shape[1], **cfg["text"]}
+        # CoCa's tower reads text[:, :-1] and appends its cls
+        ctx = txt_shape[1] - (1 if name == "coca" else 0)
+        cfg["text"] = {"context_length": ctx, **cfg["text"]}
     with utils.resolve_device(device, "create_model"):
         return get_model_module(name).Model(**cfg)
 
@@ -108,16 +116,31 @@ def init_train_state(model: torch.nn.Module, config, generator:
 
 
 def mask_generator(config, step: int, device,
-                   microbatch: Optional[int] = None) -> torch.Generator:
+                   microbatch: Optional[int] = None,
+                   stream: int = 0) -> torch.Generator:
     """The masking noise's generator of step `step`, seeded from
     ``(config.seed, step)``; of its microbatch `microbatch` under gradient
-    accumulation, from ``(config.seed, step, microbatch)``."""
+    accumulation, from ``(config.seed, step, microbatch)``. A `stream` tag
+    above 0 spawns another stream from the same key
+    (:func:`drop_generators`)."""
     key = [int(config.get("seed", 0)), int(step)]
     if microbatch is not None:
         key.append(int(microbatch))
-    seed = np.random.SeedSequence(key)
+    seed = np.random.SeedSequence(key, spawn_key=(stream,) if stream else ())
     return torch.Generator(device=device).manual_seed(
         int(seed.generate_state(1, np.uint64)[0]))
+
+
+DROPOUT_STREAM, DROP_PATH_STREAM = 1, 2
+
+
+def drop_generators(config, step: int, device,
+                    microbatch: Optional[int] = None) -> dict:
+    """The generators Dropout and DropPath draw from in step `step` (and
+    microbatch `microbatch`): ``layers.random_streams``' arguments."""
+    return {name: mask_generator(config, step, device, microbatch, tag)
+            for name, tag in (("dropout", DROPOUT_STREAM),
+                              ("drop_path", DROP_PATH_STREAM))}
 
 
 def _sqsum(tensors) -> torch.Tensor:
@@ -128,9 +151,8 @@ def _sqsum(tensors) -> torch.Tensor:
 _REFUSED_LOSSES = {
     "ring": "the ring InfoNCE (multi-GPU: ROADMAP A8)",
     "ring_sigmoid": "the ring sigmoid loss (multi-GPU: ROADMAP A8)",
-    "coca": "the CoCa loss (the CoCa model: ROADMAP A10)",
 }
-LOSSES = ("softmax", "sigmoid", "chunked")
+LOSSES = ("softmax", "sigmoid", "chunked", "coca")
 
 
 def _make_loss_dispatch(loss_kind: str, config) -> Callable:
@@ -153,6 +175,14 @@ def _make_loss_dispatch(loss_kind: str, config) -> Callable:
         if teacher_out is not None:
             return losses_lib.distill_contrastive_loss(
                 zimg, ztxt, extras["t"], *teacher_out)
+        if loss_kind == "coca":
+            return losses_lib.coca_loss(
+                zimg, ztxt, extras["t"], extras["logits"], extras["labels"],
+                clip_loss_weight=float(
+                    config.get("coca_contrastive_loss_weight", 1.0)),
+                caption_loss_weight=float(
+                    config.get("coca_caption_loss_weight", 2.0)),
+                pad_id=int(config.get("pad_id", 0)))
         if loss_kind == "sigmoid":
             return losses_lib.sigmoid_contrastive_loss(
                 zimg, ztxt, extras["t"], bias=extras.get("b", 0.0),
@@ -262,8 +292,11 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
         if accum_steps <= 1:
             generator = (mask_generator(config, state["step"], images.device)
                          if mask_ratio > 0 else None)
-            zimg, ztxt, extras = model(images, labels, mask_ratio=mask_ratio,
-                                       generator=generator)
+            with layers.random_streams(**drop_generators(
+                    config, state["step"], images.device)):
+                zimg, ztxt, extras = model(images, labels,
+                                           mask_ratio=mask_ratio,
+                                           generator=generator)
             loss, measurements = loss_and_measurements(zimg, ztxt, extras,
                                                        teacher_out)
             grads = gradients(loss, params, names)
@@ -280,8 +313,10 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                 generator = (mask_generator(config, state["step"],
                                             images.device, j)
                              if mask_ratio > 0 else None)
-                return model(*micro[j], mask_ratio=mask_ratio,
-                             generator=generator)
+                with layers.random_streams(**drop_generators(
+                        config, state["step"], images.device, j)):
+                    return model(*micro[j], mask_ratio=mask_ratio,
+                                 generator=generator)
 
             # pass 1: every microbatch's features, without gradients
             with torch.no_grad():

@@ -168,7 +168,11 @@ def test_get_tokenizer_matches_jax(name, merges, monkeypatch):
                         lambda path, backend="python", _f=jax_ops_text
                         .get_tokenizer: _f(path, backend="python"))
     text_cfg = openclip.get_model_config(name)["text_cfg"]
-    vocab = VOCAB if text_cfg.get("bert_tokenizer") else merges
+    # OpenAI's BPE for the 49408-vocab configs; coca_base's 64000-id vocab
+    # takes the WordPiece route in both packages
+    bpe = not text_cfg.get("bert_tokenizer") and \
+        text_cfg.get("vocab_size") == 49408
+    vocab = merges if bpe else VOCAB
     ours = openclip.get_tokenizer(name, vocab_path=vocab)
     ref = jax_openclip.get_tokenizer(name, vocab_path=vocab)
     kw = {}
@@ -181,7 +185,7 @@ def test_get_tokenizer_matches_jax(name, merges, monkeypatch):
     ctx = text_cfg.get("context_length", 77)
     assert got.shape == (len(CAPTIONS), ctx) and got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
-    if not text_cfg.get("bert_tokenizer"):
+    if bpe:
         assert got.max() == 49407   # <end_of_text>: the vocab's last row
 
 
@@ -263,16 +267,21 @@ def test_converter_leftovers_raise_as_jax(tiny):
                 conv.convert_torch_variables(bad)
 
 
-@pytest.mark.parametrize("extra,what", [
-    ({"visual.trunk.stem.0.weight": np.zeros((4, 3, 4, 4))}, "timm"),
+@pytest.mark.parametrize("extra,error,what", [
+    ({"visual.trunk.stem.0.weight": np.zeros((4, 3, 4, 4))},
+     NotImplementedError, "timm.*A10"),
     ({"visual.attnpool.positional_embedding": np.zeros((5, 8))},
-     "ModifiedResNet"),
-    ({"text_decoder.ln_final.weight": np.zeros(8)}, "CoCa"),
-    ({"visual.attn_pool.query": np.zeros((4, 8))}, "CoCa"),
+     NotImplementedError, "ModifiedResNet.*A10"),
+    # CoCa is ported: a state dict with a piece of CoCa's layout but not
+    # the rest raises on the first missing key
+    ({"text_decoder.ln_final.weight": np.zeros(8)}, KeyError,
+     "text_decoder.resblocks.0.ln_1.weight"),
+    ({"visual.attn_pool.query": np.zeros((4, 8))}, KeyError,
+     "visual.attn_pool.ln_q.weight"),
 ])
-def test_converter_refuses_unported_towers(tiny, extra, what):
+def test_converter_refuses_unported_towers(tiny, extra, error, what):
     _, _, sd, _ = tiny["openclip"]
-    with pytest.raises(NotImplementedError, match=f"{what}.*A10"):
+    with pytest.raises(error, match=what):
         openclip.convert_torch_variables(dict(sd, **extra))
 
 
@@ -312,7 +321,8 @@ def test_exporter_refuses_what_it_would_drop(tiny):
     with pytest.raises(NotImplementedError, match="ModifiedResNet.*A10"):
         openclip.export_torch_state_dict(
             dict(flat, **{"img/attnpool/pos_embedding": np.zeros((5, 8))}))
-    with pytest.raises(NotImplementedError, match="CoCa.*A10"):
+    # a decoder makes the tree CoCa's, whose other parameters it lacks
+    with pytest.raises(KeyError, match="img_encoder_norm"):
         openclip.export_torch_state_dict(
             dict(flat, **{"decoder/head/kernel": np.zeros((8, 8))}))
 
@@ -377,9 +387,11 @@ def test_create_model_refuses_unknown_pretrained(tiny):
 
 
 def test_unported_configs_raise_naming_a10(tmp_path):
-    """timm, ModifiedResNet, HF-text and CoCa configs of the JAX zoo."""
+    """timm, ModifiedResNet and HF-text configs of the JAX zoo, CoCa's
+    HF-text one among them (the other CoCa configs are ported:
+    tests/test_torch_coca.py)."""
     for name in ("convnext_base", "RN50", "roberta-ViT-B-32",
-                 "coca_ViT-B-32"):
+                 "coca_roberta-ViT-B-32"):
         path = str(tmp_path / f"{name}.json")
         with open(path, "w") as f:
             json.dump(jax_openclip.get_model_config(name), f)
@@ -626,8 +638,11 @@ def test_create_loss():
                                       dim=1)
     value, _ = loss(z, z.flip(0), torch.tensor(10.0))
     assert value.dim() == 0
-    with pytest.raises(NotImplementedError, match="CoCa.*A10"):
-        openclip.create_loss(jax_openclip.get_model_config("coca_ViT-B-32"))
+    coca = openclip.create_loss(jax_openclip.get_model_config(
+        "coca_ViT-B-32"))
+    assert coca.func is losses.coca_loss
+    assert coca.keywords == {"clip_loss_weight": 1.0,
+                             "caption_loss_weight": 2.0, "pad_id": 0}
 
 
 def test_create_model_and_transforms(tiny):

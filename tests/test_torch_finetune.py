@@ -172,8 +172,10 @@ def _grads(module, *args, **kw):
 
 @pytest.mark.parametrize("attn_impl", ["pallas", "auto"])
 def test_remat_changes_no_number(attn_impl):
-    """On the CPU the gradients with remat "minimal" are identical, bit for
-    bit, to those without (the recompute repeats the forward exactly)."""
+    """On the CPU the gradients with remat "minimal" and with full
+    recompute (any other name: "full", bench.py's "actcp") are identical,
+    bit for bit, to those without (the recompute repeats the forward
+    exactly)."""
     torch.manual_seed(0)
     port = vit.Model(32, image_size=48, dtype="float32",
                      **{**VIT_KW, "attn_impl": attn_impl}).train()
@@ -182,24 +184,67 @@ def test_remat_changes_no_number(attn_impl):
     noise = torch.rand(3, 36)
     masking = functools.partial(vit.random_masking, noise=noise)
     grads = []
-    for policy in ("none", "minimal"):
+    for policy in REMAT_POLICIES:
         port.Transformer.remat_policy = policy
         with pytest.MonkeyPatch.context() as m:
             m.setattr(vit, "random_masking", masking)
             grads.append(_grads(port, image, mask_ratio=0.3))
     assert all(torch.isfinite(g).all() for g in grads[0].values())
-    assert all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+    for other in grads[1:]:
+        assert all(torch.equal(grads[0][k], other[k]) for k in grads[0])
     tower = text.Model(16, width=64, depth=2, num_heads=4, mlp_dim=128,
                        vocab_size=50, context_length=8).train()
     layers.init_parameters(tower, torch.Generator().manual_seed(1))
     tokens = torch.randint(1, 50, (3, 8))
     tgrads = []
-    for policy in ("none", "minimal"):
+    for policy in REMAT_POLICIES:
         tower.Transformer.remat_policy = policy
         tgrads.append(_grads(tower, tokens))
-    assert all(torch.equal(tgrads[0][k], tgrads[1][k]) for k in tgrads[0])
-    with pytest.raises(NotImplementedError, match="remat"):
-        text.Model(16, width=64, depth=1, num_heads=4, remat_policy="full")
+    for other in tgrads[1:]:
+        assert all(torch.equal(tgrads[0][k], other[k]) for k in tgrads[0])
+    # every name the JAX Encoder takes builds ("full" recomputes the block)
+    built = text.Model(16, width=64, depth=1, num_heads=4,
+                       remat_policy="full")
+    assert built.Transformer.remat_policy == "full"
+
+
+REMAT_POLICIES = ("none", "minimal", "full", "actcp")
+
+
+@pytest.mark.parametrize("tower", ["vit", "text"])
+def test_remat_replays_the_drop_masks(tower):
+    """Dropout and DropPath in training: under the same generators every
+    remat policy gives the gradients of the un-rematted block bit for bit
+    (the recompute redraws the forward's masks from the generators' state
+    at the block's entry), and other generators give other gradients."""
+    torch.manual_seed(0)
+    if tower == "vit":
+        model = vit.Model(32, image_size=48, dtype="float32", dropout=0.1,
+                          drop_path=0.3, **{**VIT_KW, "depth": 3}).train()
+        inputs = (torch.randn(3, 48, 48, 3),)
+    else:
+        model = text.Model(16, width=64, depth=3, num_heads=4, mlp_dim=128,
+                           vocab_size=50, context_length=8, dropout=0.1,
+                           drop_path=0.3, causal_mask=True).train()
+        inputs = (torch.randint(1, 50, (3, 8)),)
+    layers.init_parameters(model, torch.Generator().manual_seed(1))
+
+    def run(policy, seed):
+        model.Transformer.remat_policy = policy
+        with layers.random_streams(
+                dropout=torch.Generator().manual_seed(seed),
+                drop_path=torch.Generator().manual_seed(seed + 1)):
+            return _grads(model, *inputs)
+
+    ref = run("none", 0)
+    for policy in REMAT_POLICIES[1:]:
+        got = run(policy, 0)
+        assert all(torch.equal(ref[k], got[k]) for k in ref), policy
+    other = run("none", 5)
+    assert any(not torch.equal(ref[k], other[k]) for k in ref)
+    with pytest.raises(RuntimeError, match="random_streams"):
+        model.Transformer.remat_policy = "none"
+        model(*inputs)
 
 
 def _tree(shapes, seed):

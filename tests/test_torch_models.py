@@ -214,7 +214,11 @@ def test_h14_layout_and_parameter_count():
 
 def test_converter_refuses_unknown_and_missing_names():
     with pytest.raises(ValueError, match="no torch counterpart"):
-        convert.from_jax_params({"img/MAPHead_0/probe": np.zeros((1, 1, 4))})
+        convert.from_jax_params({"img/relpos/mystery": np.zeros((1, 1, 4))})
+    # the MAP head's probe has a counterpart since the map pool is ported
+    assert set(convert.from_jax_params(
+        {"img/MAPHead_0/probe": np.zeros((1, 1, 4))})) == {
+            "img.MAPHead_0.probe"}
     port = layers.EncoderBlock(64, 4)
     model = jax_layers.EncoderBlock(num_heads=4)
     params = _init(model, np.zeros((1, 37, 64), np.float32))

@@ -32,7 +32,7 @@ from clipa_tpu.models import two_towers as jax_two_towers
 from clipa_tpu.models import vit as jax_vit
 from clipa_tpu_torch import convert, losses
 from clipa_tpu_torch import utils as u
-from clipa_tpu_torch.models import text, two_towers, vit
+from clipa_tpu_torch.models import layers, text, two_towers, vit
 
 F32_RTOL = 1e-4
 BF16_REL_L2 = 5e-2
@@ -205,19 +205,171 @@ def test_two_towers_contrastive_grads_match_flax(dtype):
 
 
 def test_towers_keep_fp32_masters_and_refuse_what_is_not_ported():
+    """fp32 masters under a bf16 compute dtype. The options that were
+    refused before A10's tower options were ported build now (the linear
+    stem, any remat name) and DropPath trains; what still raises: an
+    unknown stem or pool, and Dropout / DropPath in training without the
+    generators of ``layers.random_streams``."""
     port = two_towers.Model(**{**TT_CFG, "image": {**TT_CFG["image"],
                                                    "image_size": 48}},
                             dtype="bfloat16")
     assert all(p.dtype == torch.float32 for p in port.parameters())
     assert port.img.dtype == torch.bfloat16 == port.txt.dtype
-    with pytest.raises(NotImplementedError, match="patch_embed"):
-        vit.Model(8, patch_embed="linear", width=64, depth=1, num_heads=4)
-    with pytest.raises(NotImplementedError, match="remat"):
-        vit.Model(8, remat_policy="actcp", width=64, depth=1, num_heads=4)
-    with pytest.raises(NotImplementedError, match="DropPath"):
-        m = vit.Model(8, drop_path=0.1, width=64, depth=2, num_heads=4,
-                      patch_size=(8, 8), image_size=16).train()
+    linear = vit.Model(8, patch_embed="linear", width=64, depth=1,
+                       num_heads=4)
+    assert tuple(linear.embedding.kernel.shape) == (16 * 16 * 3, 64)
+    assert vit.Model(8, remat_policy="actcp", width=64, depth=1,
+                     num_heads=4).Transformer.remat_policy == "actcp"
+    with pytest.raises(ValueError, match="patch_embed"):
+        vit.Model(8, patch_embed="conv3d", width=64, depth=1, num_heads=4)
+    with pytest.raises(ValueError, match="pool_type"):
+        vit.Model(8, pool_type="max", width=64, depth=1, num_heads=4)
+    m = vit.Model(8, drop_path=0.1, width=64, depth=2, num_heads=4,
+                  patch_size=(8, 8), image_size=16).train()
+    layers.init_parameters(m, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="random_streams"):
         m(torch.zeros(1, 16, 16, 3))
+    with layers.random_streams(drop_path=torch.Generator().manual_seed(0)):
+        z, _ = m(torch.zeros(2, 16, 16, 3))
+    assert torch.isfinite(z).all()
+    m.eval()   # the identity in eval mode: no generator needed
+    assert torch.isfinite(m(torch.zeros(1, 16, 16, 3))[0]).all()
+
+
+def _inject_masks(monkeypatch):
+    """Both packages draw their Dropout / DropPath keep masks, in call
+    order, from a numpy stream of the same seed (``jax.random.bernoulli``
+    and ``layers.keep_mask`` patched): the same masks on both sides.
+    Returns the shapes each side asked for."""
+    seen = {"jax": [], "port": []}
+    draws = {"jax": np.random.RandomState(11),
+             "port": np.random.RandomState(11)}
+
+    def jax_bernoulli(key, p=0.5, shape=None, **unused):
+        seen["jax"].append(tuple(shape))
+        return jnp.asarray(draws["jax"].rand(*shape) < p)
+
+    def port_mask(stream, keep, shape, device):
+        seen["port"].append(tuple(shape))
+        return torch.from_numpy(draws["port"].rand(*shape) < keep)
+
+    monkeypatch.setattr(jax.random, "bernoulli", jax_bernoulli)
+    monkeypatch.setattr(layers, "keep_mask", port_mask)
+    return seen
+
+
+_DROP_RNGS = {"dropout": jax.random.PRNGKey(0),
+              "drop_path": jax.random.PRNGKey(1)}
+
+
+@pytest.mark.parametrize("tower", ["vit_flat", "text_3d"])
+def test_dropout_and_drop_path_match_flax_with_injected_masks(
+        tower, monkeypatch):
+    """Training-mode Dropout (rate 0.1) and DropPath (0.3 at the last block,
+    np.linspace over the depth) with the masks injected: the ViT at L = 37
+    on the flat (B*L, D) stream (DropPath's per-sample mask repeated over
+    each sample's rows), and the causal text tower on the 3D stream."""
+    seen = _inject_masks(monkeypatch)
+    drops = dict(dropout=0.1, drop_path=0.3)
+    if tower == "vit_flat":
+        kw = dict(width=64, depth=3, num_heads=4, mlp_dim=128,
+                  patch_size=(8, 8), pool_type="gap", posemb="sincos2d",
+                  **drops)
+        x = np.random.RandomState(2).randn(3, 48, 48, 3).astype(np.float32)
+        make = lambda dt: jax_vit.Model(32, dtype=dt, **kw)  # noqa: E731
+        port = vit.Model(32, image_size=48, dtype="float32", **kw)
+        tx = torch.from_numpy(x)
+    else:
+        kw = dict(width=64, depth=3, num_heads=4, mlp_dim=128,
+                  vocab_size=100, pool_type="last", causal_mask=True,
+                  **drops)
+        x = np.random.RandomState(3).randint(1, 100, (3, 8)).astype(np.int32)
+        make = lambda dt: jax_text.Model(32, dtype=dt, **kw)  # noqa: E731
+        port = text.Model(32, context_length=8, dtype="float32", **kw)
+        tx = torch.from_numpy(x).long()
+    w = _weights((3, 32), 6)
+
+    def f(model, p):
+        z, _ = model.apply({"params": p}, x, train=True, rngs=_DROP_RNGS)
+        return jnp.sum(z * w), z
+
+    params, ((_, ref), jgrads), _ = _jax_value_and_grad(make, f, (x,),
+                                                        "float32")
+    port.train()
+    convert.load_jax_params(port, params)
+    z, _ = port(tx)
+    (z * torch.from_numpy(w)).sum().backward()
+    assert seen["port"] == seen["jax"]
+    rows = 3 * 37 if tower == "vit_flat" else 3
+    assert (3, 1) in seen["port"] or (3, 1, 1) in seen["port"]
+    assert any(s[0] == rows for s in seen["port"])   # elementwise dropout
+    _compare(z.detach().numpy(), ref, "embedding")
+    _check_grads(port, jgrads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linear_stem_and_map_pool_match_flax(dtype):
+    kw = dict(width=64, depth=2, num_heads=4, mlp_dim=128,
+              patch_size=(8, 8), pool_type="map", patch_embed="linear")
+    image = np.random.RandomState(2).randn(3, 48, 48, 3).astype(np.float32)
+    w = _weights((3, 32), 5)
+
+    def f(model, p):
+        z, _ = model.apply({"params": p}, image, train=True)
+        return jnp.sum(z * w), z
+
+    params, ((_, ref), jgrads), f32 = _jax_value_and_grad(
+        lambda dt: jax_vit.Model(32, dtype=dt, **kw), f, (image,), dtype)
+    assert "MAPHead_0" in params and params["embedding"]["kernel"].ndim == 2
+    port = vit.Model(32, image_size=48, dtype=dtype, **kw).train()
+    convert.load_jax_params(port, params)
+    z, _ = port(torch.from_numpy(image))
+    (z * torch.from_numpy(w)).sum().backward()
+    _compare(z.detach().numpy(), ref, "embedding",
+             None if f32 is None else f32[0][1])
+    _check_grads(port, jgrads, None if f32 is None else f32[1])
+
+
+@pytest.mark.parametrize("posemb,embed_cls", [("learn", True),
+                                              ("sincos1d", True),
+                                              ("sincos1d", False)])
+def test_embed_cls_and_sincos1d_text_towers_match_flax(posemb, embed_cls):
+    """CoCa's text tower: cls appended, a table of context_length + 1
+    rows, the cls row's pad mask (captions of 3-8 ids, pads after), pooled
+    at the cls; its un-normed tokens in fp32 too. And sincos1d."""
+    kw = dict(width=64, depth=2, num_heads=4, mlp_dim=128, vocab_size=100,
+              pool_type="last", posemb=posemb, embed_cls=embed_cls,
+              causal_mask=True, ln_eps=1e-5)
+    rng = np.random.RandomState(3)
+    tokens = np.zeros((3, 8), np.int32)
+    for i, n in enumerate((3, 5, 8)):
+        tokens[i, :n] = rng.randint(1, 100, n)
+    w = _weights((3, 32), 6)
+    wt = _weights((3, 8, 64), 7)
+
+    def f(model, p):
+        z, out = model.apply({"params": p}, tokens, train=True)
+        value = jnp.sum(z * w)
+        if embed_cls:
+            assert out["tokens"].dtype == jnp.float32
+            value = value + jnp.sum(out["tokens"] * wt)
+        return value, (z, out.get("tokens", z))
+
+    params, ((_, (ref, ref_tokens)), jgrads), _ = _jax_value_and_grad(
+        lambda dt: jax_text.Model(32, dtype=dt, context_length=8, **kw), f,
+        (tokens,), "float32")
+    port = text.Model(32, context_length=8, dtype="float32", **kw).train()
+    convert.load_jax_params(port, params)
+    z, out = port(torch.from_numpy(tokens).long())
+    value = (z * torch.from_numpy(w)).sum()
+    if embed_cls:
+        assert out["tokens"].dtype == torch.float32
+        assert port.pos_embedding.shape[1] == 9
+        _compare(out["tokens"].detach().numpy(), ref_tokens, "tokens")
+        value = value + (out["tokens"] * torch.from_numpy(wt)).sum()
+    value.backward()
+    _compare(z.detach().numpy(), ref, "embedding")
+    _check_grads(port, jgrads)
 
 
 @pytest.mark.parametrize("masked,reduction", [(False, True), (True, True),

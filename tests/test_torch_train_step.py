@@ -215,12 +215,16 @@ def test_norm_metrics_gating_and_refusals():
         logged.append(float(meas["l2_grads"]) > 0)
         assert np.isfinite(float(meas["training_loss"]))
     assert logged == [True, False, True, False, True]   # 1st, 3rd, last
-    for loss, item in (("ring", "A8"), ("ring_sigmoid", "A8"),
-                       ("coca", "A10")):
+    for loss, item in (("ring", "A8"), ("ring_sigmoid", "A8")):
         bad = tiny_config()
         bad.loss = loss
         with pytest.raises(NotImplementedError, match=item):
             step.make_update_fn(port, tx, bad)
+    # the CoCa loss is ported (tests/test_torch_coca.py steps it against
+    # the JAX step): the dispatch takes it
+    coca = tiny_config()
+    coca.loss = "coca"
+    assert callable(step.make_update_fn(port, tx, coca))
     bad = tiny_config()
     bad.loss = "sigmoid"   # distillation takes the softmax loss only
     with pytest.raises(ValueError, match="softmax"):
