@@ -249,6 +249,30 @@ back, served, captioning and trained, in the step and in the trainer.
      vocabulary's range): finite losses, 24 + 24 fused launches per step.
      Phases 2 and 3 time the fused forward and backward at the step's B =
      128, L = 257, D = 1024.
+ 20. the HF text towers, Swin, relpos-ViT and the timm ViT table at full
+     width, seeded weights, token ids made here (no HF tokenizer on the
+     card's machine): (a) ``EmbeddingService`` over
+     xlm-roberta-large-ViT-H-14 in bf16 at bucket 256, 1024 uint8 images
+     and 2048 id rows of 77 (``embed_tokens``): 32 fused forwards per
+     image chunk (L = 257, hd 80) and none in the pad-masked text tower,
+     cosine >= 0.999 against the plain path, images/s and texts/s; (b)
+     coca_roberta-ViT-B-32: exported (npz: the open_clip layout has no HF
+     text map) and loaded back bit for bit, ``generate`` by beam search
+     and top-k / top-p (12 fused forwards per call), the CoCa step at B =
+     128 against the plain path (rtol 1e-2, cosine >= 0.99), then 3 steps
+     of 12 + 12 launches (L = 50, D = 768, 12 heads); (c) LiT: the
+     two-towers step with the BERT-base text tower
+     (``proj.flaxformer.bert``) over 64 WordPiece ids and a B/32 image
+     tower, B = 256, against the plain path, then 3 steps, each launching
+     12 fused forwards and 12 backwards in each tower, counted by (L, D):
+     the text tower's at L = 64; (d) roberta-, xlm-roberta-base- and
+     mt5-base-ViT-B-32, vit_medium_patch16_gap_256 (the fused kernels at L
+     = 257, D = 512, 8 heads), swin_base_patch4_window7_224 and
+     vit_relpos_medium_patch16_cls_224 served in bf16 at bucket 64 (128
+     images, 256 id rows): launches, cosine >= 0.999 against the plain
+     path, the export round trip bit for bit (open_clip .bin, or npz for
+     the HF text towers). Phases 2 and 3 time the kernels at the new
+     shapes.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -337,7 +361,10 @@ FLASH_SHAPES = ((128, 138, 138, 16, 64, 1.0),  # L/16 @224, mask 0.3
 # unmask-tuning stages (224 px at mask 0.3: L = 180, B = 64 as in phase
 # 12; 336 px at mask 0.4: L = 346, B = 16), phase 18's image towers at
 # bucket 256 (ViT-L/16 @224: L = 197; ViT-L/14 @224: L = 257; D = 1024;
-# coca_ViT-L-14's served tower too), and phase 19's CoCa step (B = 128)
+# coca_ViT-L-14's served tower too), phase 19's CoCa step (B = 128), and
+# phase 20's: the LiT BERT text tower (L = 64, D = 768, 12 heads), the
+# B/32 image tower of coca_roberta's step and LiT's (L = 50), and
+# vit_medium_patch16_gap_256 served at bucket 64 (L = 257, D = 512, 8 heads)
 FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("L/16 @112", 384, 50, 1024, 16, True, False),
                 ("fine-tune auto", 128, 138, 1024, 16, True, False),
@@ -347,15 +374,20 @@ FUSED_SHAPES = (("bucket 256", 256, 257, 1280, 16, True, False),
                 ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
                 ("L/16 @224 bucket 256", 256, 197, 1024, 16, True, False),
                 ("L/14 @224 bucket 256", 256, 257, 1024, 16, True, False),
-                ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False))
+                ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False),
+                ("LiT BERT text L=64 B=256", 256, 64, 768, 12, True, False),
+                ("B/32 @224 B=128", 128, 50, 768, 12, True, False),
+                ("vit_medium bucket 64", 64, 257, 512, 8, True, False))
 
 # Phase 3's timed cases of the fused backward, (name, b, l, d, h, bias,
 # exact): the pretrain step's (L/16 @112), the H/14 @84 headline pretrain
 # (`bench.py` STAGES["pretrain_h14"]: hd 80), the fine-tune step's `auto`
 # route, the exact form without biases that SDPA's backward also computes,
 # the H/14 unmask-tuning stages (the long scheme), each also in the exact
-# form without biases beside SDPA's backward, and phase 19's CoCa step
-# (coca_ViT-L-14 @224, B = 128, L = 257, hd 64: the long scheme)
+# form without biases beside SDPA's backward, phase 19's CoCa step
+# (coca_ViT-L-14 @224, B = 128, L = 257, hd 64: the long scheme), and
+# phase 20's steps (the LiT BERT text tower at L = 64 and the B/32 image
+# tower at L = 50, D = 768: the whole-head scheme)
 BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
               ("H/14 @84", 256, 37, 1280, 16, True, False),
               ("fine-tune auto", 128, 138, 1024, 16, True, False),
@@ -364,7 +396,9 @@ BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
               ("H/14 @336 mask 0.4", 16, 346, 1280, 16, True, False),
               ("H/14 @224 mask 0.3 exact", 64, 180, 1280, 16, False, True),
               ("H/14 @336 mask 0.4 exact", 16, 346, 1280, 16, False, True),
-              ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False))
+              ("CoCa L/14 @224 B=128", 128, 257, 1024, 16, True, False),
+              ("LiT BERT text L=64 B=256", 256, 64, 768, 12, True, False),
+              ("B/32 @224 B=128", 128, 50, 768, 12, True, False))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
@@ -3447,6 +3481,443 @@ def _coca(card, data_dir):
                          "trainer_step": per_step[0]}}
 
 
+# Phase 20: the HF text towers, Swin, relpos-ViT and the timm ViT name
+# table at full width, seeded weights, token ids made here (the card
+# machine has no `transformers` for the HF tokenizers).
+HF_SERVE_MODEL = "xlm-roberta-large-ViT-H-14"
+HF_SERVE_LAYERS = 32          # the H/14 tower: L = 257, D = 1280, hd 80
+HF_IMAGES, HF_TEXTS = 1024, 2048
+COCA_HF_MODEL = "coca_roberta-ViT-B-32"
+COCA_HF_LAYERS = 12           # ViT-B/32 @224: L = 50, D = 768, 12 heads
+# the step at B = 128 on the pretrain config's optimizer, 77 ids; the ids
+# stay below the decoder's 49 408 (open_clip's default vocabulary, which
+# coca_roberta keeps: a RoBERTa id past it is no label)
+COCA_HF_TRAIN = "img=B/32,res=224,token_len=77,batchsize=128"
+COCA_HF_STEPS = 3
+COCA_HF_VOCAB = 49408
+# LiT: the BERT-base text tower at 64 WordPiece ids beside a B/32 image
+# tower, B = 256: the fused kernels in both towers
+LIT_TRAIN = ("img=B/32,res=224,token_len=64,batchsize=256,"
+             "text_sampling=plain")
+LIT_STEPS = 3
+LIT_LAUNCHES = {(50, 768): 12, (64, 768): 12}   # (L, D): per direction
+# (config, fused forwards per image chunk) served at bucket 64
+OTHER_MODELS = (("roberta-ViT-B-32", 12), ("xlm-roberta-base-ViT-B-32", 12),
+                ("mt5-base-ViT-B-32", 12),
+                ("vit_medium_patch16_gap_256", 12),   # L = 257, D 512, H 8
+                ("swin_base_patch4_window7_224", 0),  # biased einsums only
+                ("vit_relpos_medium_patch16_cls_224", 0))
+OTHER_IMAGES, OTHER_TEXTS, OTHER_BUCKET = 128, 256, 64
+
+
+def _token_ids(name, rng, n, vocab=None):
+    """(n, context) int32 ids for config `name`'s text tower: ids from 3
+    up to its vocabulary (or `vocab`) and a pad tail of random length (the
+    HF trunks' pad id: RoBERTa's 1, mT5's 0; 0 for the others)."""
+    import numpy as np
+    from clipa_tpu_torch.compat import openclip
+    from clipa_tpu_torch.models import hf_text, t5_text
+    t = openclip.get_model_config(name)["text_cfg"]
+    ctx = t.get("context_length", 77)
+    if "hf_model_name" in t:
+        arch = {**hf_text.HF_ARCHS, **t5_text.T5_ARCHS}[
+            t["hf_model_name"].split("/")[-1]]
+        top, pad = arch["vocab_size"], arch.get("pad_id", 0)
+    else:
+        top, pad = t["vocab_size"], 0
+    ids = rng.randint(3, vocab or top, (n, ctx))
+    lengths = rng.randint(2, ctx + 1, n)
+    ids[np.arange(ctx)[None] >= lengths[:, None]] = pad
+    return ids.astype(np.int32)
+
+
+def _cosines(a, b):
+    import numpy as np
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+class _ShapeLaunches:
+    """Counts the fused kernels' launches by (L, D) while it is entered:
+    wraps block_attention's launch functions (the counters stay as they
+    are)."""
+
+    def __init__(self):
+        from clipa_tpu_torch.ops import block_attention as ba
+        self.fwd, self.bwd = {}, {}
+
+        def counted(fn, seen, seq_arg):
+            def run(*args, **kw):
+                key = (args[seq_arg], args[0].shape[-1])
+                seen[key] = seen.get(key, 0) + 1
+                return fn(*args, **kw)
+            return run
+
+        self.patch = _Patched((ba, "_launch", counted(ba._launch, self.fwd,
+                                                      4)),
+                              (ba, "_launch_bwd", counted(ba._launch_bwd,
+                                                          self.bwd, 5)))
+
+    def __enter__(self):
+        self.patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.__exit__(*exc)
+
+
+def _round_trip(clip, name, folder):
+    """Exports a served model and loads it back: Swin, relpos and the ViT
+    configs through save_open_clip's .bin, the HF-text ones (which the
+    open_clip layout cannot hold: save_open_clip refuses them) through the
+    JAX-layout npz. Returns (route, tensors compared, seconds)."""
+    import torch
+    from clipa_tpu_torch import convert
+    from clipa_tpu_torch.compat import export, openclip
+    from clipa_tpu_torch.train import checkpoint
+    t0 = time.perf_counter()
+    if "hf_model_name" in clip.config["text_cfg"]:
+        try:
+            export.save_open_clip(clip, name, folder)
+        except NotImplementedError:
+            pass
+        else:
+            raise RuntimeError(f"save_open_clip wrote the HF tower of {name}")
+        route, path = "npz", os.path.join(folder, "params.npz")
+        os.makedirs(folder, exist_ok=True)
+        checkpoint.save_params(convert.to_jax_params(clip.model), path)
+    else:
+        route = "open_clip .bin"
+        path = os.path.join(export.save_open_clip(clip, name, folder),
+                            export.WEIGHTS_FILENAME)
+    precision = ("bf16" if next(clip.model.img.parameters()).dtype
+                 == torch.bfloat16 else "float32")
+    loaded = openclip.create_model(name, path, device="cuda",
+                                   precision=precision)
+    n = _bit_equal_models(clip.model, loaded.model,
+                          f"{name} exported and loaded back")
+    shutil.rmtree(folder)
+    return route, n, time.perf_counter() - t0
+
+
+def _hf_towers(card):
+    """Phase 20: the HF text towers, Swin, relpos-ViT and the timm ViT name
+    table at full width, seeded weights, ids made here.
+
+    (a) ``EmbeddingService`` over HF_SERVE_MODEL in bf16 at bucket 256:
+    HF_IMAGES uint8 images and HF_TEXTS id rows of 77 (``embed_tokens``;
+    XLM-R ids below 250 002, pad-1 tails): shapes, finite values, unit
+    norms, HF_SERVE_LAYERS fused forwards per image chunk and none in the
+    pad-masked text tower, per-row image cosine >= MIN_COSINE against the
+    plain path, images/s and texts/s (best of two). (b) COCA_HF_MODEL: the bf16
+    model exported (npz; save_open_clip refuses its HF tower) and loaded
+    back bit for bit; ``generate`` on 4 images (beam search and top-k /
+    top-p), COCA_HF_LAYERS fused forwards per call; the step of
+    ``make_update_fn(model_name="coca", loss="coca")`` at COCA_HF_TRAIN:
+    the kernel path's loss and gradients against the plain path's
+    (LOSS_RTOL, MIN_GRAD_COSINE), then COCA_HF_STEPS steps, each launching
+    COCA_HF_LAYERS forwards and backwards (K5 / K6 at L = 50, D = 768).
+    (c) LiT: the two-towers step at LIT_TRAIN with the BERT-base text
+    tower (``proj.flaxformer.bert``) over WordPiece ids of seeded captions:
+    kernel against plain path (both towers), then LIT_STEPS steps, each
+    launching LIT_LAUNCHES by (L, D) in each direction: the text tower's at
+    L = 64. (d) OTHER_MODELS served in bf16 at bucket OTHER_BUCKET
+    (OTHER_IMAGES images, OTHER_TEXTS id rows): the fused forwards per
+    image chunk and none in the (masked) text towers, cosine >= MIN_COSINE
+    against the plain path, the export round trip bit for bit. (The text
+    towers reach no kernel: their plain path is their path.)"""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import optim, tokenizer
+    from clipa_tpu_torch.compat import openclip
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.ops import preprocess
+    from clipa_tpu_torch.serving import EmbeddingService
+    from clipa_tpu_torch.train import step
+
+    t_phase = time.perf_counter()
+    reset, read = _attention_counters()
+    work = tempfile.TemporaryDirectory()
+    rng = np.random.RandomState(SEED)
+    out = {}
+    torch.cuda.empty_cache()
+
+    # (a) xlm-roberta-large-ViT-H-14 served at bucket 256
+    t0 = time.perf_counter()
+    svc = EmbeddingService(HF_SERVE_MODEL, None, device="cuda",
+                           precision="bfloat16", seed=SEED, num_workers=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    size = svc.image_size
+    images = rng.randint(0, 256, (HF_IMAGES, size, size, 3), np.uint8)
+    ids = _token_ids(HF_SERVE_MODEL, rng, HF_TEXTS)
+    chunks = len(list(svc._chunks(images)))
+    reset()
+    z_img = svc.embed_images(images)
+    serve_launches = read()["fused_fwd"]
+    z_txt = svc.embed_tokens(ids)
+    if read()["fused_fwd"] != serve_launches:
+        raise RuntimeError("the pad-masked XLM-R tower launched the fused "
+                           "kernel")
+    _check_embeddings(z_img, HF_IMAGES, svc.embed_dim, "XLM-R H/14 images")
+    _check_embeddings(z_txt, HF_TEXTS, svc.embed_dim, "XLM-R texts")
+    if serve_launches != HF_SERVE_LAYERS * chunks:
+        raise RuntimeError(f"{HF_SERVE_MODEL} launched the fused forward "
+                           f"{serve_launches} times over {chunks} chunks, "
+                           f"expected {HF_SERVE_LAYERS * chunks}")
+    plain = EmbeddingService(HF_SERVE_MODEL, None, device="cuda",
+                             precision="bfloat16", seed=SEED, num_workers=0,
+                             attn_impl="plain")
+    before = read()
+    serve_cos = float(_cosines(z_img[:256],
+                               plain.embed_images(images[:256])).min())
+    if read() != before:
+        raise RuntimeError("the plain service launched a kernel")
+    if serve_cos < MIN_COSINE:
+        raise RuntimeError(f"{HF_SERVE_MODEL} embeddings differ from the "
+                           f"plain path: cosine {serve_cos}")
+    del plain
+    img_rate = _rate(lambda: svc.embed_images(images), HF_IMAGES)
+    txt_rate = _rate(lambda: svc.embed_tokens(ids), HF_TEXTS)
+    print(f"{card}: {HF_SERVE_MODEL} (bf16, seeded, built in {build_s:.2f} "
+          f"s): {chunks} image chunks, {serve_launches} fused forwards (L = "
+          f"257, hd 80); per-row cosine against the plain path "
+          f"{serve_cos:.6f}; images/s at bucket 256 "
+          f"{img_rate:.2f}; texts/s at bucket 256 {txt_rate:.2f} "
+          f"({HF_TEXTS} id rows of 77)", flush=True)
+    out["serving"] = {"model": HF_SERVE_MODEL, "chunks": chunks,
+                      "launches": serve_launches, "min_cosine": serve_cos,
+                      "images_per_s": img_rate, "texts_per_s": txt_rate}
+    del svc
+    torch.cuda.empty_cache()
+
+    # (b) coca_roberta-ViT-B-32: export and load back, captions, the step
+    clip = openclip.create_model(COCA_HF_MODEL, device="cuda",
+                                 precision="bf16", seed=SEED)
+    route, n_tensors, trip_s = _round_trip(
+        clip, COCA_HF_MODEL, os.path.join(work.name, "coca_roberta"))
+    size = clip.image_size
+    cap_images = preprocess.normalize_uint8(torch.from_numpy(
+        rng.randint(0, 256, (COCA_CAPTION_IMAGES, size, size, 3),
+                    np.uint8)).cuda())
+    kinds = {"beam_search": dict(num_beams=COCA_BEAMS[0],
+                                 num_beam_groups=COCA_BEAMS[1]),
+             "top_k": dict(top_k=COCA_TOP_K, seed=SEED),
+             "top_p": dict(top_p=COCA_TOP_P, seed=SEED)}
+    caption_s, gen_launches = {}, {}
+    for kind, kw in kinds.items():
+        reset()
+        t0 = time.perf_counter()
+        caption = clip.generate(cap_images, seq_len=COCA_SEQ_LEN,
+                                generation_type=kind, **kw)
+        caption_s[kind] = (time.perf_counter() - t0) / len(caption)
+        gen_launches[kind] = read()["fused_fwd"]
+        if caption.shape[0] != COCA_CAPTION_IMAGES or \
+                (caption[:, 0] != 49406).any():
+            raise RuntimeError(f"{kind} captions {caption[:, :3]}")
+        if kind == "beam_search" and \
+                not (caption == 49407).any(axis=1).all():
+            raise RuntimeError(f"beam outputs without eos: {caption}")
+        if gen_launches[kind] != COCA_HF_LAYERS:
+            raise RuntimeError(f"generate ({kind}) launched the fused "
+                               f"forward {gen_launches[kind]} times")
+    del clip
+    torch.cuda.empty_cache()
+
+    config = clipa_pretrain.get_config(COCA_HF_TRAIN)
+    config.model_name, config.loss = "coca", "coca"
+    config.model = dict(openclip._to_coca_cfg(openclip.get_model_config(
+        COCA_HF_MODEL)), dtype="bfloat16")
+    b, (_, size, _, _) = config.input.batch_size, config.init_shapes[0]
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 256, (b, size, size, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(_token_ids(
+                 COCA_HF_MODEL, rng, b, vocab=COCA_HF_VOCAB)).cuda()}
+    apply_loss = step._make_loss_dispatch("coca", config)
+    loss_k, grads_k = _grads(model, state["params"], batch,
+                             apply_loss=apply_loss)
+    before = read()
+    _set_attn_impl(model.img, "plain")
+    loss_p, grads_p = _grads(model, state["params"], batch,
+                             apply_loss=apply_loss)
+    _set_attn_impl(model.img, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("coca_roberta step, kernel vs plain path", loss_k, loss_p,
+                   cmp, LOSS_RTOL)
+    del grads_k, grads_p
+    if (cmp["loss_rel"] > LOSS_RTOL or cmp["min_cosine"] < MIN_GRAD_COSINE
+            or cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the coca_roberta kernel path's step differs from "
+                           "the plain path's")
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=b))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    coca_steps, stamps = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(COCA_HF_STEPS):
+        reset()
+        state, meas = update(state, batch)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        coca_steps.append(read())
+        if not all(bool(torch.isfinite(v)) for v in meas.values()):
+            raise RuntimeError(f"non-finite measurements {meas}")
+    want = {"flash_fwd": 0, "flash_bwd": 0, "fused_fwd": COCA_HF_LAYERS,
+            "fused_bwd": COCA_HF_LAYERS}
+    if coca_steps != [want] * COCA_HF_STEPS:
+        raise RuntimeError(f"the coca_roberta steps launched {coca_steps}, "
+                           f"expected {want} each")
+    coca_rate = b * (COCA_HF_STEPS - 1) / (stamps[-1] - stamps[0])
+    coca_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{card}: {COCA_HF_MODEL}: export ({route}) and load back, "
+          f"{n_tensors} tensors bit for bit in {trip_s:.2f} s; seconds per "
+          f"caption { {k: round(v, 4) for k, v in caption_s.items()} }, fused "
+          f"forwards per call {gen_launches}; the step at B={b}: loss "
+          f"{float(meas['training_loss']):.4f} (caption "
+          f"{float(meas['caption_loss']):.4f}), {coca_steps[0]} per step, "
+          f"pairs/s over steps 2-{COCA_HF_STEPS} {coca_rate:.2f}, peak "
+          f"{coca_peak:.2f} GiB", flush=True)
+    out["coca"] = {"model": COCA_HF_MODEL, "round_trip": route,
+                   "tensors_bit_for_bit": n_tensors,
+                   "seconds_per_caption": caption_s,
+                   "generate_launches": gen_launches,
+                   "step_launches": coca_steps[0], "loss_rel":
+                   cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
+                   "pairs_per_s": coca_rate, "peak_gb": coca_peak}
+    del model, state, tx, update, batch
+    torch.cuda.empty_cache()
+
+    # (c) LiT: the BERT-base text tower in a two-towers step
+    config = clipa_pretrain.get_config(LIT_TRAIN)
+    config.model.text_model = "proj.flaxformer.bert"
+    config.model.text = {"variant": "base"}
+    b, (_, size, _, _) = config.input.batch_size, config.init_shapes[0]
+    (_, text_len) = config.init_shapes[1]
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    wordpiece = tokenizer.get_wordpiece(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data", "vocab.txt"))
+    labels = np.stack([tokenizer.bert_tokenize(t, wordpiece, text_len)
+                       for t in _seeded_captions(rng, b)])
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 256, (b, size, size, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(labels).cuda()}
+    loss_k, grads_k = _grads(model, state["params"], batch)
+    before = read()
+    _set_attn_impl(model, "plain")
+    loss_p, grads_p = _grads(model, state["params"], batch)
+    _set_attn_impl(model, "auto")
+    if read() != before:
+        raise RuntimeError("the plain path launched a kernel")
+    lit_cmp = _compare(loss_k, grads_k, loss_p, grads_p)
+    _print_compare("LiT BERT step, kernel vs plain path", loss_k, loss_p,
+                   lit_cmp, LOSS_RTOL)
+    del grads_k, grads_p
+    if (lit_cmp["loss_rel"] > LOSS_RTOL
+            or lit_cmp["min_cosine"] < MIN_GRAD_COSINE
+            or lit_cmp["noise"] > KEY_BIAS_NOISE):
+        raise RuntimeError("the LiT kernel path's step differs from the "
+                           "plain path's")
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=b))
+    update = step.make_update_fn(model, tx, config, config.total_steps)
+    lit_steps, stamps = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LIT_STEPS):
+        reset()
+        with _ShapeLaunches() as shapes:
+            state, meas = update(state, batch)
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        lit_steps.append({"fwd": shapes.fwd, "bwd": shapes.bwd,
+                          "counters": read()})
+        if shapes.fwd != LIT_LAUNCHES or shapes.bwd != LIT_LAUNCHES:
+            raise RuntimeError(f"the LiT step launched {shapes.fwd} / "
+                               f"{shapes.bwd} by (L, D), expected "
+                               f"{LIT_LAUNCHES} each way")
+        if not np.isfinite(float(meas["training_loss"])):
+            raise RuntimeError(f"the LiT loss is {meas['training_loss']}")
+    lit_rate = b * (LIT_STEPS - 1) / (stamps[-1] - stamps[0])
+    lit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{card}: LiT (BERT-base text at 64 ids, B/32 image, B={b}): "
+          f"fused launches per step by (L, D) {lit_steps[0]['fwd']} forward,"
+          f" {lit_steps[0]['bwd']} backward; losses "
+          f"{float(meas['training_loss']):.4f}; pairs/s over steps "
+          f"2-{LIT_STEPS} {lit_rate:.2f}, peak {lit_peak:.2f} GiB",
+          flush=True)
+    out["lit"] = {"launches_by_shape": {f"L={l} D={d}": n for (l, d), n in
+                                        lit_steps[0]["fwd"].items()},
+                  "step_launches": lit_steps[0]["counters"],
+                  "loss_rel": lit_cmp["loss_rel"],
+                  "min_cosine": lit_cmp["min_cosine"],
+                  "pairs_per_s": lit_rate, "peak_gb": lit_peak}
+    del model, state, tx, update, batch
+    torch.cuda.empty_cache()
+
+    # (d) the other configs at bucket 64
+    others = {}
+    for name, layers in OTHER_MODELS:
+        t0 = time.perf_counter()
+        svc, plain = (EmbeddingService(
+            name, None, device="cuda", precision="bfloat16", seed=SEED,
+            num_workers=0, buckets=(OTHER_BUCKET,), attn_impl=impl)
+            for impl in ("auto", "plain"))
+        size = svc.image_size
+        images = rng.randint(0, 256, (OTHER_IMAGES, size, size, 3), np.uint8)
+        ids = _token_ids(name, rng, OTHER_TEXTS)
+        reset()
+        z_img = svc.embed_images(images)
+        launches = read()["fused_fwd"]
+        z_txt = svc.embed_tokens(ids)
+        text_launches = read()["fused_fwd"] - launches
+        before = read()
+        cos = float(_cosines(z_img, plain.embed_images(images)).min())
+        if read() != before:
+            raise RuntimeError(f"the plain {name} service launched a kernel")
+        _check_embeddings(z_img, OTHER_IMAGES, svc.embed_dim, name)
+        _check_embeddings(z_txt, OTHER_TEXTS, svc.embed_dim, name)
+        chunks = OTHER_IMAGES // OTHER_BUCKET
+        if launches != layers * chunks or text_launches:
+            raise RuntimeError(f"{name}: {launches} fused forwards over "
+                               f"{chunks} image chunks (expected "
+                               f"{layers * chunks}), {text_launches} in the "
+                               f"text tower (expected 0)")
+        if cos < MIN_COSINE:
+            raise RuntimeError(f"{name} embeddings differ from the plain "
+                               f"path: cosine {cos}")
+        route, n_tensors, trip_s = _round_trip(
+            svc.clip, name,
+            os.path.join(work.name, os.path.basename(name)))
+        others[name] = {"launches": launches, "min_cosine": cos,
+                        "round_trip": route, "tensors_bit_for_bit": n_tensors,
+                        "seconds": time.perf_counter() - t0}
+        print(f"{card}: {name} (bf16, bucket {OTHER_BUCKET}): {launches} "
+              f"fused forwards over {chunks} image chunks; cosine against "
+              f"the plain path min {cos:.6f}; export ({route}) and load "
+              f"back, {n_tensors} tensors bit for bit in {trip_s:.2f} s; "
+              f"{others[name]['seconds']:.2f} s", flush=True)
+        del svc, plain
+        torch.cuda.empty_cache()
+    out["others"] = others
+    work.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 20 in {phase_s:.2f} s", flush=True)
+    return {**out, "phase_s": phase_s, "launches": {
+        "serving": serve_launches,
+        "generate": sum(gen_launches.values()),
+        "coca_step": coca_steps[0],
+        "lit_step": lit_steps[0]["counters"],
+        "others": sum(o["launches"] for o in others.values())}}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -3838,6 +4309,9 @@ def main() -> int:
     coca = _coca(card, os.path.join(keep.name, "laion"))
     keep.cleanup()
 
+    # 20. the HF text towers, Swin, relpos-ViT and the timm ViT table
+    hf = _hf_towers(card)
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -3888,6 +4362,12 @@ def main() -> int:
         "train_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
                         f"{COCA_TRAIN} (model_name=coca, loss=coca)",
         **coca,
+    }, "hf_towers": {
+        "lit_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                      f"{LIT_TRAIN} (text_model=proj.flaxformer.bert)",
+        "coca_train_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                             f"{COCA_HF_TRAIN} (model_name=coca, loss=coca)",
+        **hf,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -3903,7 +4383,12 @@ def main() -> int:
                      + coca["launches"]["serving"]
                      + coca["launches"]["generate"]
                      + coca["launches"]["training_step"]["fused_fwd"]
-                     + coca["launches"]["trainer_step"]["fused_fwd"]),
+                     + coca["launches"]["trainer_step"]["fused_fwd"]
+                     + hf["launches"]["serving"]
+                     + hf["launches"]["generate"]
+                     + hf["launches"]["coca_step"]["fused_fwd"]
+                     + hf["launches"]["lit_step"]["fused_fwd"]
+                     + hf["launches"]["others"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
@@ -3922,7 +4407,14 @@ def main() -> int:
             "coca_training_step":
                 coca["launches"]["training_step"]["fused_fwd"],
             "coca_trainer_step":
-                coca["launches"]["trainer_step"]["fused_fwd"]},
+                coca["launches"]["trainer_step"]["fused_fwd"],
+            f"hf_serving {HF_SERVE_MODEL}": hf["launches"]["serving"],
+            "coca_roberta_generate": hf["launches"]["generate"],
+            "coca_roberta_training_step":
+                hf["launches"]["coca_step"]["fused_fwd"],
+            "lit_bert_training_step":
+                hf["launches"]["lit_step"]["fused_fwd"],
+            "bucket_64_serving (vit_medium)": hf["launches"]["others"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
@@ -3946,7 +4438,9 @@ def main() -> int:
                      + chain["launches"]["fused_bwd"]
                      + distill["launches"]["fused_bwd"]
                      + coca["launches"]["training_step"]["fused_bwd"]
-                     + coca["launches"]["trainer_step"]["fused_bwd"]),
+                     + coca["launches"]["trainer_step"]["fused_bwd"]
+                     + hf["launches"]["coca_step"]["fused_bwd"]
+                     + hf["launches"]["lit_step"]["fused_bwd"]),
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
@@ -3959,7 +4453,11 @@ def main() -> int:
             "coca_training_step":
                 coca["launches"]["training_step"]["fused_bwd"],
             "coca_trainer_step":
-                coca["launches"]["trainer_step"]["fused_bwd"]},
+                coca["launches"]["trainer_step"]["fused_bwd"],
+            "coca_roberta_training_step":
+                hf["launches"]["coca_step"]["fused_bwd"],
+            "lit_bert_training_step":
+                hf["launches"]["lit_step"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],

@@ -22,9 +22,18 @@ Port of the ViT/text and CoCa half of ``clipa_tpu/compat/openclip.py``:
     ``convert.load_jax_params`` loads; and ``load_openai_model`` for OpenAI's
     CLIP releases (a plain state dict or a TorchScript archive).
 
-Not ported yet (ROADMAP A10, each raises NotImplementedError naming it):
-timm, ModifiedResNet and HF-text towers (coca_roberta-ViT-B-32 among
-them), their state-dict maps and tokenizers.
+The HF text towers (``hf_text`` for roberta and xlm-roberta, ``t5_text``
+for mt5; CoCa's ``coca_roberta-ViT-B-32`` among them) take their ids from
+``transformers``' tokenizer of a local directory (imported only there);
+the open_clip maps have none for them, as the JAX package has none: their
+weights move as npz files, or through the towers' own HF converters. The
+timm trunks ``vit_medium_patch16_gap_256`` (the native ViT),
+``swin_base_patch4_window7_224`` and ``vit_relpos_medium_patch16_cls_224``
+are mapped both ways.
+
+Not ported yet (ROADMAP A10c, each raises NotImplementedError naming it):
+the conv towers, timm's ``convnext_*`` and the ModifiedResNet ``RN*``, and
+their maps.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to clipa_tpu_torch "
-                               "yet (ROADMAP A10)")
+                               "yet (ROADMAP A10c)")
 
 
 def list_models() -> list[str]:
@@ -72,18 +81,54 @@ def get_model_config(name: str) -> dict:
         return json.load(f)
 
 
+def _timm_vision_cfg(v: dict) -> tuple[str, dict]:
+    """vision_cfg.timm_model_name -> (image model, its kwargs), as the JAX
+    translation maps the zoo's timm trunks: ``vit_medium_patch16_gap_256``
+    to the native ViT (gap pool), Swin and relpos-ViT to their towers; the
+    convnext trunks raise (A10c)."""
+    name = v["timm_model_name"]
+    drop_path = float(v.get("timm_drop_path") or 0.0)
+    if name == "vit_medium_patch16_gap_256":
+        return "vit", dict(
+            variant=None, width=512, depth=12, num_heads=8, mlp_dim=2048,
+            patch_size=(16, 16), pool_type="gap", posemb="learn",
+            ln_pre=False, gelu_approx=False, ln_eps=1e-6,
+            drop_path=drop_path)
+    if name == "swin_base_patch4_window7_224":
+        return "swin", dict(
+            variant=None, embed_dim=128, depths=(2, 2, 18, 2),
+            num_heads=(4, 8, 16, 32), window=7, patch_size=4,
+            drop_path=drop_path,
+            head_bias=bool(v.get("timm_proj_bias", False)))
+    if name == "vit_relpos_medium_patch16_cls_224":
+        return "vit_relpos", dict(
+            variant=None, width=512, depth=12, num_heads=8, patch_size=16,
+            drop_path=drop_path,
+            head_bias=bool(v.get("timm_proj_bias", False)))
+    if name.startswith("convnext_"):
+        raise _unported(f"the timm vision trunk {name!r}")
+    raise NotImplementedError(
+        f"timm vision trunk {name!r} has no native tower (ported: "
+        "['swin_base_patch4_window7_224', "
+        "'vit_medium_patch16_gap_256', "
+        "'vit_relpos_medium_patch16_cls_224'])")
+
+
 def _to_two_towers_cfg(cfg: dict, *, image_size: Optional[int] = None,
                        pos_embed: Optional[str] = None) -> dict:
     """open_clip JSON fields -> clipa_tpu_torch.models.two_towers kwargs
-    (the ViT/text branch of the JAX translation)."""
+    (the JAX translation; the image tower's dict adds `image_size`)."""
     v, t = cfg["vision_cfg"], cfg["text_cfg"]
+    quick = bool(cfg.get("quick_gelu"))
+    towers = dict(text=_text_tower_cfg(t, quick), text_model=_text_model(t),
+                  out_dim=(cfg["embed_dim"], cfg["embed_dim"]),
+                  temperature_init=1 / 0.07)
     if "timm_model_name" in v:
-        raise _unported(f"the timm vision trunk {v['timm_model_name']!r}")
+        image_model, image = _timm_vision_cfg(v)
+        image["image_size"] = image_size or v["image_size"]
+        return dict(image=image, image_model=image_model, **towers)
     if isinstance(v["layers"], (list, tuple)):
         raise _unported("the ModifiedResNet vision tower")
-    if "hf_model_name" in t:
-        raise _unported(f"the HF text tower {t['hf_model_name']!r}")
-    quick = bool(cfg.get("quick_gelu"))
     vision_pool_style = v.get("pool_style", "open_clip")
     if vision_pool_style == "big_vision_gap":
         img_pool = "gap"           # mean over patch tokens, then ln_post
@@ -111,20 +156,16 @@ def _to_two_towers_cfg(cfg: dict, *, image_size: Optional[int] = None,
         ln_eps=1e-5,  # torch nn.LayerNorm default: the compat surface
         ls_init=v.get("ls_init_value"),
     )
-    return dict(image=image, text=_text_tower_cfg(t, quick),
-                out_dim=(cfg["embed_dim"], cfg["embed_dim"]),
-                temperature_init=1 / 0.07)
+    return dict(image=image, **towers)
 
 
 def _to_coca_cfg(cfg: dict, *, image_size: Optional[int] = None) -> dict:
     """coca_*.json -> clipa_tpu_torch.models.coca.Model kwargs. The text
-    tower is the ``embed_cls`` one with ``context_length + 1`` positions;
-    the decoder's vocabulary is the multimodal config's, else the text
-    config's (default 49408)."""
+    tower is the ``embed_cls`` one with ``context_length + 1`` positions,
+    or an HF trunk (``text_model``: coca_roberta's ``hf_text``); the
+    decoder's vocabulary is the multimodal config's, else the text
+    config's (default 49408, for the HF trunks too)."""
     v, t, m = cfg["vision_cfg"], cfg["text_cfg"], cfg["multimodal_cfg"]
-    if "hf_model_name" in t:
-        raise _unported(f"the HF text tower {t['hf_model_name']!r} under "
-                        "the CoCa decoder (hf_text)")
     quick = bool(cfg.get("quick_gelu"))
     width = v["width"]
     image = dict(
@@ -141,7 +182,14 @@ def _to_coca_cfg(cfg: dict, *, image_size: Optional[int] = None) -> dict:
         (v.get("gelu_approximate", "none") == "tanh"),
         ln_eps=1e-5,
     )
-    text = {**_text_tower_cfg(t, quick), "embed_cls": True}
+    text = _text_tower_cfg(t, quick)
+    hf = {}
+    if "hf_model_name" in t:
+        # an HF trunk under the decoder: the truncation and the labels stay
+        # at the CoCa level
+        hf = {"text_model": _text_model(t)}
+    else:
+        text["embed_cls"] = True
     mm = dict(
         vocab_size=m.get("vocab_size", t.get("vocab_size", 49408)),
         width=m["width"],
@@ -156,11 +204,37 @@ def _to_coca_cfg(cfg: dict, *, image_size: Optional[int] = None) -> dict:
         attentional_pool=bool(v.get("attentional_pool")),
         n_queries=int(v.get("n_queries", 256)),
         attn_pooler_heads=int(v.get("attn_pooler_heads", 8)),
-        temperature_init=1 / 0.07,
+        temperature_init=1 / 0.07, **hf,
     )
 
 
+def _hf_name(t: dict) -> str:
+    """text_cfg.hf_model_name without its HF organisation prefix."""
+    return t["hf_model_name"].split("/")[-1]
+
+
+def _text_model(t: dict) -> str:
+    """The text tower of a text_cfg: ``t5_text`` for the mt5 trunks,
+    ``hf_text`` for the other HF trunks, else ``text_transformer``."""
+    if "hf_model_name" not in t:
+        return "text_transformer"
+    return "t5_text" if _hf_name(t).startswith("mt5") else "hf_text"
+
+
 def _text_tower_cfg(t: dict, quick: bool) -> dict:
+    if "hf_model_name" in t:
+        # an HF trunk: its architecture comes from the tower's table by
+        # name; the config's quick_gelu does not reach it
+        from clipa_tpu_torch.models.hf_text import HF_ARCHS
+        from clipa_tpu_torch.models.t5_text import T5_ARCHS
+        name = _hf_name(t)
+        if name not in HF_ARCHS and name not in T5_ARCHS:
+            raise NotImplementedError(
+                f"hf text trunk {name!r} has no native tower (supported: "
+                f"{sorted(HF_ARCHS) + sorted(T5_ARCHS)}).")
+        if t.get("pooler_type", "mean_pooler") != "mean_pooler":
+            raise NotImplementedError("only mean_pooler is implemented")
+        return dict(variant=name, proj=t.get("proj", "mlp"))
     text_pool = {"big_vision_last": "last", "big_vision_tok": "tok",
                  "open_clip": "eot"}[t.get("pool_style", "open_clip")]
     return dict(
@@ -273,7 +347,8 @@ class CoCaModel(CLIPModel):
             _, _, out = self.model(
                 None, torch.as_tensor(buf, device=self.device),
                 embed_cls=False)
-            logits = self.model.decoder(out["txt/tokens"], tokens_img)
+            logits = self.model.decoder(out[f"txt/{self.model.tokens_key}"],
+                                        tokens_img)
             return logits[:, cur_len - 1].float().cpu().numpy()
 
         if generation_type == "beam_search":
@@ -492,7 +567,7 @@ def load_checkpoint_variables(path: str,
     :func:`convert_torch_variables` (`heads`: {tower: head count}), an npz
     through ``train.checkpoint.load_params``. The JAX package's other
     collections (ModifiedResNet's BatchNorm statistics) belong to towers
-    that are not ported (ROADMAP A10)."""
+    that are not ported (ROADMAP A10c)."""
     from clipa_tpu_torch import pathio
     from clipa_tpu_torch.train import checkpoint as ckpt
 
@@ -518,7 +593,7 @@ def _heads_of(model: torch.nn.Module) -> dict:
     for tower in ("img", "txt", "decoder"):
         blocks = getattr(model, tower, None)
         blocks = getattr(blocks, "Transformer", blocks)
-        if blocks is not None:
+        if hasattr(blocks, "encoderblock_0"):   # not Swin's, relpos's, T5's
             heads[tower] = blocks.encoderblock_0.\
                 MultiHeadDotProductAttention_0.num_heads
     return heads
@@ -577,18 +652,18 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     (`text.`-prefixed) layouts of the ViT and text-transformer towers, and
     CoCa's (its visual ``ln_post`` / ``proj`` to ``img_encoder_norm`` /
     ``img_head``, the attentional pooler to ``img_pool``, ``cls_emb``, the
-    caption decoder's ``text_decoder.*`` to ``decoder``), with any
-    ``module.`` (DataParallel) prefix stripped. timm, ModifiedResNet and
-    HF-text state dicts raise NotImplementedError (ROADMAP A10). Raises if
-    any state-dict tensor other than known non-weight buffers is left
-    unconsumed.
+    caption decoder's ``text_decoder.*`` to ``decoder``), and the timm
+    Swin and relpos-ViT trunks (``visual.trunk.*`` with open_clip's
+    ``visual.head``), with any ``module.`` (DataParallel) prefix stripped.
+    The convnext and ModifiedResNet towers raise NotImplementedError
+    (ROADMAP A10c), an HF text tower too: the JAX package has no map for
+    it. Raises if any state-dict tensor other than known non-weight
+    buffers is left unconsumed.
     """
     from clipa_tpu_torch import utils as u
 
     sd = _ConsumingDict(
         {k.replace("module.", ""): v for k, v in sd.items()})
-    if any(k.startswith("visual.trunk.") for k in sd):
-        raise _unported("converting a timm vision trunk (visual.trunk.*)")
     if "visual.attnpool.positional_embedding" in sd:
         raise _unported("converting the ModifiedResNet vision tower")
     is_coca = any(k.startswith("text_decoder.") for k in sd)
@@ -597,7 +672,12 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     else:
         tprefix = ""
     if f"{tprefix}token_embedding.weight" not in sd:
-        raise _unported("converting an HF text tower")
+        raise NotImplementedError(
+            "converting an HF text tower from the open_clip layout: neither "
+            "package maps it; load its HuggingFace weights with the tower's "
+            "own load (models/bert.py), or convert them with "
+            "models/hf_text.py's convert_hf_roberta or models/t5_text.py's "
+            "convert_hf_mt5 and load the tree, or load an npz")
     flat: dict[str, np.ndarray] = {}
 
     def put(name, val):
@@ -607,23 +687,37 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     put("t", np.asarray(sd["logit_scale"]).reshape(1))
 
     # ---- image tower ----
-    conv = sd["visual.conv1.weight"]  # (width, 3, p, p)
-    put("img/embedding/kernel", conv.transpose(2, 3, 1, 0))
-    put("img/cls", sd["visual.class_embedding"].reshape(1, 1, -1))
-    put("img/pos_embedding", sd["visual.positional_embedding"][None])
-    ln_post = "img_encoder_norm" if is_coca else "img/encoder_norm"
-    if "visual.proj" in sd:
-        put("img_head/kernel" if is_coca else "img/head/kernel",
-            sd["visual.proj"])
-    if "visual.ln_pre.weight" in sd:
-        put("img/ln_pre/scale", sd["visual.ln_pre.weight"])
-        put("img/ln_pre/bias", sd["visual.ln_pre.bias"])
-    put(f"{ln_post}/scale", sd["visual.ln_post.weight"])
-    put(f"{ln_post}/bias", sd["visual.ln_post.bias"])
-    if "visual.attn_pool.query" in sd:
-        _convert_attn_pooler(sd, "visual.attn_pool", "img_pool", put)
-    _convert_blocks(sd, "visual.transformer.resblocks", "img/Transformer",
-                    put, heads=(heads or {}).get("img"))
+    if any(k.startswith("visual.trunk.") for k in sd):
+        if "visual.trunk.stem.0.weight" in sd:
+            raise _unported("converting the timm ConvNeXt trunk "
+                            "(visual.trunk.*)")
+        if any(".attn.relative_position_bias_table" in k for k in sd):
+            _convert_swin_visual(sd, put)
+        elif any(".attn.rel_pos.mlp." in k for k in sd):
+            _convert_relpos_visual(sd, put)
+        else:
+            raise NotImplementedError(
+                "state_dict has an unsupported timm vision trunk "
+                "(visual.trunk.*): the converter maps the timm Swin and "
+                "relpos-ViT trunks")
+    else:
+        conv = sd["visual.conv1.weight"]  # (width, 3, p, p)
+        put("img/embedding/kernel", conv.transpose(2, 3, 1, 0))
+        put("img/cls", sd["visual.class_embedding"].reshape(1, 1, -1))
+        put("img/pos_embedding", sd["visual.positional_embedding"][None])
+        ln_post = "img_encoder_norm" if is_coca else "img/encoder_norm"
+        if "visual.proj" in sd:
+            put("img_head/kernel" if is_coca else "img/head/kernel",
+                sd["visual.proj"])
+        if "visual.ln_pre.weight" in sd:
+            put("img/ln_pre/scale", sd["visual.ln_pre.weight"])
+            put("img/ln_pre/bias", sd["visual.ln_pre.bias"])
+        put(f"{ln_post}/scale", sd["visual.ln_post.weight"])
+        put(f"{ln_post}/bias", sd["visual.ln_post.bias"])
+        if "visual.attn_pool.query" in sd:
+            _convert_attn_pooler(sd, "visual.attn_pool", "img_pool", put)
+        _convert_blocks(sd, "visual.transformer.resblocks",
+                        "img/Transformer", put, heads=(heads or {}).get("img"))
 
     # ---- text tower ----
     put("txt/Embed_0/embedding", sd[f"{tprefix}token_embedding.weight"])
@@ -726,6 +820,238 @@ def _convert_blocks(sd, prefix, dst, put, heads=None, block="encoderblock"):
         put(f"{o}/MlpBlock_0/Dense_1/bias", sd[f"{b}.mlp.c_proj.bias"])
 
 
+def _convert_timm_head(sd, put):
+    """open_clip's TimmModel projection (``visual.head.proj`` or
+    ``visual.head.mlp.{fc1,fc2}``) -> ``img/head`` (and
+    ``img/head_mlp_fc``)."""
+    if "visual.head.mlp.fc1.weight" in sd:
+        put("img/head_mlp_fc/kernel",
+            np.asarray(sd["visual.head.mlp.fc1.weight"]).T)
+        put("img/head_mlp_fc/bias", sd["visual.head.mlp.fc1.bias"])
+        put("img/head/kernel", np.asarray(sd["visual.head.mlp.fc2.weight"]).T)
+        if "visual.head.mlp.fc2.bias" in sd:
+            put("img/head/bias", sd["visual.head.mlp.fc2.bias"])
+    elif "visual.head.proj.weight" in sd:
+        put("img/head/kernel", np.asarray(sd["visual.head.proj.weight"]).T)
+        if "visual.head.proj.bias" in sd:
+            put("img/head/bias", sd["visual.head.proj.bias"])
+
+
+def _export_timm_head(flat, sd):
+    """Inverse of _convert_timm_head."""
+    if "img/head_mlp_fc/kernel" in flat:
+        sd["visual.head.mlp.fc1.weight"] = np.asarray(
+            flat["img/head_mlp_fc/kernel"]).T
+        sd["visual.head.mlp.fc1.bias"] = np.asarray(
+            flat["img/head_mlp_fc/bias"])
+        sd["visual.head.mlp.fc2.weight"] = np.asarray(
+            flat["img/head/kernel"]).T
+        if "img/head/bias" in flat:
+            sd["visual.head.mlp.fc2.bias"] = np.asarray(flat["img/head/bias"])
+    elif "img/head/kernel" in flat:
+        sd["visual.head.proj.weight"] = np.asarray(flat["img/head/kernel"]).T
+        if "img/head/bias" in flat:
+            sd["visual.head.proj.bias"] = np.asarray(flat["img/head/bias"])
+
+
+# PatchMerging's neighbour order: the tower concatenates the 2 x 2
+# neighbours as (0,0), (0,1), (1,0), (1,1), timm as (0,0), (1,0), (0,1),
+# (1,1) (models/swin.py). The reduction kernel's input rows are permuted
+# by blocks [0, 2, 1, 3] in either direction (the permutation is its own
+# inverse).
+def _permute_merge_rows(kernel_4c_2c):
+    k = np.asarray(kernel_4c_2c)
+    c = k.shape[0] // 4
+    blocks = [k[i * c:(i + 1) * c] for i in range(4)]
+    return np.concatenate([blocks[0], blocks[2], blocks[1], blocks[3]], 0)
+
+
+def _convert_swin_visual(sd, put):
+    """The timm Swin trunk (``visual.trunk.*``: ``patch_embed.{proj,norm}``,
+    ``layers.{i}.blocks.{j}.{norm1, attn.qkv,
+    attn.relative_position_bias_table, attn.proj, norm2, mlp.fc1,
+    mlp.fc2}``, ``layers.{i}.downsample.{norm,reduction}``, the final
+    norm) and open_clip's head -> the Swin tower (models/swin.py)."""
+    t = "visual.trunk"
+    put("img/patch_embed/kernel",
+        np.asarray(sd[f"{t}.patch_embed.proj.weight"]).transpose(2, 3, 1, 0))
+    put("img/patch_embed/bias", sd[f"{t}.patch_embed.proj.bias"])
+    put("img/patch_norm/scale", sd[f"{t}.patch_embed.norm.weight"])
+    put("img/patch_norm/bias", sd[f"{t}.patch_embed.norm.bias"])
+    layers = sorted({int(k.split(".")[3]) for k in sd
+                     if k.startswith(f"{t}.layers.")})
+    for i in layers:
+        lp = f"{t}.layers.{i}"
+        blocks = sorted({int(k.split(".")[5]) for k in sd
+                         if k.startswith(f"{lp}.blocks.")})
+        for j in blocks:
+            bp = f"{lp}.blocks.{j}"
+            o = f"img/layers{i}_blocks{j}"
+            put(f"{o}/norm1/scale", sd[f"{bp}.norm1.weight"])
+            put(f"{o}/norm1/bias", sd[f"{bp}.norm1.bias"])
+            put(f"{o}/attn/qkv/kernel",
+                np.asarray(sd[f"{bp}.attn.qkv.weight"]).T)
+            put(f"{o}/attn/qkv/bias", sd[f"{bp}.attn.qkv.bias"])
+            put(f"{o}/attn/rel_pos_table",
+                sd[f"{bp}.attn.relative_position_bias_table"])
+            put(f"{o}/attn/proj/kernel",
+                np.asarray(sd[f"{bp}.attn.proj.weight"]).T)
+            put(f"{o}/attn/proj/bias", sd[f"{bp}.attn.proj.bias"])
+            put(f"{o}/norm2/scale", sd[f"{bp}.norm2.weight"])
+            put(f"{o}/norm2/bias", sd[f"{bp}.norm2.bias"])
+            put(f"{o}/mlp_fc1/kernel",
+                np.asarray(sd[f"{bp}.mlp.fc1.weight"]).T)
+            put(f"{o}/mlp_fc1/bias", sd[f"{bp}.mlp.fc1.bias"])
+            put(f"{o}/mlp_fc2/kernel",
+                np.asarray(sd[f"{bp}.mlp.fc2.weight"]).T)
+            put(f"{o}/mlp_fc2/bias", sd[f"{bp}.mlp.fc2.bias"])
+        if f"{lp}.downsample.norm.weight" in sd:
+            put(f"img/layers{i}_downsample/norm/scale",
+                sd[f"{lp}.downsample.norm.weight"])
+            put(f"img/layers{i}_downsample/norm/bias",
+                sd[f"{lp}.downsample.norm.bias"])
+            put(f"img/layers{i}_downsample/reduction/kernel",
+                _permute_merge_rows(
+                    np.asarray(sd[f"{lp}.downsample.reduction.weight"]).T))
+    for cand in (f"{t}.norm", f"{t}.head.norm"):
+        if f"{cand}.weight" in sd:
+            put("img/norm/scale", sd[f"{cand}.weight"])
+            put("img/norm/bias", sd[f"{cand}.bias"])
+            break
+    _convert_timm_head(sd, put)
+
+
+def _export_swin_visual(flat, sd):
+    """Inverse of _convert_swin_visual."""
+    t = "visual.trunk"
+    sd[f"{t}.patch_embed.proj.weight"] = np.asarray(
+        flat["img/patch_embed/kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{t}.patch_embed.proj.bias"] = np.asarray(flat["img/patch_embed/bias"])
+    sd[f"{t}.patch_embed.norm.weight"] = np.asarray(
+        flat["img/patch_norm/scale"])
+    sd[f"{t}.patch_embed.norm.bias"] = np.asarray(flat["img/patch_norm/bias"])
+    i = 0
+    while f"img/layers{i}_blocks0/norm1/scale" in flat:
+        j = 0
+        while f"img/layers{i}_blocks{j}/norm1/scale" in flat:
+            o = f"img/layers{i}_blocks{j}"
+            bp = f"{t}.layers.{i}.blocks.{j}"
+            sd[f"{bp}.norm1.weight"] = np.asarray(flat[f"{o}/norm1/scale"])
+            sd[f"{bp}.norm1.bias"] = np.asarray(flat[f"{o}/norm1/bias"])
+            sd[f"{bp}.attn.qkv.weight"] = np.asarray(
+                flat[f"{o}/attn/qkv/kernel"]).T
+            sd[f"{bp}.attn.qkv.bias"] = np.asarray(flat[f"{o}/attn/qkv/bias"])
+            sd[f"{bp}.attn.relative_position_bias_table"] = np.asarray(
+                flat[f"{o}/attn/rel_pos_table"])
+            sd[f"{bp}.attn.proj.weight"] = np.asarray(
+                flat[f"{o}/attn/proj/kernel"]).T
+            sd[f"{bp}.attn.proj.bias"] = np.asarray(
+                flat[f"{o}/attn/proj/bias"])
+            sd[f"{bp}.norm2.weight"] = np.asarray(flat[f"{o}/norm2/scale"])
+            sd[f"{bp}.norm2.bias"] = np.asarray(flat[f"{o}/norm2/bias"])
+            sd[f"{bp}.mlp.fc1.weight"] = np.asarray(
+                flat[f"{o}/mlp_fc1/kernel"]).T
+            sd[f"{bp}.mlp.fc1.bias"] = np.asarray(flat[f"{o}/mlp_fc1/bias"])
+            sd[f"{bp}.mlp.fc2.weight"] = np.asarray(
+                flat[f"{o}/mlp_fc2/kernel"]).T
+            sd[f"{bp}.mlp.fc2.bias"] = np.asarray(flat[f"{o}/mlp_fc2/bias"])
+            j += 1
+        if f"img/layers{i}_downsample/norm/scale" in flat:
+            lp = f"{t}.layers.{i}.downsample"
+            sd[f"{lp}.norm.weight"] = np.asarray(
+                flat[f"img/layers{i}_downsample/norm/scale"])
+            sd[f"{lp}.norm.bias"] = np.asarray(
+                flat[f"img/layers{i}_downsample/norm/bias"])
+            sd[f"{lp}.reduction.weight"] = _permute_merge_rows(
+                np.asarray(flat[f"img/layers{i}_downsample/reduction/"
+                                "kernel"])).T
+        i += 1
+    sd[f"{t}.norm.weight"] = np.asarray(flat["img/norm/scale"])
+    sd[f"{t}.norm.bias"] = np.asarray(flat["img/norm/bias"])
+    _export_timm_head(flat, sd)
+
+
+def _convert_relpos_visual(sd, put):
+    """The timm relpos-ViT trunk (``visual.trunk.*``: ``cls_token``,
+    ``patch_embed.proj``, ``blocks.{i}.{norm1, attn.qkv,
+    attn.rel_pos.mlp.{fc1,fc2}, attn.proj, norm2, mlp.{fc1,fc2}}``, the
+    final norm) and open_clip's head -> the relpos tower
+    (models/vit_relpos.py, coords mode ``cr``; the ``rel_coords_log`` and
+    ``relative_position_index`` buffers are recomputed, not read). A
+    checkpoint with qkv biases raises: the tower, as timm's relpos
+    configs, has none."""
+    t = "visual.trunk"
+    put("img/cls", sd[f"{t}.cls_token"])
+    put("img/patch_embed/kernel",
+        np.asarray(sd[f"{t}.patch_embed.proj.weight"]).transpose(2, 3, 1, 0))
+    put("img/patch_embed/bias", sd[f"{t}.patch_embed.proj.bias"])
+    blocks = sorted({int(k.split(".")[3]) for k in sd
+                     if k.startswith(f"{t}.blocks.")})
+    for i in blocks:
+        bp = f"{t}.blocks.{i}"
+        o = f"img/blocks{i}"
+        if f"{bp}.attn.qkv.bias" in sd:
+            raise NotImplementedError(
+                "relpos-ViT checkpoint has qkv biases; the vit_relpos "
+                "tower (like timm's vit_relpos_* configs) is qkv_bias=False")
+        put(f"{o}/norm1/scale", sd[f"{bp}.norm1.weight"])
+        put(f"{o}/norm1/bias", sd[f"{bp}.norm1.bias"])
+        put(f"{o}/qkv/kernel", np.asarray(sd[f"{bp}.attn.qkv.weight"]).T)
+        put(f"{o}/rel_pos/fc1/kernel",
+            np.asarray(sd[f"{bp}.attn.rel_pos.mlp.fc1.weight"]).T)
+        put(f"{o}/rel_pos/fc1/bias", sd[f"{bp}.attn.rel_pos.mlp.fc1.bias"])
+        put(f"{o}/rel_pos/fc2/kernel",
+            np.asarray(sd[f"{bp}.attn.rel_pos.mlp.fc2.weight"]).T)
+        put(f"{o}/rel_pos/fc2/bias", sd[f"{bp}.attn.rel_pos.mlp.fc2.bias"])
+        put(f"{o}/proj/kernel", np.asarray(sd[f"{bp}.attn.proj.weight"]).T)
+        put(f"{o}/proj/bias", sd[f"{bp}.attn.proj.bias"])
+        put(f"{o}/norm2/scale", sd[f"{bp}.norm2.weight"])
+        put(f"{o}/norm2/bias", sd[f"{bp}.norm2.bias"])
+        put(f"{o}/mlp_fc1/kernel", np.asarray(sd[f"{bp}.mlp.fc1.weight"]).T)
+        put(f"{o}/mlp_fc1/bias", sd[f"{bp}.mlp.fc1.bias"])
+        put(f"{o}/mlp_fc2/kernel", np.asarray(sd[f"{bp}.mlp.fc2.weight"]).T)
+        put(f"{o}/mlp_fc2/bias", sd[f"{bp}.mlp.fc2.bias"])
+    put("img/norm/scale", sd[f"{t}.norm.weight"])
+    put("img/norm/bias", sd[f"{t}.norm.bias"])
+    _convert_timm_head(sd, put)
+
+
+def _export_relpos_visual(flat, sd):
+    """Inverse of _convert_relpos_visual."""
+    t = "visual.trunk"
+    sd[f"{t}.cls_token"] = np.asarray(flat["img/cls"])
+    sd[f"{t}.patch_embed.proj.weight"] = np.asarray(
+        flat["img/patch_embed/kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{t}.patch_embed.proj.bias"] = np.asarray(flat["img/patch_embed/bias"])
+    i = 0
+    while f"img/blocks{i}/norm1/scale" in flat:
+        o = f"img/blocks{i}"
+        bp = f"{t}.blocks.{i}"
+        sd[f"{bp}.norm1.weight"] = np.asarray(flat[f"{o}/norm1/scale"])
+        sd[f"{bp}.norm1.bias"] = np.asarray(flat[f"{o}/norm1/bias"])
+        sd[f"{bp}.attn.qkv.weight"] = np.asarray(flat[f"{o}/qkv/kernel"]).T
+        sd[f"{bp}.attn.rel_pos.mlp.fc1.weight"] = np.asarray(
+            flat[f"{o}/rel_pos/fc1/kernel"]).T
+        sd[f"{bp}.attn.rel_pos.mlp.fc1.bias"] = np.asarray(
+            flat[f"{o}/rel_pos/fc1/bias"])
+        sd[f"{bp}.attn.rel_pos.mlp.fc2.weight"] = np.asarray(
+            flat[f"{o}/rel_pos/fc2/kernel"]).T
+        sd[f"{bp}.attn.rel_pos.mlp.fc2.bias"] = np.asarray(
+            flat[f"{o}/rel_pos/fc2/bias"])
+        sd[f"{bp}.attn.proj.weight"] = np.asarray(flat[f"{o}/proj/kernel"]).T
+        sd[f"{bp}.attn.proj.bias"] = np.asarray(flat[f"{o}/proj/bias"])
+        sd[f"{bp}.norm2.weight"] = np.asarray(flat[f"{o}/norm2/scale"])
+        sd[f"{bp}.norm2.bias"] = np.asarray(flat[f"{o}/norm2/bias"])
+        sd[f"{bp}.mlp.fc1.weight"] = np.asarray(flat[f"{o}/mlp_fc1/kernel"]).T
+        sd[f"{bp}.mlp.fc1.bias"] = np.asarray(flat[f"{o}/mlp_fc1/bias"])
+        sd[f"{bp}.mlp.fc2.weight"] = np.asarray(flat[f"{o}/mlp_fc2/kernel"]).T
+        sd[f"{bp}.mlp.fc2.bias"] = np.asarray(flat[f"{o}/mlp_fc2/bias"])
+        i += 1
+    sd[f"{t}.norm.weight"] = np.asarray(flat["img/norm/scale"])
+    sd[f"{t}.norm.bias"] = np.asarray(flat["img/norm/bias"])
+    _export_timm_head(flat, sd)
+
+
 def _jax_layout_flat(params) -> dict[str, np.ndarray]:
     """{JAX flat name: numpy array} of a port model (``CLIPModel`` or
     module, through ``convert.to_jax_params``) or of a JAX-layout tree
@@ -753,21 +1079,30 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
     """A port model, or a JAX-layout parameter tree, -> the open_clip torch
     state_dict layout (numpy arrays): the inverse of
     :func:`convert_torch_variables`, for users moving checkpoints the other
-    way; CoCa in its ``text.``-prefixed layout. Raises on a parameter it
-    would not write (a tower of ROADMAP A10, LayerScale, the sigmoid loss's
+    way; CoCa in its ``text.``-prefixed layout; the Swin and relpos-ViT
+    trunks in timm's. Raises on a parameter it would not write (a tower of
+    ROADMAP A10c or an HF text tower, LayerScale, the sigmoid loss's
     ``b``): an export never drops weights.
     """
     flat = _ConsumingDict(_jax_layout_flat(params))
     if "img/attnpool/pos_embedding" in flat:
         raise _unported("exporting the ModifiedResNet vision tower")
-    if ("img/downsample_layers01/scale" in flat
-            or "img/patch_norm/scale" in flat
-            or "img/blocks0/rel_pos/fc1/kernel" in flat):
-        raise _unported("exporting a timm vision trunk")
+    if "img/downsample_layers01/scale" in flat:
+        raise _unported("exporting the timm ConvNeXt trunk")
+    if "txt/Embed_0/embedding" not in flat:
+        raise NotImplementedError(
+            "exporting an HF text tower to the open_clip layout: neither "
+            "package maps it (its weights move as an npz, "
+            "convert.to_jax_params)")
     is_coca = any(k.startswith("decoder/") for k in flat)
     sd: dict[str, np.ndarray] = {}
     sd["logit_scale"] = np.asarray(flat["t"]).reshape(())
-    _export_vit_visual(flat, sd, coca=is_coca)
+    if "img/patch_norm/scale" in flat:
+        _export_swin_visual(flat, sd)
+    elif "img/blocks0/rel_pos/fc1/kernel" in flat:
+        _export_relpos_visual(flat, sd)
+    else:
+        _export_vit_visual(flat, sd, coca=is_coca)
     _export_blocks(flat, sd, "img/Transformer", "visual.transformer.resblocks")
 
     # CoCa's text tower is open_clip's CustomTextCLIP layout: "text."
@@ -939,7 +1274,11 @@ def get_tokenizer(model_name: str, *, vocab_path: Optional[str] = None,
     (the callable then takes ``rng``, as the JAX one does). BPE
     (OpenAI-vocab, 49408) configs need the merges file
     (``bpe_simple_vocab_16e6.txt[.gz]``) as `vocab_path`, with
-    syntax-priority word sampling before BPE for the syntax configs.
+    syntax-priority word sampling before BPE for the syntax configs. The
+    HF-text configs take ``transformers.AutoTokenizer.from_pretrained(
+    vocab_path or hf_tokenizer_name)`` (a local tokenizer directory, or
+    the name in the local HF cache), padded to `context_length` and
+    truncated, int32 ids.
     """
     from clipa_tpu_torch import tokenizer
 
@@ -947,7 +1286,19 @@ def get_tokenizer(model_name: str, *, vocab_path: Optional[str] = None,
     ctx = context_length or cfg.get("context_length", 77)
     vocab_path = vocab_path or os.environ.get("CLIPA_VOCAB_PATH")
     if "hf_tokenizer_name" in cfg:
-        raise _unported(f"the HF tokenizer {cfg['hf_tokenizer_name']!r}")
+        from transformers import AutoTokenizer
+        tok = AutoTokenizer.from_pretrained(vocab_path
+                                            or cfg["hf_tokenizer_name"])
+
+        def hf_tokenize(texts, rng=None):
+            if isinstance(texts, (str, bytes)):
+                texts = [texts]
+            enc = tok(list(texts), padding="max_length", truncation=True,
+                      max_length=ctx, return_tensors="np")
+            return enc["input_ids"].astype(np.int32)
+
+        hf_tokenize.context_length = ctx
+        return hf_tokenize
 
     if not cfg.get("bert_tokenizer") and cfg.get("vocab_size") == 49408:
         if not vocab_path:
@@ -1086,7 +1437,7 @@ _OPENAI_METADATA = ("input_resolution", "context_length", "vocab_size")
 
 def _infer_openai_config(sd: dict) -> dict:
     """open_clip model-config dict from an OpenAI CLIP state dict's shapes
-    (the ViT branch; ModifiedResNet raises, ROADMAP A10)."""
+    (the ViT branch; ModifiedResNet raises, ROADMAP A10c)."""
     if "visual.attnpool.positional_embedding" in sd:
         raise _unported("the ModifiedResNet vision tower of an OpenAI "
                         "release")

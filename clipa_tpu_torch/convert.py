@@ -20,16 +20,25 @@ JAX name (shape)                                           torch leaf          t
 ``.../<Dense>/bias`` (out,)                                ``.bias``           as is
 ``.../<LayerNorm>/scale``                                  ``.weight``         as is
 ``.../<LayerNorm>/bias``                                   ``.bias``           as is
-``img/embedding/{kernel,bias}`` (p, p, 3, W) or (P, W)     same name           as is (HWIO, NHWC stem; linear stem)
-``txt/Embed_0/embedding`` (vocab, W)                       ``.weight``         as is
+``img/{embedding,patch_embed}/{kernel,bias}``              same name           as is (HWIO, NHWC stem; linear stem)
+(p, p, 3, W) or (P, W)
+``txt/{Embed_0,word_embeddings}/embedding`` (vocab, W)     ``.weight``         as is
 ``.../<as is>``, ``t``, ``b``                              same name           as is
 =========================================================  ==================  =================================
 
 ``<Dense>`` is ``Dense_i``, ``head`` or CoCa's ``img_head``,
-``{q,k,v,out}_proj``; ``<LayerNorm>`` is ``LayerNorm_i``, ``encoder_norm``,
-``ln_pre`` or CoCa's ``ln_kv``, ``ln_q``, ``ln_k``, ``img_encoder_norm``;
-``<as is>`` is ``cls``, ``pos_embedding``, ``ls1``, ``ls2``, CoCa's
-``cls_emb`` and pooler ``query``, and the MAP head's ``probe``.
+``{q,k,v,out}_proj``, BERT's ``pooler``, the HF towers' ``proj_fc``, T5's
+``q``, ``k``, ``v``, ``o`` and ``block_i_{wi0,wi1,wo}``, Swin's and
+relpos's ``qkv``, ``proj``, ``mlp_fc1``, ``mlp_fc2``, ``fc1``, ``fc2`` (the
+bias MLP), ``reduction`` and ``head_mlp_fc``; ``<LayerNorm>`` is
+``LayerNorm_i``, ``encoder_norm``, ``ln_pre``, CoCa's ``ln_kv``, ``ln_q``,
+``ln_k``, ``img_encoder_norm``, the HF towers' ``embeddings_norm``, Swin's
+and relpos's ``patch_norm``, ``norm``, ``norm1``, ``norm2``, and T5's RMS
+norms ``block_i_ln{0,1}``, ``final_norm`` (a scale, no bias); ``<as is>``
+is ``cls``, ``pos_embedding``, ``ls1``, ``ls2``, CoCa's ``cls_emb`` and
+pooler ``query``, the MAP head's ``probe``, the HF towers'
+``position_embeddings`` and ``type_embeddings``, T5's
+``relative_attention_bias`` and Swin's ``rel_pos_table``.
 
 A name that matches no row raises: a weight silently dropped gives wrong
 numbers. Keys the model expects but the checkpoint lacks are caught by
@@ -51,8 +60,8 @@ torch key                                                   JAX leaf            
 ``...<Dense>.bias`` (out,)                                  ``/bias``           as is
 ``...<LayerNorm>.weight``                                   ``/scale``          as is
 ``...<LayerNorm>.bias``                                     ``/bias``           as is
-``img.embedding.{kernel,bias}``                             same name           as is
-``txt.Embed_0.weight`` (vocab, W)                           ``/embedding``      as is
+``img.{embedding,patch_embed}.{kernel,bias}``               same name           as is
+``txt.{Embed_0,word_embeddings}.weight`` (vocab, W)         ``/embedding``      as is
 ``...<as is>``, ``t``, ``b``                                same name           as is
 ==========================================================  ==================  ===========================================
 
@@ -74,12 +83,19 @@ from clipa_tpu_torch import utils as u
 Array = Union[np.ndarray, torch.Tensor]
 
 _MHA = r"(?:.*/)?MultiHeadDotProductAttention_\d+"
-# flax Dense layers (Linear layout in torch), LayerNorms, and parameters
-# kept as they are (CoCa's pooler, decoder and cls embedding included)
-_DENSE = r"(?:Dense_\d+|head|img_head|q_proj|k_proj|v_proj|out_proj)"
+# flax Dense layers (Linear layout in torch), LayerNorms (and T5's RMS
+# norms, a scale only), and parameters kept as they are (CoCa's pooler,
+# decoder and cls embedding, the HF towers' position and type tables, the
+# relative position tables of T5 and Swin included)
+_DENSE = (r"(?:Dense_\d+|head|img_head|q_proj|k_proj|v_proj|out_proj"
+          r"|pooler|proj_fc|q|k|v|o|block_\d+_w(?:i0|i1|o)"
+          r"|qkv|proj|mlp_fc1|mlp_fc2|fc1|fc2|reduction|head_mlp_fc)")
 _NORM = (r"(?:LayerNorm_\d+|encoder_norm|ln_pre|ln_kv|ln_q|ln_k"
-         r"|img_encoder_norm)")
-_AS_IS = r"(?:cls|pos_embedding|ls1|ls2|cls_emb|query|probe)"
+         r"|img_encoder_norm|embeddings_norm|block_\d+_ln[01]|final_norm"
+         r"|patch_norm|norm|norm1|norm2)")
+_AS_IS = (r"(?:cls|pos_embedding|ls1|ls2|cls_emb|query|probe"
+          r"|position_embeddings|type_embeddings|relative_attention_bias"
+          r"|rel_pos_table)")
 _RULES: list[tuple[re.Pattern, str, Callable[[torch.Tensor], torch.Tensor]]] = [
     (re.compile(rf"({_MHA}/(?:query|key|value))/kernel"), r"\1/weight",
      lambda a: a.reshape(a.shape[0], -1).T),
@@ -93,10 +109,10 @@ _RULES: list[tuple[re.Pattern, str, Callable[[torch.Tensor], torch.Tensor]]] = [
     (re.compile(rf"((?:.*/)?{_DENSE})/bias"), r"\1/bias", lambda a: a),
     (re.compile(rf"((?:.*/)?{_NORM})/scale"), r"\1/weight", lambda a: a),
     (re.compile(rf"((?:.*/)?{_NORM})/bias"), r"\1/bias", lambda a: a),
-    (re.compile(r"((?:.*/)?embedding)/(kernel|bias)"), r"\1/\2",
-     lambda a: a),
-    (re.compile(r"((?:.*/)?Embed_\d+)/embedding"), r"\1/weight",
-     lambda a: a),
+    (re.compile(r"((?:.*/)?(?:embedding|patch_embed))/(kernel|bias)"),
+     r"\1/\2", lambda a: a),
+    (re.compile(r"((?:.*/)?(?:Embed_\d+|word_embeddings))/embedding"),
+     r"\1/weight", lambda a: a),
     (re.compile(rf"((?:.*/)?{_AS_IS}|t|b)"), r"\1", lambda a: a),
 ]
 
@@ -153,8 +169,10 @@ _INVERSE: list[tuple[re.Pattern, str, str]] = [
     (re.compile(rf"((?:.*/)?{_DENSE})/bias"), r"\1/bias", "same"),
     (re.compile(rf"((?:.*/)?{_NORM})/weight"), r"\1/scale", "same"),
     (re.compile(rf"((?:.*/)?{_NORM})/bias"), r"\1/bias", "same"),
-    (re.compile(r"((?:.*/)?embedding)/(kernel|bias)"), r"\1/\2", "same"),
-    (re.compile(r"((?:.*/)?Embed_\d+)/weight"), r"\1/embedding", "same"),
+    (re.compile(r"((?:.*/)?(?:embedding|patch_embed))/(kernel|bias)"),
+     r"\1/\2", "same"),
+    (re.compile(r"((?:.*/)?(?:Embed_\d+|word_embeddings))/weight"),
+     r"\1/embedding", "same"),
     (re.compile(rf"((?:.*/)?{_AS_IS}|t|b)"), r"\1", "same"),
 ]
 

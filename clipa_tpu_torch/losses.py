@@ -163,12 +163,17 @@ def coca_loss(zimg: torch.Tensor, ztxt: torch.Tensor, t: torch.Tensor,
     ``caption_loss_weight`` x the next-token cross-entropy of `logits`
     (B, L, V) against `labels` (B, L), averaged over the positions whose
     label is not `pad_id` (at least one), in fp32: torch's
-    ``CrossEntropyLoss(ignore_index=pad_id)``. The extras carry both
-    weighted terms."""
+    ``CrossEntropyLoss(ignore_index=pad_id)``. A label past the vocabulary
+    gives NaN, as the JAX loss's gather does (coca_roberta's RoBERTa ids
+    run past its decoder's 49 408). The extras carry both weighted
+    terms."""
     clip_l, extras = bidirectional_contrastive_loss(zimg, ztxt, t,
                                                     reduction=True)
     log_p = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(log_p, -1, labels[..., None].long())[..., 0]
+    vocab = log_p.shape[-1]
+    labels = labels.long()
+    nll = -torch.gather(log_p, -1, labels.clamp(max=vocab - 1)[..., None])
+    nll = torch.where(labels < vocab, nll[..., 0], float("nan"))
     keep = (labels != pad_id).float()
     caption_l = (nll * keep).sum() / keep.sum().clamp(min=1.0)
     loss = clip_loss_weight * clip_l + caption_loss_weight * caption_l

@@ -1,15 +1,15 @@
-"""Model zoo: two-tower CLIP and CoCa with ViT image and transformer text
-encoders."""
+"""Model zoo: two-tower CLIP and CoCa with ViT, Swin and relpos-ViT image
+towers and transformer, BERT, RoBERTa-family and mT5 text towers."""
 
 import importlib
 
 
 def get_model_module(name: str):
-    """Resolves a short model name ("vit", "text_transformer") to its module.
+    """Resolves a short model name ("vit", "text_transformer", "bert", ...)
+    to its module.
 
-    The ViT and text-transformer towers, the two-tower model and CoCa are
-    ported; the JAX package's other towers (convnext, swin, resnet, hf_text,
-    ...) are listed in ROADMAP.md.
+    The JAX package's conv towers (``convnext`` and the ModifiedResNet,
+    ``resnet``) are not ported yet: ROADMAP.md's A10c.
     """
     aliases = {
         "vit": "clipa_tpu_torch.models.vit",
@@ -17,9 +17,15 @@ def get_model_module(name: str):
         "two_towers": "clipa_tpu_torch.models.two_towers",
         "coca": "clipa_tpu_torch.models.coca",
         "multimodal": "clipa_tpu_torch.models.multimodal",
+        "bert": "clipa_tpu_torch.models.bert",
+        "proj.flaxformer.bert": "clipa_tpu_torch.models.bert",
+        "hf_text": "clipa_tpu_torch.models.hf_text",
+        "t5_text": "clipa_tpu_torch.models.t5_text",
+        "swin": "clipa_tpu_torch.models.swin",
+        "vit_relpos": "clipa_tpu_torch.models.vit_relpos",
     }
     if name not in aliases:
         raise NotImplementedError(
             f"model {name!r} is not ported to clipa_tpu_torch yet (ported: "
-            f"{sorted(aliases)})")
+            f"{sorted(aliases)}; convnext and resnet: ROADMAP A10c)")
     return importlib.import_module(aliases[name])

@@ -9,18 +9,20 @@ decoder), the bias-free ``img_head``; the ``embed_cls`` text tower
 (models/text.py), whose un-normed token outputs feed the caption decoder
 (models/multimodal.py); and the learned temperature ``t``.
 
+``text_model`` may instead be an HF trunk (``hf_text`` or ``t5_text``:
+coca_roberta-ViT-B-32): its pooled projection is the contrastive
+embedding and the decoder cross-reads its unprojected ``encoded``
+sequence.
+
 ``forward(image, text)`` returns ``(zimg, ztxt, out)`` as the two-tower
 model does, with ``out["logits"]`` (fp32 next-token logits over the text
 positions) and ``out["labels"]``: under ``embed_cls`` (training, serving)
-the tower reads ``text[:, :-1]`` to make room for the appended cls and the
-labels are the last ``len(tokens)`` ids of the untruncated text, i.e.
-``text[:, 1:]``; generation passes ``embed_cls=False`` to decode over the
-whole prefix. The trainer, the evaluators and serving take it through the
-two-tower interface (``config.model_name = "coca"``, ``config.loss =
-"coca"``).
-
-Not ported yet: the HF text trunks under the decoder (``hf_text``,
-``t5_text``: coca_roberta-ViT-B-32), ROADMAP A10.
+the tower reads ``text[:, :-1]`` -- the HF trunks too, which append no cls
+of their own -- and the labels are the last ``len(tokens)`` ids of the
+untruncated text, i.e. ``text[:, 1:]``; generation passes
+``embed_cls=False`` to decode over the whole prefix. The trainer, the
+evaluators and serving take it through the two-tower interface
+(``config.model_name = "coca"``, ``config.loss = "coca"``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,12 @@ import torch
 from torch import nn
 
 from clipa_tpu_torch import utils as u
-from clipa_tpu_torch.models import layers, multimodal, text as text_lib, vit
+from clipa_tpu_torch.models import (get_model_module, layers, multimodal,
+                                    text as text_lib, vit)
+
+# The text towers under the decoder, and the output of each it reads.
+_TEXT_TOKENS = {"text_transformer": "tokens", "hf_text": "encoded",
+                "t5_text": "encoded"}
 
 
 class AttentionalPooler(nn.Module):
@@ -90,14 +97,22 @@ class Model(nn.Module):
         if image_model != "vit":
             raise NotImplementedError(f"the CoCa image tower {image_model!r} "
                                       "is not ported (only 'vit')")
-        if text_model != "text_transformer":
+        if text_model not in _TEXT_TOKENS:
             raise NotImplementedError(
-                f"the CoCa text tower {text_model!r} is not ported to "
-                "clipa_tpu_torch yet (ROADMAP A10: hf_text)")
+                f"the CoCa text tower {text_model!r} is not ported (ported: "
+                f"{sorted(_TEXT_TOKENS)})")
         out_dims = (out_dim, out_dim) if isinstance(out_dim, int) else out_dim
-        self.txt = text_lib.Model(**{"num_classes": out_dims[1],
-                                     "dtype": dtype, "embed_cls": True,
-                                     "pad_id": pad_id, **(text or {})})
+        self.tokens_key = _TEXT_TOKENS[text_model]
+        if text_model == "text_transformer":
+            self.txt = text_lib.Model(**{"num_classes": out_dims[1],
+                                         "dtype": dtype, "embed_cls": True,
+                                         "pad_id": pad_id, **(text or {})})
+            text_width = self.txt.Embed_0.embedding_dim
+        else:
+            self.txt = get_model_module(text_model).Model(
+                **{"num_classes": out_dims[1], "dtype": dtype,
+                   **(text or {})})
+            text_width = self.txt.word_embeddings.embedding_dim
         self.img = vit.Model(**{"num_classes": None, "pool_type": "0",
                                 "dtype": dtype, **(image or {})})
         pooled = self.img.width
@@ -112,7 +127,6 @@ class Model(nn.Module):
             pooled, out_dims[0], kernel_init=layers.normal(pooled ** -0.5),
             use_bias=False)
         mm = dict(multimodal_cfg or {})
-        text_width = self.txt.encoder_norm.normalized_shape[0]
         self.decoder = multimodal.Decoder(
             vocab_size=mm.pop("vocab_size", (text or {}).get("vocab_size",
                                                              49408)),
@@ -158,7 +172,7 @@ class Model(nn.Module):
         zimg = ztxt = text_tokens = image_tokens = None
         if text is not None:
             ztxt, out_txt = self.txt(text[:, :-1] if embed_cls else text)
-            text_tokens = out_txt["tokens"]
+            text_tokens = out_txt[self.tokens_key]
             out["txt/norm"] = torch.linalg.norm(ztxt, dim=1, keepdim=True)
             out["txt/normalized"] = ztxt = ztxt / (out["txt/norm"] + 1e-8)
             out["labels"] = text[:, -text_tokens.shape[1]:]

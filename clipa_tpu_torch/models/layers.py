@@ -84,6 +84,12 @@ def lecun_normal() -> Init:
     return init
 
 
+def zeros() -> Init:
+    def init(w, shape, generator):
+        w.zero_()
+    return init
+
+
 def normal(stddev: float) -> Init:
     def init(w, shape, generator):
         w.normal_(0.0, stddev, generator=generator)
@@ -102,12 +108,18 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> None:
-    """Stores every parameter in `dtype`, except LayerNorm's (fp32): the
+    """Stores every parameter in `dtype`, except those the JAX towers use in
+    fp32 whatever the compute dtype: LayerNorm's, those of a module that
+    sets ``keep_fp32`` (T5's RMS norm, the relpos bias MLP) and a module's
+    own parameters named in its ``fp32_params`` (T5's bias table). The
     serving layout, whose casts at use are then no-ops."""
+    keep = set()
     for m in module.modules():
-        if isinstance(m, nn.LayerNorm):
-            continue
-        for p in m.parameters(recurse=False):
+        if isinstance(m, nn.LayerNorm) or getattr(m, "keep_fp32", False):
+            keep.update(id(p) for p in m.parameters())
+        keep.update(id(getattr(m, n)) for n in getattr(m, "fp32_params", ()))
+    for p in module.parameters():
+        if id(p) not in keep:
             p.data = p.data.to(dtype)
 
 

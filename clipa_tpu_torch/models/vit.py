@@ -71,21 +71,26 @@ class PatchEmbed(nn.Module):
     matmul. ``conv`` (``nn.Conv`` with stride = kernel = patch, VALID,
     no bias): the (p, p, 3, W) HWIO kernel, exact, the same product the JAX
     stem computes outside any kernel. ``linear`` (``nn.Dense``): a
-    (p * p * 3, W) kernel and a bias, on an image the patch divides."""
+    (p * p * 3, W) kernel and a bias, on an image the patch divides.
+    `use_bias` gives the conv stem a bias (the Swin and relpos-ViT stems,
+    whose image the patch divides); `kernel_init` replaces flax's
+    lecun-normal default."""
 
     def __init__(self, patch_size: Sequence[int], width: int,
-                 linear: bool = False):
+                 linear: bool = False, use_bias: Optional[bool] = None,
+                 kernel_init: Optional[layers.Init] = None):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.linear = linear
         ph, pw = self.patch_size
         self.kernel = nn.Parameter(torch.empty(
             *((ph * pw * 3,) if linear else (ph, pw, 3)), width))
-        self.bias = nn.Parameter(torch.empty(width)) if linear else None
+        use_bias = linear if use_bias is None else use_bias
+        self.bias = nn.Parameter(torch.empty(width)) if use_bias else None
+        self._kernel_init = kernel_init or layers.lecun_normal()
 
     def init_own_parameters(self, generator):
-        layers.lecun_normal()(self.kernel, tuple(self.kernel.shape),
-                              generator)
+        self._kernel_init(self.kernel, tuple(self.kernel.shape), generator)
         if self.bias is not None:
             self.bias.zero_()
 

@@ -249,7 +249,12 @@ class EmbeddingService:
         return self._run_bucketed(self._embed_images, images)
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        return self._run_bucketed(self._embed_texts, self._tokenize(texts))
+        return self.embed_tokens(self._tokenize(texts))
+
+    def embed_tokens(self, tokens) -> np.ndarray:
+        """(N, L) int token ids, tokenized elsewhere (the HF-text configs'
+        tokenizer needs ``transformers``), -> text embeddings."""
+        return self._run_bucketed(self._embed_texts, np.asarray(tokens))
 
     def embed_images_to(self, images, path: str, fmt: str = "npy") -> int:
         """Streams image embeddings to `path` (.npy memmap or zarr dir).

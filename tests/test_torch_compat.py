@@ -7,7 +7,7 @@
   * the state-dict converter: ``convert_torch_variables`` on open_clip
     state dicts (``CLIP`` and ``CustomTextCLIP`` prefixes, ``module.``,
     the ignorable buffers) equals the JAX converter's tree bit for bit and
-    raises on leftovers as it does; the towers of ROADMAP A10 raise;
+    raises on leftovers as it does; the towers of ROADMAP A10c raise;
   * ``export_torch_state_dict`` from a port model and from a JAX-layout
     tree: the JAX exporter's dict, key for key and bit for bit;
   * ``create_model`` from an open_clip ``.bin`` / ``.pt`` and
@@ -159,8 +159,17 @@ def _tokens(n, ctx=8, vocab=64, seed=1):
 
 # ---------------------------------------------------------------- tokenizers
 
+@pytest.fixture(scope="module")
+def hf_tokenizer_dir(tmp_path_factory):
+    """A local RoBERTa tokenizer directory (synthetic vocab and merges):
+    the HF-text configs' tokenizer, in both packages."""
+    from tests.test_torch_hf_text import _roberta_tokenizer_dir
+    return _roberta_tokenizer_dir(tmp_path_factory.mktemp("hf") / "tok")
+
+
 @pytest.mark.parametrize("name", openclip.list_models())
-def test_get_tokenizer_matches_jax(name, merges, monkeypatch):
+def test_get_tokenizer_matches_jax(name, merges, hf_tokenizer_dir,
+                                   monkeypatch):
     from clipa_tpu.pp import ops_text as jax_ops_text
     # the JAX WordPiece route: its Python tokenizer (the native one is the
     # port's own, held by tests/test_torch_native.py)
@@ -173,6 +182,8 @@ def test_get_tokenizer_matches_jax(name, merges, monkeypatch):
     bpe = not text_cfg.get("bert_tokenizer") and \
         text_cfg.get("vocab_size") == 49408
     vocab = merges if bpe else VOCAB
+    if "hf_tokenizer_name" in text_cfg:   # transformers' AutoTokenizer
+        vocab = hf_tokenizer_dir
     ours = openclip.get_tokenizer(name, vocab_path=vocab)
     ref = jax_openclip.get_tokenizer(name, vocab_path=vocab)
     kw = {}
@@ -205,6 +216,9 @@ def test_syntax_bpe_samples_words_past_the_budget(merges):
 
 
 def test_get_tokenizer_refuses_what_is_not_ported(tmp_path):
+    """The BPE configs need a merges file; an HF tokenizer goes to
+    transformers' AutoTokenizer, which refuses a directory without a
+    tokenizer in both packages alike (the hub is never asked)."""
     with pytest.raises(ValueError, match="BPE"):
         openclip.get_tokenizer("ViT-L-16-CL32-GAP")
     cfg = json.loads(json.dumps(TINY["bigvision"]))
@@ -212,8 +226,14 @@ def test_get_tokenizer_refuses_what_is_not_ported(tmp_path):
     path = str(tmp_path / "hf_text.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="A10"):
-        openclip.get_tokenizer(path, vocab_path=VOCAB)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    errors = []
+    for package in (openclip, jax_openclip):
+        with pytest.raises(Exception) as info:
+            package.get_tokenizer(path, vocab_path=str(empty))
+        errors.append(type(info.value))
+    assert errors[0] is errors[1]
 
 
 # ----------------------------------------------------------------- converter
@@ -289,7 +309,7 @@ def test_converter_refuses_hf_text(tiny):
     _, _, sd, _ = tiny["openclip"]
     sd = {k: v for k, v in _text_prefixed(sd).items()
           if not k.startswith("text.token_embedding")}
-    with pytest.raises(NotImplementedError, match="HF text.*A10"):
+    with pytest.raises(NotImplementedError, match="HF text.*load"):
         openclip.convert_torch_variables(sd)
 
 
@@ -387,11 +407,11 @@ def test_create_model_refuses_unknown_pretrained(tiny):
 
 
 def test_unported_configs_raise_naming_a10(tmp_path):
-    """timm, ModifiedResNet and HF-text configs of the JAX zoo, CoCa's
-    HF-text one among them (the other CoCa configs are ported:
-    tests/test_torch_coca.py)."""
-    for name in ("convnext_base", "RN50", "roberta-ViT-B-32",
-                 "coca_roberta-ViT-B-32"):
+    """The conv towers of the JAX zoo, timm's convnext and the
+    ModifiedResNet, raise naming A10c (the HF-text, Swin and relpos
+    configs are ported: tests/test_torch_hf_text.py,
+    tests/test_torch_timm_towers.py)."""
+    for name in ("convnext_base", "convnext_large_d", "RN50", "RN101"):
         path = str(tmp_path / f"{name}.json")
         with open(path, "w") as f:
             json.dump(jax_openclip.get_model_config(name), f)

@@ -57,6 +57,13 @@ CASES = [
     (2, 257, 80, 2, True, True, 1.0),
     (3, 65, 1024, 8, False, False, 1.0),
     (1, 577, 1280, 16, True, False, 1.0),
+    # the HF-text / timm towers' shapes: D = 512 with 8 heads (the
+    # vit_medium tower at L = 257, and L = 256), D = 768 with 12 heads (the
+    # LiT BERT text tower at L = 64, the B/32 image tower at L = 50)
+    (8, 256, 512, 8, True, False, 1.0),
+    (8, 257, 512, 8, True, False, 1.0),
+    (8, 64, 768, 12, True, False, 1.0),
+    (8, 50, 768, 12, True, False, 1.0),
     *((2, n, 256, 4, bias, not bias, 1.0)
       for n in (33, 48, 49, 63, 64, 65, 129, 255, 256, 257, 272, 273, 577)
       for bias in (True, False)),
@@ -225,6 +232,12 @@ BWD_CASES = [
     (16, 346, 1280, 16, True, False, 1.0),
     (64, 180, 1280, 16, False, True, 1.0),
     (16, 346, 1280, 16, False, True, 1.0),
+    # the HF-text / timm towers' shapes (the long scheme at L = 256, 257;
+    # the whole-head scheme at L = 64, 50)
+    (8, 256, 512, 8, True, False, 1.0),
+    (8, 257, 512, 8, True, False, 1.0),
+    (8, 64, 768, 12, True, False, 1.0),
+    (8, 50, 768, 12, True, False, 1.0),
     *((2, n, 2 * hd, 2, i % 2 == 0, i % 2 == 1, 1.0)
       for hd in (8, 72, 80, 128) for i, n in enumerate(BWD_BOUNDARIES)),
 ]

@@ -69,14 +69,17 @@ def test_no_module_imports_the_jax_package(path):
 
 def test_the_scan_covers_the_native_losses_and_tools_modules():
     """The modules ported with the native library, the losses, the data
-    tools and the open_clip interop are among the scanned sources."""
+    tools, the open_clip interop and the HF, Swin and relpos towers are
+    among the scanned sources."""
     for path in ("native/__init__.py", "native/wordpiece.py",
                  "ops/infonce.py", "tools/laion.py",
                  "tools/bench_pipeline.py", "losses.py", "train/step.py",
                  "pp/ops_image.py", "data/tfrecord.py", "tokenizer.py",
                  "compat/openclip.py", "compat/pretrained.py",
                  "compat/export.py", "pp/bpe_tokenizer.py",
-                 "pp/autoaugment.py", "pp/randaugment.py"):
+                 "pp/autoaugment.py", "pp/randaugment.py",
+                 "models/bert.py", "models/hf_text.py", "models/t5_text.py",
+                 "models/swin.py", "models/vit_relpos.py"):
         assert os.path.join("clipa_tpu_torch", path) in SOURCES, path
 
 
