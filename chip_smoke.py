@@ -273,6 +273,25 @@ back, served, captioning and trained, in the step and in the trainer.
      path, the export round trip bit for bit (open_clip .bin, or npz for
      the HF text towers). Phases 2 and 3 time the kernels at the new
      shapes.
+ 21. the conv towers at full width, seeded weights, bf16, no attention
+     kernel on their path (the convs are cuDNN's, the 77-token causal text
+     towers einsum; the phase launches none, and checks it): (a)
+     ``EmbeddingService`` over convnext_xxlarge @256 (dims 384-3072, depths
+     3/4/30/3; 24-layer 1024-wide text tower), 1024 uint8 images and 2048
+     id rows at bucket 256: images/s and texts/s (best of two), images/s
+     beside the bf16 tensor-core bound of its forward FLOPs, the bf16
+     embeddings against the port's own fp32 tower on 64 images (cosine >=
+     0.99); (b) RN50x64 @448 with seeded statistics (means N(0, 0.1),
+     variances U(0.5, 2)): 512 images at bucket 256, images/s; its state
+     dict in OpenAI's layout (open_clip's CLIP keys, num_batches_tracked
+     included) written to a .pt and read back by ``load_openai_model`` and
+     ``create_model(..., pretrained=<.pt>)``: every tensor and the image
+     embeddings bit for bit; (c) convnext_large_d's mlp head exported with
+     ``save_open_clip`` and loaded back from the .bin, bit for bit; (d) the
+     training step (``step.create_model``, the pretrain config's optimizer
+     at a const lr) at convnext_xxlarge @256, B = 64, 77 ids, DropPath
+     0.1, no remat: 5 steps on one batch, the loss falling, pairs/s (best
+     of two 2-step windows), peak memory.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -3918,6 +3937,278 @@ def _hf_towers(card):
         "others": sum(o["launches"] for o in others.values())}}
 
 
+# Phase 21: the conv towers at full width, seeded weights, bf16.
+CONV_SERVE_MODEL = "convnext_xxlarge"
+CONV_IMAGES, CONV_TEXTS = 1024, 2048
+CONV_FP32_IMAGES = 64
+CONV_MIN_COSINE = 0.99       # bf16 embeddings against the fp32 tower
+RN_MODEL = "RN50x64"
+RN_IMAGES = 512
+MLP_HEAD_MODEL = "convnext_large_d"
+CONV_TRAIN = "img=B/16,res=256,token_len=77,batchsize=64"
+CONV_TRAIN_STEPS = 5
+CONV_LR = 1e-4
+
+
+def _convnext_flops(dims, depths, size):
+    """Forward FLOPs of one image through the ConvNeXt trunk: the stem, the
+    downsamples, and per block the 7 x 7 depthwise conv and the two
+    pointwise layers (2 x HW x 8C^2, the bulk)."""
+    side = -(-size // 4)
+    flops = 2 * side * side * 4 * 4 * 3 * dims[0]
+    for i, (c, depth) in enumerate(zip(dims, depths)):
+        if i:
+            side = -(-side // 2)
+            flops += 2 * side * side * 2 * 2 * dims[i - 1] * c
+        flops += depth * (2 * side * side * 49 * c
+                          + 2 * side * side * 8 * c * c)
+    return flops
+
+
+def _resnet_flops(stage_blocks, width, size, out_dim):
+    """Forward FLOPs of one image through the ModifiedResNet: the convs
+    (2 x outputs x k^2 x C_in x C_out), the pool's projections (the query
+    of one token, keys and values of all) and its attention."""
+    side = (size - 1) // 2 + 1
+    w = width
+    flops = 2 * side * side * 9 * (3 * w // 2 + w // 2 * w // 2
+                                   + w // 2 * w)
+    side //= 2
+    inplanes = w
+    for i, (blocks, planes) in enumerate(
+            zip(stage_blocks, (w, 2 * w, 4 * w, 8 * w))):
+        for j in range(blocks):
+            stride = 2 if (j == 0 and i > 0) else 1
+            out = side // stride
+            flops += 2 * side * side * (inplanes * planes + 9 * planes
+                                        * planes)
+            flops += 2 * out * out * planes * 4 * planes
+            if stride > 1 or inplanes != 4 * planes:
+                flops += 2 * out * out * inplanes * 4 * planes
+            side, inplanes = out, 4 * planes
+    tokens, c = side * side + 1, inplanes
+    return flops + 2 * c * c * (1 + 2 * tokens) + 4 * tokens * c \
+        + 2 * c * out_dim
+
+
+def _conv_towers(card):
+    """Phase 21: the conv towers at full width, seeded weights, bf16 (the
+    docstring's list). Launches no attention kernel, and checks that."""
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import convert, optim
+    from clipa_tpu_torch.compat import export, openclip
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.models import layers as layers_lib
+    from clipa_tpu_torch.ops import preprocess
+    from clipa_tpu_torch.serving import EmbeddingService
+    from clipa_tpu_torch.train import step
+
+    t_phase = time.perf_counter()
+    reset, read = _attention_counters()
+    reset()
+    work = tempfile.TemporaryDirectory()
+    rng = np.random.RandomState(SEED)
+    out = {}
+    torch.cuda.empty_cache()
+
+    # (a) convnext_xxlarge @256 served in bf16 at bucket 256
+    t0 = time.perf_counter()
+    svc = EmbeddingService(CONV_SERVE_MODEL, None, device="cuda",
+                           precision="bfloat16", seed=SEED, num_workers=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    size = svc.image_size
+    n_img = sum(p.numel() for p in svc.clip.model.img.parameters())
+    n_txt = sum(p.numel() for p in svc.clip.model.txt.parameters())
+    images = rng.randint(0, 256, (CONV_IMAGES, size, size, 3), np.uint8)
+    ids = _token_ids(CONV_SERVE_MODEL, rng, CONV_TEXTS)
+    z_img = svc.embed_images(images)
+    z_txt = svc.embed_tokens(ids)
+    _check_embeddings(z_img, CONV_IMAGES, svc.embed_dim,
+                      f"{CONV_SERVE_MODEL} images")
+    _check_embeddings(z_txt, CONV_TEXTS, svc.embed_dim,
+                      f"{CONV_SERVE_MODEL} texts")
+    img_rate = _rate(lambda: svc.embed_images(images), CONV_IMAGES)
+    txt_rate = _rate(lambda: svc.embed_tokens(ids), CONV_TEXTS)
+    cfg = openclip.get_model_config(CONV_SERVE_MODEL)
+    trunk = openclip._TIMM_CONVNEXT[cfg["vision_cfg"]["timm_model_name"]]
+    flops = _convnext_flops(trunk["dims"], trunk["depths"], size)
+    bound_rate = PEAK_FLOPS["bfloat16"] / flops
+    fp32 = openclip.create_model(CONV_SERVE_MODEL, device="cuda",
+                                 precision="float32", seed=SEED)
+    with torch.inference_mode():
+        ref = fp32.encode_image(preprocess.normalize_uint8(torch.from_numpy(
+            images[:CONV_FP32_IMAGES]).cuda())).cpu().numpy()
+    fp32_cos = float(_cosines(z_img[:CONV_FP32_IMAGES], ref).min())
+    del fp32
+    torch.cuda.empty_cache()
+    if fp32_cos < CONV_MIN_COSINE:
+        raise RuntimeError(f"{CONV_SERVE_MODEL}: bf16 embeddings against "
+                           f"the fp32 tower: cosine {fp32_cos}")
+    print(f"{card}: {CONV_SERVE_MODEL} @{size} (bf16, seeded, "
+          f"{n_img / 1e9:.3f}B image and {n_txt / 1e9:.3f}B text "
+          f"parameters, built in {build_s:.2f} s): images/s at bucket 256 "
+          f"{img_rate:.2f} ({flops / 1e12:.4f} TFLOP forward per image: "
+          f"{img_rate * flops / 1e12:.1f} TFLOP/s, "
+          f"{100 * img_rate / bound_rate:.1f}% of the bf16 bound "
+          f"{bound_rate:.0f} images/s); texts/s at bucket 256 "
+          f"{txt_rate:.2f} ({CONV_TEXTS} id rows of 77); per-row cosine "
+          f"against the fp32 tower on {CONV_FP32_IMAGES} images min "
+          f"{fp32_cos:.6f}", flush=True)
+    out["convnext_serving"] = {
+        "model": CONV_SERVE_MODEL, "image_size": size,
+        "image_params": n_img, "text_params": n_txt,
+        "images_per_s": img_rate, "texts_per_s": txt_rate,
+        "tflop_per_image": flops / 1e12, "bound_images_per_s": bound_rate,
+        "min_cosine_fp32": fp32_cos}
+    del svc
+    torch.cuda.empty_cache()
+
+    # (b) RN50x64 @448 with seeded statistics, and its OpenAI-layout .pt
+    t0 = time.perf_counter()
+    svc = EmbeddingService(RN_MODEL, None, device="cuda",
+                           precision="bfloat16", seed=SEED, num_workers=0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for m in svc.clip.model.modules():
+            if isinstance(m, layers_lib.BatchNorm):
+                m.mean.normal_(0.0, 0.1, generator=gen)
+                m.var.uniform_(0.5, 2.0, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    size = svc.image_size
+    rn_images = rng.randint(0, 256, (RN_IMAGES, size, size, 3), np.uint8)
+    z_rn = svc.embed_images(rn_images)
+    _check_embeddings(z_rn, RN_IMAGES, svc.embed_dim, f"{RN_MODEL} images")
+    rn_rate = _rate(lambda: svc.embed_images(rn_images), RN_IMAGES)
+    vcfg = openclip.get_model_config(RN_MODEL)["vision_cfg"]
+    rn_flops = _resnet_flops(vcfg["layers"], vcfg["width"], size,
+                             svc.embed_dim)
+    rn_bound = PEAK_FLOPS["bfloat16"] / rn_flops
+    stats = convert.to_jax_batch_stats(svc.clip.model)
+    if any(v.dtype != torch.float32 for v in stats.values()):
+        raise RuntimeError("the bf16 service rounded the statistics")
+    t0 = time.perf_counter()
+    sd = openclip.export_torch_state_dict(svc.clip)
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = np.asarray(
+            0, np.int64)
+
+    def stored(v):   # bf16 where the value is bf16 exactly, as served
+        t = torch.from_numpy(np.asarray(v))
+        if t.is_floating_point() and torch.equal(t.bfloat16().float(), t):
+            return t.bfloat16()
+        return t
+
+    pt = os.path.join(work.name, "RN50x64.pt")
+    torch.save({k: stored(v) for k, v in sd.items()}, pt)
+    del sd
+    pt_mb = os.path.getsize(pt) / 2 ** 20
+    openai = openclip.load_openai_model(pt, precision="bf16", device="cuda")
+    n_openai = _bit_equal_models(svc.clip.model.img, openai.model.img,
+                                 f"{RN_MODEL} through load_openai_model")
+    chunk = rn_images[:256]
+    want = svc.embed_images(chunk)
+    svc.clip, kept = openai, svc.clip
+    got = svc.embed_images(chunk)
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"{RN_MODEL}: load_openai_model's embeddings "
+                           f"differ, max {np.abs(got - want).max()}")
+    del openai
+    svc.clip = openclip.create_model(RN_MODEL, pt, precision="bf16",
+                                     device="cuda")
+    n_bin = _bit_equal_models(kept.model, svc.clip.model,
+                              f"{RN_MODEL} through create_model(<.pt>)")
+    got = svc.embed_images(chunk)
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"{RN_MODEL}: create_model(<.pt>)'s embeddings "
+                           f"differ, max {np.abs(got - want).max()}")
+    trip_s = time.perf_counter() - t0
+    print(f"{card}: {RN_MODEL} @{size} (bf16, seeded weights and "
+          f"statistics, built in {build_s:.2f} s): images/s at bucket 256 "
+          f"{rn_rate:.2f} ({rn_flops / 1e12:.4f} TFLOP forward per image: "
+          f"{rn_rate * rn_flops / 1e12:.1f} TFLOP/s, "
+          f"{100 * rn_rate / rn_bound:.1f}% of the bf16 bound "
+          f"{rn_bound:.0f} images/s); {len(stats)} statistics fp32; "
+          f"OpenAI-layout .pt "
+          f"({pt_mb:.0f} MiB) through load_openai_model ({n_openai} image "
+          f"tensors) and create_model ({n_bin} tensors), bit for bit, "
+          f"embeddings bit for bit, in {trip_s:.2f} s", flush=True)
+    out["resnet_serving"] = {
+        "model": RN_MODEL, "image_size": size, "images_per_s": rn_rate,
+        "tflop_per_image": rn_flops / 1e12, "bound_images_per_s": rn_bound,
+        "statistics": len(stats), "openai_pt_mib": pt_mb,
+        "tensors_bit_for_bit": n_bin, "round_trip_s": trip_s}
+    del svc, kept, stats
+    os.remove(pt)
+    torch.cuda.empty_cache()
+
+    # (c) convnext_large_d's mlp head through save_open_clip and back
+    clip = openclip.create_model(MLP_HEAD_MODEL, device="cuda",
+                                 precision="bf16", seed=SEED)
+    if clip.model.img.head_mlp_fc is None:
+        raise RuntimeError(f"{MLP_HEAD_MODEL} has no mlp head")
+    route, n_mlp, mlp_s = _round_trip(clip, MLP_HEAD_MODEL, os.path.join(
+        work.name, os.path.basename(MLP_HEAD_MODEL)))
+    print(f"{card}: {MLP_HEAD_MODEL} (mlp head): export ({route}) and load "
+          f"back, {n_mlp} tensors bit for bit in {mlp_s:.2f} s", flush=True)
+    out["mlp_head_round_trip"] = {"model": MLP_HEAD_MODEL, "route": route,
+                                  "tensors_bit_for_bit": n_mlp}
+    del clip
+    torch.cuda.empty_cache()
+
+    # (d) the training step at convnext_xxlarge @256, B = 64
+    config = clipa_pretrain.get_config(CONV_TRAIN)
+    config.model = dict(openclip._to_two_towers_cfg(openclip.get_model_config(
+        CONV_SERVE_MODEL)), dtype="bfloat16")
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.lr = CONV_LR
+    b, (_, size, _, _) = config.input.batch_size, config.init_shapes[0]
+    model = step.create_model(config, device="cuda")
+    state = step.init_train_state(
+        model, config, torch.Generator(device="cuda").manual_seed(SEED),
+        "cuda")
+    batch = {"image": torch.from_numpy(rng.randint(
+                 0, 256, (b, size, size, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.from_numpy(_token_ids(
+                 CONV_SERVE_MODEL, rng, b)).cuda()}
+    tx, _ = optim.make(config, model, sched_kw=dict(
+        total_steps=CONV_TRAIN_STEPS, batch_size=b))
+    update = step.make_update_fn(model, tx, config, CONV_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(CONV_TRAIN_STEPS):
+        state, meas = update(state, batch)
+        losses.append(float(meas["training_loss"]))
+        stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = max(2 * b / (stamps[i + 2] - stamps[i]) for i in (1, 3))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError(f"the {CONV_SERVE_MODEL} step's loss does not "
+                           f"fall: {losses}")
+    print(f"{card}: the step at {CONV_SERVE_MODEL} @{size} (bf16 compute, "
+          f"fp32 masters, B={b}, 77 ids, DropPath 0.1, no remat, const lr "
+          f"{CONV_LR}): losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"pairs/s (best of two 2-step windows) {rate:.2f}; peak "
+          f"{peak:.2f} GiB", flush=True)
+    out["convnext_step"] = {"config": CONV_TRAIN, "batch": b,
+                            "losses": losses, "pairs_per_s": rate,
+                            "peak_gb": peak}
+    del model, state, tx, update, batch
+    torch.cuda.empty_cache()
+    work.cleanup()
+
+    launches = read()
+    if any(launches.values()):
+        raise RuntimeError(f"the conv towers launched attention kernels: "
+                           f"{launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 21 in {phase_s:.2f} s (attention kernel launches "
+          f"{launches})", flush=True)
+    return {**out, "phase_s": phase_s, "launches": launches}
+
+
 def _patch_embed(gen):
     """Phase 9: the fused uint8 patch embed against its plain version at the
     PATCH_CASES, then the op as a user calls it, counters read around."""
@@ -4312,6 +4603,9 @@ def main() -> int:
     # 20. the HF text towers, Swin, relpos-ViT and the timm ViT table
     hf = _hf_towers(card)
 
+    # 21. the conv towers: ConvNeXt and the ModifiedResNet
+    conv = _conv_towers(card)
+
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
         "image_attn_impl": "pallas",
@@ -4368,6 +4662,12 @@ def main() -> int:
         "coca_train_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
                              f"{COCA_HF_TRAIN} (model_name=coca, loss=coca)",
         **hf,
+    }, "conv_towers": {
+        "configs": [CONV_SERVE_MODEL, RN_MODEL, MLP_HEAD_MODEL],
+        "train_config": f"clipa_tpu_torch/configs/clipa_pretrain.py:"
+                        f"{CONV_TRAIN} (model of {CONV_SERVE_MODEL}, const "
+                        f"lr {CONV_LR})",
+        **conv,
     }}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",

@@ -44,15 +44,17 @@ def save_config_for_hf(model_config: dict, config_path: str, *,
 
 
 def save_open_clip(params, model_name: str, save_directory: str, *,
-                   mean=None, std=None,
+                   batch_stats=None, mean=None, std=None,
                    model_card: Optional[dict] = None) -> str:
     """Write an open_clip-layout export folder.
 
-    `params` is a port model (``CLIPModel`` or module), a JAX-layout
-    parameter tree (nested, or flat with slash-joined names), or an npz
-    path (``file.npz:key`` spec included); `model_name` must be a compat
-    model-config name (or ``.json`` path) so the config JSON can be
-    emitted alongside. Returns the save directory.
+    `params` is a port model (``CLIPModel`` or module, which carries a
+    ModifiedResNet's BatchNorm statistics), a JAX-layout parameter tree
+    (nested, or flat with slash-joined names) with its `batch_stats`, or
+    an npz path (``file.npz:key`` spec included; its ``batch_stats/...``
+    keys are the statistics unless `batch_stats` is given); `model_name`
+    must be a compat model-config name (or ``.json`` path) so the config
+    JSON can be emitted alongside. Returns the save directory.
     """
     import torch
     from clipa_tpu_torch.compat.openclip import (export_torch_state_dict,
@@ -60,10 +62,12 @@ def save_open_clip(params, model_name: str, save_directory: str, *,
 
     if isinstance(params, str):
         from clipa_tpu_torch.train import checkpoint as ckpt
-        params = ckpt.load_params(params)
+        loaded = ckpt.load_variables(params)
+        batch_stats = batch_stats or loaded.get("batch_stats")
+        params = loaded["params"]
 
     os.makedirs(save_directory, exist_ok=True)
-    sd_np = export_torch_state_dict(params)
+    sd_np = export_torch_state_dict(params, batch_stats=batch_stats)
     sd = {k: torch.from_numpy(np.array(v, np.float32))  # copy: torch needs
           for k, v in sd_np.items()}                    # a writable buffer
     torch.save(sd, os.path.join(save_directory, WEIGHTS_FILENAME))
@@ -80,7 +84,7 @@ def save_open_clip(params, model_name: str, save_directory: str, *,
 
 
 def push_to_hf_hub(params, model_name: str, repo_id: str, *,
-                   mean=None, std=None,
+                   batch_stats=None, mean=None, std=None,
                    commit_message: str = "Add model",
                    token: Optional[str] = None,
                    private: bool = False,
@@ -95,8 +99,8 @@ def push_to_hf_hub(params, model_name: str, repo_id: str, *,
 
     create_repo(repo_id, token=token, private=private, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmpdir:
-        save_open_clip(params, model_name, tmpdir, mean=mean, std=std,
-                       model_card=model_card)
+        save_open_clip(params, model_name, tmpdir, batch_stats=batch_stats,
+                       mean=mean, std=std, model_card=model_card)
         return upload_folder(repo_id=repo_id, folder_path=tmpdir,
                              token=token, commit_message=commit_message)
 

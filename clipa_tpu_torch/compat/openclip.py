@@ -1,11 +1,10 @@
 """open_clip-style factory for the ported CLIPA models.
 
-Port of the ViT/text and CoCa half of ``clipa_tpu/compat/openclip.py``:
+Port of ``clipa_tpu/compat/openclip.py``:
 
   * model configs by name or ``.json`` path (``model_configs/`` beside this
-    module holds the ViT + text-transformer and CoCa JSON files of
-    ``clipa_tpu/compat/model_configs/``) and their translation to two-tower
-    and CoCa kwargs;
+    module holds the 66 JSON files of ``clipa_tpu/compat/model_configs/``)
+    and their translation to two-tower and CoCa kwargs;
   * ``create_model`` (seeded random weights, a flat npz in the JAX
     package's format, an open_clip torch state dict ``.pt``/``.pth``/
     ``.bin``, or a pretrained-registry tag), ``create_model_and_transforms``,
@@ -18,22 +17,25 @@ Port of the ViT/text and CoCa half of ``clipa_tpu/compat/openclip.py``:
     sampling where a config says ``text_mask: syntax``;
   * the open_clip state-dict maps both ways (``convert_torch_variables``,
     ``export_torch_state_dict``) through the JAX package's flat parameter
-    names (``img/Transformer/encoderblock_0/...``), which
+    names (``img/Transformer/encoderblock_0/...``) and its ``batch_stats``
+    collection (the ModifiedResNet's BatchNorm statistics), which
     ``convert.load_jax_params`` loads; and ``load_openai_model`` for OpenAI's
-    CLIP releases (a plain state dict or a TorchScript archive).
+    CLIP releases (a plain state dict or a TorchScript archive, ViT or
+    ModifiedResNet).
+
+The BatchNorm statistics ride the model as buffers of its BatchNorms (the
+JAX package carries them beside the parameters as ``model_state``), so
+whatever holds the model holds them.
 
 The HF text towers (``hf_text`` for roberta and xlm-roberta, ``t5_text``
 for mt5; CoCa's ``coca_roberta-ViT-B-32`` among them) take their ids from
 ``transformers``' tokenizer of a local directory (imported only there);
 the open_clip maps have none for them, as the JAX package has none: their
 weights move as npz files, or through the towers' own HF converters. The
-timm trunks ``vit_medium_patch16_gap_256`` (the native ViT),
+timm trunks ``convnext_*`` (the ConvNeXt tower),
+``vit_medium_patch16_gap_256`` (the native ViT),
 ``swin_base_patch4_window7_224`` and ``vit_relpos_medium_patch16_cls_224``
-are mapped both ways.
-
-Not ported yet (ROADMAP A10c, each raises NotImplementedError naming it):
-the conv towers, timm's ``convnext_*`` and the ModifiedResNet ``RN*``, and
-their maps.
+are mapped both ways, as is the ModifiedResNet of the ``RN*`` configs.
 """
 
 from __future__ import annotations
@@ -58,11 +60,6 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to clipa_tpu_torch "
-                               "yet (ROADMAP A10c)")
-
-
 def list_models() -> list[str]:
     return sorted(f[:-5] for f in os.listdir(_CONFIG_DIR)
                   if f.endswith(".json"))
@@ -81,13 +78,34 @@ def get_model_config(name: str) -> dict:
         return json.load(f)
 
 
+# timm trunk name -> ConvNeXt stage spec (timm's convnext registry; the
+# convnext_* JSONs name it in vision_cfg.timm_model_name)
+_TIMM_CONVNEXT = {
+    "convnext_tiny": dict(dims=(96, 192, 384, 768), depths=(3, 3, 9, 3)),
+    "convnext_small": dict(dims=(96, 192, 384, 768), depths=(3, 3, 27, 3)),
+    "convnext_base": dict(dims=(128, 256, 512, 1024), depths=(3, 3, 27, 3)),
+    "convnext_large": dict(dims=(192, 384, 768, 1536), depths=(3, 3, 27, 3)),
+    "convnext_xlarge": dict(dims=(256, 512, 1024, 2048),
+                            depths=(3, 3, 27, 3)),
+    "convnext_xxlarge": dict(dims=(384, 768, 1536, 3072),
+                             depths=(3, 4, 30, 3)),
+}
+
+
 def _timm_vision_cfg(v: dict) -> tuple[str, dict]:
     """vision_cfg.timm_model_name -> (image model, its kwargs), as the JAX
-    translation maps the zoo's timm trunks: ``vit_medium_patch16_gap_256``
-    to the native ViT (gap pool), Swin and relpos-ViT to their towers; the
-    convnext trunks raise (A10c)."""
+    translation maps the zoo's timm trunks: ``convnext_*`` to the ConvNeXt
+    tower (trunk, GAP and open_clip's linear or mlp head; timm's LayerScale
+    init 1e-6), ``vit_medium_patch16_gap_256`` to the native ViT (gap
+    pool), Swin and relpos-ViT to their towers."""
     name = v["timm_model_name"]
     drop_path = float(v.get("timm_drop_path") or 0.0)
+    if name in _TIMM_CONVNEXT:
+        return "convnext", dict(
+            variant=None, **_TIMM_CONVNEXT[name], drop_path=drop_path,
+            dropout=float(v.get("timm_drop") or 0.0),
+            layer_scale_init_value=1e-6,
+            head_mlp=v.get("timm_proj", "linear") == "mlp")
     if name == "vit_medium_patch16_gap_256":
         return "vit", dict(
             variant=None, width=512, depth=12, num_heads=8, mlp_dim=2048,
@@ -105,11 +123,9 @@ def _timm_vision_cfg(v: dict) -> tuple[str, dict]:
             variant=None, width=512, depth=12, num_heads=8, patch_size=16,
             drop_path=drop_path,
             head_bias=bool(v.get("timm_proj_bias", False)))
-    if name.startswith("convnext_"):
-        raise _unported(f"the timm vision trunk {name!r}")
     raise NotImplementedError(
         f"timm vision trunk {name!r} has no native tower (ported: "
-        "['swin_base_patch4_window7_224', "
+        f"{sorted(_TIMM_CONVNEXT)} + ['swin_base_patch4_window7_224', "
         "'vit_medium_patch16_gap_256', "
         "'vit_relpos_medium_patch16_cls_224'])")
 
@@ -128,7 +144,13 @@ def _to_two_towers_cfg(cfg: dict, *, image_size: Optional[int] = None,
         image["image_size"] = image_size or v["image_size"]
         return dict(image=image, image_model=image_model, **towers)
     if isinstance(v["layers"], (list, tuple)):
-        raise _unported("the ModifiedResNet vision tower")
+        # ModifiedResNet (RN*.json): list-valued layers; the attention
+        # pool's heads are width * 32 // head_width
+        return dict(image=dict(
+            variant=None, image_size=image_size or v["image_size"],
+            layers=tuple(v["layers"]), width=v["width"],
+            num_heads=v["width"] * 32 // v.get("head_width", 64)),
+            image_model="resnet", **towers)
     vision_pool_style = v.get("pool_style", "open_clip")
     if vision_pool_style == "big_vision_gap":
         img_pool = "gap"           # mean over patch tokens, then ln_post
@@ -552,22 +574,23 @@ def create_model(model_name: str, pretrained: Optional[str] = None, *,
 
 def load_checkpoint_params(path: str, model: torch.nn.Module) -> None:
     """Loads npz (the JAX package's) or torch .pt/.pth/.bin (open_clip
-    state dict) weights into `model`, strictly: every key must match both
-    ways, shapes must agree (``convert.load_jax_params``)."""
+    state dict) weights, and a ModifiedResNet's BatchNorm statistics, into
+    `model`, strictly: every key must match both ways, shapes must agree
+    (``convert.load_jax_params``)."""
     from clipa_tpu_torch import convert
 
-    variables = load_checkpoint_variables(path, heads=_heads_of(model))
-    convert.load_jax_params(model, variables["params"])
+    convert.load_jax_params(model, load_checkpoint_variables(
+        path, heads=_heads_of(model)))
 
 
 def load_checkpoint_variables(path: str,
                               heads: Optional[dict] = None) -> dict:
-    """A checkpoint file (local or a URL) -> ``{"params": tree}`` in the
-    JAX package's layout and names: a torch open_clip state dict through
-    :func:`convert_torch_variables` (`heads`: {tower: head count}), an npz
-    through ``train.checkpoint.load_params``. The JAX package's other
-    collections (ModifiedResNet's BatchNorm statistics) belong to towers
-    that are not ported (ROADMAP A10c)."""
+    """A checkpoint file (local or a URL) -> the JAX package's variables,
+    ``{"params": tree}`` and, where the file carries BatchNorm statistics,
+    ``"batch_stats"``, in its layout and names: a torch open_clip state
+    dict through :func:`convert_torch_variables` (`heads`: {tower: head
+    count}), an npz (its ``batch_stats/...`` keys beside the parameters)
+    through ``train.checkpoint.load_variables``."""
     from clipa_tpu_torch import pathio
     from clipa_tpu_torch.train import checkpoint as ckpt
 
@@ -576,7 +599,7 @@ def load_checkpoint_variables(path: str,
             sd = torch.load(f, map_location="cpu", weights_only=True)
         sd = sd.get("state_dict", sd)
         return convert_torch_variables(_numpy_state_dict(sd), heads=heads)
-    return {"params": ckpt.load_params(path)}
+    return ckpt.load_variables(path)
 
 
 def _numpy_state_dict(sd: dict) -> dict[str, np.ndarray]:
@@ -593,9 +616,10 @@ def _heads_of(model: torch.nn.Module) -> dict:
     for tower in ("img", "txt", "decoder"):
         blocks = getattr(model, tower, None)
         blocks = getattr(blocks, "Transformer", blocks)
-        if hasattr(blocks, "encoderblock_0"):   # not Swin's, relpos's, T5's
-            heads[tower] = blocks.encoderblock_0.\
-                MultiHeadDotProductAttention_0.num_heads
+        # not Swin's, relpos's, T5's, nor ConvNeXt's encoderblock_0
+        block = getattr(blocks, "encoderblock_0", None)
+        if hasattr(block, "MultiHeadDotProductAttention_0"):
+            heads[tower] = block.MultiHeadDotProductAttention_0.num_heads
     return heads
 
 
@@ -645,27 +669,28 @@ def convert_torch_state_dict(sd: dict[str, np.ndarray], *,
 
 def convert_torch_variables(sd: dict[str, np.ndarray], *,
                             heads: Optional[dict] = None) -> dict:
-    """open_clip torch state_dict -> ``{"params": tree}``, the tree in the
-    JAX package's layout and names (numpy arrays).
+    """open_clip torch state_dict -> ``{"params": tree}`` (and, for a
+    ModifiedResNet, ``"batch_stats"``: its BatchNorms' running means and
+    variances), the trees in the JAX package's layout and names (numpy
+    arrays).
 
     Handles both `CLIP` (text attrs at top level) and `CustomTextCLIP`
     (`text.`-prefixed) layouts of the ViT and text-transformer towers, and
     CoCa's (its visual ``ln_post`` / ``proj`` to ``img_encoder_norm`` /
     ``img_head``, the attentional pooler to ``img_pool``, ``cls_emb``, the
-    caption decoder's ``text_decoder.*`` to ``decoder``), and the timm
-    Swin and relpos-ViT trunks (``visual.trunk.*`` with open_clip's
-    ``visual.head``), with any ``module.`` (DataParallel) prefix stripped.
-    The convnext and ModifiedResNet towers raise NotImplementedError
-    (ROADMAP A10c), an HF text tower too: the JAX package has no map for
-    it. Raises if any state-dict tensor other than known non-weight
-    buffers is left unconsumed.
+    caption decoder's ``text_decoder.*`` to ``decoder``), the timm
+    ConvNeXt, Swin and relpos-ViT trunks (``visual.trunk.*`` with open_clip's
+    ``visual.head``) and the ModifiedResNet (``visual.attnpool.*``; its
+    ``num_batches_tracked`` counters are dropped), with any ``module.``
+    (DataParallel) prefix stripped. An HF text tower raises
+    NotImplementedError: the JAX package has no map for it. Raises if any
+    state-dict tensor other than known non-weight buffers is left
+    unconsumed.
     """
     from clipa_tpu_torch import utils as u
 
     sd = _ConsumingDict(
         {k.replace("module.", ""): v for k, v in sd.items()})
-    if "visual.attnpool.positional_embedding" in sd:
-        raise _unported("converting the ModifiedResNet vision tower")
     is_coca = any(k.startswith("text_decoder.") for k in sd)
     if any(k.startswith("text.transformer") for k in sd):
         tprefix = "text."
@@ -679,6 +704,7 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
             "models/hf_text.py's convert_hf_roberta or models/t5_text.py's "
             "convert_hf_mt5 and load the tree, or load an npz")
     flat: dict[str, np.ndarray] = {}
+    stats: dict[str, np.ndarray] = {}
 
     def put(name, val):
         flat[name] = np.asarray(val)
@@ -689,17 +715,18 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
     # ---- image tower ----
     if any(k.startswith("visual.trunk.") for k in sd):
         if "visual.trunk.stem.0.weight" in sd:
-            raise _unported("converting the timm ConvNeXt trunk "
-                            "(visual.trunk.*)")
-        if any(".attn.relative_position_bias_table" in k for k in sd):
+            _convert_convnext_visual(sd, put)
+        elif any(".attn.relative_position_bias_table" in k for k in sd):
             _convert_swin_visual(sd, put)
         elif any(".attn.rel_pos.mlp." in k for k in sd):
             _convert_relpos_visual(sd, put)
         else:
             raise NotImplementedError(
                 "state_dict has an unsupported timm vision trunk "
-                "(visual.trunk.*): the converter maps the timm Swin and "
-                "relpos-ViT trunks")
+                "(visual.trunk.*): the converter maps the timm ConvNeXt, "
+                "Swin and relpos-ViT trunks")
+    elif "visual.attnpool.positional_embedding" in sd:
+        _convert_resnet_visual(sd, put, stats)
     else:
         conv = sd["visual.conv1.weight"]  # (width, 3, p, p)
         put("img/embedding/kernel", conv.transpose(2, 3, 1, 0))
@@ -748,8 +775,11 @@ def convert_torch_variables(sd: dict[str, np.ndarray], *,
             f"convert_torch_variables left {len(leftover)} state-dict "
             f"entries unconsumed (model family not fully supported; "
             f"loading would silently drop weights): {leftover[:10]}")
-    return {"params": u.recover_tree(list(flat.keys()),
-                                     list(flat.values()))}
+    out = {"params": u.recover_tree(list(flat.keys()), list(flat.values()))}
+    if stats:
+        out["batch_stats"] = u.recover_tree(list(stats.keys()),
+                                            list(stats.values()))
+    return out
 
 
 def _convert_attn_pooler(sd, src, dst, put):
@@ -1052,6 +1082,180 @@ def _export_relpos_visual(flat, sd):
     _export_timm_head(flat, sd)
 
 
+def _convert_convnext_visual(sd, put):
+    """The timm ConvNeXt trunk (``visual.trunk.*``: ``stem.{0 conv, 1 LN}``,
+    ``stages.{i}.downsample.{0 LN, 1 conv}`` for i >= 1,
+    ``stages.{i}.blocks.{j}.{conv_dw, norm, mlp.fc1, mlp.fc2, gamma}``, the
+    final norm) and open_clip's head -> the ConvNeXt tower
+    (models/convnext.py; the convs' OIHW kernels to HWIO)."""
+    t = "visual.trunk"
+
+    def hwio(key):
+        return np.asarray(sd[key]).transpose(2, 3, 1, 0)
+
+    put("img/embedding/kernel", hwio(f"{t}.stem.0.weight"))
+    put("img/embedding/bias", sd[f"{t}.stem.0.bias"])
+    put("img/downsample_layers01/scale", sd[f"{t}.stem.1.weight"])
+    put("img/downsample_layers01/bias", sd[f"{t}.stem.1.bias"])
+    stages = sorted({int(k.split(".")[3]) for k in sd
+                     if k.startswith(f"{t}.stages.")})
+    for i in stages:
+        sp = f"{t}.stages.{i}"
+        if i > 0:
+            put(f"img/downsample_layers{i}0/scale",
+                sd[f"{sp}.downsample.0.weight"])
+            put(f"img/downsample_layers{i}0/bias",
+                sd[f"{sp}.downsample.0.bias"])
+            put(f"img/downsample_layers{i}1/kernel",
+                hwio(f"{sp}.downsample.1.weight"))
+            put(f"img/downsample_layers{i}1/bias",
+                sd[f"{sp}.downsample.1.bias"])
+        blocks = sorted({int(k.split(".")[5]) for k in sd
+                         if k.startswith(f"{sp}.blocks.")})
+        for j in blocks:
+            bp = f"{sp}.blocks.{j}"
+            o = f"img/encoderblock_{j}" if i == 0 else f"img/stages{i}{j}"
+            put(f"{o}/dwconv/kernel", hwio(f"{bp}.conv_dw.weight"))
+            put(f"{o}/dwconv/bias", sd[f"{bp}.conv_dw.bias"])
+            put(f"{o}/norm/scale", sd[f"{bp}.norm.weight"])
+            put(f"{o}/norm/bias", sd[f"{bp}.norm.bias"])
+            put(f"{o}/pwconv1/kernel", np.asarray(sd[f"{bp}.mlp.fc1.weight"]).T)
+            put(f"{o}/pwconv1/bias", sd[f"{bp}.mlp.fc1.bias"])
+            put(f"{o}/pwconv2/kernel", np.asarray(sd[f"{bp}.mlp.fc2.weight"]).T)
+            put(f"{o}/pwconv2/bias", sd[f"{bp}.mlp.fc2.bias"])
+            if f"{bp}.gamma" in sd:
+                put(f"{o}/gamma", sd[f"{bp}.gamma"])
+    # the norm after the pool: head.norm in the classifier-reset trunk
+    # open_clip builds, norm / norm_pre in older timm versions
+    for cand in (f"{t}.head.norm", f"{t}.norm", f"{t}.norm_pre"):
+        if f"{cand}.weight" in sd:
+            put("img/norm/scale", sd[f"{cand}.weight"])
+            put("img/norm/bias", sd[f"{cand}.bias"])
+            break
+    _convert_timm_head(sd, put)
+
+
+def _export_convnext_visual(flat, sd):
+    """Inverse of _convert_convnext_visual."""
+    t = "visual.trunk"
+
+    def oihw(name):
+        return np.asarray(flat[name]).transpose(3, 2, 0, 1)
+
+    sd[f"{t}.stem.0.weight"] = oihw("img/embedding/kernel")
+    sd[f"{t}.stem.0.bias"] = np.asarray(flat["img/embedding/bias"])
+    sd[f"{t}.stem.1.weight"] = np.asarray(flat["img/downsample_layers01/scale"])
+    sd[f"{t}.stem.1.bias"] = np.asarray(flat["img/downsample_layers01/bias"])
+    for i in range(4):
+        if i > 0:
+            if f"img/downsample_layers{i}0/scale" not in flat:
+                break
+            dp = f"{t}.stages.{i}.downsample"
+            sd[f"{dp}.0.weight"] = np.asarray(
+                flat[f"img/downsample_layers{i}0/scale"])
+            sd[f"{dp}.0.bias"] = np.asarray(
+                flat[f"img/downsample_layers{i}0/bias"])
+            sd[f"{dp}.1.weight"] = oihw(f"img/downsample_layers{i}1/kernel")
+            sd[f"{dp}.1.bias"] = np.asarray(
+                flat[f"img/downsample_layers{i}1/bias"])
+        j = 0
+        while True:
+            o = f"img/encoderblock_{j}" if i == 0 else f"img/stages{i}{j}"
+            if f"{o}/dwconv/kernel" not in flat:
+                break
+            bp = f"{t}.stages.{i}.blocks.{j}"
+            sd[f"{bp}.conv_dw.weight"] = oihw(f"{o}/dwconv/kernel")
+            sd[f"{bp}.conv_dw.bias"] = np.asarray(flat[f"{o}/dwconv/bias"])
+            sd[f"{bp}.norm.weight"] = np.asarray(flat[f"{o}/norm/scale"])
+            sd[f"{bp}.norm.bias"] = np.asarray(flat[f"{o}/norm/bias"])
+            sd[f"{bp}.mlp.fc1.weight"] = np.asarray(
+                flat[f"{o}/pwconv1/kernel"]).T
+            sd[f"{bp}.mlp.fc1.bias"] = np.asarray(flat[f"{o}/pwconv1/bias"])
+            sd[f"{bp}.mlp.fc2.weight"] = np.asarray(
+                flat[f"{o}/pwconv2/kernel"]).T
+            sd[f"{bp}.mlp.fc2.bias"] = np.asarray(flat[f"{o}/pwconv2/bias"])
+            if f"{o}/gamma" in flat:
+                sd[f"{bp}.gamma"] = np.asarray(flat[f"{o}/gamma"])
+            j += 1
+    sd[f"{t}.head.norm.weight"] = np.asarray(flat["img/norm/scale"])
+    sd[f"{t}.head.norm.bias"] = np.asarray(flat["img/norm/bias"])
+    _export_timm_head(flat, sd)
+
+
+def _resnet_layout(has):
+    """(torch name, JAX name, kind) of every conv ("conv") and BatchNorm
+    ("bn") of a ModifiedResNet visual tower, in order; `has(torch_name,
+    jax_name)` says whether a conv is there (the stages' depths and the
+    downsampling come from the checkpoint)."""
+    out = []
+    for i in (1, 2, 3):   # the 3-conv stem
+        out += [(f"conv{i}", f"conv{i}", "conv"), (f"bn{i}", f"bn{i}", "bn")]
+    for layer in (1, 2, 3, 4):
+        j = 0
+        while has(f"layer{layer}.{j}.conv1", f"layer{layer}_{j}/conv1"):
+            t, o = f"layer{layer}.{j}", f"layer{layer}_{j}"
+            for i in (1, 2, 3):
+                out += [(f"{t}.conv{i}", f"{o}/conv{i}", "conv"),
+                        (f"{t}.bn{i}", f"{o}/bn{i}", "bn")]
+            # open_clip's downsample Sequential: "-1" the avg pool, "0" the
+            # conv, "1" the BatchNorm
+            if has(f"{t}.downsample.0", f"{o}/downsample_conv"):
+                out += [(f"{t}.downsample.0", f"{o}/downsample_conv", "conv"),
+                        (f"{t}.downsample.1", f"{o}/downsample_bn", "bn")]
+            j += 1
+    return out
+
+
+def _convert_resnet_visual(sd, put, stats: dict):
+    """The ModifiedResNet visual tower (``visual.{conv,bn}{1,2,3}``,
+    ``visual.layer{i}.{j}.*``, ``visual.attnpool.*``) -> the ResNet tower's
+    parameters (models/resnet.py) and its BatchNorms' running statistics
+    (``stats``: {"img/<bn>/mean" | "/var": array})."""
+    for src, dst, kind in _resnet_layout(
+            lambda src, dst: f"visual.{src}.weight" in sd):
+        if kind == "conv":
+            put(f"img/{dst}/kernel",
+                np.asarray(sd[f"visual.{src}.weight"]).transpose(2, 3, 1, 0))
+            continue
+        put(f"img/{dst}/scale", sd[f"visual.{src}.weight"])
+        put(f"img/{dst}/bias", sd[f"visual.{src}.bias"])
+        stats[f"img/{dst}/mean"] = np.asarray(sd[f"visual.{src}.running_mean"])
+        stats[f"img/{dst}/var"] = np.asarray(sd[f"visual.{src}.running_var"])
+    put("img/attnpool/pos_embedding",
+        sd["visual.attnpool.positional_embedding"])
+    for p in ("q", "k", "v", "c"):
+        put(f"img/attnpool/{p}_proj/kernel",
+            np.asarray(sd[f"visual.attnpool.{p}_proj.weight"]).T)
+        put(f"img/attnpool/{p}_proj/bias",
+            sd[f"visual.attnpool.{p}_proj.bias"])
+
+
+def _export_resnet_visual(flat, stats, sd):
+    """Inverse of _convert_resnet_visual: every BatchNorm's statistics must
+    be in `stats` (an export never invents them)."""
+    for src, dst, kind in _resnet_layout(
+            lambda src, dst: f"img/{dst}/kernel" in flat):
+        if kind == "conv":
+            sd[f"visual.{src}.weight"] = np.asarray(
+                flat[f"img/{dst}/kernel"]).transpose(3, 2, 0, 1)
+            continue
+        sd[f"visual.{src}.weight"] = np.asarray(flat[f"img/{dst}/scale"])
+        sd[f"visual.{src}.bias"] = np.asarray(flat[f"img/{dst}/bias"])
+        for stat, key in (("mean", "running_mean"), ("var", "running_var")):
+            if f"img/{dst}/{stat}" not in stats:
+                raise ValueError(
+                    f"exporting the ModifiedResNet needs its BatchNorm "
+                    f"statistics: img/{dst}/{stat} is not in batch_stats")
+            sd[f"visual.{src}.{key}"] = np.asarray(stats[f"img/{dst}/{stat}"])
+    sd["visual.attnpool.positional_embedding"] = np.asarray(
+        flat["img/attnpool/pos_embedding"])
+    for p in ("q", "k", "v", "c"):
+        sd[f"visual.attnpool.{p}_proj.weight"] = np.asarray(
+            flat[f"img/attnpool/{p}_proj/kernel"]).T
+        sd[f"visual.attnpool.{p}_proj.bias"] = np.asarray(
+            flat[f"img/attnpool/{p}_proj/bias"])
+
+
 def _jax_layout_flat(params) -> dict[str, np.ndarray]:
     """{JAX flat name: numpy array} of a port model (``CLIPModel`` or
     module, through ``convert.to_jax_params``) or of a JAX-layout tree
@@ -1075,20 +1279,36 @@ def _jax_layout_flat(params) -> dict[str, np.ndarray]:
     return {k: host(v) for k, v in u.tree_flatten_with_names(params)}
 
 
-def export_torch_state_dict(params) -> dict[str, np.ndarray]:
-    """A port model, or a JAX-layout parameter tree, -> the open_clip torch
+def _jax_layout_stats(params, batch_stats) -> dict[str, np.ndarray]:
+    """{JAX flat name: numpy array} of the BatchNorm statistics: a port
+    model's buffers (``convert.to_jax_batch_stats``), else `batch_stats`."""
+    from clipa_tpu_torch import convert, utils as u
+
+    if isinstance(params, CLIPModel):
+        params = params.model
+    if isinstance(params, torch.nn.Module):
+        if batch_stats is not None:
+            raise ValueError("a model carries its own batch_stats")
+        batch_stats = convert.to_jax_batch_stats(params)
+    return {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in u.tree_flatten_with_names(batch_stats or {})}
+
+
+def export_torch_state_dict(params, batch_stats=None
+                            ) -> dict[str, np.ndarray]:
+    """A port model, or a JAX-layout parameter tree with its
+    `batch_stats` (a tree, nested or flat), -> the open_clip torch
     state_dict layout (numpy arrays): the inverse of
     :func:`convert_torch_variables`, for users moving checkpoints the other
-    way; CoCa in its ``text.``-prefixed layout; the Swin and relpos-ViT
-    trunks in timm's. Raises on a parameter it would not write (a tower of
-    ROADMAP A10c or an HF text tower, LayerScale, the sigmoid loss's
-    ``b``): an export never drops weights.
+    way; CoCa in its ``text.``-prefixed layout; the ConvNeXt, Swin and
+    relpos-ViT trunks in timm's; the ModifiedResNet with its BatchNorms'
+    running statistics (a model's own buffers). Raises on a parameter or
+    statistic it would not write (an HF text tower, the ViT's LayerScale,
+    the sigmoid loss's ``b``) and on a ModifiedResNet without statistics:
+    an export never drops weights, nor invents them.
     """
     flat = _ConsumingDict(_jax_layout_flat(params))
-    if "img/attnpool/pos_embedding" in flat:
-        raise _unported("exporting the ModifiedResNet vision tower")
-    if "img/downsample_layers01/scale" in flat:
-        raise _unported("exporting the timm ConvNeXt trunk")
+    stats = _ConsumingDict(_jax_layout_stats(params, batch_stats))
     if "txt/Embed_0/embedding" not in flat:
         raise NotImplementedError(
             "exporting an HF text tower to the open_clip layout: neither "
@@ -1097,7 +1317,11 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
     is_coca = any(k.startswith("decoder/") for k in flat)
     sd: dict[str, np.ndarray] = {}
     sd["logit_scale"] = np.asarray(flat["t"]).reshape(())
-    if "img/patch_norm/scale" in flat:
+    if "img/attnpool/pos_embedding" in flat:
+        _export_resnet_visual(flat, stats, sd)
+    elif "img/downsample_layers01/scale" in flat:
+        _export_convnext_visual(flat, sd)
+    elif "img/patch_norm/scale" in flat:
         _export_swin_visual(flat, sd)
     elif "img/blocks0/rel_pos/fc1/kernel" in flat:
         _export_relpos_visual(flat, sd)
@@ -1130,7 +1354,8 @@ def export_torch_state_dict(params) -> dict[str, np.ndarray]:
         if "img_pool/query" in flat:
             _export_attn_pooler(flat, sd, "img_pool", "visual.attn_pool")
 
-    leftover = flat.unconsumed()
+    leftover = flat.unconsumed() + [f"batch_stats/{k}"
+                                    for k in stats.unconsumed()]
     if leftover:
         raise ValueError(
             f"export_torch_state_dict has no open_clip key for "
@@ -1436,32 +1661,44 @@ _OPENAI_METADATA = ("input_resolution", "context_length", "vocab_size")
 
 
 def _infer_openai_config(sd: dict) -> dict:
-    """open_clip model-config dict from an OpenAI CLIP state dict's shapes
-    (the ViT branch; ModifiedResNet raises, ROADMAP A10c)."""
-    if "visual.attnpool.positional_embedding" in sd:
-        raise _unported("the ModifiedResNet vision tower of an OpenAI "
-                        "release")
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    vision_layers = len([k for k in sd if k.startswith("visual.")
-                         and k.endswith(".attn.in_proj_weight")])
-    patch = sd["visual.conv1.weight"].shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    """open_clip model-config dict from an OpenAI CLIP state dict's shapes,
+    ViT or ModifiedResNet (the JAX package's inference)."""
     text_width = sd["ln_final.weight"].shape[0]
+    text_cfg = {
+        "context_length": int(sd["positional_embedding"].shape[0]),
+        "vocab_size": int(sd["token_embedding.weight"].shape[0]),
+        "width": int(text_width),
+        "heads": max(1, int(text_width // 64)),
+        "layers": len({k.split(".")[2] for k in sd
+                       if k.startswith("transformer.resblocks")}),
+    }
+    if "visual.attnpool.positional_embedding" in sd:
+        # ModifiedResNet: the blocks of each stage from the layer indices,
+        # the image size from the pool's grid (stride 32)
+        counts = [len({k.split(".")[2] for k in sd
+                       if k.startswith(f"visual.layer{b}.")})
+                  for b in (1, 2, 3, 4)]
+        grid = round((sd["visual.attnpool.positional_embedding"].shape[0]
+                      - 1) ** 0.5)
+        vision_cfg = {
+            "layers": counts,
+            "width": int(sd["visual.layer1.0.conv1.weight"].shape[0]),
+            "patch_size": None, "image_size": int(grid * 32),
+        }
+    else:
+        patch = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_cfg = {
+            "layers": len([k for k in sd if k.startswith("visual.")
+                           and k.endswith(".attn.in_proj_weight")]),
+            "width": int(sd["visual.conv1.weight"].shape[0]),
+            "patch_size": int(patch), "image_size": int(patch * grid),
+        }
     return {
         "embed_dim": int(sd["text_projection"].shape[1]),
         "quick_gelu": True,
-        "vision_cfg": {
-            "layers": int(vision_layers), "width": int(vision_width),
-            "patch_size": int(patch), "image_size": int(patch * grid),
-        },
-        "text_cfg": {
-            "context_length": int(sd["positional_embedding"].shape[0]),
-            "vocab_size": int(sd["token_embedding.weight"].shape[0]),
-            "width": int(text_width),
-            "heads": max(1, int(text_width // 64)),
-            "layers": len({k.split(".")[2] for k in sd
-                           if k.startswith("transformer.resblocks")}),
-        },
+        "vision_cfg": vision_cfg,
+        "text_cfg": text_cfg,
     }
 
 
@@ -1478,9 +1715,10 @@ def load_openai_model(path: str, *, precision: str = "float32",
                       device="cuda", attn_impl: str = "auto") -> CLIPModel:
     """Loads an OpenAI CLIP release (a TorchScript archive, read with
     ``torch.jit.load(...).state_dict()``, or a plain state dict), inferring
-    the architecture from tensor shapes (QuickGELU, ``ln_pre``, class-token
-    pool, causal text pooled at eot), on `device` (the card unless the
-    caller names the CPU). The release's metadata scalars
+    the architecture from tensor shapes (a ViT with QuickGELU, ``ln_pre``
+    and the class-token pool, or a ModifiedResNet with its BatchNorm
+    statistics; causal text pooled at eot), on `device` (the card unless
+    the caller names the CPU). The release's metadata scalars
     (``input_resolution``, ``context_length``, ``vocab_size``) are dropped
     as the reference's build_model drops them; every other entry must
     convert."""
@@ -1500,5 +1738,5 @@ def load_openai_model(path: str, *, precision: str = "float32",
     model, dtype = _build(cfg, image_size, precision=precision,
                           device=device, attn_impl=attn_impl)
     convert.load_jax_params(model, convert_torch_variables(
-        sd_np, heads=_heads_of(model))["params"])
+        sd_np, heads=_heads_of(model)))
     return _finish(model, dtype, cfg, image_size, device)

@@ -1,16 +1,13 @@
-"""Model zoo: two-tower CLIP and CoCa with ViT, Swin and relpos-ViT image
-towers and transformer, BERT, RoBERTa-family and mT5 text towers."""
+"""Model zoo: two-tower CLIP and CoCa with ViT, Swin, relpos-ViT, ConvNeXt
+and ModifiedResNet image towers and transformer, BERT, RoBERTa-family and
+mT5 text towers."""
 
 import importlib
 
 
 def get_model_module(name: str):
     """Resolves a short model name ("vit", "text_transformer", "bert", ...)
-    to its module.
-
-    The JAX package's conv towers (``convnext`` and the ModifiedResNet,
-    ``resnet``) are not ported yet: ROADMAP.md's A10c.
-    """
+    to its module."""
     aliases = {
         "vit": "clipa_tpu_torch.models.vit",
         "text_transformer": "clipa_tpu_torch.models.text",
@@ -23,9 +20,11 @@ def get_model_module(name: str):
         "t5_text": "clipa_tpu_torch.models.t5_text",
         "swin": "clipa_tpu_torch.models.swin",
         "vit_relpos": "clipa_tpu_torch.models.vit_relpos",
+        "convnext": "clipa_tpu_torch.models.convnext",
+        "resnet": "clipa_tpu_torch.models.resnet",
     }
     if name not in aliases:
         raise NotImplementedError(
-            f"model {name!r} is not ported to clipa_tpu_torch yet (ported: "
-            f"{sorted(aliases)}; convnext and resnet: ROADMAP A10c)")
+            f"model {name!r} is not ported to clipa_tpu_torch (ported: "
+            f"{sorted(aliases)})")
     return importlib.import_module(aliases[name])

@@ -1,4 +1,5 @@
-"""Shared transformer building blocks.
+"""Shared building blocks: the transformer layers, and the conv towers'
+:class:`Conv` and :class:`BatchNorm`.
 
 Port of ``clipa_tpu/models/layers.py``. Module attribute names follow the
 flax module names (``MultiHeadDotProductAttention_0``, ``MlpBlock_0``,
@@ -484,3 +485,116 @@ def _rematted(block: nn.Module, x: torch.Tensor, mask, seq,
 
     return checkpoint.checkpoint(run, x, mask, use_reentrant=False,
                                  context_fn=context_fn)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis (``lax.padtype_to_pads``):
+    ceil(size / stride) outputs, the total padding split with the odd pixel
+    after."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over NHWC activations. The (kh, kw, in / groups,
+    out) kernel is held as the OIHW ``weight`` (as ``kernel`` in HWIO where
+    `hwio` is set: the ConvNeXt stem, whose JAX name is the ViT stem's) and
+    applied by ``F.conv2d`` to the input's NCHW view, channels-last in
+    memory, so no copy is made. `padding`: "SAME" (XLA's), "VALID" or the
+    pixels on every side. Weights and bias are cast to the input's dtype at
+    use."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: Any = "SAME", groups: int = 1,
+                 use_bias: bool = True, kernel_init: Init = lecun_normal(),
+                 hwio: bool = False):
+        super().__init__()
+        k = kernel_size
+        self.kernel_size, self.stride, self.groups = k, stride, groups
+        self.padding, self.hwio = padding, hwio
+        self._flax_shape = (k, k, in_features // groups, features)
+        if hwio:
+            self.kernel = nn.Parameter(torch.empty(self._flax_shape))
+        else:
+            self.weight = nn.Parameter(torch.empty(
+                features, in_features // groups, k, k))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self._kernel_init = kernel_init
+
+    def init_own_parameters(self, generator):
+        self._kernel_init(self.kernel if self.hwio else self.weight,
+                          self._flax_shape, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.permute(3, 2, 0, 1) if self.hwio else self.weight
+        y = x.permute(0, 3, 1, 2)
+        pad = 0 if self.padding == "VALID" else self.padding
+        if self.padding == "SAME":
+            (top, bottom), (left, right) = (
+                same_pads(n, self.kernel_size, self.stride)
+                for n in y.shape[2:])
+            if top == bottom and left == right:
+                pad = (top, left)
+            else:
+                y, pad = F.pad(y, (left, right, top, bottom)), 0
+        y = F.conv2d(y, w.to(x.dtype), _cast(self.bias, x.dtype),
+                     self.stride, pad, groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over NHWC activations, with the JAX towers'
+    settings (eps 1e-5, momentum 0.9): parameters ``weight`` / ``bias``
+    (flax's scale / bias) and the running statistics as fp32 buffers
+    ``mean`` / ``var`` (flax's ``batch_stats`` collection).
+
+    Training mode normalizes by the batch's statistics over (N, H, W),
+    formed in fp32 (float64 for a float64 input) as flax forms them: the mean and the biased variance
+    E[x^2] - E[x]^2, clipped at 0. The running averages take that same
+    variance (``F.batch_norm`` would take the unbiased one): ``m * running
+    + (1 - m) * batch``. Eval mode reads the running statistics. Either way
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` runs in that dtype
+    and takes the input's. The parameters and statistics stay fp32 when
+    the tower's weights are stored in the compute dtype (``keep_fp32``),
+    and the statistics also through ``module.to(dtype)``."""
+
+    keep_fp32 = True
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def init_own_parameters(self, generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def _apply(self, fn, recurse=True):
+        stats = (self.mean, self.var)
+        super()._apply(fn, recurse)
+        self.mean, self.var = (s.to(device=b.device) for s, b in
+                               zip(stats, (self.mean, self.var)))
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = x32.mean(dim=(0, 1, 2))
+            var = (x32.square().mean(dim=(0, 1, 2))
+                   - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(x32.dtype)
+        return ((x32 - mean) * mul + self.bias.to(x32.dtype)).to(x.dtype)

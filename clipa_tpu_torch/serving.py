@@ -25,6 +25,12 @@ Port of ``clipa_tpu/serving.py``:
     ``--vocab``. Without ``--pretrained`` the weights are random, drawn
     from ``--seed``. ``--format zarr`` writes zarr stores.
 
+The conv towers serve as the others do: a ModifiedResNet's BatchNorm
+statistics are buffers of the model, kept fp32 when the weights are stored
+in bf16. (The JAX service applies the parameters alone and raises flax's
+``ScopeCollectionNotFound`` on a ModifiedResNet: a fault of the reference
+that the port does not copy.)
+
 Not ported yet: sharding one service over several GPUs (ROADMAP A8).
 """
 

@@ -11,7 +11,10 @@ Port of ``clipa_tpu/train/checkpoint.py``:
     wire-compatible with the JAX package's files and released CLIPA
     weights when the tensors are in the JAX layout
     (``convert.to_jax_params`` of a model; a train state's ``params`` are
-    the model's own, in torch layout).
+    the model's own, in torch layout). A second variable collection, the
+    ModifiedResNet's BatchNorm statistics, sits beside the parameters under
+    flat ``batch_stats/<name>`` keys, as in the JAX package's files
+    (:func:`save_variables`, :func:`load_variables`).
     :func:`masked_init` is the trainer's cross-resolution initialization
     (``config.masked_init``).
   * **resumable**: :class:`CheckpointManager` keeps ``<dir>/<step>/state.pt``
@@ -99,6 +102,31 @@ def load_checkpoint(path: str) -> dict:
                           [u.recover_dtype(v) for v in flat.values()])
 
 
+def save_variables(variables: dict, path: str) -> None:
+    """Saves the JAX variables ``{"params": tree, "batch_stats": tree}``
+    (``convert.to_jax_variables`` of a model) as one flat npz: the
+    parameters under their names, the statistics under
+    ``batch_stats/<name>``."""
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise ValueError(f"unknown variable collections {sorted(extra)}")
+    flat = dict(u.tree_flatten_with_names(variables["params"]))
+    flat.update((f"batch_stats/{k}", v) for k, v in
+                u.tree_flatten_with_names(variables.get("batch_stats", {})))
+    save_params(flat, path)
+
+
+def load_variables(path: str) -> dict:
+    """Reads :func:`load_params`' tree and moves its ``batch_stats``
+    subtree out: ``{"params": tree}`` and, where the file has statistics,
+    ``"batch_stats"``."""
+    params = load_params(path)
+    if isinstance(params, dict) and "batch_stats" in params:
+        params = dict(params)
+        return {"batch_stats": params.pop("batch_stats"), "params": params}
+    return {"params": params}
+
+
 def load_params(path: str) -> dict:
     """Loads params from `file.npz` or `file.npz:subtree/key`, where the
     file may be a URL (``file:///run/params.npz:img``: the scheme's ``:``
@@ -132,14 +160,16 @@ def masked_init(model: torch.nn.Module, path: str,
     (``config.masked_no_load``): every tensor is copied, except position
     embeddings of another length, which are resampled (the pretrain text
     tower's 8 positions to the fine-tune's 32), and what `dont_load` keeps
-    at its init. `log` (a print-like callable) gets one line: how many
+    at its init. BatchNorm statistics are not merged: a model with them
+    keeps its own. `log` (a print-like callable) gets one line: how many
     tensors were copied, and which were resampled or kept. Returns
     `model`.
     """
-    loaded = load_params(path)
+    loaded = load_variables(path)["params"]
     inited = convert.to_jax_params(model)
     merged = common.merge_params(loaded, inited, dont_load)
-    convert.load_jax_params(model, merged)
+    convert.load_jax_params(model, {
+        "params": merged, "batch_stats": convert.to_jax_batch_stats(model)})
     if log is not None:   # merge_params's three cases, counted
         shapes = {n: tuple(x.shape)
                   for n, x in u.tree_flatten_with_names(loaded)}

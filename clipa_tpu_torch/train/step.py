@@ -65,7 +65,10 @@ JAX step (and the reference trainer), distillation takes ``loss=softmax``
 and no gradient accumulation (ValueError otherwise).
 
 Not ported yet (they raise, naming the ROADMAP item): the ring losses
-(multi-GPU, A8).
+(multi-GPU, A8). Refused: a tower with BatchNorm statistics (the
+ModifiedResNet). The JAX step applies ``{"params"}`` alone, so it cannot
+train one (flax raises ``ScopeCollectionNotFound`` for ``batch_stats``);
+training it would be a feature the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -235,6 +238,13 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
     frozen two-tower on the same device to distill from (its parameters
     are never updated: it is not in `tx`).
     """
+    stats = [k for k, _ in model.named_buffers()
+             if k in model.state_dict(keep_vars=True)]
+    if stats:   # module docstring
+        raise NotImplementedError(
+            f"the training step does not train a tower with BatchNorm "
+            f"statistics ({stats[0]} and {len(stats) - 1} more): the JAX "
+            "step applies the parameters alone and cannot train it either")
     mask_ratio = float(config.get("mask_ratio", 0.0))
     normalize_on_device = bool(config.get("cpu_unit8", True))
     norm_metrics = config.get("norm_metrics", "log")  # log|always|never

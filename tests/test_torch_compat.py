@@ -7,7 +7,7 @@
   * the state-dict converter: ``convert_torch_variables`` on open_clip
     state dicts (``CLIP`` and ``CustomTextCLIP`` prefixes, ``module.``,
     the ignorable buffers) equals the JAX converter's tree bit for bit and
-    raises on leftovers as it does; the towers of ROADMAP A10c raise;
+    raises on leftovers as it does, and on a partial layout of a tower;
   * ``export_torch_state_dict`` from a port model and from a JAX-layout
     tree: the JAX exporter's dict, key for key and bit for bit;
   * ``create_model`` from an open_clip ``.bin`` / ``.pt`` and
@@ -288,12 +288,12 @@ def test_converter_leftovers_raise_as_jax(tiny):
 
 
 @pytest.mark.parametrize("extra,error,what", [
-    ({"visual.trunk.stem.0.weight": np.zeros((4, 3, 4, 4))},
-     NotImplementedError, "timm.*A10"),
-    ({"visual.attnpool.positional_embedding": np.zeros((5, 8))},
-     NotImplementedError, "ModifiedResNet.*A10"),
-    # CoCa is ported: a state dict with a piece of CoCa's layout but not
-    # the rest raises on the first missing key
+    # the conv towers and CoCa are ported: a state dict with a piece of
+    # their layout but not the rest raises on the first missing key
+    ({"visual.trunk.stem.0.weight": np.zeros((4, 3, 4, 4))}, KeyError,
+     "visual.trunk.stem.0.bias"),
+    ({"visual.attnpool.positional_embedding": np.zeros((5, 8))}, KeyError,
+     "visual.bn1.weight"),
     ({"text_decoder.ln_final.weight": np.zeros(8)}, KeyError,
      "text_decoder.resblocks.0.ln_1.weight"),
     ({"visual.attn_pool.query": np.zeros((4, 8))}, KeyError,
@@ -338,7 +338,9 @@ def test_exporter_refuses_what_it_would_drop(tiny):
     ls = dict(flat, **{"img/Transformer/encoderblock_0/ls1": np.ones(64)})
     with pytest.raises(ValueError, match="ls1"):
         openclip.export_torch_state_dict(ls)
-    with pytest.raises(NotImplementedError, match="ModifiedResNet.*A10"):
+    # a pool makes the tree a ModifiedResNet's, whose other parameters
+    # it lacks
+    with pytest.raises(KeyError, match="img/conv1/kernel"):
         openclip.export_torch_state_dict(
             dict(flat, **{"img/attnpool/pos_embedding": np.zeros((5, 8))}))
     # a decoder makes the tree CoCa's, whose other parameters it lacks
@@ -408,15 +410,24 @@ def test_create_model_refuses_unknown_pretrained(tiny):
 
 def test_unported_configs_raise_naming_a10(tmp_path):
     """The conv towers of the JAX zoo, timm's convnext and the
-    ModifiedResNet, raise naming A10c (the HF-text, Swin and relpos
-    configs are ported: tests/test_torch_hf_text.py,
-    tests/test_torch_timm_towers.py)."""
-    for name in ("convnext_base", "convnext_large_d", "RN50", "RN101"):
+    ModifiedResNet: their configs build (on the meta device, at full
+    width) the towers the JAX translation names
+    (tests/test_torch_conv_towers.py holds the towers to the JAX ones)."""
+    for name, tower in (("convnext_base", "convnext"),
+                        ("convnext_large_d", "convnext"), ("RN50", "resnet"),
+                        ("RN101", "resnet")):
         path = str(tmp_path / f"{name}.json")
         with open(path, "w") as f:
             json.dump(jax_openclip.get_model_config(name), f)
-        with pytest.raises(NotImplementedError, match="A10"):
-            openclip.create_model(path, device="cpu")
+        cfg = openclip.get_model_config(path)
+        model, _ = openclip._build(cfg, cfg["vision_cfg"]["image_size"],
+                                   precision="float32",
+                                   device=torch.device("meta"),
+                                   attn_impl="auto")
+        assert type(model.img).__module__ == \
+            f"clipa_tpu_torch.models.{tower}"
+        assert jax_openclip._to_two_towers_cfg(cfg).get(
+            "image_model") == tower
 
 
 def _openai_state_dict(seed=0):
@@ -498,12 +509,12 @@ def test_load_openai_model_drops_the_release_metadata(tmp_path):
 
 
 def test_infer_openai_config_matches_jax():
+    """The ViT branch here, the ModifiedResNet branch in
+    test_infer_openai_config_matches_jax_on_a_resnet."""
     sd = _openai_state_dict()
     assert openclip._infer_openai_config(sd) == \
         jax_openclip._infer_openai_config(sd)
-    rn = dict(sd, **{"visual.attnpool.positional_embedding": np.zeros(2)})
-    with pytest.raises(NotImplementedError, match="ModifiedResNet.*A10"):
-        openclip._infer_openai_config(rn)
+
 
 
 def test_is_torchscript_tells_archives_apart(tmp_path):
@@ -679,3 +690,262 @@ def test_create_model_and_transforms(tiny):
                                                          device="cpu")
     np.testing.assert_array_equal(val2(_jpeg()), x)
     torch.testing.assert_close(model2.encode_image(x), z)
+
+
+# --------------------------------------------------------------- conv towers
+
+CONV_CONFIGS = [n for n in jax_openclip.list_models()
+                if n.startswith(("convnext_", "RN"))]
+CONV_TEXT = {"context_length": 8, "vocab_size": 64, "width": 64, "heads": 1,
+             "layers": 1}
+TINY_CONV = {
+    "convnext": {
+        "embed_dim": 32,
+        "vision_cfg": {"timm_model_name": "convnext_tiny",
+                       "timm_model_pretrained": False, "timm_pool": "",
+                       "timm_proj": "mlp", "timm_drop": 0.0,
+                       "timm_drop_path": 0.1, "image_size": 64},
+        "text_cfg": CONV_TEXT},
+    "resnet": {
+        "embed_dim": 32,
+        "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1],
+                       "width": 16, "patch_size": None},
+        "text_cfg": CONV_TEXT},
+}
+
+
+def test_conv_configs_are_the_seventeen():
+    assert len(CONV_CONFIGS) == 17
+    assert set(CONV_CONFIGS) <= set(openclip.list_models())
+
+
+@pytest.mark.parametrize("name", CONV_CONFIGS)
+def test_conv_configs_translate_as_the_jax_package_and_build(name):
+    """The same kwargs as the JAX translation (the port's image dict adds
+    `image_size`), and the full-width model builds on the meta device (no
+    memory), its image tower the one the translation names."""
+    cfg = openclip.get_model_config(name)
+    assert cfg == jax_openclip.get_model_config(name)
+    ours = openclip._to_two_towers_cfg(cfg)
+    ref = jax_openclip._to_two_towers_cfg(cfg)
+    assert ours["image"].pop("image_size") == cfg["vision_cfg"]["image_size"]
+    assert {k: v for k, v in ours["text"].items()
+            if k != "context_length"} == ref["text"]
+    assert ours["image"] == ref["image"]
+    for k in ("image_model", "text_model", "out_dim", "temperature_init"):
+        assert ours[k] == ref[k], k
+    model, _ = openclip._build(cfg, cfg["vision_cfg"]["image_size"],
+                               precision="float32",
+                               device=torch.device("meta"), attn_impl="auto")
+    assert type(model.img).__module__ == \
+        f"clipa_tpu_torch.models.{ref['image_model']}"
+    stats = convert.to_jax_batch_stats(model)
+    assert bool(stats) == (ref["image_model"] == "resnet")
+
+
+@pytest.fixture
+def conv_tiny(tmp_path, monkeypatch):
+    """{tower: (config path, JAX variables, open_clip state dict, .bin)}:
+    the timm convnext_tiny trunk shrunk alike in both packages, every
+    parameter and statistic perturbed."""
+    from clipa_tpu.models import two_towers
+    tiny_dims = dict(dims=(16, 32, 64, 128), depths=(1, 1, 2, 1))
+    for module in (openclip, jax_openclip):
+        monkeypatch.setitem(module._TIMM_CONVNEXT, "convnext_tiny",
+                            tiny_dims)
+    out = {}
+    for i, (tower, cfg) in enumerate(TINY_CONV.items()):
+        path = str(tmp_path / f"Tiny-{tower}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        model = two_towers.Model(**jax_openclip._to_two_towers_cfg(cfg))
+        variables = model.init({"params": jax.random.PRNGKey(i)},
+                               jnp.zeros((1, 64, 64, 3)),
+                               jnp.zeros((1, 8), jnp.int32))
+        rng = np.random.RandomState(i)
+        v = {"params": jax.tree_util.tree_map(
+            lambda p: np.asarray(p) + rng.normal(0, 0.05, p.shape).astype(
+                np.float32), variables["params"])}
+        if "batch_stats" in variables:
+            v["batch_stats"] = jax.tree_util.tree_map(
+                lambda s: rng.uniform(0.5, 1.5, s.shape).astype(np.float32),
+                variables["batch_stats"])
+        sd = jax_openclip.export_torch_state_dict(
+            v["params"], batch_stats=v.get("batch_stats"))
+        bin_path = str(tmp_path / f"{tower}.bin")
+        torch.save({k: torch.from_numpy(np.array(x, np.float32))
+                    for k, x in sd.items()}, bin_path)
+        out[tower] = (path, v, sd, bin_path)
+    return out
+
+
+@pytest.mark.parametrize("tower", sorted(TINY_CONV))
+def test_conv_maps_match_the_jax_maps_both_ways(conv_tiny, tower):
+    """The open_clip maps of both towers, the ModifiedResNet's statistics
+    with them: the port's exporter (from a model, whose BatchNorm buffers
+    are the statistics, and from the JAX tree with `batch_stats`) gives
+    the JAX exporter's dict, and both converters give back the JAX
+    variables, bit for bit (num_batches_tracked dropped)."""
+    path, variables, sd, _ = conv_tiny[tower]
+    model = openclip.create_model(path, device="cpu")
+    convert.load_jax_params(model.model, variables)
+    stats = variables.get("batch_stats")
+    for got in (openclip.export_torch_state_dict(model),
+                openclip.export_torch_state_dict(variables["params"],
+                                                 batch_stats=stats),
+                openclip.export_torch_state_dict(_flat(variables["params"]),
+                                                 batch_stats=stats)):
+        assert sorted(got) == sorted(sd)
+        for k in sd:
+            assert got[k].dtype == sd[k].dtype, k
+            np.testing.assert_array_equal(got[k], sd[k], err_msg=k)
+    if tower == "resnet":
+        assert "visual.layer4.0.downsample.1.running_var" in sd
+        sd = dict(sd, **{"visual.bn1.num_batches_tracked": np.asarray(7)})
+    else:
+        assert "visual.head.mlp.fc1.weight" in sd
+    heads = openclip._heads_of(model.model)
+    want = jax_openclip.convert_torch_variables(sd, heads=heads)
+    got = openclip.convert_torch_variables(sd, heads=heads)
+    assert sorted(got) == sorted(want) == sorted(variables)
+    for coll in variables:
+        _assert_trees_equal(got[coll], want[coll])
+        _assert_trees_equal(got[coll], variables[coll])
+
+
+@pytest.mark.parametrize("tower", sorted(TINY_CONV))
+def test_conv_models_from_open_clip_files_match_jax(conv_tiny, tower):
+    """create_model(pretrained=<.bin>) in both packages (the JAX one
+    carries the statistics as model_state): the same embeddings within
+    atol 1e-5, the statistics bit for bit."""
+    path, variables, _, bin_path = conv_tiny[tower]
+    ours = openclip.create_model(path, bin_path, device="cpu")
+    ref = jax_openclip.create_model(path, bin_path)
+    images, tokens = _images(2, 64), _tokens(2)
+    with jax.default_matmul_precision("highest"):
+        want = (ref.encode_image(images), ref.encode_text(tokens))
+    for got, w in zip((ours.encode_image(images), ours.encode_text(tokens)),
+                      want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5)
+    _assert_trees_equal(
+        {k: v.numpy() for k, v in convert.to_jax_batch_stats(
+            ours.model).items()},
+        _flat(ref.model_state.get("batch_stats", {})))
+
+
+def test_resnet_export_needs_its_statistics(conv_tiny):
+    """An export never invents BatchNorm statistics (the JAX exporter
+    writes zeros and ones in their place) and never drops one."""
+    _, variables, _, _ = conv_tiny["resnet"]
+    with pytest.raises(ValueError, match="BatchNorm statistics"):
+        openclip.export_torch_state_dict(variables["params"])
+    stats = dict(_flat(variables["batch_stats"]),
+                 **{"img/bn9/mean": np.zeros(2)})
+    with pytest.raises(ValueError, match="batch_stats/img/bn9/mean"):
+        openclip.export_torch_state_dict(variables["params"],
+                                         batch_stats=stats)
+
+
+def _rn_openai_state_dict(conv_tiny):
+    """An OpenAI RN release's layout: open_clip's CLIP keys with the
+    BatchNorms' num_batches_tracked counters."""
+    _, _, sd, _ = conv_tiny["resnet"]
+    sd = dict(sd)
+    for k in list(sd):
+        if k.endswith(".running_mean"):
+            sd[k.replace("running_mean", "num_batches_tracked")] = \
+                np.asarray(3, np.int64)
+    return sd
+
+
+@pytest.mark.parametrize("form", ["state_dict", "torchscript"])
+def test_load_openai_model_takes_a_resnet_release(conv_tiny, form,
+                                                  tmp_path):
+    sd = _rn_openai_state_dict(conv_tiny)
+    path = str(tmp_path / "rn.pt")
+    if form == "state_dict":
+        torch.save(_to_torch(sd), path)
+    else:
+        _torchscript_archive(sd, path)
+        assert openclip._is_torchscript(path)
+    ours = openclip.load_openai_model(path, device="cpu")
+    ref = jax_openclip.load_openai_model(path)
+    assert ours.config == ref.config
+    assert ours.config["vision_cfg"]["layers"] == [1, 1, 1, 1]
+    images, tokens = _images(2, 64), _tokens(2)
+    with jax.default_matmul_precision("highest"):
+        want = (ref.encode_image(images), ref.encode_text(tokens))
+    for got, w in zip((ours.encode_image(images), ours.encode_text(tokens)),
+                      want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5)
+    np.testing.assert_array_equal(
+        ours.model.img.layer2_0.downsample_bn.var.numpy(),
+        sd["visual.layer2.0.downsample.1.running_var"])
+
+
+def test_jax_npz_with_batch_stats_loads_and_saves_back(conv_tiny, tmp_path):
+    """A JAX-written npz whose ``batch_stats/...`` keys sit beside the
+    parameters (as the JAX loaders read it) loads into the port, embeds as
+    the JAX create_model from it, and saves back the same keys and
+    arrays."""
+    from clipa_tpu.train import checkpoint as jax_ckpt
+    from clipa_tpu_torch.train import checkpoint as ckpt
+    path, variables, _, _ = conv_tiny["resnet"]
+    npz = str(tmp_path / "rn.npz")
+    jax_ckpt.save_checkpoint(
+        {**variables["params"], "batch_stats": variables["batch_stats"]},
+        npz)
+    ours = openclip.create_model(path, npz, device="cpu")
+    ref = jax_openclip.create_model(path, npz)
+    images = _images(2, 64)
+    with jax.default_matmul_precision("highest"):
+        want = ref.encode_image(images)
+    np.testing.assert_allclose(ours.encode_image(images).numpy(),
+                               np.asarray(want), atol=1e-5)
+    back = str(tmp_path / "back.npz")
+    ckpt.save_variables(convert.to_jax_variables(ours.model), back)
+    a, b = ckpt.npload(back), ckpt.npload(npz)
+    assert sorted(a) == sorted(b)
+    assert any(k.startswith("batch_stats/img/") for k in a)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert sorted(ckpt.load_variables(npz)) == ["batch_stats", "params"]
+    # a strict load: parameters without their statistics do not load
+    with pytest.raises(RuntimeError, match="bn1.mean"):
+        convert.load_jax_params(ours.model, variables["params"])
+
+
+def test_infer_openai_config_matches_jax_on_a_resnet(conv_tiny):
+    sd = _rn_openai_state_dict(conv_tiny)
+    cfg = openclip._infer_openai_config(sd)
+    assert cfg == jax_openclip._infer_openai_config(sd)
+    assert cfg["vision_cfg"] == {"layers": [1, 1, 1, 1], "width": 16,
+                                 "patch_size": None, "image_size": 64}
+
+
+def test_convnext_head_without_bias_is_refused_as_in_jax(conv_tiny,
+                                                        tmp_path):
+    """The JAX ConvNeXt tower's head always has a bias, while open_clip's
+    linear timm head has none by default (``timm_proj_bias`` false): a
+    state dict without ``visual.head.proj.bias`` loads in neither package
+    (a quirk of the reference, reproduced: ROADMAP C)."""
+    path, variables, sd, _ = conv_tiny["convnext"]
+    cfg = dict(TINY_CONV["convnext"])
+    cfg["vision_cfg"] = dict(cfg["vision_cfg"], timm_proj="linear")
+    linear = str(tmp_path / "Tiny-convnext-linear.json")
+    with open(linear, "w") as f:
+        json.dump(cfg, f)
+    from clipa_tpu.models import two_towers
+    model = two_towers.Model(**jax_openclip._to_two_towers_cfg(cfg))
+    params = model.init({"params": jax.random.PRNGKey(0)},
+                        jnp.zeros((1, 64, 64, 3)),
+                        jnp.zeros((1, 8), jnp.int32))["params"]
+    sd = jax_openclip.export_torch_state_dict(params)
+    del sd["visual.head.proj.bias"]
+    bin_path = str(tmp_path / "no_head_bias.bin")
+    torch.save({k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in sd.items()}, bin_path)
+    with pytest.raises(ValueError, match="img/head/bias"):
+        jax_openclip.create_model(linear, bin_path)
+    with pytest.raises(RuntimeError, match="img.head.bias"):
+        openclip.create_model(linear, bin_path, device="cpu")

@@ -289,5 +289,8 @@ def test_seeded_init_follows_flax_distributions(tmp_path):
 def test_model_registry():
     assert get_model_module("vit") is vit
     assert get_model_module("text_transformer") is text
-    with pytest.raises(NotImplementedError, match="convnext"):
-        get_model_module("convnext")
+    # the conv towers resolve; an unknown name raises
+    assert get_model_module("convnext").__name__ == \
+        "clipa_tpu_torch.models.convnext"
+    with pytest.raises(NotImplementedError, match="no_such_tower"):
+        get_model_module("no_such_tower")

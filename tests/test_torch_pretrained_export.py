@@ -250,3 +250,63 @@ def test_save_open_clip_from_npz_and_cli(tiny, tmp_path, capsys):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     with pytest.raises(SystemExit):
         export.main(["--model", path, "--checkpoint", npz])
+
+
+# --------------------------------------------------------------- conv towers
+
+def test_conv_registry_tags_resolve_to_configs_that_build():
+    """Every registered tag of a convnext or RN model names a config the
+    port ships and builds (at full width, on the meta device), except
+    convnext_large_d_320, whose JSON neither package has."""
+    conv = sorted({m for m, _ in registry.list_pretrained()
+                   if m.startswith(("convnext", "RN"))})
+    assert "RN50x64" in conv and "convnext_xxlarge" in conv
+    missing = []
+    for model in conv:
+        if model not in openclip.list_models():
+            missing.append(model)
+            assert model not in jax_openclip.list_models()
+            continue
+        assert registry.list_pretrained_tags_by_model(model)
+        cfg = openclip.get_model_config(model)
+        built, _ = openclip._build(cfg, cfg["vision_cfg"]["image_size"],
+                                   precision="float32",
+                                   device=torch.device("meta"),
+                                   attn_impl="auto")
+        assert type(built.img).__name__ == "_Model"
+    assert missing == ["convnext_large_d_320"]
+
+
+def test_save_open_clip_with_batch_stats_matches_jax(tmp_path):
+    """A ModifiedResNet's npz, its ``batch_stats/...`` keys beside the
+    parameters, through both packages' save_open_clip (the statistics
+    popped from the file), and the tree with `batch_stats=` given: the
+    same .bin contents, running means and variances included."""
+    from tests.test_torch_conv_towers import RN_JSON
+    from clipa_tpu.models import two_towers
+    from clipa_tpu.train import checkpoint as jax_ckpt
+    path = str(tmp_path / "Tiny-RN.json")
+    with open(path, "w") as f:
+        json.dump(RN_JSON, f)
+    model = two_towers.Model(**jax_openclip._to_two_towers_cfg(RN_JSON))
+    v = model.init({"params": jax.random.PRNGKey(1)},
+                   jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 8), jnp.int32))
+    rng = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + rng.normal(0, 0.05, p.shape).astype(
+            np.float32), v["params"])
+    stats = jax.tree_util.tree_map(
+        lambda s: rng.uniform(0.5, 1.5, s.shape).astype(np.float32),
+        v["batch_stats"])
+    npz = str(tmp_path / "rn.npz")
+    jax_ckpt.save_checkpoint({**params, "batch_stats": stats}, npz)
+    ref = _loaded(os.path.join(jax_export.save_open_clip(
+        npz, path, str(tmp_path / "ref")), jax_export.WEIGHTS_FILENAME))
+    assert "visual.bn1.running_var" in ref
+    for source, kw in ((npz, {}), (params, {"batch_stats": stats})):
+        out = export.save_open_clip(source, path, str(tmp_path / "ours"),
+                                    **kw)
+        ours = _loaded(os.path.join(out, export.WEIGHTS_FILENAME))
+        assert sorted(ours) == sorted(ref)
+        for k in ref:
+            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
