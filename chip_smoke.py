@@ -23,7 +23,10 @@ native host library, CLIPA-v2's 224 -> 336 chain, distillation, and
 CLIPA-v1's ``ViT-L-16-CL8-Syntax-GAP`` and open_clip's ``ViT-L-14``
 exported to open_clip checkpoints, loaded back and served behind one
 ``MultiModelService``, and CoCa (``coca_ViT-L-14``) exported and loaded
-back, served, captioning and trained, in the step and in the trainer.
+back, served, captioning and trained, in the step and in the trainer, the
+HF, Swin, relpos and conv towers, the trainer on an NCCL process group of
+one under torchrun with the ring losses and a sharded checkpoint, and the
+towers' int8 matmuls.
 
   1. the card, torch/CUDA versions, and the five kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
@@ -142,25 +145,27 @@ back, served, captioning and trained, in the step and in the trainer.
      alone; the checkpoint's bytes, save and restore seconds; peak device
      memory;
  14. CLIPA's evals in the trainer: ``imagenet2012-validation`` tfrecords
-     (4096 PIL-encoded 160 x 144 JPEGs, labels 0-999, a class-dependent
+     (1024 PIL-encoded 160 x 144 JPEGs, labels 0-999, a class-dependent
      channel signal) in a ``data_dir``; phase 13's config wrapper over
      ``clipa_pretrain.py:...,data_dir=<dir>``, so ``config.evals.disclf``
      is the config's own zero-shot eval (1000 class names x 81 CLIP-paper
      prompts, ``decode|resize_small(112)|central_crop(112)``, B = 384)
-     with log_steps 2, plus a contrastive eval on 1536 synthetic pairs
+     with log_steps 4, plus a contrastive eval on 768 synthetic pairs
      through the train pp. Run A trains 4 steps; run B replays the step-4
      checkpoint with ``eval_only``. Raises unless the zero-shot accuracy is
-     logged at steps 1, 2 and 4 (the JAX loop's cadence) in [0, 1], the
-     contrastive loss is finite, the training losses equal phase 13's run
-     1 bit for bit, every zero-shot run launches the fused forward 24 x 11
-     = 264 times and nothing else, and eval_only reproduces the step-4
-     accuracy exactly. Then ``tools/eval_zeroshot`` on
-     ViT-H-14-CL32-GAP-BigVision @224 from an npz of the serving model's
-     seeded random weights (JAX layout) over the same tfrecords: a finite
-     accuracy and 32 x 16 fused forwards. Prints the prompt-embedding
+     logged at step 4 only (the JAX loop's cadence: log_steps not below
+     total_steps, no step-1 run) in [0, 1], the contrastive loss is
+     finite, the training losses equal phase 13's run 1 bit for bit, every
+     zero-shot run launches the fused forward 24 x 3 = 72 times and
+     nothing else, and eval_only reproduces the step-4 accuracy exactly.
+     Then ``tools/eval_zeroshot`` on ViT-H-14-CL32-GAP-BigVision @224 from
+     an npz of the serving model's seeded random weights (JAX layout) over
+     the same tfrecords: a finite accuracy and 32 x 4 fused forwards.
+     (Cut in PR 18 for the time limit: 1024 JPEGs from 4096, log_steps 4
+     from 2, 768 contrastive pairs from 1536.) Prints the prompt-embedding
      seconds, the eval images/s with JPEG decode in the pp, the evals'
      seconds beside the steps'.
- 15. the trainer from JPEG tfrecords: (a) 8192 JPEGs of 256 x 256 random
+ 15. the trainer from JPEG tfrecords: (a) 4096 JPEGs of 256 x 256 random
      pixels with phase 13's captions, as features ``jpg`` and ``txt`` (the
      layout tools/laion writes), in 16 shards; (b) the pipeline alone
      (``tools/bench_pipeline.measure``, the config's pp at B = 384) on 48
@@ -292,6 +297,34 @@ back, served, captioning and trained, in the step and in the trainer.
      at a const lr) at convnext_xxlarge @256, B = 64, 77 ids, DropPath
      0.1, no remat: 5 steps on one batch, the loss falling, pairs/s (best
      of two 2-step windows), peak memory.
+ 22. the multi-process path at world size 1 through NCCL: torchrun
+     (``python -m torch.distributed.run --standalone --nproc_per_node=1``)
+     runs this file with ``--distributed-rank``, whose process runs
+     ``python -m clipa_tpu_torch.train`` (through runpy) on phase 13's
+     wrapper for its run 1: the step's gather and gradient average run
+     (counted), each loss within 1e-5 of phase 13's, 24 + 24 fused
+     launches per step, a sharded step directory; then ``loss=ring`` and
+     ``loss=ring_sigmoid`` (3 steps each) and ``loss=sigmoid`` (1 step,
+     ``bias_init=-10``) through ``train.loop.main``: the first losses
+     within 1e-5 of the softmax's and the sigmoid's; then the full-width
+     state after one step saved as a sharded checkpoint and restored into
+     a fresh state, bit for bit (bytes, save and restore seconds beside
+     ``state.pt``'s). Back in this process: ``EmbeddingService(devices=
+     [every local GPU])`` at ViT-H-14 on 1024 images against the one-device
+     service (per-row cosine >= 0.9999), images/s, the launches.
+ 23. int8: ``tools/bench_gemm`` at its five (M, K, N) shapes (bf16, int8,
+     int8_preqw, int8_pure by CUDA events; int8_pure's int32 accumulators
+     equal the plain product of the codes on 256 rows); the pre-training
+     step at L/16 @112, B = 384, with both towers at ``quant="int8"`` and
+     ``"int8_full"`` against the bf16 step from one state (loss rtol 5e-2;
+     gradient cosine >= 0.9 for "int8", printed for "int8_full"), pairs/s
+     (best of two 3-step windows) and peak memory beside bf16's, 20 steps
+     on one batch lowering the loss below 0.9x its start, 24 + 24 fused
+     launches; one step at ``stream="ref3d"`` (attention on 3-D operands)
+     against the flat stream (loss rtol 1e-2, cosine >= 0.99), its
+     launches.
+
+Each phase prints its seconds ("phase N: s"), and their sum at the end.
 
 Every phase raises on failure (non-zero exit). Needs one CUDA device; exits
 non-zero without one. The last line is the result JSON; the line before it
@@ -1595,17 +1628,17 @@ def _trainer(card, phase5_rate, keep_dir=None):
 # ImageNet eval (1000 class names x 81 CLIP-paper prompts, its pp and eval
 # batch), on imagenet2012 validation tfrecords written here; then the
 # eval-only replay of the same workdir and tools/eval_zeroshot at H/14.
-EVAL_IMAGES = 4096
+EVAL_IMAGES = 1024   # 4096 until PR 17; cut for the time limit
 EVAL_SHARDS = 2
 EVAL_IMAGE_HW = (144, 160)       # JPEGs of 160 x 144 pixels
 EVAL_CLASSES = 1000
-EVAL_LOG_STEPS = 2
-CONTRASTIVE_PAIRS = 1536
+EVAL_LOG_STEPS = 4   # 2 until PR 17: three zero-shot runs in run A
+CONTRASTIVE_PAIRS = 768   # 1536 until PR 17
 TOOL_BATCH = 256
 ZEROSHOT_KEY = "z/0shot/imagenet2012_accuracy"
 # The JAX loop's cadence: the evals run at multiples of log_steps, at the
 # last step and, with log_steps < total_steps, at step 1.
-ZEROSHOT_STEPS = [1, 2, 4]
+ZEROSHOT_STEPS = [4]
 # Launches of one zero-shot run at L/16 @112 (B = 384): the image tower's 24
 # layers per image batch (the 8-token text tower on the einsum path); of the
 # tool at H/14 @224 (B = 256): 32 per batch (32-token text tower: einsum).
@@ -1903,7 +1936,7 @@ def _evals(card, phase13_losses):
 # native host library (libjpeg decode and crop, WordPiece); the pipeline
 # alone by route; accumulation against one pass; the chunked and sigmoid
 # losses.
-JPEG_IMAGES = 8192
+JPEG_IMAGES = 4096   # 8192 until PR 17; cut for the time limit
 JPEG_SIZE = 256           # tools/bench_pipeline's default
 JPEG_SHARDS = 16
 ACCUM_PRETRAIN = "img=L/16,res=112,token_len=8,batchsize=1536"
@@ -1915,7 +1948,7 @@ ACCUM_LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0,
                   "fused_fwd": 2 * ACCUM_STEPS * TRAIN_IMAGE_LAYERS,
                   "fused_bwd": ACCUM_STEPS * TRAIN_IMAGE_LAYERS}
 PIPELINE_BATCH = 384
-PIPELINE_SECONDS = 6.0
+PIPELINE_SECONDS = 3.0   # 6.0 until PR 17
 # (what, workers, worker processes, native route)
 PIPELINE_RUNS = (("native, 48 threads", 48, False, True),
                  ("PIL and Python, 48 threads", 48, False, False),
@@ -4360,6 +4393,442 @@ def _tools():
     return {"ablate": results, "flops": stats}
 
 
+
+# Phase 22: the multi-process path at world size 1 through NCCL. torchrun
+# (``python -m torch.distributed.run --standalone --nproc_per_node=1``)
+# runs this file with --distributed-rank: its process runs ``python -m
+# clipa_tpu_torch.train`` (the package's __main__ through runpy, with the
+# launch counters of phase 13 around the step) on phase 13's wrapper of the
+# pretrain config for its run 1 (the loss of each step within MULTI_RTOL of
+# phase 13's), then the ring and ring-sigmoid losses and the sigmoid loss
+# through ``train.loop.main`` (RING_STEPS each; the first loss within
+# MULTI_RTOL of the softmax's and the sigmoid's), then saves the full-width
+# state after one step as a sharded checkpoint and restores it, bit for bit.
+MULTI_RTOL = 1e-5
+RING_STEPS = 3
+MULTI_TIMEOUT_S = 600
+# state.pt at this width, for comparison (CHANGES.md, PR 10; NVIDIA H100
+# 80GB HBM3, 700.00 W)
+STATE_PT_MIB, STATE_PT_SECONDS = 3949.8, "7.09-7.60"
+MULTI_SERVE_IMAGES = 1024
+MULTI_SERVE_COSINE = 0.9999
+
+
+def _distributed_rank(out_path, config_path, root):
+    """Phase 22's process under torchrun (module comment above); writes its
+    findings to `out_path` as JSON."""
+    import runpy
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.parallel import collectives
+    from clipa_tpu_torch.parallel import mesh as mesh_lib
+    from clipa_tpu_torch.train import checkpoint, loop, metrics, step
+
+    result, per_step, stamps = {}, [], []
+    base = [f"--config={config_path}", "--device=cuda"]
+    runs = [("softmax", TRAINER_STEPS[0], []),
+            ("ring", RING_STEPS, ["--config.loss=ring"]),
+            ("ring_sigmoid", RING_STEPS,
+             ["--config.loss=ring_sigmoid",
+              f"--config.model.bias_init={SIGMOID_BIAS_INIT}"]),
+            ("sigmoid", 1, ["--config.loss=sigmoid",
+                            f"--config.model.bias_init={SIGMOID_BIAS_INIT}"])]
+    with _Patched((step, "make_update_fn", _counting(per_step, stamps))):
+        for name, steps, extra in runs:
+            per_step.clear()
+            collectives.calls.clear()
+            workdir = os.path.join(root, name)
+            argv = base + [f"--workdir={workdir}",
+                           f"--config.total_steps={steps}"] + extra
+            if name != "softmax":
+                argv += ["--config.save_ckpt=False",
+                         "--config.export_npz=False"]
+            t0 = time.perf_counter()
+            if name == "softmax":   # python -m clipa_tpu_torch.train
+                sys.argv = ["clipa_tpu_torch.train"] + argv
+                runpy.run_module("clipa_tpu_torch.train", run_name="__main__",
+                                 alter_sys=True)
+            else:
+                loop.main(argv)
+            result[name] = {
+                "seconds": time.perf_counter() - t0,
+                "launches": list(per_step),
+                "collectives": dict(collectives.calls),
+                "losses": [r["training_loss"] for r in _rows(
+                    os.path.join(workdir, "metrics.jsonl"))]}
+    result["backend"] = str(dist.get_backend())
+    result["world"] = dist.get_world_size()
+    result["sharded_step_dirs"] = [
+        d for d in sorted(os.listdir(os.path.join(root, "softmax",
+                                                  "checkpoints")))
+        if checkpoint.is_sharded(os.path.join(root, "softmax",
+                                              "checkpoints", d))]
+
+    # the full-width state after one step: a sharded checkpoint, saved and
+    # restored into a fresh state
+    config = load_config(config_path)
+    mesh = mesh_lib.create_mesh(1)
+
+    def fresh(seed):
+        model = step.create_model(config, device="cuda")
+        state = step.init_train_state(
+            model, config, torch.Generator(device="cuda").manual_seed(seed),
+            "cuda", mesh=mesh)
+        tx, _ = optim.make(config, state["params"], sched_kw=dict(
+            total_steps=4, batch_size=config.input.batch_size),
+            sqsum=state["shards"].sqsum)
+        return model, state, tx
+
+    model, state, tx = fresh(SEED)
+    rng = np.random.RandomState(SEED)
+    res, tokens = config.init_shapes[0][1], config.init_shapes[1][1]
+    b = config.input.batch_size
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (b, res, res, 3), dtype=np.uint8)).cuda(),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (b, tokens)).astype(np.int32)).cuda()}
+    update = step.make_update_fn(model, tx, config, 4, mesh=mesh)
+    state, _ = update(state, batch)
+    torch.cuda.synchronize()
+    directory = os.path.join(root, "sharded")
+    chrono = metrics.Chrono("cuda")
+    manager = checkpoint.CheckpointManager(directory,
+                                           shards=state["shards"])
+    t0 = time.perf_counter()
+    manager.save(1, loop.checkpoint_state(state, tx, chrono))
+    manager.wait()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(manager.step_dir(1))
+                 for f in files)
+    del model
+    other_model, other, other_tx = fresh(SEED + 1)
+    t0 = time.perf_counter()
+    got = manager.restore(1, loop.checkpoint_state(other, other_tx,
+                                                   metrics.Chrono("cuda")))
+    loop.restore(got, other, other_tx, metrics.Chrono("cuda"))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    manager.close()
+    mine, theirs = tx.state_dict(), other_tx.state_dict()
+    result["checkpoint"] = {
+        "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+        "sharded": checkpoint.is_sharded(manager.step_dir(1)),
+        "bits": {
+            "params": all(_bits_equal(other["params"][n], p)
+                          for n, p in state["params"].items()),
+            "mu": all(_bits_equal(theirs["mu"][n], m)
+                      for n, m in mine["mu"].items()),
+            "nu": all(_bits_equal(theirs["nu"][n], v)
+                      for n, v in mine["nu"].items()),
+            "count": theirs["count"] == mine["count"] == 1,
+            "step": other["step"] == 1}}
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _multi_gpu(card, phase13_losses):
+    """Phase 22: the trainer, the ring losses and a sharded checkpoint on a
+    one-process NCCL group (a torchrun subprocess: _distributed_rank), then
+    one EmbeddingService over every local GPU against the one-device
+    service."""
+    import signal
+    import numpy as np
+    import torch
+    from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.serving import EmbeddingService
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trainer_config.py")
+        with open(path, "w") as f:
+            f.write(_TRAINER_CONFIG.format(
+                pretrain=PRETRAIN, captions=TRAINER_CAPTIONS,
+                steps=TRAINER_STEPS[0], ckpt=TRAINER_STEPS[0]))
+        out = os.path.join(tmp, "rank0.json")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1", os.path.abspath(__file__),
+               "--distributed-rank", out, path, tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, start_new_session=True)
+        try:
+            code = proc.wait(timeout=MULTI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"the torchrun process did not end in "
+                               f"{MULTI_TIMEOUT_S} s")
+        run_s = time.perf_counter() - t0
+        if code != 0:
+            raise RuntimeError(f"the torchrun process exited {code}")
+        with open(out) as f:
+            got = json.load(f)
+
+    runs = {k: round(got[k]["seconds"], 2)
+            for k in ("softmax", "ring", "ring_sigmoid", "sigmoid")}
+    print(f"multi-process run under torchrun: backend {got['backend']}, "
+          f"world {got['world']}, {run_s:.2f} s (runs {runs} s)", flush=True)
+    if "nccl" not in got["backend"] or got["world"] != 1:
+        raise RuntimeError(f"expected NCCL at world 1, got {got['backend']} "
+                           f"at {got['world']}")
+    soft = got["softmax"]
+    want = np.asarray(phase13_losses[:TRAINER_STEPS[0]])
+    losses = np.asarray(soft["losses"])
+    rel = np.abs(losses - want) / np.abs(want) if losses.shape == \
+        want.shape else np.asarray([np.inf])
+    print(f"python -m clipa_tpu_torch.train on the NCCL group, "
+          f"{TRAINER_STEPS[0]} steps: losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)} against phase 13's run 1 "
+          f"{' '.join(f'{x:.6f}' for x in want)}: largest relative "
+          f"difference {rel.max():.3e} (tolerance {MULTI_RTOL}); collectives "
+          f"{soft['collectives']}; launches per step {soft['launches'][0]}; "
+          f"sharded step directories {got['sharded_step_dirs']}", flush=True)
+    if not rel.max() <= MULTI_RTOL:
+        raise RuntimeError("the NCCL world-1 trainer's losses differ from "
+                           "phase 13's")
+    steps = TRAINER_STEPS[0]
+    if soft["collectives"].get("gather_rows") != 2 * steps or \
+            soft["collectives"].get("reduce_gradients") != steps:
+        raise RuntimeError(f"the step skipped its collectives: "
+                           f"{soft['collectives']}")
+    if got["sharded_step_dirs"] != [str(steps)]:
+        raise RuntimeError(f"the trainer's step directories are not "
+                           f"sharded: {got['sharded_step_dirs']}")
+    for name in ("softmax", "ring", "ring_sigmoid", "sigmoid"):
+        run = got[name]
+        n = steps if name == "softmax" else (
+            1 if name == "sigmoid" else RING_STEPS)
+        if run["launches"] != [TRAINER_LAUNCHES] * n:
+            raise RuntimeError(f"{name}: launches {run['launches']}, "
+                               f"expected {TRAINER_LAUNCHES} x {n}")
+        if len(run["losses"]) != n or not np.isfinite(run["losses"]).all():
+            raise RuntimeError(f"{name}: losses {run['losses']}")
+        if run["collectives"].get("reduce_gradients") != n:
+            raise RuntimeError(f"{name}: collectives {run['collectives']}")
+    firsts = {}
+    for ring, like in (("ring", "softmax"), ("ring_sigmoid", "sigmoid")):
+        a, b = got[ring]["losses"][0], got[like]["losses"][0]
+        firsts[ring] = abs(a - b) / abs(b)
+        print(f"loss={ring}: losses {got[ring]['losses']}; the first "
+              f"{a:.6f} against loss={like}'s {b:.6f}: relative "
+              f"{firsts[ring]:.3e} (tolerance {MULTI_RTOL}); collectives "
+              f"{got[ring]['collectives']} (one process: one hop, no "
+              f"sends)", flush=True)
+        if firsts[ring] > MULTI_RTOL:
+            raise RuntimeError(f"loss={ring}'s first step differs from "
+                               f"loss={like}'s")
+    ck = got["checkpoint"]
+    print(f"{card}: sharded checkpoint of the full-width state (NCCL world "
+          f"1): {ck['bytes'] / 2 ** 20:.1f} MiB, save {ck['save_s']:.2f} s, "
+          f"restore {ck['restore_s']:.2f} s, bit for bit {ck['bits']}; "
+          f"state.pt: {STATE_PT_MIB} MiB in {STATE_PT_SECONDS} s (CHANGES.md, "
+          f"PR 10; NVIDIA H100 80GB HBM3, 700.00 W)", flush=True)
+    if not ck["sharded"] or not all(ck["bits"].values()):
+        raise RuntimeError("the sharded checkpoint did not restore bit for "
+                           "bit")
+
+    # one service over every local GPU against the one-device service
+    devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    vocab = os.path.join(here, "data", "vocab.txt")
+    kw = dict(vocab_path=vocab, precision="bfloat16", seed=SEED,
+              num_workers=0)
+    one = EmbeddingService(MODEL, None, device="cuda", **kw)
+    many = EmbeddingService(MODEL, None, devices=devices, **kw)
+    images = np.random.RandomState(SEED + 22).randint(
+        0, 256, (MULTI_SERVE_IMAGES, 224, 224, 3), np.uint8)
+    z_one = one.embed_images(images)
+    chunks = len(list(many._chunks(images)))
+    ba.fused_attention.launches = 0
+    z_many = many.embed_images(images)
+    launches = ba.fused_attention.launches
+    cos = (z_one * z_many).sum(1) / (np.linalg.norm(z_one, axis=1)
+                                     * np.linalg.norm(z_many, axis=1))
+    rate = _rate(lambda: many.embed_images(images), len(images))
+    del one
+    print(f"{card}: EmbeddingService(devices={devices}) at {MODEL}, buckets "
+          f"{many.buckets}: per-row cosine against the one-device service "
+          f"min {cos.min():.6f}; {rate:.2f} images/s; {launches} fused "
+          f"launches ({IMAGE_LAYERS} x {chunks} chunks)", flush=True)
+    _check_embeddings(z_many, len(images), many.embed_dim,
+                      "images over every GPU")
+    if cos.min() < MULTI_SERVE_COSINE or launches != IMAGE_LAYERS * chunks:
+        raise RuntimeError("the service over every GPU differs from the "
+                           "one-device service")
+    del many
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 22 in {phase_s:.2f} s", flush=True)
+    return {"losses": soft["losses"], "loss_max_rel": float(rel.max()),
+            "ring_first_rel": firsts, "backend": got["backend"],
+            "collectives": soft["collectives"],
+            "launches": soft["launches"][0], "ring_launches": {
+                name: got[name]["launches"][0]
+                for name in ("ring", "ring_sigmoid", "sigmoid")},
+            "checkpoint": ck, "serving": {
+                "devices": devices, "images_per_s": rate,
+                "min_cosine": float(cos.min()), "launches": launches},
+            "seconds": phase_s}
+
+
+# Phase 23: int8. tools/bench_gemm at its five shapes (int8_pure's int32
+# accumulators against the plain product of the codes on GEMM_CHECK_ROWS
+# rows, exactly), then the pre-training step at full width with both towers
+# at quant="int8" and "int8_full" against the bf16 step from one state, and
+# one step at stream="ref3d" against the flat stream.
+GEMM_ITERS = 20
+GEMM_CHECK_ROWS = 256
+INT8_LOSS_RTOL = 5e-2
+INT8_MIN_COSINE = 0.9
+REF3D_LOSS_RTOL = 1e-2
+REF3D_MIN_COSINE = 0.99
+INT8_RATE_STEPS = 3
+
+
+def _int8(card):
+    """Phase 23 (comment above)."""
+    import copy
+    import numpy as np
+    import torch
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.tools import bench_gemm
+    from clipa_tpu_torch.train import step
+
+    t_phase = time.perf_counter()
+    rows = []
+    for m, k, n in bench_gemm.SHAPES:
+        row = bench_gemm.run_shape(m, k, n, torch.device("cuda"),
+                                   iters=GEMM_ITERS,
+                                   check_rows=GEMM_CHECK_ROWS)
+        rows.append(row)
+        print(f"{card}: bench_gemm {json.dumps(row)}", flush=True)
+        if row["int32_exact_rows"] != min(GEMM_CHECK_ROWS, m):
+            raise RuntimeError(f"int8 product at {row['MKN']}: the int32 "
+                               "accumulators differ from the plain product")
+
+    reset, read = _attention_counters()
+    config = clipa_pretrain.get_config(PRETRAIN)
+    b = config.input.batch_size
+    rng = np.random.RandomState(SEED)
+    res, tokens = config.init_shapes[0][1], config.init_shapes[1][1]
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (b, res, res, 3), dtype=np.uint8)).cuda(),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (b, tokens)).astype(np.int32)).cuda()}
+    base = step.create_model(config, device="cuda")
+    step.init_train_state(base, config, torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    weights = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    loss_b, grads_b = _grads(base, optim.named_parameters(base), batch)
+    del base
+
+    def variant(**tower):
+        cfg = copy.deepcopy(config)
+        for name in ("image", "text"):
+            cfg.model[name].update(tower)
+        model = step.create_model(cfg, device="cuda")
+        model.load_state_dict(weights)
+        return model, cfg
+
+    def measure(model, cfg):
+        """pairs/s (best of two windows) and peak memory of the step."""
+        state = {"params": optim.named_parameters(model), "step": 0}
+        tx, _ = optim.make(cfg, model, sched_kw=dict(
+            total_steps=cfg.total_steps, batch_size=b))
+        update = step.make_update_fn(model, tx, cfg, cfg.total_steps)
+        torch.cuda.reset_peak_memory_stats()
+        update(state, batch)   # warm-up
+        rate = max(b * _steps_per_s(update, state, batch, INT8_RATE_STEPS)
+                   for _ in range(2))
+        return rate, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def learning(model, cfg):
+        cfg = copy.deepcopy(cfg)
+        cfg.schedule = [(".*", dict(decay_type="const"))]
+        cfg.lr = LEARN_LR
+        model.load_state_dict(weights)
+        state = {"params": optim.named_parameters(model), "step": 0}
+        tx, _ = optim.make(cfg, model, sched_kw=dict(total_steps=LEARN_STEPS,
+                                                     batch_size=b))
+        update = step.make_update_fn(model, tx, cfg, LEARN_STEPS)
+        curve = []
+        for _ in range(LEARN_STEPS):
+            state, meas = update(state, batch)
+            curve.append(float(meas["training_loss"]))
+        return curve
+
+    out = {"bench_gemm": rows}
+    model, cfg = variant()
+    out["bf16"] = dict(zip(("pairs_per_s", "peak_gb"), measure(model, cfg)))
+    del model
+    for mode in ("int8", "int8_full"):
+        model, cfg = variant(quant=mode)
+        reset()
+        loss_q, grads_q = _grads(model, optim.named_parameters(model), batch)
+        launches = read()
+        cmp = _compare(loss_q, grads_q, loss_b, grads_b)
+        del grads_q
+        _print_compare(f"quant={mode} step against bf16", loss_q, loss_b,
+                       cmp, INT8_LOSS_RTOL)
+        rate, peak = measure(model, cfg)
+        curve = learning(model, cfg)
+        print(f"{card}: quant={mode}: pairs/s at B={b} {rate:.2f} (bf16 "
+              f"{out['bf16']['pairs_per_s']:.2f}), peak {peak:.2f} GiB (bf16 "
+              f"{out['bf16']['peak_gb']:.2f}); {LEARN_STEPS} steps on one "
+              f"batch at lr {LEARN_LR}: {curve[0]:.4f} -> {curve[-1]:.4f}; "
+              f"fused launches {launches}", flush=True)
+        if cmp["loss_rel"] > INT8_LOSS_RTOL or (
+                mode == "int8" and cmp["min_cosine"] < INT8_MIN_COSINE):
+            raise RuntimeError(f"quant={mode}'s step is off the bf16 step")
+        if not (np.isfinite(curve).all()
+                and curve[-1] < LEARN_FACTOR * curve[0]):
+            raise RuntimeError(f"quant={mode}: the loss did not fall below "
+                               f"{LEARN_FACTOR}x its start: {curve}")
+        if launches != TRAINER_LAUNCHES:
+            raise RuntimeError(f"quant={mode}: launches {launches}, "
+                               f"expected {TRAINER_LAUNCHES}")
+        out[mode] = {"loss_rel": cmp["loss_rel"],
+                     "min_cosine": cmp["min_cosine"],
+                     "median_cosine": cmp["median_cosine"],
+                     "pairs_per_s": rate, "peak_gb": peak,
+                     "learning": [curve[0], curve[-1]],
+                     "launches": launches}
+        del model
+        torch.cuda.empty_cache()
+
+    # the reference's (B, L, D) stream: attention gets 3-D operands
+    model, cfg = variant(stream="ref3d")
+    reset()
+    loss_r, grads_r = _grads(model, optim.named_parameters(model), batch)
+    launches = read()
+    cmp = _compare(loss_r, grads_r, loss_b, grads_b)
+    del grads_r, model
+    _print_compare("stream=ref3d step against the flat stream", loss_r,
+                   loss_b, cmp, REF3D_LOSS_RTOL)
+    print(f"stream=ref3d: fused launches {launches} (the 3-D entry, K1/K2's "
+          f"route, on the one Hopper family)", flush=True)
+    if (cmp["loss_rel"] > REF3D_LOSS_RTOL
+            or cmp["min_cosine"] < REF3D_MIN_COSINE):
+        raise RuntimeError("the ref3d stream's step differs from the flat "
+                           "stream's")
+    if launches != TRAINER_LAUNCHES:
+        raise RuntimeError(f"stream=ref3d: launches {launches}, expected "
+                           f"{TRAINER_LAUNCHES}")
+    out["ref3d"] = {"loss_rel": cmp["loss_rel"],
+                    "min_cosine": cmp["min_cosine"], "launches": launches}
+    del grads_b
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 23 in {out['seconds']:.2f} s", flush=True)
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4382,6 +4851,14 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Prints and keeps the seconds since the last lap."""
+        now = time.perf_counter()
+        phase_s[phase] = now - clock[0]
+        clock[0] = now
+        print(f"phase {phase}: {phase_s[phase]:.2f} s", flush=True)
 
     # 1. build: one nvcc per source and g++ for the native host library,
     # started together
@@ -4407,6 +4884,7 @@ def main() -> int:
               f"{cuda_build.library_path(source)}", flush=True)
     print(f"{len(sources)} kernel sources built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    lap("1")
 
     # 2. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4434,6 +4912,7 @@ def main() -> int:
               f"events, {_fmt(dev)} device; {bound:.4f} ms bound "
               f"({c['bound'][1]}): {_ratio(bound, dev, '.1%')} by device "
               f"time{sdpa}", flush=True)
+    lap("2")
 
     # 3. backward kernel vs plain backward
     bwd_by_shape = {name: _bwd_case(*shape, 1.0, gen=gen, device=True)
@@ -4465,6 +4944,7 @@ def main() -> int:
     for c in past_clip:
         if c["clipped_share"] <= 0.0:
             raise RuntimeError(f"no score passed the clip at {c['shape']}")
+    lap("3")
 
     # 4. the service
     vocab = os.path.join(here, "data", "vocab.txt")
@@ -4528,10 +5008,12 @@ def main() -> int:
           f"{img_rate:.2f} then {img_rate2:.2f}; plain attention path "
           f"{img_rate_plain:.2f}; texts/s at bucket 256 {txt_rate:.2f}",
           flush=True)
+    lap("4")
 
     # 5. the training step
     train = _training(card)
     del svc, plain   # the services' weights stay out of the later peaks
+    lap("5")
 
     # 6. the flash kernels vs their plain versions
     flash_cases = [_flash_case(*c, gen=gen) for c in FLASH_SHAPES]
@@ -4550,17 +5032,22 @@ def main() -> int:
               f"time; kernel / SDPA {ms / lib_ms:.2f}x ({lib_ms:.4f} ms), "
               f"{_ratio(dev, lib_dev, '.2f')}x by device time "
               f"({_fmt(lib_dev)} ms)", flush=True)
+    lap("6")
 
     # 7. masked_init from the pretrain state, 8. the unmask-tuning step
     model, state, config = _transition(train.pop("model"))
     tune = _finetune(card, model, state, config)
     del model, state
     torch.cuda.empty_cache()
+    lap("7-8")
 
     # 9. the patch embed, 10. the attention sweep, 11. the tools
     patch = _patch_embed(gen)
+    lap("9")
     sweep = _sweep()
+    lap("10")
     tools = _tools()
+    lap("11")
 
     # 12. the H/14 unmask-tuning steps at 224 and 336 px
     torch.cuda.empty_cache()
@@ -4570,41 +5057,62 @@ def main() -> int:
     h14_336 = _finetune_h14(card, FINETUNE_H14_336)
     torch.cuda.empty_cache()
     print(f"phase 12 in {time.perf_counter() - t0:.2f} s", flush=True)
+    lap("12")
 
     # 13. the trainer from the data pipeline (its params.npz kept for 16)
     keep = tempfile.TemporaryDirectory()
     trainer = _trainer(card, train["pairs_per_s"]["kernel"], keep.name)
+    lap("13")
 
     # 14. the trainer with CLIPA's evals, eval_only, tools/eval_zeroshot
     evals = _evals(card, trainer["losses"])
+    lap("14")
 
     # 15. the trainer from JPEG tfrecords at B = 1536 (4 x 384), the native
     # host library, the pipeline by route, the chunked and sigmoid losses
     # (the shards kept for 16)
     jpeg = _jpeg_trainer(card, trainer, keep.name)
+    lap("15")
 
     # 16. CLIPA-v2's 224 -> 336 unmask-tuning chain through the trainer on
     # file:// workdirs
     chain = _unmask_chain(card, os.path.join(keep.name, "params.npz"),
                           os.path.join(keep.name, "laion"))
+    lap("16")
 
     # 17. distillation from a frozen H/14 teacher, and lwd, in the trainer
     distill = _distill(card)
+    lap("17")
 
     # 18. open_clip interop: CLIPA-v1's L/16 and open_clip's L/14 exported,
     # loaded back and served behind one MultiModelService
     interop = _interop(card)
+    lap("18")
 
     # 19. CoCa: export and load back, serve, caption, train, the trainer
     # (from phase 15's shards)
     coca = _coca(card, os.path.join(keep.name, "laion"))
     keep.cleanup()
+    lap("19")
 
     # 20. the HF text towers, Swin, relpos-ViT and the timm ViT table
     hf = _hf_towers(card)
+    lap("20")
 
     # 21. the conv towers: ConvNeXt and the ModifiedResNet
     conv = _conv_towers(card)
+    lap("21")
+
+    # 22. the multi-process path on an NCCL group of one (torchrun), and
+    # one service over every local GPU
+    multi = _multi_gpu(card, trainer["losses"])
+    lap("22")
+
+    # 23. int8: bench_gemm, the quantized steps, the ref3d stream
+    int8 = _int8(card)
+    lap("23")
+    print(f"phase seconds: {json.dumps(phase_s)}; total "
+          f"{sum(phase_s.values()):.2f} s", flush=True)
 
     print(json.dumps({"finetune": {
         "config": f"clipa_tpu_torch/configs/clipa_finetune.py:{FINETUNE}",
@@ -4668,7 +5176,14 @@ def main() -> int:
                         f"{CONV_TRAIN} (model of {CONV_SERVE_MODEL}, const "
                         f"lr {CONV_LR})",
         **conv,
-    }}))
+    }, "multi_gpu": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN} "
+                  "(phase 13's wrapper) under torchrun, world 1, NCCL",
+        "serving_model": MODEL, **multi,
+    }, "int8": {
+        "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
+        **int8,
+    }, "phase_seconds": phase_s}))
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -4688,7 +5203,14 @@ def main() -> int:
                      + hf["launches"]["generate"]
                      + hf["launches"]["coca_step"]["fused_fwd"]
                      + hf["launches"]["lit_step"]["fused_fwd"]
-                     + hf["launches"]["others"]),
+                     + hf["launches"]["others"]
+                     + multi["launches"]["fused_fwd"]
+                     + sum(r["fused_fwd"]
+                           for r in multi["ring_launches"].values())
+                     + multi["serving"]["launches"]
+                     + int8["int8"]["launches"]["fused_fwd"]
+                     + int8["int8_full"]["launches"]["fused_fwd"]
+                     + int8["ref3d"]["launches"]["fused_fwd"]),
         "launches_by_path": {
             "serving": launches, "training_step": train["launches"]["fwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_fwd"],
@@ -4714,7 +5236,15 @@ def main() -> int:
                 hf["launches"]["coca_step"]["fused_fwd"],
             "lit_bert_training_step":
                 hf["launches"]["lit_step"]["fused_fwd"],
-            "bucket_64_serving (vit_medium)": hf["launches"]["others"]},
+            "bucket_64_serving (vit_medium)": hf["launches"]["others"],
+            "nccl_world_1_trainer_step": multi["launches"]["fused_fwd"],
+            **{f"nccl_world_1_{name}_step": r["fused_fwd"]
+               for name, r in multi["ring_launches"].items()},
+            "serving_over_every_gpu": multi["serving"]["launches"],
+            "int8_step": int8["int8"]["launches"]["fused_fwd"],
+            "int8_full_step": int8["int8_full"]["launches"]["fused_fwd"],
+            "ref3d_step (3-D operands, K1's route)":
+                int8["ref3d"]["launches"]["fused_fwd"]},
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + list(by_shape.values())),
         "ms": main_case["ms"],
@@ -4740,7 +5270,13 @@ def main() -> int:
                      + coca["launches"]["training_step"]["fused_bwd"]
                      + coca["launches"]["trainer_step"]["fused_bwd"]
                      + hf["launches"]["coca_step"]["fused_bwd"]
-                     + hf["launches"]["lit_step"]["fused_bwd"]),
+                     + hf["launches"]["lit_step"]["fused_bwd"]
+                     + multi["launches"]["fused_bwd"]
+                     + sum(r["fused_bwd"]
+                           for r in multi["ring_launches"].values())
+                     + int8["int8"]["launches"]["fused_bwd"]
+                     + int8["int8_full"]["launches"]["fused_bwd"]
+                     + int8["ref3d"]["launches"]["fused_bwd"]),
         "launches_by_path": {
             "training_step": train["launches"]["bwd"],
             "finetune_step_auto": tune["auto_launches"]["fused_bwd"],
@@ -4757,7 +5293,14 @@ def main() -> int:
             "coca_roberta_training_step":
                 hf["launches"]["coca_step"]["fused_bwd"],
             "lit_bert_training_step":
-                hf["launches"]["lit_step"]["fused_bwd"]},
+                hf["launches"]["lit_step"]["fused_bwd"],
+            "nccl_world_1_trainer_step": multi["launches"]["fused_bwd"],
+            **{f"nccl_world_1_{name}_step": r["fused_bwd"]
+               for name, r in multi["ring_launches"].items()},
+            "int8_step": int8["int8"]["launches"]["fused_bwd"],
+            "int8_full_step": int8["int8_full"]["launches"]["fused_bwd"],
+            "ref3d_step (3-D operands, K2's route)":
+                int8["ref3d"]["launches"]["fused_bwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
         "ms": bwd_main["ms"],
         "device_ms": bwd_main["device_ms"],
@@ -4844,4 +5387,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-rank"]:   # phase 22's process
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(_distributed_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -10,7 +10,8 @@ weighted_softmax_xent) with ``reduction=False``.
 
 The predict fn's output is resolved as the JAX package resolves it: a bare
 tensor is the logits, a tuple/list contributes its first element and a
-mapping its ``"logits"``.
+mapping its ``"logits"``. The sums are taken over every process's
+examples.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from clipa_tpu_torch import registry
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.evaluators import common
+from clipa_tpu_torch.parallel import collectives
 
 
 def _resolve_logits(out):
@@ -71,5 +73,7 @@ class Evaluator:
             ncorrect += float(nc)
             loss_sum += float(l)
             count += float(n)
+        ncorrect, loss_sum, count = collectives.all_reduce_sum(
+            [ncorrect, loss_sum, count]).tolist()
         return [("prec@1", ncorrect / max(count, 1)),
                 ("loss", loss_sum / max(count, 1))]

@@ -6,7 +6,8 @@ one-vs-all targets through one eigendecomposition of the (padded) gram
 matrix, choose l2_reg from the grid by generalized cross-validation on the
 TRAIN split, and report test accuracy at that setting per (dataset,
 shots). The solver is the JAX package's numpy, verbatim, over this
-package's embeddings.
+package's embeddings, which every process gathers from all of them in
+example order (each holds a contiguous share of each split).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 from clipa_tpu_torch import registry
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.evaluators import common
+from clipa_tpu_torch.parallel import collectives
 
 BIAS_CONSTANT = 100.0
 
@@ -90,7 +92,8 @@ class Evaluator:
             ys.append(batch["label"].cpu().numpy())
             masks.append(batch["_mask"].cpu().numpy())
         keep = np.concatenate(masks).astype(bool)
-        return np.concatenate(zs)[keep], np.concatenate(ys)[keep]
+        return (collectives.gather_varlen(np.concatenate(zs)[keep]),
+                collectives.gather_varlen(np.concatenate(ys)[keep]))
 
     def run(self, params):
         results = []

@@ -3,7 +3,8 @@
 Port of ``clipa_tpu/evaluators/mean.py``: ``predict_fn(params, batch)``
 returns a mapping from metric name to a per-example tensor shaped like the
 batch mask; this evaluator sums each metric over the unmasked examples and
-reports sum / n_unmasked. Usable directly (hand it a function computing
+reports sum / n_unmasked, the sums taken over every process's examples.
+Usable directly (hand it a function computing
 e.g. per-example losses) or as a base for thin subclass evaluators.
 """
 
@@ -17,6 +18,7 @@ from clipa_tpu_torch import registry
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.evaluators import common
+from clipa_tpu_torch.parallel import collectives
 
 
 class Evaluator:
@@ -54,5 +56,8 @@ class Evaluator:
             mask = batch.pop("_mask")
             for k, v in self._eval_batch(params, batch, mask).items():
                 totals[k] = totals.get(k, 0.0) + float(v)
+        names = sorted(totals)
+        totals = dict(zip(names, collectives.all_reduce_sum(
+            [totals[k] for k in names]).tolist()))
         n = max(totals.pop("_mask", 0.0), 1)
         return [(k, v / n) for k, v in totals.items()]

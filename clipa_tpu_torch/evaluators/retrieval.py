@@ -8,6 +8,11 @@ both directions. txt2img: a caption is correct at K if its parent image
 ranks in the top K. img2txt: an image is correct at K if ANY of its
 captions ranks in the top K. The two recall functions are the JAX
 package's numpy, verbatim.
+
+On several processes each embeds its share of the examples; every process
+then gathers all the image and caption rows, with their ids, so the
+similarity covers every process's rows and the recalls are the global
+ones (the JAX evaluator's ``_allgather_host_counts`` and global arrays).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from clipa_tpu_torch import registry
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.evaluators import common
+from clipa_tpu_torch.parallel import collectives
 
 
 def image_to_text_retrieval_eval(similarity: np.ndarray,
@@ -77,7 +83,8 @@ class Evaluator:
         self.pp_txt_fn = registry.get_preprocess_fn(pp_txt)
 
     def _embed_all(self, params):
-        """Embeds every image once and every caption (unrolled) once.
+        """Embeds every image once and every caption (unrolled) once, on
+        every process its share, and gathers them all.
 
         Image ids are ordinal * nproc + process_index, so ids never collide
         across processes."""
@@ -110,8 +117,8 @@ class Evaluator:
             keep = batch["_mask"].cpu().numpy().astype(bool)
             img_embs.append(zimg.float().cpu().numpy()[keep])
             img_ids.append(batch["img_id"].cpu().numpy()[keep])
-        zimg = np.concatenate(img_embs)
-        image_row_ids = np.concatenate(img_ids)
+        zimg = collectives.gather_varlen(np.concatenate(img_embs))
+        image_row_ids = collectives.gather_varlen(np.concatenate(img_ids))
 
         # caption unrolling on the host, then batches of captions (the last
         # padded, its padding dropped)
@@ -131,7 +138,9 @@ class Evaluator:
                              f"divide process count {nproc}")
         local_bs = self.batch_size // nproc
         n_local = len(tokens)
-        padded = max(1, -(-n_local // local_bs)) * local_bs
+        # every process steps the same number of batches
+        most = int(collectives.all_reduce_max(n_local))
+        padded = max(1, -(-most // local_bs)) * local_bs
         tokens_p = np.zeros((padded,) + tokens.shape[1:], tokens.dtype)
         tokens_p[:n_local] = tokens
         txt_embs = []
@@ -140,7 +149,8 @@ class Evaluator:
                 self.device)
             _, ztxt, _ = self.predict_fn(params, None, labels)
             txt_embs.append(ztxt.float().cpu().numpy())
-        ztxt = np.concatenate(txt_embs)[:n_local]
+        ztxt = collectives.gather_varlen(np.concatenate(txt_embs)[:n_local])
+        text_image_ids = collectives.gather_varlen(text_image_ids)
         return zimg, image_row_ids, ztxt, text_image_ids
 
     def run(self, params):

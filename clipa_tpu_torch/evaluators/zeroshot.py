@@ -16,8 +16,10 @@ Port of ``clipa_tpu/evaluators/zeroshot.py``, with the same contract:
   * metric key ``{dataset}_accuracy``.
 
 The prompt set is split contiguously across processes
-(:func:`shard_host_prompts`, a pure function; one process today), each
-padded to the same length so every process steps the same batches.
+(:func:`shard_host_prompts`, a pure function), each padded to the same
+length so every process steps the same batches; the prompts' embeddings
+are gathered in prompt order, so every process forms the class embeddings
+of one process, and the image counts are summed over the processes.
 
 Normalization: the default `pp_img` yields uint8 images, which the
 trainer's predict fn (``train.step.make_predict_fn``) normalizes on the
@@ -37,6 +39,7 @@ from clipa_tpu_torch import registry
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.evaluators import common, prompts
+from clipa_tpu_torch.parallel import collectives
 
 
 def build_prompts(names, templates):
@@ -147,18 +150,19 @@ class Evaluator:
         tokens, owner_loc, mask_loc = shard_host_prompts(
             texts, owner, nproc, pidx, local_bs, self.pp_txt_fn)
 
-        z = np.zeros((n_class, 0), np.float32)  # sized on the first batch
-        counts = np.zeros((n_class,), np.int64)
+        embs, owners = [], []
         for i in range(0, len(tokens), local_bs):
             labels = torch.from_numpy(tokens[i:i + local_bs]).to(self.device)
             _, ztxt, _ = self.predict_fn(params, None, labels)
-            ztxt = ztxt.float().cpu().numpy()
-            if z.shape[1] == 0:
-                z = np.zeros((n_class, ztxt.shape[-1]), np.float32)
             keep = mask_loc[i:i + local_bs].astype(bool)
-            ow = owner_loc[i:i + local_bs][keep]
-            np.add.at(z, ow, ztxt[keep])
-            counts += np.bincount(ow, minlength=n_class)
+            embs.append(ztxt.float().cpu().numpy()[keep])
+            owners.append(owner_loc[i:i + local_bs][keep])
+        # every prompt, in prompt order (the split is contiguous)
+        embs = collectives.gather_varlen(np.concatenate(embs))
+        owners = collectives.gather_varlen(np.concatenate(owners))
+        z = np.zeros((n_class, embs.shape[-1]), np.float32)
+        np.add.at(z, owners, embs)
+        counts = np.bincount(owners, minlength=n_class)
         z /= np.maximum(counts, 1)[:, None]
         z /= np.linalg.norm(z, axis=-1, keepdims=True) + 1e-8
         return z.astype(np.float32)
@@ -194,7 +198,8 @@ class Evaluator:
             c, n = self._count_correct(params, batch["image"], ztxt,
                                        batch["label"], batch["_mask"])
             correct, count = correct + c, count + n
-        correct, count = int(correct), int(count)
+        correct, count = (int(x) for x in collectives.all_reduce_sum(
+            [int(correct), int(count)]))
         return {"accuracy": correct / max(count, 1), "correct": correct,
                 "count": count}
 

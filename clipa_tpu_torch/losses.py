@@ -13,8 +13,14 @@ resolves by name; each returns the per-row loss under ``reduction=False``.
 
 :func:`distill_contrastive_loss` adds soft-label distillation from a
 frozen teacher's logits; :func:`coca_loss` is CoCa's, the InfoNCE plus the
-caption's next-token cross-entropy. Not ported yet: the local contrastive
-loss and the ring InfoNCE (``ops/ring_infonce.py``).
+caption's next-token cross-entropy.
+
+The local forms (:func:`local_contrastive_loss`,
+:func:`local_sigmoid_contrastive_loss`,
+:func:`local_distill_contrastive_loss`) compute one process's rows of the
+global losses against the gathered global batch (label offset ``rank *
+b``): the training step on several processes averages them over the
+processes. The ring losses are ``ops/ring_infonce.py``.
 """
 
 from __future__ import annotations
@@ -155,6 +161,97 @@ def sigmoid_contrastive_loss(zimg: torch.Tensor, ztxt: torch.Tensor,
     return (per_row.mean() if reduction else per_row), {}
 
 
+def _rows_logits(local: torch.Tensor, global_: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+    return _Fp32MatmulT.apply(local.float(), global_.float()) * t
+
+
+def _picked(log_p: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.gather(log_p, 1, labels[:, None])[:, 0]
+
+
+def local_contrastive_loss(local_img: torch.Tensor, local_txt: torch.Tensor,
+                           global_img: torch.Tensor,
+                           global_txt: torch.Tensor, t: torch.Tensor,
+                           rank: int, reduction: bool = True):
+    """One process's rows of :func:`bidirectional_contrastive_loss` (the
+    JAX package's ``local_contrastive_loss``): its (b, C) rows against the
+    gathered (B, C) columns, the positives at ``rank * b + i``. The mean
+    over the processes of the reduced value is the global loss.
+
+    Returns (loss, {"ncorrect": ...}); per row without `reduction`.
+    """
+    b = local_img.shape[0]
+    labels = rank * b + torch.arange(b, device=local_img.device)
+    logits_img = _rows_logits(local_img, global_txt, t)
+    logits_txt = _rows_logits(local_txt, global_img, t)
+    l1 = -_picked(torch.log_softmax(logits_img, dim=1), labels)
+    l2 = -_picked(torch.log_softmax(logits_txt, dim=1), labels)
+    loss = 0.5 * (l1 + l2)
+    ncorrect = (logits_img.argmax(dim=1) == labels).float()
+    if reduction:
+        return loss.mean(), {"ncorrect": ncorrect.mean()}
+    return loss, {"ncorrect": ncorrect}
+
+
+def local_sigmoid_contrastive_loss(local_img: torch.Tensor,
+                                   global_txt: torch.Tensor,
+                                   t: torch.Tensor, rank: int, bias=0.0,
+                                   reduction: bool = True):
+    """One process's rows of :func:`sigmoid_contrastive_loss`: its image
+    rows against every text row, the positives at ``rank * b + i``."""
+    b = local_img.shape[0]
+    logits = _rows_logits(local_img, global_txt, t) + bias
+    signs = -torch.ones_like(logits)
+    rows = torch.arange(b, device=logits.device)
+    signs[rows, rank * b + rows] = 1.0
+    per_row = torch.nn.functional.softplus(-signs * logits).sum(dim=1)
+    return (per_row.mean() if reduction else per_row), {}
+
+
+def local_distill_contrastive_loss(zimg, ztxt, global_img, global_txt, t,
+                                   t_zimg, t_ztxt, t_global_img,
+                                   t_global_txt, t_t, rank: int):
+    """One process's rows of :func:`distill_contrastive_loss`: the student's
+    and the teacher's rows against the gathered columns (the teacher's
+    detached)."""
+    b = zimg.shape[0]
+    labels = rank * b + torch.arange(b, device=zimg.device)
+    logits_img = _rows_logits(zimg, global_txt, t)
+    logits_txt = _rows_logits(ztxt, global_img, t)
+    with torch.no_grad(), full_fp32_matmul():
+        d_img = (t_zimg.float() @ t_global_txt.float().T) * t_t
+        d_txt = (t_ztxt.float() @ t_global_img.float().T) * t_t
+    contrastive = 0.5 * (
+        -_picked(torch.log_softmax(logits_img, dim=1), labels)
+        - _picked(torch.log_softmax(logits_txt, dim=1), labels)).mean()
+
+    def soft_ce(teacher_logits, student_logits):
+        p = torch.softmax(teacher_logits, dim=1)
+        return (-(p * torch.log_softmax(student_logits, dim=1)).sum(
+            dim=1)).mean()
+
+    distill = 0.5 * (soft_ce(d_img, logits_img) + soft_ce(d_txt, logits_txt))
+    ncorrect = (logits_img.argmax(dim=1) == labels).float().mean()
+    return contrastive + distill, {"contrastive_loss": contrastive,
+                                   "distill_loss": distill,
+                                   "ncorrect": ncorrect}
+
+
+def caption_nll(logits: torch.Tensor, labels: torch.Tensor,
+                pad_id: int = 0):
+    """CoCa's caption term before its mean: (the sum over the positions
+    whose label is not `pad_id` of the next-token cross-entropy, the count
+    of those positions), fp32. A label past the vocabulary gives NaN."""
+    log_p = torch.log_softmax(logits.float(), dim=-1)
+    vocab = log_p.shape[-1]
+    labels = labels.long()
+    nll = -torch.gather(log_p, -1, labels.clamp(max=vocab - 1)[..., None])
+    nll = torch.where(labels < vocab, nll[..., 0], float("nan"))
+    keep = (labels != pad_id).float()
+    return (nll * keep).sum(), keep.sum()
+
+
 def coca_loss(zimg: torch.Tensor, ztxt: torch.Tensor, t: torch.Tensor,
               logits: torch.Tensor, labels: torch.Tensor, *,
               clip_loss_weight: float = 1.0,
@@ -169,13 +266,8 @@ def coca_loss(zimg: torch.Tensor, ztxt: torch.Tensor, t: torch.Tensor,
     terms."""
     clip_l, extras = bidirectional_contrastive_loss(zimg, ztxt, t,
                                                     reduction=True)
-    log_p = torch.log_softmax(logits.float(), dim=-1)
-    vocab = log_p.shape[-1]
-    labels = labels.long()
-    nll = -torch.gather(log_p, -1, labels.clamp(max=vocab - 1)[..., None])
-    nll = torch.where(labels < vocab, nll[..., 0], float("nan"))
-    keep = (labels != pad_id).float()
-    caption_l = (nll * keep).sum() / keep.sum().clamp(min=1.0)
+    total, count = caption_nll(logits, labels, pad_id)
+    caption_l = total / count.clamp(min=1.0)
     loss = clip_loss_weight * clip_l + caption_loss_weight * caption_l
     return loss, {**extras, "contrastive_loss": clip_loss_weight * clip_l,
                   "caption_loss": caption_loss_weight * caption_l}

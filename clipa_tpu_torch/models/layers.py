@@ -36,7 +36,12 @@ forward with :func:`random_streams` (the training step seeds them per step);
 remat's recompute replays the generators from their state at the block's
 entry, so it draws the same masks.
 
-Not ported: ``quant`` (int8 matmuls) and ``stream="ref3d"``.
+``quant`` (``"int8"`` or ``"int8_full"``) runs the projections and the MLP
+through ``ops/quantization.py``'s int8 products, each quantizing its fp32
+master (the parameters keep their names and shapes). ``stream="ref3d"``
+keeps the reference's (B, L, D) residual stream where the encoder would
+otherwise run it flat: attention then takes 3-D operands, which selects the
+per-sample kernels where the flat stream selects the 2-D ones.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ from torch import nn
 from torch.utils import checkpoint
 
 from clipa_tpu_torch.ops.attention import multi_head_attention
+from clipa_tpu_torch.ops.quantization import MODES as QUANT_MODES
+from clipa_tpu_torch.ops.quantization import quant_dot
 
 # init(tensor, flax_shape, generator): fills `tensor` in place.
 Init = Callable[[torch.Tensor, tuple, Optional[torch.Generator]], None]
@@ -156,16 +163,37 @@ _STREAMS = threading.local()
 
 @contextlib.contextmanager
 def random_streams(dropout: Optional[torch.Generator] = None,
-                   drop_path: Optional[torch.Generator] = None):
+                   drop_path: Optional[torch.Generator] = None,
+                   shard: Optional[tuple] = None):
     """The generators training-mode Dropout and DropPath draw from while the
-    block runs (on the tensors' device). The setting is the calling
-    thread's."""
-    previous = getattr(_STREAMS, "gens", {})
+    block runs (on the tensors' device). `shard` = (index, count) says the
+    forward runs on batch shard `index` of `count` equal shards of a global
+    batch (``parallel/mesh.py``'s rule): every draw of :func:`uniform`, the
+    masks and the masking noise, is then made for the global batch and
+    this shard's rows taken, so the draws do not depend on the process
+    count. The setting is the calling thread's."""
+    previous = (getattr(_STREAMS, "gens", {}), getattr(_STREAMS, "shard",
+                                                       None))
     _STREAMS.gens = {"dropout": dropout, "drop_path": drop_path}
+    _STREAMS.shard = shard
     try:
         yield
     finally:
-        _STREAMS.gens = previous
+        _STREAMS.gens, _STREAMS.shard = previous
+
+
+def uniform(shape: tuple, generator: Optional[torch.Generator],
+            device) -> torch.Tensor:
+    """``torch.rand(shape)`` from `generator`; under a batch shard of
+    :func:`random_streams`, this shard's rows of the draw for the global
+    batch (dim 0 is the batch, or the flat batch x tokens)."""
+    shape = tuple(shape)
+    index, count = getattr(_STREAMS, "shard", None) or (0, 1)
+    if count == 1:
+        return torch.rand(shape, generator=generator, device=device)
+    full = torch.rand((count * shape[0],) + shape[1:], generator=generator,
+                      device=device)
+    return full[index * shape[0]:(index + 1) * shape[0]]
 
 
 def keep_mask(stream: str, keep: float, shape: tuple,
@@ -178,20 +206,22 @@ def keep_mask(stream: str, keep: float, shape: tuple,
         raise RuntimeError(
             f"{stream} at a rate above 0 in training mode draws from a "
             "generator: run the forward under layers.random_streams(...)")
-    return torch.rand(shape, generator=gen, device=device) < keep
+    return uniform(shape, gen, device) < keep
 
 
 def _stream_states() -> dict:
-    return {name: (g.device, g.get_state())
-            for name, g in getattr(_STREAMS, "gens", {}).items()
-            if g is not None}
+    return {"gens": {name: (g.device, g.get_state())
+                     for name, g in getattr(_STREAMS, "gens", {}).items()
+                     if g is not None},
+            "shard": getattr(_STREAMS, "shard", None)}
 
 
 def _replayed(states: dict) -> dict:
     """Fresh generators at the given states: remat's recompute draws from
     these, so the masks repeat and the live generators are not touched."""
-    return {name: torch.Generator(device=device).set_state(state)
-            for name, (device, state) in states.items()}
+    return {"shard": states["shard"],
+            **{name: torch.Generator(device=device).set_state(state)
+               for name, (device, state) in states["gens"].items()}}
 
 
 def _drop(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
@@ -248,13 +278,15 @@ class _ProjIn(nn.Module):
     """
 
     def __init__(self, d_in: int, num_heads: int, head_dim: int,
-                 kernel_init: Init, use_bias: bool):
+                 kernel_init: Init, use_bias: bool,
+                 quant: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_heads * head_dim, d_in))
         self.bias = (nn.Parameter(torch.empty(num_heads * head_dim))
                      if use_bias else None)
         self._flax_shape = (d_in, num_heads, head_dim)
         self._kernel_init = kernel_init
+        self.quant = quant
 
     def init_own_parameters(self, generator):
         self._kernel_init(self.weight, self._flax_shape, generator)
@@ -262,20 +294,22 @@ class _ProjIn(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor):
-        return (F.linear(x, self.weight.to(x.dtype)),
-                _cast(self.bias, x.dtype))
+        return _linear(x, self.weight, None, self.quant), \
+            _cast(self.bias, x.dtype)
 
 
 class _ProjOut(nn.Module):
     """Output projection from packed (..., heads * head_dim) to d_model."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
-                 kernel_init: Init, use_bias: bool):
+                 kernel_init: Init, use_bias: bool,
+                 quant: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_model, num_heads * head_dim))
         self.bias = nn.Parameter(torch.empty(d_model)) if use_bias else None
         self._flax_shape = (num_heads, head_dim, d_model)
         self._kernel_init = kernel_init
+        self.quant = quant
 
     def init_own_parameters(self, generator):
         self._kernel_init(self.weight, self._flax_shape, generator)
@@ -283,19 +317,32 @@ class _ProjOut(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        return _linear(x, self.weight, self.bias, self.quant)
+
+
+def _linear(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor], quant: Optional[str]):
+    """x @ weight.T (+ bias) in x's dtype; under `quant` the int8 product
+    of ``quant_dot`` with the fp32 master (``weight.T`` is the JAX kernel
+    layout), the bias added after it, as in the JAX layers."""
+    if quant in (None, "none", "bf16"):
+        return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
+    y = quant_dot(x, weight.T, quant=quant)
+    return y if bias is None else y + bias.to(x.dtype)
 
 
 class QuantDense(nn.Module):
-    """flax ``nn.Dense`` counterpart (the JAX layer's int8 option is not
-    ported). Weight in Linear layout (features, in_features)."""
+    """flax ``nn.Dense`` counterpart with the JAX layer's optional int8
+    forward (`quant`). Weight in Linear layout (features, in_features)."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel_init: Init = xavier_uniform(), use_bias: bool = True):
+                 kernel_init: Init = xavier_uniform(), use_bias: bool = True,
+                 quant: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self._kernel_init = kernel_init
+        self.quant = quant
 
     def init_own_parameters(self, generator):
         self._kernel_init(self.weight, tuple(self.weight.shape[::-1]),
@@ -304,7 +351,7 @@ class QuantDense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        return _linear(x, self.weight, self.bias, self.quant)
 
 
 class MultiHeadAttention(nn.Module):
@@ -314,7 +361,8 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, width: int, num_heads: int,
                  qkv_kernel_init: Init = xavier_uniform(),
                  out_kernel_init: Init = xavier_uniform(),
-                 use_bias: bool = True, attn_impl: str = "auto"):
+                 use_bias: bool = True, attn_impl: str = "auto",
+                 quant: Optional[str] = None):
         super().__init__()
         if width % num_heads:
             raise ValueError(f"width {width} not divisible by heads "
@@ -325,9 +373,9 @@ class MultiHeadAttention(nn.Module):
         self.use_bias = use_bias
         for name in ("query", "key", "value"):
             self.add_module(name, _ProjIn(width, num_heads, head_dim,
-                                          qkv_kernel_init, use_bias))
+                                          qkv_kernel_init, use_bias, quant))
         self.out = _ProjOut(width, num_heads, head_dim, out_kernel_init,
-                            use_bias)
+                            use_bias, quant)
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -354,12 +402,15 @@ class MlpBlock(nn.Module):
 
     def __init__(self, width: int, mlp_dim: Optional[int] = None,
                  dropout: float = 0.0, fc_init: Init = xavier_uniform(),
-                 proj_init: Init = xavier_uniform(), gelu_approx: Any = True):
+                 proj_init: Init = xavier_uniform(), gelu_approx: Any = True,
+                 quant: Optional[str] = None):
         super().__init__()
         hidden = mlp_dim or 4 * width
-        self.Dense_0 = QuantDense(width, hidden, kernel_init=fc_init)
+        self.Dense_0 = QuantDense(width, hidden, kernel_init=fc_init,
+                                  quant=quant)
         self.dropout = Dropout(dropout)
-        self.Dense_1 = QuantDense(hidden, width, kernel_init=proj_init)
+        self.Dense_1 = QuantDense(hidden, width, kernel_init=proj_init,
+                                  quant=quant)
         self.gelu_approx = gelu_approx
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -379,17 +430,18 @@ class EncoderBlock(nn.Module):
                  mlp_fc_init: Init = xavier_uniform(),
                  mlp_proj_init: Init = xavier_uniform(),
                  attn_impl: str = "auto", gelu_approx: Any = True,
-                 ln_eps: float = 1e-6, ls_init: Optional[float] = None):
+                 ln_eps: float = 1e-6, ls_init: Optional[float] = None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.LayerNorm_0 = LayerNorm(width, eps=ln_eps)
         self.MultiHeadDotProductAttention_0 = MultiHeadAttention(
             width, num_heads, qkv_kernel_init=attn_qkv_init,
-            out_kernel_init=attn_out_init, attn_impl=attn_impl)
+            out_kernel_init=attn_out_init, attn_impl=attn_impl, quant=quant)
         self.LayerNorm_1 = LayerNorm(width, eps=ln_eps)
         self.MlpBlock_0 = MlpBlock(width, mlp_dim, dropout,
                                    fc_init=mlp_fc_init,
                                    proj_init=mlp_proj_init,
-                                   gelu_approx=gelu_approx)
+                                   gelu_approx=gelu_approx, quant=quant)
         self.dropout = Dropout(dropout)
         self.drop_path = DropPath(drop_path)
         self.ls_init = ls_init
@@ -427,7 +479,9 @@ class Encoder(nn.Module):
     block (the text tower's CLIP-paper scales). `remat_policy` "minimal"
     recomputes each block in the backward, keeping its 2D products, and
     any other name but "none" recomputes the whole block (module
-    docstring); it may be switched on a built encoder.
+    docstring); it may be switched on a built encoder. `quant` is every
+    block's int8 mode; `stream` "ref3d" keeps an unmasked input's stream
+    (B, L, D) (module docstring).
     """
 
     def __init__(self, depth: int, width: int, num_heads: int,
@@ -435,23 +489,29 @@ class Encoder(nn.Module):
                  drop_path: float = 0.0, block_inits: Optional[dict] = None,
                  attn_impl: str = "auto", gelu_approx: Any = True,
                  ln_eps: float = 1e-6, ls_init: Optional[float] = None,
-                 remat_policy: Optional[str] = "none"):
+                 remat_policy: Optional[str] = "none",
+                 quant: Optional[str] = None, stream: str = "flat"):
         super().__init__()
+        if stream not in ("flat", "ref3d"):
+            raise ValueError(f"Unknown stream {stream!r}")
+        if quant not in QUANT_MODES:
+            raise ValueError(f"Unknown quant mode {quant!r}")
         self.depth = depth
         self.remat_policy = remat_policy
+        self.stream = stream
         dpr = np.linspace(0.0, drop_path, depth)
         for i in range(depth):
             self.add_module(f"encoderblock_{i}", EncoderBlock(
                 width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
                 drop_path=float(dpr[i]), attn_impl=attn_impl,
                 gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init,
-                **(block_inits or {})))
+                quant=quant, **(block_inits or {})))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = x.shape
         seq = None
-        if mask is None and x.dim() == 3:
+        if mask is None and x.dim() == 3 and self.stream == "flat":
             n, seq, d = shape
             x = x.reshape(n * seq, d)
         remat = (self.remat_policy not in (None, "none")

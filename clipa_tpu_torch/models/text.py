@@ -61,7 +61,8 @@ class _Model(nn.Module):
                  gelu_approx: Any = True, ln_eps: float = 1e-6,
                  dtype: Any = None, remat_policy: Optional[str] = "none",
                  posemb: str = "learn", embed_cls: bool = False,
-                 pad_id: int = 0):
+                 pad_id: int = 0, quant: Optional[str] = None,
+                 stream: str = "flat"):
         super().__init__()
         self.dtype = u.resolve_dtype(dtype) or torch.float32
         if pool_type not in ("last", "tok", "gap", "eot"):
@@ -96,7 +97,7 @@ class _Model(nn.Module):
             depth, width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
             drop_path=drop_path, block_inits=block_inits,
             attn_impl=attn_impl, gelu_approx=gelu_approx, ln_eps=ln_eps,
-            remat_policy=remat_policy)
+            remat_policy=remat_policy, quant=quant, stream=stream)
         self.encoder_norm = layers.LayerNorm(width, eps=ln_eps)
         self.head = None
         if num_classes:

@@ -56,7 +56,7 @@ def random_masking(x: torch.Tensor, mask_ratio: float,
     n, l, d = x.shape
     len_keep = int(l * (1 - mask_ratio))
     if noise is None:
-        noise = torch.rand(n, l, generator=generator, device=x.device)
+        noise = layers.uniform((n, l), generator, x.device)
     ids_shuffle = torch.argsort(noise, dim=1, stable=True)
     ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
     ids_keep = ids_shuffle[:, :len_keep]
@@ -153,7 +153,8 @@ class _Model(nn.Module):
                  attn_impl: str = "auto", ln_pre: bool = False,
                  gelu_approx: Any = True, ln_eps: float = 1e-6,
                  ls_init: Optional[float] = None, dtype: Any = None,
-                 remat_policy: Optional[str] = "none"):
+                 remat_policy: Optional[str] = "none",
+                 quant: Optional[str] = None, stream: str = "flat"):
         super().__init__()
         if patch_embed not in ("conv", "linear"):
             raise ValueError(f"Unknown patch_embed {patch_embed!r}")
@@ -183,7 +184,7 @@ class _Model(nn.Module):
             depth, width, num_heads, mlp_dim=mlp_dim, dropout=dropout,
             drop_path=drop_path, attn_impl=attn_impl,
             gelu_approx=gelu_approx, ln_eps=ln_eps, ls_init=ls_init,
-            remat_policy=remat_policy)
+            remat_policy=remat_policy, quant=quant, stream=stream)
         self.encoder_norm = (layers.LayerNorm(width, eps=ln_eps)
                              if pool_type not in ("0", "map") else None)
         self.MAPHead_0 = (MAPHead(width, num_heads, mlp_dim)

@@ -198,10 +198,11 @@ class Optimizer:
     """
 
     def __init__(self, config, params: dict[str, torch.Tensor],
-                 sched_kw: dict):
+                 sched_kw: dict, sqsum: Optional[Callable] = None):
         if "weight_decay" in config:
             raise ValueError("Use config.wd (decoupled), not weight_decay.")
         self.params = params
+        self._sqsum = sqsum
         names = list(params)
 
         spec = config.schedule
@@ -292,7 +293,9 @@ class Optimizer:
         grads = {n: grads[n].float() for n in names}
         active = [n for n in names if n not in self.frozen]
         if self.clip:
-            norm = torch.sqrt(sum(grads[n].square().sum() for n in active))
+            norm = torch.sqrt(
+                self._sqsum(grads, active) if self._sqsum is not None
+                else sum(grads[n].square().sum() for n in active))
             keep = norm < self.clip
             for n in active:
                 grads[n] = torch.where(keep, grads[n],
@@ -362,9 +365,13 @@ def named_parameters(model: Union[nn.Module, dict]) -> dict[str,
     return {names[k]: p for k, p in model.named_parameters()}
 
 
-def make(config: Any, model: Union[nn.Module, dict], *, sched_kw: dict):
+def make(config: Any, model: Union[nn.Module, dict], *, sched_kw: dict,
+         sqsum: Optional[Callable] = None):
     """Returns (optimizer, list of schedule fns), as ``clipa_tpu.optim.make``
     returns (optax transform, schedule fns). `model`: an nn.Module (its
-    parameters by JAX name) or a {JAX name: tensor} dict."""
-    opt = Optimizer(config, named_parameters(model), sched_kw)
+    parameters by JAX name) or a {JAX name: tensor} dict (under FSDP, the
+    train state's shards). `sqsum(grads, names)`: the sum of squares of the
+    full gradients the clip's global norm takes (FSDP's sums the shards of
+    every process); by default the local tensors'."""
+    opt = Optimizer(config, named_parameters(model), sched_kw, sqsum)
     return opt, opt.schedule_fns

@@ -1,4 +1,4 @@
-"""Batch inference / serving on one CUDA device.
+"""Batch inference / serving on one or several CUDA devices.
 
 Port of ``clipa_tpu/serving.py``:
 
@@ -7,7 +7,11 @@ Port of ``clipa_tpu/serving.py``:
     image intake normalized on the device, threaded host image decoding, and
     a two-deep dispatch pipeline: the host stages chunk i+1 (pinned memory,
     non-blocking copy to the device, kernel launches) while the device still
-    computes chunk i, then drains chunk i's embeddings.
+    computes chunk i, then drains chunk i's embeddings. With several
+    devices (``devices=``) the service holds one replica of the model per
+    device, rounds each bucket up to a multiple of the device count, splits
+    each padded chunk along dim 0 across the replicas and concatenates
+    their rows in order (the JAX service's data-parallel mesh).
   * streaming extraction (:meth:`EmbeddingService.embed_images_to` /
     :meth:`embed_texts_to`) into a memory-mapped ``.npy`` or a zarr array
     (``fmt="zarr"``, through ``tensorstore``, imported only then), so corpus
@@ -30,15 +34,13 @@ statistics are buffers of the model, kept fp32 when the weights are stored
 in bf16. (The JAX service applies the parameters alone and raises flax's
 ``ScopeCollectionNotFound`` on a ModifiedResNet: a fault of the reference
 that the port does not copy.)
-
-Not ported yet: sharding one service over several GPUs (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
+import copy
 import glob
 import io
 import os
@@ -132,7 +134,7 @@ def _make_writer(path: str, fmt: str, num_rows: int, dim: int):
 
 
 class EmbeddingService:
-    """Warm CLIP encoders on one device with bucketed batching.
+    """Warm CLIP encoders on one or several devices with bucketed batching.
 
     `pretrained` is what ``compat.openclip.create_model`` takes (a flat npz
     in the JAX package's format, an open_clip state dict, a registry tag);
@@ -142,6 +144,8 @@ class EmbeddingService:
     version (tests). `attn_impl`
     selects the towers' attention path ("plain" serves through the plain
     PyTorch version on any device: the reference the kernel is held to).
+    `devices` (a list) serves on each of them, one replica per device
+    (module docstring); `device` is the one-device case.
     """
 
     def __init__(self, model_name: str, pretrained: Optional[str] = None, *,
@@ -150,31 +154,40 @@ class EmbeddingService:
                  precision: str = "bfloat16",
                  buckets: Sequence[int] = (8, 64, 256),
                  num_workers: int = 8, device="cuda", seed: int = 0,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto",
+                 devices: Optional[Sequence] = None):
         from clipa_tpu_torch.compat import openclip
 
-        self.device = utils.resolve_device(device, "EmbeddingService")
+        self.devices = [utils.resolve_device(d, "EmbeddingService")
+                        for d in (devices if devices else [device])]
+        self.device = self.devices[0]
         self.clip = openclip.create_model(
             model_name, pretrained, force_image_size=image_size,
             precision=precision, device=self.device, seed=seed,
             attn_impl=attn_impl)
+        # one replica per device, the first the model itself
+        self.replicas = [self.clip.model] + [
+            copy.deepcopy(self.clip.model).to(d) for d in self.devices[1:]]
         self.tokenizer = openclip.get_tokenizer(
             model_name, vocab_path=vocab_path) if vocab_path else None
         self.image_size = self.clip.image_size
-        self.buckets = tuple(sorted(set(buckets)))
+        n = len(self.devices)
+        self.buckets = tuple(sorted({-(-b // n) * n for b in buckets}))
         self._pool = (ThreadPoolExecutor(max_workers=num_workers)
                       if num_workers > 0 else None)
 
+    @staticmethod
     @torch.inference_mode()
-    def _embed_images(self, images_uint8: torch.Tensor) -> torch.Tensor:
+    def _embed_images(model, images_uint8: torch.Tensor) -> torch.Tensor:
         from clipa_tpu_torch.ops import preprocess
         x = preprocess.normalize_uint8(images_uint8)
-        zimg, _, _ = self.clip.model(x, None)
+        zimg, _, _ = model(x, None)
         return zimg
 
+    @staticmethod
     @torch.inference_mode()
-    def _embed_texts(self, tokens: torch.Tensor) -> torch.Tensor:
-        _, ztxt, _ = self.clip.model(None, tokens)
+    def _embed_texts(model, tokens: torch.Tensor) -> torch.Tensor:
+        _, ztxt, _ = model(None, tokens)
         return ztxt
 
     def _bucket(self, n: int) -> int:
@@ -196,8 +209,10 @@ class EmbeddingService:
             yield chunk, take
             i += take
 
-    def _dispatch(self, fn, chunk: np.ndarray):
-        """Stages a host chunk on the device and enqueues `fn` on it.
+    def _dispatch(self, fn, chunk: np.ndarray) -> list:
+        """Stages a host chunk on the devices, one equal slice of its rows
+        each, and enqueues `fn` on each replica; returns [(result, event)]
+        in row order.
 
         On CUDA the copy in goes from pinned memory without blocking, the
         launches return before the device finishes, and the result is copied
@@ -205,15 +220,21 @@ class EmbeddingService:
         on that event only when it drains the chunk.
         """
         x = torch.from_numpy(np.ascontiguousarray(chunk))
-        if self.device.type != "cuda":
-            return fn(x.to(self.device)), None
-        x = x.pin_memory().to(self.device, non_blocking=True)
-        z = fn(x)
-        host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
-        host.copy_(z, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        parts = x.chunk(len(self.devices))
+        out = []
+        for part, device, model in zip(parts, self.devices, self.replicas):
+            if device.type != "cuda":
+                out.append((fn(model, part.to(device)), None))
+                continue
+            with torch.cuda.device(device):
+                part = part.pin_memory().to(device, non_blocking=True)
+                z = fn(model, part)
+                host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
+                host.copy_(z, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            out.append((host, done))
+        return out
 
     def _run_bucketed(self, fn, arrays, writer=None) -> Optional[np.ndarray]:
         """Runs fn over bucket-padded chunks, two dispatches in flight.
@@ -225,24 +246,22 @@ class EmbeddingService:
         pending = collections.deque()  # ((result, event), valid rows)
 
         def drain_one():
-            (z, done), take = pending.popleft()
-            if done is not None:
-                done.synchronize()
-            block = z.numpy()[:take].copy()
+            parts, take = pending.popleft()
+            for _, done in parts:
+                if done is not None:
+                    done.synchronize()
+            block = np.concatenate([z.numpy() for z, _ in parts])[:take]
             if writer is None:
                 out.append(block)
             else:
                 writer.write(block)
 
-        on_cuda = self.device.type == "cuda"
-        with (torch.cuda.device(self.device) if on_cuda
-              else contextlib.nullcontext()):
-            for chunk, take in self._chunks(arrays):
-                pending.append((self._dispatch(fn, chunk), take))
-                if len(pending) >= 2:  # keep the host ahead of the device
-                    drain_one()
-            while pending:
+        for chunk, take in self._chunks(arrays):
+            pending.append((self._dispatch(fn, chunk), take))
+            if len(pending) >= 2:  # keep the host ahead of the devices
                 drain_one()
+        while pending:
+            drain_one()
         if writer is None:
             return np.concatenate(out) if out else np.zeros((0,))
         return None

@@ -2,13 +2,14 @@
 
     python -m clipa_tpu_torch.tools.profile_step \
         [--config clipa_tpu_torch/configs/clipa_pretrain.py:img=L/16,res=112,token_len=8,batchsize=384] \
-        [--img-attn-impl pallas] [--steps 2] [--out profile_out]
+        [--img-attn-impl pallas] [--quant int8] [--steps 2] [--out profile_out]
 
 Builds the config's two-tower model on one CUDA device with seeded random
 weights (the image tower's attention path set by `--img-attn-impl` when
 given, e.g. ``pallas`` for the flash kernels of the unmask-tuning config
 ``clipa_tpu_torch/configs/clipa_finetune.py:img=L/16,res=224,token_len=32,
-mask_ratio=0.3,batchsize=128``), its optimizer and
+mask_ratio=0.3,batchsize=128``; both towers' int8 mode set by `--quant`,
+``ops/quantization.py``), its optimizer and
 ``train.step.make_update_fn``, warms up two
 steps on a fixed synthetic uint8 batch (as ``chip_smoke.py`` makes it), then
 traces `--steps` synchronous steps in one window and reports, with the
@@ -47,6 +48,9 @@ def main(argv=None) -> int:
     p.add_argument("--config", default=DEFAULT_CONFIG)
     p.add_argument("--img-attn-impl", default=None,
                    help="the image tower's attn_impl (default: the config's)")
+    p.add_argument("--quant", default=None,
+                   help="both towers' quant mode: int8 | int8_full "
+                        "(default: the config's)")
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="profile_out")
@@ -57,6 +61,9 @@ def main(argv=None) -> int:
     config = load_config(args.config)
     if args.img_attn_impl:
         config.model.image.attn_impl = args.img_attn_impl
+    if args.quant:
+        config.model.image.quant = args.quant
+        config.model.text.quant = args.quant
     batch_size = config.input.batch_size
     model = step.create_model(config, device="cuda")
     state = step.init_train_state(
@@ -91,6 +98,7 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     summary = {"card": torch.cuda.get_device_name(0), "config": args.config,
                "img_attn_impl": config.model.image.get("attn_impl", "auto"),
+               "quant": config.model.image.get("quant"),
                "steps": args.steps,
                **analyse(prof, window, batch_size * args.steps)}
     summary["host_wall_s"] = wall

@@ -23,7 +23,15 @@ Port of ``clipa_tpu/train/checkpoint.py``:
     directory whose name holds :data:`IN_FLIGHT_MARKER` and renamed into
     place, the newest `max_to_keep` kept. The trainer stores {params,
     optimizer state, step, chrono} there; every tensor comes back bit for
-    bit, bf16 included.
+    bit, bf16 included. On several processes (a `mesh`) a step directory
+    is instead one sharded ``torch.distributed.checkpoint`` (the JAX
+    package's Orbax manager): each process writes its shards (FSDP's
+    sharded parameters and moments as DTensors over the mesh, the rest
+    once), in the background on a gloo group of its own, into the
+    in-flight directory that process 0 renames into place. It restores at
+    any process count and ``fsdp`` (resharded by the checkpoint's
+    metadata), and without a process group, bit for bit; the single-file
+    ``state.pt`` directories restore as before.
 """
 
 from __future__ import annotations
@@ -226,10 +234,24 @@ class AsyncCheckpointWriter:
         self._pool.shutdown(wait=True)
 
 
-def load_state(path: str) -> dict:
+def is_sharded(path: str) -> bool:
+    """Whether a local step directory holds a sharded checkpoint."""
+    return os.path.exists(os.path.join(path, ".metadata"))
+
+
+def load_state(path: str, template: Optional[dict] = None,
+               shards=None) -> dict:
     """Reads a resumable checkpoint: a :class:`CheckpointManager` step
     directory or its ``state.pt`` (``config.resume``; a local path or a
-    URL), onto the CPU."""
+    URL), onto the CPU. A sharded step directory (local) is read into the
+    structure of `template` (the live state's ``checkpoint_state``:
+    this process's shards where `shards`, the state's
+    ``collectives.ParamShards``, shards them, whole tensors otherwise)."""
+    if not pathio.is_remote(path) and is_sharded(path):
+        if template is None:
+            raise ValueError(f"{path} is a sharded checkpoint: restoring it "
+                             "needs the live state as a template")
+        return _load_sharded(path, template, shards)
     if pathio.is_remote(path):
         if not path.endswith(CheckpointManager.STATE):
             path = pathio.join(path, CheckpointManager.STATE)
@@ -241,10 +263,63 @@ def load_state(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _tensor_map(tree: Any, fn, name: Optional[str] = None,
+                parent: Optional[str] = None) -> Any:
+    """Maps `fn(name, tensor)` over a checkpoint state: `name` is a
+    tensor's key inside ``params`` / ``mu`` / ``nu`` (the parameter it
+    belongs to), None elsewhere."""
+    if isinstance(tree, dict):
+        return {k: _tensor_map(v, fn, k if parent in ("params", "mu", "nu")
+                               else None, k) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return fn(name, tree)
+    return tree
+
+
+def _cpu_mesh(mesh):
+    """The mesh's layout on the CPU device type (the sharded checkpoint's
+    DTensors live on host copies)."""
+    if mesh.device_type == "cpu":
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
+
+
+def _load_sharded(path: str, template: dict, shards) -> dict:
+    import torch.distributed.checkpoint as dcp
+
+    mesh = _cpu_mesh(shards.mesh) if shards is not None else None
+    target = _dcp_host(template, shards, mesh, copy=False)
+    dcp.load(target, checkpoint_id=path)
+    return _tensor_map(target, lambda name, x: x.to_local()
+                       if hasattr(x, "to_local") else x)
+
+
+def _dcp_host(tree: Any, shards, cpu_mesh, copy: bool) -> Any:
+    """`tree` with each tensor on the CPU (a copy where `copy`, else zeros
+    of its shape); under `shards`, the ``params`` / ``mu`` / ``nu`` tensors
+    of a name FSDP shards wrapped as DTensors of the full shape, Replicate
+    over ``data`` and Shard over ``fsdp``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def leaf(name, x):
+        x = (x.detach().to("cpu", copy=True) if copy
+             else torch.zeros(x.shape, dtype=x.dtype))
+        dim = shards.dims.get(name) if shards is not None and name else None
+        if dim is None:
+            return x
+        return DTensor.from_local(x, cpu_mesh, [Replicate(), Shard(dim)],
+                                  run_check=False)
+
+    return _tensor_map(tree, leaf)
+
+
 class CheckpointManager:
     """Resumable checkpoints in step directories: ``<directory>/<step>/
     state.pt`` holds one ``torch.save``-d nested dict of tensors and
-    Python scalars.
+    Python scalars; with `shards` (the train state's
+    ``collectives.ParamShards``, whose mesh spans the process group) each
+    step directory is one sharded checkpoint (module docstring).
 
     :meth:`save` copies the state to the host and writes it in a background
     thread (one write in flight) into a temporary directory, renamed into
@@ -257,18 +332,29 @@ class CheckpointManager:
 
     STATE = "state.pt"
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, shards=None):
         self.directory = os.path.abspath(pathio.local_path(directory))
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.shards = shards
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="ckpt")
         self._future = None
+        self._group = self._mesh = None
+        if shards is not None:
+            import torch.distributed as dist
+            # the background writes' collectives run on a group of their
+            # own, never beside the step's on the default group
+            self._group = dist.new_group(backend="gloo")
+            self._mesh = _cpu_mesh(shards.mesh)
+            self._rank = dist.get_rank()
 
     def all_steps(self) -> list[int]:
         return sorted(int(name) for name in os.listdir(self.directory)
-                      if name.isdigit() and os.path.exists(
-                          os.path.join(self.directory, name, self.STATE)))
+                      if name.isdigit() and (
+                          os.path.exists(os.path.join(self.directory, name,
+                                                      self.STATE))
+                          or is_sharded(os.path.join(self.directory, name))))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -281,8 +367,29 @@ class CheckpointManager:
         self.wait()
         if step in self.all_steps():
             return False
-        self._future = self._pool.submit(self._write, step, _to_host(state))
+        if self.shards is not None:
+            host = _dcp_host(state, self.shards, self._mesh, copy=True)
+            self._future = self._pool.submit(self._write_sharded, step, host)
+        else:
+            self._future = self._pool.submit(self._write, step,
+                                             _to_host(state))
         return True
+
+    def _write_sharded(self, step: int, host: dict) -> None:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        tmp = os.path.join(self.directory, f".{step}{IN_FLIGHT_MARKER}dcp")
+        if self._rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        dist.barrier(group=self._group)
+        dcp.save(host, checkpoint_id=tmp, process_group=self._group)
+        if self._rank == 0:
+            os.replace(tmp, self.step_dir(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.step_dir(old))
+        dist.barrier(group=self._group)
 
     def _write(self, step: int, host: dict) -> None:
         tmp = tempfile.mkdtemp(dir=self.directory,
@@ -296,10 +403,14 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self.step_dir(old))
 
-    def restore(self, step: Optional[int] = None) -> Optional[dict]:
+    def restore(self, step: Optional[int] = None,
+                template: Optional[dict] = None) -> Optional[dict]:
+        """Reads a step (the latest by default) onto the CPU; a sharded
+        step into `template`'s structure (:func:`load_state`)."""
         self.wait()
         step = self.latest_step() if step is None else step
-        return None if step is None else load_state(self.step_dir(step))
+        return None if step is None else load_state(
+            self.step_dir(step), template, self.shards)
 
     def wait(self) -> None:
         if self._future is not None:

@@ -1,4 +1,5 @@
-"""The trainer: config -> data -> train loop -> checkpoints, on one device.
+"""The trainer: config -> data -> train loop -> checkpoints, on one device
+or on several processes.
 
 Port of ``clipa_tpu/train/loop.py`` (``python -m clipa_tpu_torch.train``):
 
@@ -34,12 +35,23 @@ the batches after a resume are the first batches of the stream, not those
 the stopped run would have seen next.
 
 The card is the default device; ``device="cpu"`` (``--device cpu``) is how
-tests ask for the CPU, and no path falls back to it. Not ported (they
-raise ``NotImplementedError``): wandb (metrics go to metrics.jsonl), and
-``fsdp > 1`` or several processes (ROADMAP A8).
+tests ask for the CPU, and no path falls back to it. Not ported (it raises
+``NotImplementedError``): wandb (metrics go to metrics.jsonl).
+
+Several processes: the CLI joins the process group torchrun's environment
+describes (``parallel.mesh.init_distributed``: one GPU per process through
+NCCL, or CPU processes through gloo; ``--no-distributed`` skips it, as the
+JAX CLI's flag), and the trainer runs the step over a ``(data, fsdp)``
+mesh of the group (``config.fsdp``; ``fsdp`` > 1 on one process raises the
+JAX mesh's ValueError). Each process reads its own share of the data
+(``config.input.batch_size`` is the global batch), the evaluators return
+the global numbers, the step directories are sharded checkpoints that
+restore at any process count, and metrics, ``params.npz`` and the remote
+sync stay on process 0.
 
 CLI: python -m clipa_tpu_torch.train --config=<file.py>[:args] \
     --workdir=/tmp/run [--device cpu] [--config.input.batch_size=256 ...]
+    torchrun --nproc_per_node=2 -m clipa_tpu_torch.train ... [--device cpu]
 """
 
 from __future__ import annotations
@@ -62,6 +74,8 @@ from clipa_tpu_torch.data import core as data_core
 from clipa_tpu_torch.data import pipeline as pipeline_lib
 from clipa_tpu_torch.evaluators import common as eval_common
 from clipa_tpu_torch.models import get_model_module
+from clipa_tpu_torch.parallel import collectives
+from clipa_tpu_torch.parallel import mesh as mesh_lib
 from clipa_tpu_torch.train import checkpoint as ckpt_lib
 from clipa_tpu_torch.train import metrics as metrics_lib
 from clipa_tpu_torch.train import remote_sync as sync_lib
@@ -74,10 +88,6 @@ def _refuse_unported(config: ConfigDict) -> None:
     refused = [
         (bool(config.get_path("wandb.log_wandb")),
          "wandb.log_wandb (metrics go to metrics.jsonl)"),
-        (int(config.get("fsdp", 1)) > 1, "config.fsdp > 1 (multi-GPU: "
-                                         "ROADMAP A8)"),
-        (data_core.process_info()[1] > 1,
-         "several processes (multi-GPU: ROADMAP A8)"),
     ]
     for hit, what in refused:
         if hit:
@@ -126,6 +136,9 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
     state dict, "step": int}, on the device."""
     device = u.resolve_device(device, "train")
     _refuse_unported(config)
+    fsdp = int(config.get("fsdp", 1))
+    mesh = (mesh_lib.create_mesh(fsdp)
+            if fsdp > 1 or collectives.initialized() else None)
     write_note = print if u.process_index() == 0 else (lambda *_: None)
     remote_workdir = None
     if workdir and pathio.is_remote(workdir):
@@ -174,18 +187,21 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
         model = step_lib.create_model(config, device)
         state = step_lib.init_train_state(
             model, config, torch.Generator(device=device).manual_seed(
-                int(config.get("seed", 0))), device)
+                int(config.get("seed", 0))), device, mesh=mesh)
+        shards = state.get("shards")
         tx, sched_fns = optim_lib.make(
-            config, model, sched_kw=dict(total_steps=total_steps,
-                                         batch_size=batch_size,
-                                         data_size=ntrain))
-        n_params = sum(p.numel() for p in state["params"].values())
+            config, state["params"], sched_kw=dict(total_steps=total_steps,
+                                                   batch_size=batch_size,
+                                                   data_size=ntrain),
+            sqsum=shards.sqsum if shards is not None else None)
+        n_params = sum(p.numel() for p in (shards.full if shards else
+                                           state["params"]).values())
         write_note(f"Model has {n_params / 1e6:.1f}M params")
         teacher = (_build_teacher(config, device, write_note)
                    if config.get("distill") else None)
         update_fn = step_lib.make_update_fn(model, tx, config,
                                             total_steps=total_steps,
-                                            teacher_model=teacher)
+                                            teacher_model=teacher, mesh=mesh)
         predict_fn = step_lib.make_predict_fn(
             model, normalize=bool(config.get("cpu_unit8", True)))
 
@@ -206,16 +222,17 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
         if workdir and config.get("save_ckpt", True):
             manager = ckpt_lib.CheckpointManager(
                 os.path.join(workdir, "checkpoints"),
-                max_to_keep=config.get("keep_ckpts", 3))
+                max_to_keep=config.get("keep_ckpts", 3), shards=shards)
         resume_step = manager.latest_step() if manager else None
+        template = checkpoint_state(state, tx, chrono)
         if resume_step is not None:
             write_note(f"Resuming from checkpoint step {resume_step}...")
-            first_step = restore(manager.restore(resume_step), state, tx,
-                                 chrono)
+            first_step = restore(manager.restore(resume_step, template),
+                                 state, tx, chrono)
         elif config.get("resume"):
             write_note(f"Resuming from {config.resume}...")
-            first_step = restore(ckpt_lib.load_state(config.resume), state,
-                                 tx, chrono)
+            first_step = restore(ckpt_lib.load_state(
+                config.resume, template, shards), state, tx, chrono)
         elif config.get("model_init"):
             write_note(f"Initializing towers from {config.model_init}...")
             _load_model_init(model, config.get("model_name", "two_towers"),
@@ -228,6 +245,12 @@ def train(config: ConfigDict, workdir: Optional[str] = None,
                                  log=write_note,
                                  **dict(config.get("masked_no_load",
                                                    {"dont_load": []})))
+
+        if shards is not None:   # the model's and the shards' agree
+            if first_step:
+                shards.gather(state["params"])
+            else:
+                shards.scatter(state["params"])
 
         chrono.inform(first_step=first_step, total_steps=total_steps,
                       global_bs=batch_size,
@@ -329,7 +352,10 @@ def _stage_remote_workdir(remote: str, config: ConfigDict,
     stage = pathio.stage_dir_for(remote, config.get("local_stage_dir"))
     os.makedirs(stage, exist_ok=True)
     write_note(f"Remote workdir {remote} staged at {stage}")
-    if not sync_lib.pull(remote, stage):
+    # process 0 pulls; the others read its stage
+    pulled = sync_lib.pull(remote, stage) if u.process_index() == 0 else True
+    pulled = bool(collectives.all_reduce_sum([not pulled])[0] == 0)
+    if not pulled:
         raise RuntimeError(f"Failed to pull remote workdir {remote}; "
                            "refusing to train (a fresh start would discard "
                            "the run's checkpoints on the next push)")
@@ -395,7 +421,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--workdir", default=None)
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (cpu for tests)")
+    parser.add_argument("--no-distributed", action="store_true",
+                        help="do not join torchrun's process group")
     args, overrides = parser.parse_known_args(argv)
+    device = args.device
+    if not args.no_distributed:
+        device = mesh_lib.init_distributed(device)
     config = load_config(args.config)
     apply_overrides(config, overrides)
-    return train(config, args.workdir, device=args.device)
+    return train(config, args.workdir, device=device)

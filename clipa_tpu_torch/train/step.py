@@ -1,6 +1,6 @@
-"""The training step on one device.
+"""The training step, on one device or on several processes.
 
-Port of ``clipa_tpu/train/step.py`` for one GPU: :func:`create_model` builds
+Port of ``clipa_tpu/train/step.py``: :func:`create_model` builds
 the two-tower or CoCa model a config describes (``config.model_name``; the
 model ``clipa_tpu/train/loop.py`` builds, with its position tables sized
 from ``config.init_shapes`` as flax sizes them from the init inputs),
@@ -64,11 +64,34 @@ cross-entropy to the teacher's logits at its own temperature, adding
 JAX step (and the reference trainer), distillation takes ``loss=softmax``
 and no gradient accumulation (ValueError otherwise).
 
-Not ported yet (they raise, naming the ROADMAP item): the ring losses
-(multi-GPU, A8). Refused: a tower with BatchNorm statistics (the
-ModifiedResNet). The JAX step applies ``{"params"}`` alone, so it cannot
-train one (flax raises ``ScopeCollectionNotFound`` for ``batch_stats``);
-training it would be a feature the JAX package lacks.
+On several processes (a `mesh` from ``parallel.mesh.create_mesh``: one
+process per device, each holding its rows of the global batch under the
+mesh's batch rule) the step is the JAX SPMD step's global math with
+explicit collectives (``parallel/collectives.py``). Each process's loss is
+its rows' share of the global loss: the embeddings are all-gathered
+differentiably and its rows taken against the global columns (the
+softmax, sigmoid, distillation and CoCa contrastive terms; CoCa's caption
+term divides by the global count of non-pad labels), the ring losses
+(``config.loss`` "ring" and "ring_sigmoid", ``ops/ring_infonce.py``) pass
+the text shards around, and the chunked loss runs on the gathered batch on
+every process. On a mesh of one process the gathered rows are the whole
+batch, and its loss is the one-process loss of them (bit for bit the step
+without a process group). The global loss is the mean over the
+processes, and the gradients are averaged over them (the averaged
+measurements likewise). The masking noise, Dropout and DropPath draw for
+the global batch and take this process's rows (``layers.random_streams``'
+`shard`), so a step does not depend on the process count. With
+``config.fsdp`` > 1 (:func:`init_train_state`'s `mesh`), each process
+keeps its shard of the large fp32 masters and of Adam's moments
+(``collectives.ParamShards``), the gradients are reduce-scattered, the
+norms formed from the shards, and the full parameters gathered into the
+model after each update. Under ``grad_accum_steps`` each process's
+microbatch j is the j-th slice of its rows.
+
+Refused: a tower with BatchNorm statistics (the ModifiedResNet). The JAX
+step applies ``{"params"}`` alone, so it cannot train one (flax raises
+``ScopeCollectionNotFound`` for ``batch_stats``); training it would be a
+feature the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -81,7 +104,9 @@ import torch
 from clipa_tpu_torch import losses as losses_lib
 from clipa_tpu_torch import optim, utils
 from clipa_tpu_torch.models import get_model_module, layers
-from clipa_tpu_torch.ops import infonce, preprocess
+from clipa_tpu_torch.ops import infonce, preprocess, ring_infonce
+from clipa_tpu_torch.parallel import collectives
+from clipa_tpu_torch.parallel import mesh as mesh_lib
 
 
 def create_model(config, device="cuda") -> torch.nn.Module:
@@ -106,16 +131,30 @@ def create_model(config, device="cuda") -> torch.nn.Module:
 
 
 def init_train_state(model: torch.nn.Module, config, generator:
-                     torch.Generator, device) -> dict:
+                     torch.Generator, device, mesh=None,
+                     min_size_to_shard: int = 2 ** 18) -> dict:
     """Moves `model` to `device` and draws its parameters from `generator`
     (which must live on `device`) with the flax initializers'
     distributions. Returns {"params": {JAX name: parameter}, "step": 0};
-    the parameters are the model's own (fp32 masters), updated in place."""
+    the parameters are the model's own (fp32 masters), updated in place.
+
+    With a `mesh` (several processes), process 0's parameters are
+    broadcast to every process, and the state gains ``"shards"``
+    (``collectives.ParamShards`` over the mesh's ``fsdp`` dim at
+    `min_size_to_shard`): ``params`` then holds this process's shard of each
+    parameter that FSDP shards (none at ``fsdp`` 1) and the model's own
+    tensor of the others; the optimizer is made over that dict."""
     del config  # the model and the generator carry everything needed
     model.to(device)
     layers.init_parameters(model, generator)
     model.train()
-    return {"params": optim.named_parameters(model), "step": 0}
+    state = {"params": optim.named_parameters(model), "step": 0}
+    if mesh is not None:
+        collectives.broadcast_parameters(state["params"])
+        shards = collectives.ParamShards(state["params"], mesh,
+                                         min_size_to_shard)
+        state.update(params=shards.local(), shards=shards)
+    return state
 
 
 def mask_generator(config, step: int, device,
@@ -151,28 +190,29 @@ def _sqsum(tensors) -> torch.Tensor:
     return sum(x.float().square().sum() for x in tensors)
 
 
-_REFUSED_LOSSES = {
-    "ring": "the ring InfoNCE (multi-GPU: ROADMAP A8)",
-    "ring_sigmoid": "the ring sigmoid loss (multi-GPU: ROADMAP A8)",
-}
-LOSSES = ("softmax", "sigmoid", "chunked", "coca")
+LOSSES = ("softmax", "sigmoid", "chunked", "coca", "ring", "ring_sigmoid")
 
 
-def _make_loss_dispatch(loss_kind: str, config) -> Callable:
+def _make_loss_dispatch(loss_kind: str, config, mesh=None) -> Callable:
     """Maps ``config.loss`` to its implementation, as the JAX step's
     dispatch: apply_loss(zimg, ztxt, extras, teacher_out=None) -> (loss,
     extras dict); a `teacher_out` triple (the teacher's zimg, ztxt, t)
-    switches on distillation. Raises
-    NotImplementedError for the losses not ported yet and ValueError for an
-    unknown name."""
-    if loss_kind in _REFUSED_LOSSES:
-        raise NotImplementedError(f"config.loss={loss_kind!r}: "
-                                  f"{_REFUSED_LOSSES[loss_kind]} is not "
-                                  "ported yet")
+    switches on distillation. With a `mesh`, the inputs are this process's
+    rows and the loss its share of the global loss (module docstring).
+    Raises ValueError for an unknown name."""
     if loss_kind not in LOSSES:
         raise ValueError(f"unknown config.loss {loss_kind!r} (one of "
                          f"{LOSSES})")
     chunk_size = int(config.get("loss_chunk_size", 4096))
+    weights = dict(
+        clip_loss_weight=float(config.get("coca_contrastive_loss_weight",
+                                          1.0)),
+        caption_loss_weight=float(config.get("coca_caption_loss_weight",
+                                             2.0)),
+        pad_id=int(config.get("pad_id", 0)))
+    if mesh is not None:
+        return _sharded_loss_dispatch(loss_kind, config, mesh, chunk_size,
+                                      weights)
 
     def apply_loss(zimg, ztxt, extras, teacher_out=None):
         if teacher_out is not None:
@@ -181,11 +221,7 @@ def _make_loss_dispatch(loss_kind: str, config) -> Callable:
         if loss_kind == "coca":
             return losses_lib.coca_loss(
                 zimg, ztxt, extras["t"], extras["logits"], extras["labels"],
-                clip_loss_weight=float(
-                    config.get("coca_contrastive_loss_weight", 1.0)),
-                caption_loss_weight=float(
-                    config.get("coca_caption_loss_weight", 2.0)),
-                pad_id=int(config.get("pad_id", 0)))
+                **weights)
         if loss_kind == "sigmoid":
             return losses_lib.sigmoid_contrastive_loss(
                 zimg, ztxt, extras["t"], bias=extras.get("b", 0.0),
@@ -193,41 +229,111 @@ def _make_loss_dispatch(loss_kind: str, config) -> Callable:
         if loss_kind == "chunked":
             return infonce.chunked_contrastive_loss(
                 zimg, ztxt, extras["t"], chunk_size=chunk_size)
+        if loss_kind == "ring":   # one process: one hop, no sends
+            return ring_infonce.ring_contrastive_loss(
+                zimg, ztxt, extras["t"], group=ring_infonce.ALONE)
+        if loss_kind == "ring_sigmoid":
+            return ring_infonce.ring_sigmoid_contrastive_loss(
+                zimg, ztxt, extras["t"], bias=extras.get("b", 0.0),
+                group=ring_infonce.ALONE)
         return losses_lib.bidirectional_contrastive_loss(
             zimg, ztxt, extras["t"], reduction=True)
 
     return apply_loss
 
 
-def _block_norms(grads: dict, frozen=frozenset()) -> dict:
+def _sharded_loss_dispatch(loss_kind: str, config, mesh, chunk_size: int,
+                           weights: dict) -> Callable:
+    """:func:`_make_loss_dispatch` on several processes: each process's
+    share of the global loss from its rows (module docstring). On a mesh
+    of one process its rows are the whole batch: the embeddings still go
+    through the gather, and its share is the one-process loss of the
+    gathered batch, the same computation as without a process group."""
+    index, count = mesh_lib.batch_shard(mesh)
+    alone = _make_loss_dispatch(loss_kind, config) if count == 1 else None
+
+    def apply_loss(zimg, ztxt, extras, teacher_out=None):
+        t = extras["t"]
+        if alone is not None:
+            if teacher_out is not None:
+                t_zimg, t_ztxt, t_t = teacher_out
+                teacher_out = (collectives.gather_rows_nograd(t_zimg),
+                               collectives.gather_rows_nograd(t_ztxt), t_t)
+            return alone(collectives.gather_rows(zimg),
+                         collectives.gather_rows(ztxt), extras, teacher_out)
+        if loss_kind == "ring":
+            return ring_infonce.ring_contrastive_loss(zimg, ztxt, t)
+        if loss_kind == "ring_sigmoid":
+            return ring_infonce.ring_sigmoid_contrastive_loss(
+                zimg, ztxt, t, bias=extras.get("b", 0.0))
+        all_img = collectives.gather_rows(zimg)
+        all_txt = collectives.gather_rows(ztxt)
+        if teacher_out is not None:
+            t_zimg, t_ztxt, t_t = teacher_out
+            return losses_lib.local_distill_contrastive_loss(
+                zimg, ztxt, all_img, all_txt, t, t_zimg, t_ztxt,
+                collectives.gather_rows_nograd(t_zimg),
+                collectives.gather_rows_nograd(t_ztxt), t_t, index)
+        if loss_kind == "sigmoid":
+            return losses_lib.local_sigmoid_contrastive_loss(
+                zimg, all_txt, t, index, bias=extras.get("b", 0.0))
+        if loss_kind == "chunked":   # the whole batch's loss, everywhere
+            return infonce.chunked_contrastive_loss(
+                all_img, all_txt, t, chunk_size=chunk_size)
+        clip_l, out = losses_lib.local_contrastive_loss(
+            zimg, ztxt, all_img, all_txt, t, index)
+        if loss_kind != "coca":
+            return clip_l, out
+        # the caption mean is over the global count of non-pad labels
+        total, n = losses_lib.caption_nll(extras["logits"], extras["labels"],
+                                          weights["pad_id"])
+        n = collectives.all_reduce_total(n)
+        caption_l = total * count / n.clamp(min=1.0)
+        clip_l = weights["clip_loss_weight"] * clip_l
+        caption_l = weights["caption_loss_weight"] * caption_l
+        return clip_l + caption_l, {**out, "contrastive_loss": clip_l,
+                                    "caption_loss": caption_l}
+
+    return apply_loss
+
+
+# measurements that are this process's share, averaged over the processes
+_AVERAGED = ("training_loss", "nimg", "ntxt", "ncorrect", "contrastive_loss",
+             "distill_loss", "caption_loss")
+
+
+def _block_norms(grads: dict, frozen=frozenset(), sqsum=None) -> dict:
     """Per-block gradient norms of the image tower (the JAX step's, from
     the reference's telemetry): ``l2_grad_{embedding,cls,head}`` over each
     subtree, the `frozen` names (the optimizer's) counted as 0, and
     ``l2_grad_<block>``, the norm of each encoder block's second MLP
     kernel. (The JAX step matches config.schedule against the names within
     each subtree, so a schedule that freezes by full name is not seen
-    there; ROADMAP C.)"""
+    there; ROADMAP C.) `sqsum` sums the squares of a {name: tensor} dict
+    (FSDP's counts the shards of every process)."""
+    sqsum = sqsum or (lambda tree: _sqsum(tree.values()))
     out = {}
     for key in ("embedding", "cls", "head"):
         prefix = f"img/{key}"
         sub = [(n, g) for n, g in grads.items()
                if n == prefix or n.startswith(prefix + "/")]
         if sub:
-            out[f"l2_grad_{key}"] = torch.sqrt(_sqsum(
-                g * 0 if n in frozen else g for n, g in sub))
+            out[f"l2_grad_{key}"] = torch.sqrt(sqsum(
+                {n: g * 0 if n in frozen else g for n, g in sub}))
     blocks = "img/Transformer/"
     kernel = "/MlpBlock_0/Dense_1/kernel"
     for name, g in grads.items():
         if name.startswith(blocks) and name.endswith(kernel):
             block = name[len(blocks):-len(kernel)]
             if "/" not in block:
-                out[f"l2_grad_{block}"] = torch.sqrt(_sqsum([g]))
+                out[f"l2_grad_{block}"] = torch.sqrt(sqsum({name: g}))
     return out
 
 
 def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                    total_steps: int = 0,
-                   teacher_model: Optional[Any] = None) -> Callable:
+                   teacher_model: Optional[Any] = None,
+                   mesh=None) -> Callable:
     """Builds update(state, batch) -> (state, measurements).
 
     `state` is :func:`init_train_state`'s; its parameters must be the ones
@@ -236,7 +342,10 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
     divide by ``config.grad_accum_steps``. `total_steps` (when known) lets
     the gated norm metrics fire on the last step too. `teacher_model`: a
     frozen two-tower on the same device to distill from (its parameters
-    are never updated: it is not in `tx`).
+    are never updated: it is not in `tx`). `mesh`: the process mesh of a
+    step on several processes (module docstring); `batch` is then this
+    process's rows, `state` :func:`init_train_state`'s with the same mesh,
+    and the measurements are the global batch's.
     """
     stats = [k for k, _ in model.named_buffers()
              if k in model.state_dict(keep_vars=True)]
@@ -255,7 +364,8 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
     t_clamp_max = (float(np.log(100.0)) if temperature_clamp is True
                    else float(temperature_clamp or 0.0))
     loss_kind = config.get("loss", "softmax")
-    apply_loss = _make_loss_dispatch(loss_kind, config)
+    apply_loss = _make_loss_dispatch(loss_kind, config, mesh)
+    shard = mesh_lib.batch_shard(mesh) if mesh is not None else None
     if teacher_model is not None:
         # the JAX step's guards (the reference trainer's limits too)
         if loss_kind != "softmax":
@@ -285,7 +395,12 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
 
     def update(state: dict, batch: dict):
         params = state["params"]
+        shards = state.get("shards")
+        # autograd runs over the model's full parameters
+        full = shards.full if shards is not None else params
         names = list(params)
+        sqsum = (shards.sqsum if shards is not None
+                 else lambda tree: _sqsum(tree.values()))
         images, labels = batch["image"], batch["labels"]
         if normalize_on_device and images.dtype == torch.uint8:
             images = preprocess.normalize_uint8(images)
@@ -303,13 +418,13 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
             generator = (mask_generator(config, state["step"], images.device)
                          if mask_ratio > 0 else None)
             with layers.random_streams(**drop_generators(
-                    config, state["step"], images.device)):
+                    config, state["step"], images.device), shard=shard):
                 zimg, ztxt, extras = model(images, labels,
                                            mask_ratio=mask_ratio,
                                            generator=generator)
             loss, measurements = loss_and_measurements(zimg, ztxt, extras,
                                                        teacher_out)
-            grads = gradients(loss, params, names)
+            grads = gradients(loss, full, names)
         else:
             if images.shape[0] % accum_steps:
                 raise ValueError(
@@ -324,7 +439,8 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                                             images.device, j)
                              if mask_ratio > 0 else None)
                 with layers.random_streams(**drop_generators(
-                        config, state["step"], images.device, j)):
+                        config, state["step"], images.device, j),
+                        shard=shard):
                     return model(*micro[j], mask_ratio=mask_ratio,
                                  generator=generator)
 
@@ -336,7 +452,7 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
             del cached
             # pass 2: microbatch j live, against the full batch's negatives
             grads = {n: torch.zeros_like(p, dtype=torch.float32)
-                     for n, p in params.items()}
+                     for n, p in full.items()}
             for j in range(accum_steps):
                 zimg_j, ztxt_j, extras = embed(j)
                 rows = slice(j * mb, (j + 1) * mb)
@@ -345,16 +461,23 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                 ztxt = torch.cat([zt_all[:rows.start], ztxt_j,
                                   zt_all[rows.stop:]])
                 loss, measurements = loss_and_measurements(zimg, ztxt, extras)
-                for n, g in gradients(loss, params, names).items():
+                for n, g in gradients(loss, full, names).items():
                     grads[n].add_(g)
 
+        if shards is not None:
+            grads = shards.reduce_gradients(grads)
         updates = tx.update(grads)
         tx.apply(updates)
         if temperature_clamp and "t" in params:
             with torch.no_grad():
                 params["t"].clamp_(0.0, t_clamp_max)
+        if shards is not None:
+            shards.gather(params)
 
         measurements["training_loss"] = loss.detach()
+        if mesh is not None:
+            measurements.update(collectives.reduce_scalar_mean(
+                {k: v for k, v in measurements.items() if k in _AVERAGED}))
         if norm_metrics != "never":
             # `step` is pre-increment; the loop logs this batch as step + 1
             logged = state["step"] + 1
@@ -364,11 +487,11 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
             with torch.no_grad():
                 for key, tree in (("l2_grads", grads), ("l2_params", params),
                                   ("l2_updates", updates)):
-                    measurements[key] = (torch.sqrt(_sqsum(tree.values()))
+                    measurements[key] = (torch.sqrt(sqsum(tree))
                                          if due else zero)
         if measure_block_norms:
             with torch.no_grad():
-                measurements.update(_block_norms(grads, tx.frozen))
+                measurements.update(_block_norms(grads, tx.frozen, sqsum))
         state["step"] += 1
         return state, measurements
 

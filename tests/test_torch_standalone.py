@@ -1,9 +1,11 @@
 """The port stands alone: it imports nothing of the JAX package, and its own
 copies of that package's host-only modules compute what those do.
 
-  * Every module of ``clipa_tpu_torch`` and ``chip_smoke.py`` (whose imports
-    sit inside functions that only run on a card) is parsed, and no import
-    names ``jax``, ``jaxlib``, ``flax``, ``optax`` or ``clipa_tpu``.
+  * Every module of ``clipa_tpu_torch``, ``chip_smoke.py`` (whose imports
+    sit inside functions that only run on a card) and the rank functions
+    the multi-process tests spawn (``tests/torch_dist_ranks.py``) is
+    parsed, and no import names ``jax``, ``jaxlib``, ``flax``, ``optax`` or
+    ``clipa_tpu``.
   * The C++ sources of ``clipa_tpu_torch/native`` are the JAX package's,
     but for a comment on the output buffer of ``wp_encode``.
   * Against the JAX package on the same inputs, all exact: the experiment
@@ -37,7 +39,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "clipa_tpu")
 SOURCES = sorted(
     os.path.relpath(os.path.join(root, f), REPO)
     for root, _, files in os.walk(os.path.join(REPO, "clipa_tpu_torch"))
-    for f in files if f.endswith(".py")) + ["chip_smoke.py"]
+    for f in files if f.endswith(".py")) + [
+        "chip_smoke.py", os.path.join("tests", "torch_dist_ranks.py")]
 
 
 def _imported(source: str) -> list:
@@ -69,8 +72,9 @@ def test_no_module_imports_the_jax_package(path):
 
 def test_the_scan_covers_the_native_losses_and_tools_modules():
     """The modules ported with the native library, the losses, the data
-    tools, the open_clip interop and the HF, Swin and relpos towers are
-    among the scanned sources."""
+    tools, the open_clip interop, the HF, Swin and relpos towers, the
+    multi-process and the int8 modules are among the scanned sources, and
+    so is the module the spawned test ranks import."""
     for path in ("native/__init__.py", "native/wordpiece.py",
                  "ops/infonce.py", "tools/laion.py",
                  "tools/bench_pipeline.py", "losses.py", "train/step.py",
@@ -79,8 +83,12 @@ def test_the_scan_covers_the_native_losses_and_tools_modules():
                  "compat/export.py", "pp/bpe_tokenizer.py",
                  "pp/autoaugment.py", "pp/randaugment.py",
                  "models/bert.py", "models/hf_text.py", "models/t5_text.py",
-                 "models/swin.py", "models/vit_relpos.py"):
+                 "models/swin.py", "models/vit_relpos.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/collectives.py", "ops/ring_infonce.py",
+                 "ops/quantization.py", "tools/bench_gemm.py"):
         assert os.path.join("clipa_tpu_torch", path) in SOURCES, path
+    assert os.path.join("tests", "torch_dist_ranks.py") in SOURCES
 
 
 # The port's copy of each C++ source of clipa_tpu/native: identical but for

@@ -215,11 +215,20 @@ def test_norm_metrics_gating_and_refusals():
         logged.append(float(meas["l2_grads"]) > 0)
         assert np.isfinite(float(meas["training_loss"]))
     assert logged == [True, False, True, False, True]   # 1st, 3rd, last
-    for loss, item in (("ring", "A8"), ("ring_sigmoid", "A8")):
-        bad = tiny_config()
-        bad.loss = loss
-        with pytest.raises(NotImplementedError, match=item):
-            step.make_update_fn(port, tx, bad)
+    # the ring losses are ported (tests/test_torch_ring_infonce.py): on one
+    # process the ring is one hop, and the step's loss is the global one's
+    for loss, like in (("ring", "softmax"), ("ring_sigmoid", "sigmoid")):
+        losses_of = []
+        for kind in (loss, like):
+            cfg = tiny_config()
+            cfg.loss = kind
+            model = step.create_model(cfg, device="cpu")
+            st = step.init_train_state(model, cfg,
+                                       torch.Generator().manual_seed(0), "cpu")
+            opt, _ = optim.make(cfg, model, sched_kw=dict(total_steps=5))
+            _, m = step.make_update_fn(model, opt, cfg)(st, batch)
+            losses_of.append(float(m["training_loss"]))
+        assert losses_of[0] == pytest.approx(losses_of[1], rel=1e-5), loss
     # the CoCa loss is ported (tests/test_torch_coca.py steps it against
     # the JAX step): the dispatch takes it
     coca = tiny_config()
