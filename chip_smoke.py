@@ -103,13 +103,19 @@ towers' int8 matmuls.
      (width 192: a partial 128-column tile, where the reference's Pallas
      route gives way to XLA), bf16 and fp32 outputs, with and without
      bias; then the op as a user calls it at the three shapes, counters
-     read around; kernel, plain and library (``F.conv2d`` with the folded
-     weights) times, the bound (two bf16 tensor-core products, the
-     function's near-fp32 route) and this design's fp32-FMA bound;
+     read around; the output of two calls bit for bit; kernel, plain and
+     library (``F.conv2d`` with the folded weights) times, the bound (two
+     bf16 tensor-core products, the function's near-fp32 route), the
+     plan (``patch_embed.patch_plan``) and the design's own bound (the
+     same two products over the padded tiles and k loop); where the op's
+     time goes: the host's time per call (the fold, the entry, the op)
+     beside each kernel's device time;
  10. ``tools/attn_sweep.py`` at B=384 L=50 D=1024 H=16: the fused forward
      clip / exact and the backward normalized / deferred x clip / exact,
-     each against its plain version, the deferred against the normalized,
-     and their times;
+     each against its plain version and a second call of itself bit for
+     bit, the deferred against the normalized, and their times by events
+     and by device time; the deferred rows' plan (``bwd_deferred_plan``:
+     the whole-head scheme's deferred form at L = 50);
  11. ``tools/ablate_step.py`` at L/16 @112 B=384 (8 tokens): every key
      finite, fwd < grad, ``grad_noattn`` through the stand-in attention
      core (its calls counted) and without a kernel launch; and
@@ -482,19 +488,20 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters):
+def _device_ms(fn, iters, by_name=False):
     """Mean device time of the kernels that fn() launches, over `iters`
     calls, under torch.profiler: for each kernel name, its mean duration
-    times its launches per call. Unlike _time_ms it leaves out the host's
-    launch path where that is the slower. Each session first runs `iters`
+    times its launches per call, summed (`by_name`: (that sum, {kernel:
+    its part})). Unlike _time_ms it leaves out the host's launch path
+    where that is the slower. Each session first runs `iters`
     calls as the profiler's warm-up step, whose records it drops (the first
     records of a session have come back missing: three sessions in a row 3
     short of 80). Now and then a session's records still come back in part
     or not at all (none, three sessions in a row), so a name's launches per
     call is its count over `iters`, rounded, and a session counts when every
     name's count lies within a quarter of `iters` of that many calls' worth.
-    After three sessions that do not, None: the time is not measured, which
-    fails no phase (the events time each case as well)."""
+    After three sessions that do not, None (and no parts): the time is not
+    measured, which fails no phase (the events time each case as well)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -518,12 +525,45 @@ def _device_ms(fn, iters):
         if us and all(per_call[n] >= 1
                       and abs(len(d) - per_call[n] * iters) <= iters / 4
                       for n, d in us.items()):
-            return sum(sum(d) / len(d) * per_call[n]
-                       for n, d in us.items()) / 1e3
+            parts = {n: sum(d) / len(d) * per_call[n] / 1e3
+                     for n, d in us.items()}
+            total = sum(parts.values())
+            if not by_name:
+                return total
+            named = {}
+            for n, ms in parts.items():
+                key = _kernel_name(n)
+                named[key] = named.get(key, 0) + ms
+            return total, named
     counts = {n[:60]: len(d) for n, d in us.items()}
     print(f"device time not measured: the profiler saw kernels {counts} in "
           f"{iters} calls, three times", flush=True)
-    return None
+    return (None, {}) if by_name else None
+
+
+def _kernel_name(name):
+    """A profiler's kernel name without its arguments, return type and
+    namespaces, at most 70 characters."""
+    for cut in ("(anonymous namespace)::", "void ", "at::native::"):
+        name = name.replace(cut, "")
+    return name.split("(", 1)[0][:70]
+
+
+def _host_ms(fn, iters):
+    """Mean host time of a call of fn() over `iters` calls that nothing
+    waits for (perf_counter, best of 3): where it exceeds the device time,
+    the host, not the card, sets the pace of a run of calls."""
+    import torch
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters * 1e3)
+    torch.cuda.synchronize()
+    return best
 
 
 def _fmt(ms):
@@ -4269,6 +4309,12 @@ def _patch_embed(gen):
                 if n != 1:
                     raise RuntimeError(f"patch embed at {name}: {n} "
                                        f"launches")
+                # no split-K, no atomics: a second call agrees bit for bit
+                if not torch.equal(out, pe.fused_patch_embed(
+                        images, kernel, bb, out_dtype=out_dtype,
+                        impl="pallas")):
+                    raise RuntimeError(f"patch embed at {name} {out_dtype}: "
+                                       f"two calls differ")
                 full = shift if bb is None else shift + bb
                 ref = pe.patch_embed_plain(images, k_scaled, full, p,
                                            out_dtype)
@@ -4289,10 +4335,29 @@ def _patch_embed(gen):
         rows, k = b * (side // p) ** 2, 3 * p * p
         # image, folded weights and bias in, bf16 rows out
         nbytes = images.numel() + 4 * (k * width + width) + 2 * rows * width
+        plan = pe.patch_plan(rows, width, p, side)
+
+        def op():   # as a user calls it: the fold, then the entry
+            return pe.fused_patch_embed(images, kernel, bias, impl="pallas")
+
+        def launch():   # the entry on folded weights: split, patchify, GEMM
+            return pe._launch(images, k_scaled, full, p, torch.bfloat16)
+
+        op_device_ms, parts = _device_ms(op, 20, by_name=True)
         res = {
             "name": name, "max_abs_err": max(errs),
-            "ms": _time_ms(lambda: pe.fused_patch_embed(
-                images, kernel, bias, impl="pallas"), 20),
+            "ms": _time_ms(op, 20),
+            "kernel_ms": _time_ms(launch, 20),
+            "device_ms": _device_ms(launch, 20),
+            # where the op's time goes: the host's time per call (the fold,
+            # the entry, the whole op) beside the device time of each kernel
+            # that the op launches
+            "host_ms": {"op": _host_ms(op, 20),
+                        "fold": _host_ms(lambda: pe.fold_normalization(
+                            kernel), 20),
+                        "launch": _host_ms(launch, 20)},
+            "op_device_ms": op_device_ms,
+            "device_parts": parts,
             # the op as a user calls it, kernel and folded-product routes
             # (both fold the normalization first); conv2d on pre-folded
             # weights and a pre-cast image
@@ -4306,18 +4371,31 @@ def _patch_embed(gen):
             # accuracy (twice the operations at 989 TFLOP/s)
             "bound": _bound(nbytes, 2 * 2 * rows * k * width,
                             torch.bfloat16),
-            # this design's bound: one product on the fp32 FMA units
-            "fp32_fma_bound": _bound(nbytes, 2 * rows * k * width,
-                                     torch.float32),
+            "plan": plan._asdict(),
+            # the design's bound: the two products over its padded work,
+            # every row and column tile whole and the k loop to k_pad
+            "design_bound": _bound(
+                nbytes, 2 * 2 * plan.grid_m * plan.bm * plan.k_pad
+                * plan.grid_n * plan.bn, torch.bfloat16),
         }
         cases.append(res)
+        host = res["host_ms"]
         print(f"patch embed {name} B={b} p={p} width={width} (K={k}): max "
               f"abs err {res['max_abs_err']:.3e} (bf16/fp32 out, "
-              f"with/without bias; conv2d vs plain {lib_err:.2e}); kernel "
-              f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms conv2d "
-              f"{res['library_ms']:.4f} ms bound {res['bound'][0]:.4f} ms "
-              f"({res['bound'][1]}, bf16 hi + lo); fp32-FMA bound of this "
-              f"design {res['fp32_fma_bound'][0]:.4f} ms", flush=True)
+              f"with/without bias, each twice bit for bit; conv2d vs plain "
+              f"{lib_err:.2e}); the op {res['ms']:.4f} ms (the launch "
+              f"alone {res['kernel_ms']:.4f} ms, {_fmt(res['device_ms'])} "
+              f"device) plain "
+              f"{res['plain_ms']:.4f} ms conv2d {res['library_ms']:.4f} ms "
+              f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}, bf16 hi "
+              f"+ lo); the design's padded work "
+              f"{res['design_bound'][0]:.4f} ms under plan {tuple(plan)}",
+              flush=True)
+        print(f"patch embed {name} per call: host {host['op']:.4f} ms (the "
+              f"fold {host['fold']:.4f}, the entry {host['launch']:.4f}), "
+              f"device {_fmt(op_device_ms)}: " + ", ".join(
+                  f"{n} {ms:.4f}" for n, ms in sorted(
+                      parts.items(), key=lambda kv: -kv[1])), flush=True)
         del images, x_nchw, lib
 
     # the main path: the op at the three shapes, counters read around
@@ -4350,12 +4428,22 @@ def _sweep():
                 "deferred": ba.fused_attention_bwd_deferred}
     for c in counters.values():
         c.launches = 0
-    rows = attn_sweep.main(["--iters", str(SWEEP_ITERS)])
+    rows = {r["name"]: r for r in attn_sweep.main(
+        ["--iters", str(SWEEP_ITERS)])}
     launches = {n: c.launches for n, c in counters.items()}
-    print(f"attn_sweep kernel launches {launches}", flush=True)
+    plan = ba.bwd_deferred_plan(attn_sweep.L, attn_sweep.HD)
+    print(f"attn_sweep kernel launches {launches}; the deferred rows' plan "
+          f"{plan}", flush=True)
     if min(launches.values()) == 0:
         raise RuntimeError(f"the sweep missed a kernel: {launches}")
-    return {"rows": {r["name"]: r for r in rows}, "launches": launches}
+    # each variant's device time, on the sweep's operands (after the counts)
+    x = attn_sweep.operands("cuda")
+    for name, f, _, backward in attn_sweep.variants():
+        args = attn_sweep.arguments(x, backward)
+        rows[name]["device_ms"] = _device_ms(lambda: f(*args), SWEEP_ITERS)
+    print("attn_sweep device ms " + ", ".join(
+        f"{n} {_fmt(r['device_ms'])}" for n, r in rows.items()), flush=True)
+    return {"rows": rows, "launches": launches, "plan": plan._asdict()}
 
 
 def _tools():
@@ -5352,10 +5440,16 @@ def main() -> int:
         "bound_by": patch["cases"][0]["bound"][1],
         "library_ms": patch["cases"][0]["library_ms"],
         "by_shape": {c["name"]: {
-            **{k: c[k] for k in ("ms", "plain_ms", "library_ms")},
+            **{k: c[k] for k in ("ms", "kernel_ms", "device_ms", "host_ms",
+                                 "op_device_ms", "device_parts", "plain_ms",
+                                 "library_ms", "plan")},
             "bound_ms": c["bound"][0],
-            "fp32_fma_bound_ms": c["fp32_fma_bound"][0]}
+            "design_bound_ms": c["design_bound"][0]}
             for c in patch["cases"]},
+        # the kernel it replaced was timed in turns with it, not in this run
+        "redesign": {"plan": patch["cases"][0]["plan"],
+                     "parent": "PERF.md section 6, row K9 "
+                               "(tools/flash_bench.py --kernels patch)"},
     }, {
         "name": "fused_attention_bwd_deferred",
         "route": "cuda",
@@ -5370,11 +5464,16 @@ def main() -> int:
         "bound_by": bwd_main["bound"][1],
         "library_ms": None,   # clip-mode softmax: no one PyTorch call
         "sweep_ms": {n: r["ms"] for n, r in sweep["rows"].items()},
+        "sweep_device_ms": {n: r["device_ms"]
+                            for n, r in sweep["rows"].items()},
         # SDPA at the sweep's shape in the exact form without biases (the
         # sweep's exact variants compute it with them)
         "sdpa_exact_ms": {
             "fwd": by_shape["L/16 @112 exact"]["library_ms"],
             "bwd": bwd_by_shape["L/16 @112 exact"]["library_ms"]},
+        "redesign": {"plan": sweep["plan"],
+                     "parent": "PERF.md section 6, row K10 bwd deferred "
+                               "(tools/flash_bench.py --kernels deferred)"},
     }], "training": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],

@@ -108,9 +108,11 @@
 //   per SM sub-partition, each product's accumulation a chain of 5
 //   dependent mma at hd 80; the two-chunk step of sweeps A and B doubles
 //   the independent chains (8-9% faster at both shapes, measured in turns).
-//   split (PR 2's pair, kept for the deferred variant alone: no main path
-//   calls it, and the normalized entry refuses the scheme): one block per
-//   (sample, head, 64-row tile), 4 warps, synchronous tile loads:
+//   split (the deferred entry past L = 144 alone, where the
+//   whole-head scheme does not fit; no caller reaches it, tools/
+//   attn_sweep.py's only shape is L = 50, and the normalized entry refuses
+//   the scheme): one block per (sample, head, 64-row tile), 4 warps,
+//   synchronous tile loads:
 //     1. dq kernel: sweep A over the key tiles accumulates the row sum r of
 //        exp (with the online row max m in exact mode); sweep A2 the
 //        deferred u (below); sweep B recomputes s and dp and accumulates dq
@@ -146,8 +148,7 @@
 // written to be right, not fast.
 //
 // Deferred normalization (entry clipa_fused_attention_bwd_deferred, bf16
-// only, the split scheme's two kernels): the backward variant that
-// clipa_tpu/tools/attn_sweep.py:76
+// only): the backward variant that clipa_tpu/tools/attn_sweep.py:76
 // make_bwd_bias(g, defer=True) times, computing the same gradients with the
 // softmax's 1/denom folded into dO's rows so the score-sized products run on
 // unnormalized e:
@@ -159,10 +160,30 @@
 // The reference's kernel drops the row-sum term's 1/denom (its
 // ds = e * (dphat - rowsum(dphat * e))): its dq and dk are wrong, its dv
 // right; this variant computes the gradient. The held-against plain twin is
-// attention_plain_bwd(..., defer=True). The dq kernel needs denom before it
-// can form dohn, so it sweeps the key tiles three times (denom; then
-// rowsum(dphat * e); then dq); the dk/dv kernel scales its dO tiles by the
-// stored 1/denom as it loads them.
+// attention_plain_bwd(..., defer=True). ops/block_attention.py
+// bwd_deferred_plan picks the scheme:
+//   whole-head (L <= 144; the sweep's L = 50): the kernel above with
+//   kDefer. Per warp and 16-row query strip, in registers: S = Qb Kb^T over
+//   every key, e and denom (quad shuffles); then per 16-column chunk of the
+//   head dim dO's A fragment through ldmatrix, divided by its row's denom
+//   (IEEE, one rounding) into dohn, written back over the strip's dO rows
+//   (only this warp reads them before the barrier) and multiplied into
+//   dphat = dohn Vb^T; u = rowsum(dphat e) / denom, ds, dsb and dQ = dsb Kb
+//   as in the normalized form. After the barrier bf16(e) and dsb replace K
+//   and V, and dV = bf16(e)^T dohn, dK = dsb^T Qb per key strip. 5
+//   products, as the normalized form; no statistics leave the block.
+//   Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py
+//   --kernels deferred, in turns with the split pair it replaced at this
+//   L): B = 384, L = 50, D = 1024, bias, 0.2413-0.2430 ms (clip) and
+//   0.2387-0.2439 (exact) by CUDA events, against 0.6791-0.6839 and
+//   0.6382-0.6472; 1.36-1.40x the normalized form's 0.1735-0.1781 in the
+//   same run: dohn needs denom, so dphat = dohn Vb^T waits for S and its
+//   row sums, behind a pass over dO's fragments with an IEEE division per
+//   element, where the normalized form forms S and dP side by side.
+//   split (past 144): the dq kernel needs denom before it can form dohn, so
+//   it sweeps the key tiles three times (denom; then rowsum(dphat * e);
+//   then dq); the dk/dv kernel scales its dO tiles by the stored 1/denom
+//   as it loads them.
 
 #include <math.h>
 
@@ -615,8 +636,9 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q,
 // + gridDim.x, ..., one item's operands in shared memory at a time.
 // Warp w owns query strip w in phase 1 and key strip w in phase 2.
 // partial: null, or the (3, batch, num_heads * hd) fp32 column sums of
-// each sample's dq, dk and dv rows.
-template <int kHdp, int kNc>
+// each sample's dq, dk and dv rows. kDefer: the deferred-normalization
+// form (the header's), whose dohn overwrites the strip's dO rows.
+template <int kHdp, int kNc, bool kDefer>
 __global__ void __launch_bounds__(kNc * 32)
 attention_bwd_whole_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -672,9 +694,9 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();  // this item's operands, biased, for every warp
 
-    // Phase 1, query strip `warp`: S = Qb Kb^T and dP = dO Vb^T over every
-    // key. Element i of n-tile nt: query q0 + g + 8 (i >> 1), key 8 nt +
-    // 2t + (i & 1).
+    // Phase 1, query strip `warp`: S = Qb Kb^T and (normalized form) dP =
+    // dO Vb^T over every key. Element i of n-tile nt: query q0 + g + 8
+    // (i >> 1), key 8 nt + 2t + (i & 1).
     const int q0 = warp * 16;
     float s[2 * kNc][4], dp[2 * kNc][4];
 #pragma unroll
@@ -686,16 +708,21 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
     for (int kc = 0; kc < kHdp / 16; ++kc) {
       uint32_t aq[4], ado[4];
       ldsm_x4(aq, ldsm_rows16(sq + q0 * kStride + kc * 16, kStride));
-      ldsm_x4(ado, ldsm_rows16(sdo + q0 * kStride + kc * 16, kStride));
+      if (!kDefer) {
+        ldsm_x4(ado, ldsm_rows16(sdo + q0 * kStride + kc * 16, kStride));
+      }
 #pragma unroll
       for (int c = 0; c < kNc; ++c) {
         uint32_t bm[4];
         ldsm_x4(bm, ldsm_rows8x2(sk + c * 16 * kStride + kc * 16, kStride));
         mma_16816(s[2 * c], aq, bm[0], bm[1]);
         mma_16816(s[2 * c + 1], aq, bm[2], bm[3]);
-        ldsm_x4(bm, ldsm_rows8x2(sv + c * 16 * kStride + kc * 16, kStride));
-        mma_16816(dp[2 * c], ado, bm[0], bm[1]);
-        mma_16816(dp[2 * c + 1], ado, bm[2], bm[3]);
+        if (!kDefer) {
+          ldsm_x4(bm,
+                  ldsm_rows8x2(sv + c * 16 * kStride + kc * 16, kStride));
+          mma_16816(dp[2 * c], ado, bm[0], bm[1]);
+          mma_16816(dp[2 * c + 1], ado, bm[2], bm[3]);
+        }
       }
     }
     // e in s (0 for keys past L), clip-saturated scores in `clipped`
@@ -737,9 +764,11 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
         }
       }
     }
-    // p = e / rowsum(e) (0 on query rows past L), u = rowsum(dp * p),
-    // dsb = bf16(p (dp - u) scale), 0 where the clip saturates
-    float inv[2], u[2] = {0.f, 0.f};
+    // denom = rowsum(e); normalized form: p = e / denom (0 on query rows
+    // past L), u = rowsum(dp * p), dsb = bf16(p (dp - u) scale); deferred
+    // form: e stays (0 on rows past L), u = rowsum(dphat * e) / denom,
+    // dsb = bf16(e (dphat - u) scale); 0 where the clip saturates
+    float den[2], u[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float sum = 0.f;
@@ -747,13 +776,50 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
       for (int nt = 0; nt < 2 * kNc; ++nt) sum += s[nt][2 * r] + s[nt][2 * r + 1];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      inv[r] = q0 + g + 8 * r < seq ? 1.f / sum : 0.f;
+      const bool valid = q0 + g + 8 * r < seq;
+      den[r] = kDefer ? (valid ? sum : 1.f) : (valid ? 1.f / sum : 0.f);
+      if (kDefer && !valid) {
+#pragma unroll
+        for (int nt = 0; nt < 2 * kNc; ++nt) s[nt][2 * r] = s[nt][2 * r + 1] = 0.f;
+      }
+    }
+    if (kDefer) {
+      // dohn = bf16(dO / denom) in dO's A fragments (IEEE division, one
+      // rounding), written back over the strip's dO rows for dV; dphat =
+      // dohn Vb^T. Register j of a fragment holds row g + 8 (j & 1).
+#pragma unroll
+      for (int kc = 0; kc < kHdp / 16; ++kc) {
+        bf16* rows = sdo + q0 * kStride + kc * 16;
+        uint32_t ado[4];
+        ldsm_x4(ado, ldsm_rows16(rows, kStride));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&ado[j]));
+          ado[j] = pack_floats(__fdiv_rn(f.x, den[j & 1]),
+                               __fdiv_rn(f.y, den[j & 1]));
+        }
+        __syncwarp();   // every lane's ldmatrix read precedes the stores
+        bf16* d = rows + g * kStride + 2 * t;
+        *reinterpret_cast<uint32_t*>(d) = ado[0];
+        *reinterpret_cast<uint32_t*>(d + 8 * kStride) = ado[1];
+        *reinterpret_cast<uint32_t*>(d + 8) = ado[2];
+        *reinterpret_cast<uint32_t*>(d + 8 * kStride + 8) = ado[3];
+#pragma unroll
+        for (int c = 0; c < kNc; ++c) {
+          uint32_t bm[4];
+          ldsm_x4(bm,
+                  ldsm_rows8x2(sv + c * 16 * kStride + kc * 16, kStride));
+          mma_16816(dp[2 * c], ado, bm[0], bm[1]);
+          mma_16816(dp[2 * c + 1], ado, bm[2], bm[3]);
+        }
+      }
     }
 #pragma unroll
     for (int nt = 0; nt < 2 * kNc; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[nt][i] *= inv[i >> 1];
+        if (!kDefer) s[nt][i] *= den[i >> 1];
         u[i >> 1] = fmaf(dp[nt][i], s[nt][i], u[i >> 1]);
       }
     }
@@ -761,6 +827,7 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
     for (int r = 0; r < 2; ++r) {
       u[r] += __shfl_xor_sync(0xffffffffu, u[r], 1);
       u[r] += __shfl_xor_sync(0xffffffffu, u[r], 2);
+      if (kDefer) u[r] = __fdiv_rn(u[r], den[r]);
     }
     uint32_t pa[kNc][4], da[kNc][4];
 #pragma unroll
@@ -799,8 +866,9 @@ attention_bwd_whole_kernel(const bf16* __restrict__ q,
     store_frags<kNc>(sds, da, q0, kPStride);
     __syncthreads();
 
-    // Phase 2, key strip `warp`: dV = bf16(P)^T dO, dK = dsb^T Qb, the A
-    // fragments of the transposes through ldmatrix.trans.
+    // Phase 2, key strip `warp`: dV = bf16(P)^T dO (deferred: bf16(e)^T
+    // dohn), dK = dsb^T Qb, the A fragments of the transposes through
+    // ldmatrix.trans.
     {
       const int k0 = warp * 16;
       float dk_acc[kNt][4], dv_acc[kNt][4];
@@ -1500,14 +1568,15 @@ int launch_split(const bf16* q, const bf16* k, const bf16* v,
 // The whole-head scheme at kNc chunks: the persistent grid (as many blocks
 // as the card holds at once, at most one per item), then the bias grads
 // from the per-sample partials.
-template <int kHdp, int kNc>
+template <int kHdp, int kNc, bool kDefer>
 int launch_whole_nc(const bf16* q, const bf16* k, const bf16* v,
                     const bf16* dout, const bf16* bq, const bf16* bk,
                     const bf16* bv, bf16* dq, bf16* dk, bf16* dv,
                     float* partial, bf16* dbias, int batch, int seq,
                     int num_heads, int hd, int smem, float scale, int exact,
                     cudaStream_t stream) {
-  const void* fn = (const void*)attention_bwd_whole_kernel<kHdp, kNc>;
+  const void* fn =
+      (const void*)attention_bwd_whole_kernel<kHdp, kNc, kDefer>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1516,7 +1585,7 @@ int launch_whole_nc(const bf16* q, const bf16* k, const bf16* v,
   if (resident <= 0 || items > 0x7fffffff) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  attention_bwd_whole_kernel<kHdp, kNc>
+  attention_bwd_whole_kernel<kHdp, kNc, kDefer>
       <<<(int)(items < resident ? items : resident), kNc * 32, smem,
          stream>>>(q, k, v, dout, bq, bk, bv, dq, dk, dv, partial, batch,
                    seq, num_heads, hd, scale, exact);
@@ -1529,7 +1598,8 @@ int launch_whole_nc(const bf16* q, const bf16* k, const bf16* v,
 
 // The whole-head plan's check: one warp per 16-row chunk of L (at most
 // kMaxChunks), one block per item, no ring, and this layout's shared memory.
-template <int kHdp>
+// kDefer: the deferred form.
+template <int kHdp, bool kDefer>
 int launch_whole(const bf16* q, const bf16* k, const bf16* v,
                  const bf16* dout, const bf16* bq, const bf16* bk,
                  const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* partial,
@@ -1543,9 +1613,9 @@ int launch_whole(const bf16* q, const bf16* k, const bf16* v,
   }
 #define CLIPA_WHOLE(NC)                                                   \
   case NC:                                                                \
-    return launch_whole_nc<kHdp, NC>(q, k, v, dout, bq, bk, bv, dq, dk, dv, \
-                                     partial, dbias, batch, seq, num_heads, \
-                                     hd, smem, scale, exact, stream)
+    return launch_whole_nc<kHdp, NC, kDefer>(                             \
+        q, k, v, dout, bq, bk, bv, dq, dk, dv, partial, dbias, batch, seq, \
+        num_heads, hd, smem, scale, exact, stream)
   switch (nc) {
     CLIPA_WHOLE(1);
     CLIPA_WHOLE(2);
@@ -1778,7 +1848,8 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
 constexpr int kSplit = 0, kWhole = 1, kLong = 2;
 
 // The bf16 entries' body: kDefer selects the entry. The normalized one
-// takes the whole-head and long schemes, the deferred one the split scheme.
+// takes the whole-head and long schemes, the deferred one the whole-head
+// scheme (its deferred form) and the split scheme.
 template <bool kDefer>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* bq, const void* bk, const void* bv, void* dq,
@@ -1791,7 +1862,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
       (bq == nullptr) != (bv == nullptr) ||
       (bq != nullptr) != (partial != nullptr) ||
       (partial != nullptr) != (dbias != nullptr) ||
-      (kDefer ? scheme != kSplit : scheme != kWhole && scheme != kLong)) {
+      (kDefer ? scheme != kWhole && scheme != kSplit
+              : scheme != kWhole && scheme != kLong)) {
     return (int)cudaErrorInvalidValue;
   }
   const bf16* q_ = static_cast<const bf16*>(q);
@@ -1811,10 +1883,11 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 #define CLIPA_LAUNCH(HDP)                                                    \
   case HDP:                                                                  \
     if (scheme == kWhole) {                                                  \
-      return launch_whole<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_,     \
-                               dv_, pa_, db_, batch, seq, num_heads,         \
-                               head_dim, warps, blocks, stages, smem,        \
-                               smem_dkv, scale, exact, s);                   \
+      return launch_whole<HDP, kDefer>(q_, k_, v_, do_, bq_, bk_, bv_, dq_,  \
+                                       dk_, dv_, pa_, db_, batch, seq,       \
+                                       num_heads, head_dim, warps, blocks,   \
+                                       stages, smem, smem_dkv, scale, exact, \
+                                       s);                                   \
     }                                                                        \
     if (scheme == kLong) {                                                   \
       return launch_long<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, \
@@ -1854,7 +1927,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 //     a ring of `stages` 128-row tiles, `smem` and `smem_dkv` the dq and
 //     dk/dv kernels' bytes; stats: 2 * batch * seq * num_heads fp32
 //     scratch (lse2, delta);
-//   scheme 0 (split: the deferred entry's only scheme, which the
+//   scheme 0 (split: the deferred entry's past L = 144, which the
 //     normalized entry refuses): `warps` 4, `blocks` ceil(seq / 64),
 //     stages 0, `smem` and `smem_dkv` the dq and dk/dv kernels' bytes;
 //     stats: 3 * batch * seq * num_heads fp32 scratch (m, r, delta).
@@ -1877,8 +1950,9 @@ extern "C" int clipa_fused_attention_bwd(
 }
 
 // The deferred-normalization variant: the same arguments, limits and
-// outputs, the split scheme only, which it alone takes (bf16 only; see the
-// header).
+// outputs; scheme 1 (the whole-head scheme's deferred form, L <= 16
+// kMaxChunks) or scheme 0 (the split pair, which it alone takes), the long
+// scheme refused (bf16 only; see the header).
 extern "C" int clipa_fused_attention_bwd_deferred(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,

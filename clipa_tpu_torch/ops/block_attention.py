@@ -13,8 +13,9 @@ over the blocks of :func:`fwd_plan`; the bf16 backward takes the scheme of
 :func:`bwd_plan`: one (sample, head) per work item of a persistent kernel
 up to L = 16 * BWD_MAX_CHUNKS, else the long scheme, two kernels whose
 16-row strips spread over blocks as the forward's do, the other operands
-streaming through a ring (PR 2's split pair serves the deferred variant
-alone). bf16 operands go through the tensor cores;
+streaming through a ring. The deferred variant takes the whole-head
+scheme's deferred form up to the same L, the split pair past it
+(:func:`bwd_deferred_plan`). bf16 operands go through the tensor cores;
 fp32 operands (the service at precision float32, the fp32 smoke configs)
 through scalar fp32 twins in the same sources.
 
@@ -183,8 +184,8 @@ class BwdPlan(NamedTuple):
     (sample, head) over the 16-row strips, the other operands through a
     ring of `stages` 128-row tiles, `smem` and `smem_dkv` their bytes per
     block. BWD_SPLIT: PR 2's dq and dk/dv kernels, `warps` 4 per 64-row
-    tile, `blocks` the tiles, `stages` 0: the deferred variant's only
-    scheme, which the normalized entry refuses."""
+    tile, `blocks` the tiles, `stages` 0: the deferred variant's past the
+    whole-head scheme's L, which the normalized entry refuses."""
     scheme: int
     warps: int
     blocks: int
@@ -205,7 +206,8 @@ def _whole_smem(seq_len: int, hd: int) -> int:
 def bwd_split_plan(seq_len: int, hd: int) -> BwdPlan:
     """The split scheme's launch: per block four 64-row bf16 tiles, the
     warps' fp32 column sums and 64 fp32 row values (dq kernel) or three
-    row statistics (dk/dv kernel). The deferred variant's only scheme."""
+    row statistics (dk/dv kernel). The deferred variant's past the
+    whole-head scheme's L (bwd_deferred_plan)."""
     hdp = _round16(hd)
     tiles = 4 * _BWD_TILE * (hdp + 8) * 2
     return BwdPlan(BWD_SPLIT, _BWD_SPLIT_WARPS, -(-seq_len // _BWD_TILE), 0,
@@ -288,6 +290,20 @@ def bwd_plan(seq_len: int, hd: int) -> BwdPlan:
         return per_sm * strips / p.blocks, per_sm, -p.blocks, p.stages
 
     return max(cands, key=rank)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_deferred_plan(seq_len: int, hd: int) -> BwdPlan:
+    """The deferred backward's launch at one shape (a pure function,
+    cached), whose numbers its CUDA entry point takes and checks: the
+    whole-head scheme's deferred form wherever bwd_candidates offers the
+    whole-head scheme (L <= 16 * BWD_MAX_CHUNKS: S formed once, e and its
+    row sums in registers), else the split pair. The entry refuses the
+    long scheme."""
+    first = bwd_candidates(seq_len, hd)[:1]
+    if first and first[0].scheme == BWD_WHOLE:
+        return first[0]
+    return bwd_split_plan(seq_len, hd)
 
 
 def tolerance(dtype: torch.dtype) -> tuple[float, float]:
@@ -543,9 +559,10 @@ def fused_attention_bwd_deferred(q: torch.Tensor, k: torch.Tensor,
     """:func:`fused_attention_bwd` in the deferred-normalization form:
     (dq, dk, dv, dbq, dbk, dbv).
 
-    On a CUDA tensor this launches the variant ``kDefer`` of
-    ``csrc/fused_attention_bwd.cu`` (bf16 operands only: the fp32 scalar
-    twin has no deferred form and this raises); on a CPU tensor it runs
+    On a CUDA tensor this launches the deferred entry of
+    ``csrc/fused_attention_bwd.cu`` under :func:`bwd_deferred_plan` (bf16
+    operands only: the fp32 scalar twin has no deferred form and this
+    raises); on a CPU tensor it runs
     ``attention_plain_bwd(..., defer=True)``.
     """
     _check_shapes(q, k, v, num_heads, seq_len, biases, do)
@@ -707,7 +724,7 @@ def _bwd_scratch(q: torch.Tensor, num_heads: int, seq_len: int, bias: bool,
 def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
                 plan: Optional[BwdPlan] = None):
     """Runs the backward kernels. `plan`: the bf16 kernels' launch,
-    bwd_plan's by default (the deferred entry: bwd_split_plan's;
+    bwd_plan's by default (the deferred entry: bwd_deferred_plan's;
     tools/flash_bench.py times the others)."""
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
@@ -717,8 +734,8 @@ def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
     if q.dtype != torch.bfloat16:
         plan = None   # the fp32 twin takes no plan
     elif plan is None:
-        plan = (bwd_split_plan(seq_len, hd) if entry == _BWD_DEFERRED_ENTRY
-                else bwd_plan(seq_len, hd))
+        plan = (bwd_deferred_plan(seq_len, hd)
+                if entry == _BWD_DEFERRED_ENTRY else bwd_plan(seq_len, hd))
     grads = torch.empty((3, rows, d), dtype=q.dtype, device=q.device)
     stats, partial, dbias = _bwd_scratch(q, num_heads, seq_len,
                                          biases is not None, plan)

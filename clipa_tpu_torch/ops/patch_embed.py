@@ -11,10 +11,15 @@ package:
   * ``impl="auto"`` / ``"xla"``: patchify the uint8 image, one fp32
     ``torch.matmul`` with the folded weights (the product the JAX package
     leaves to XLA);
-  * ``impl="pallas"``: the hand-written kernel ``csrc/patch_embed.cu`` on
-    a CUDA tensor, which reads the (B, H, W, 3) uint8 image itself and runs
-    the fp32 GEMM at any width that is a multiple of 4 (other widths raise);
-    on a CPU tensor its plain version, the same folded product. The
+  * ``impl="pallas"``: the hand-written kernels of ``csrc/patch_embed.cu``
+    on a CUDA tensor: a kernel that splits the folded weights into a bf16
+    high part and its bf16 remainder (:func:`split_weights` is its plain
+    version), a patchify kernel that cuts the (B, H, W, 3) uint8 image
+    into uint8 patch rows, then a GEMM that runs the product on the tensor
+    cores as two bf16 products, the patch rows (exact in bf16) times each
+    part, summed in fp32, at any width that is a
+    multiple of 4 (other widths raise), under :func:`patch_plan`'s launch;
+    on a CPU tensor its plain version, the folded fp32 product. The
     reference gates its Pallas route on ``width % 128 == 0``, a TPU lane
     alignment; the CUDA kernel has no such limit, so no CUDA tensor gives
     way to the plain version.
@@ -26,11 +31,13 @@ and it sits outside the Pallas kernel in JAX too.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from clipa_tpu_torch.ops import cuda_build
+from clipa_tpu_torch.ops.flash_attention import SMEM_LIMIT
 from clipa_tpu_torch.ops.preprocess import IMAGENET_MEAN_255, IMAGENET_STD_255
 
 _SOURCE = "patch_embed.cu"
@@ -38,11 +45,15 @@ _ENTRY = "clipa_patch_embed"
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 # Kernel vs plain version, |kernel - plain| <= RTOL[out] * |plain| +
-# SCALE_RTOL * max|plain|. Both sum the same fp32 products in another order:
-# a few fp32 ulps of the largest partial sum over K <= 768 terms, far below
-# SCALE_RTOL of the output's scale. bf16 outputs round that fp32 value once:
-# where the two fp32 sums straddle a rounding boundary they land one bf16
-# ulp apart, at most 2^-7 of the value.
+# SCALE_RTOL * max|plain|. Both are fp32 sums of K <= 768 products of the
+# same pixels, in another order, and the kernel's weights are hi + lo, two
+# bf16 values whose sum misses the fp32 weight by at most 2^-16 of it
+# (round to nearest: 2^-18). So the kernel's sum differs from the plain one
+# by a few fp32 ulps of the largest partial sum plus at most 2^-16 of
+# sum_k |x w| (measured with the pixels' full 0..255 range: 2e-5 against the
+# ~5e-4 that SCALE_RTOL allows at the stem's scale). bf16 outputs round that
+# fp32 value once: where the two fp32 sums straddle a rounding boundary they
+# land one bf16 ulp apart, at most 2^-7 of the value.
 SCALE_RTOL = 1e-4
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
@@ -67,13 +78,90 @@ def fold_normalization(kernel: torch.Tensor, mean=IMAGENET_MEAN_255,
     k = kernel
     if k.dim() == 4:
         k = k.reshape(-1, k.shape[-1])
-    inv_std = 1.0 / torch.tensor(std, dtype=torch.float32, device=k.device)
-    mean = torch.tensor(mean, dtype=torch.float32, device=k.device)
-    n_pix = k.shape[0] // 3
-    inv_full = inv_std.repeat(n_pix)[:, None]          # (p*p*3, 1)
-    mean_full = mean.repeat(n_pix)
+    inv_full, shift_full = _fold_constants(
+        k.shape[0] // 3, tuple(map(float, mean)), tuple(map(float, std)),
+        k.device)
     k = k.float()
-    return k * inv_full, -(mean_full * inv_full[:, 0]) @ k
+    return k * inv_full[:, None], shift_full @ k
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_constants(n_pix: int, mean: tuple, std: tuple,
+                    device: torch.device):
+    """The fold's per-row fp32 constants on `device`: 1 / std and -mean /
+    std (as -(mean * (1 / std))), each repeated over n_pix pixels (p*p*3,).
+    Built once per (pixels, statistics, device): a host-to-device copy of
+    the statistics on every call would wait for the card."""
+    with torch.inference_mode(False):
+        inv_full = (1.0 / torch.tensor(std, dtype=torch.float32)).repeat(
+            n_pix)
+        mean_full = torch.tensor(mean, dtype=torch.float32).repeat(n_pix)
+        return inv_full.to(device), (-(mean_full * inv_full)).to(device)
+
+
+class PatchPlan(NamedTuple):
+    """The kernels' launch, as their C entry takes it: the GEMM's `bm` x
+    `bn` output tiles (three consumer warpgroups of 64 rows; persistent
+    blocks walk them),
+    `bk` k per stage of a `stages`-deep ring, the k loop over `k_pad` (3
+    p^2 rounded up to bk), a (`grid_n` column tiles, `grid_m` row tiles)
+    grid and `smem` bytes of shared memory per block; the patchify
+    kernel's `patchify_smem` bytes (one patch-row group's p image rows)."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    k_pad: int
+    grid_n: int
+    grid_m: int
+    smem: int
+    patchify_smem: int
+
+
+# csrc/patch_embed.cu kBM, kBN, kBK, kStages, kXStages: one layout
+_TILE_M, _TILE_N, _TILE_K, _STAGES, _X_STAGES = 192, 128, 64, 3, 4
+
+
+@functools.lru_cache(maxsize=None)
+def patch_plan(rows: int, n: int, patch: int, width: int) -> PatchPlan:
+    """The kernels' launch for `rows` patch rows of width `n` from images
+    `width` pixels wide at patch size `patch` (a pure function, cached):
+    192 x 128 tiles, 64 k per stage, a three-stage ring whose stages each
+    hold a bf16 A tile (192 x 64) and the hi and lo weight tiles (128 x 64
+    each), a four-tile ring of uint8 patch rows (192 x 64), three
+    mbarriers per stage and two per patch-row tile, and 1024 bytes to align
+    the rings for the 128-byte swizzle; the patchify kernel's p image rows
+    of 3 width bytes, rounded up to 16.
+    Raises where those do not fit an H100 block (images past some 5500
+    pixels wide at p = 14)."""
+    stage = (_TILE_M + 2 * _TILE_N) * _TILE_K * 2
+    patchify = -(-3 * patch * width // 16) * 16
+    if patchify > SMEM_LIMIT:
+        raise ValueError(f"{patch} rows of a {width} pixel image exceed a "
+                         f"block's {SMEM_LIMIT} bytes of shared memory")
+    return PatchPlan(_TILE_M, _TILE_N, _TILE_K, _STAGES,
+                     -(-3 * patch * patch // _TILE_K) * _TILE_K,
+                     -(-n // _TILE_N), -(-rows // _TILE_M),
+                     _STAGES * (stage + 3 * 8)
+                     + _X_STAGES * (_TILE_M * _TILE_K + 2 * 8) + 1024,
+                     patchify)
+
+
+def split_weights(w: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """The GEMM's weight operand, in plain PyTorch (the split kernel of
+    csrc/patch_embed.cu computes it bit for bit on the card): (K, N) fp32
+    -> (2, N, k_pad) bf16, hi = bf16(w) and lo = bf16(w - hi), each
+    transposed so that row j holds column j of w (the K-major B operand of
+    the tensor-core product), zero for k >= K. hi + lo misses w by at most
+    2^-16 of |w|."""
+    k, n = w.shape
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi).to(torch.bfloat16)    # w - float(hi), exact in fp32
+    out = torch.empty((2, n, k_pad), dtype=torch.bfloat16, device=w.device)
+    out[:, :, :k] = torch.stack((hi, lo)).transpose(1, 2)
+    out[:, :, k:] = 0
+    return out
 
 
 def patch_embed_plain(images: torch.Tensor, k_scaled: torch.Tensor,
@@ -140,19 +228,27 @@ def _uses_kernel(x: torch.Tensor) -> bool:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel's library, built at first use: (images, w, bias, out,
-    batch, height, width, patch, n, out_bf16, stream)."""
+    """The kernels' library, built at first use: (images, x, w, w_split,
+    bias, out, batch, height, width, patch, n, k_pad, out_bf16, bm, bn, bk,
+    stages, grid_n, grid_m, smem, patchify_smem, stream)."""
     return cuda_build.load_entries(
         _SOURCE, [_ENTRY],
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
 
 
-def _launch(images, w, bias, patch, out_dtype):
+def _launch(images, w, bias, patch, out_dtype,
+            plan: Optional[PatchPlan] = None):
+    """Runs the kernels on the folded fp32 weights `w` (K, n), contiguous,
+    and bias. `plan`: patch_plan's by default."""
     b, h, wd, c = images.shape
     n = w.shape[1]
     if images.dtype != torch.uint8 or c != 3 or not images.is_contiguous():
         raise ValueError("the kernel takes contiguous (B, H, W, 3) uint8 "
                          "images")
+    if (w.dtype != torch.float32 or not w.is_contiguous()
+            or w.shape[0] != 3 * patch * patch):
+        raise ValueError(f"the kernel takes contiguous fp32 ({3 * patch ** 2}"
+                         f", width) weights, got {w.dtype} {tuple(w.shape)}")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype {out_dtype} (the kernel writes bfloat16 "
                         f"or float32)")
@@ -162,13 +258,25 @@ def _launch(images, w, bias, patch, out_dtype):
                              f"{images.device}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty((b * (h // patch) * (wd // patch), n), dtype=out_dtype,
-                      device=images.device)
+    rows = b * (h // patch) * (wd // patch)
+    plan = plan or patch_plan(rows, n, patch, wd)
+    # the scratch between the kernels: the weights' hi and lo parts (the
+    # split's output) and the uint8 patch rows (the patchify kernel's),
+    # both the GEMM's input
+    w_split = torch.empty((2, n, plan.k_pad), dtype=torch.bfloat16,
+                          device=images.device)
+    x = torch.empty((rows, plan.k_pad), dtype=torch.uint8,
+                    device=images.device)
+    out = torch.empty((rows, n), dtype=out_dtype, device=images.device)
     lib = library()
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.clipa_patch_embed(
-            images.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, wd, patch, n, int(out_dtype == torch.bfloat16), stream)
+            images.data_ptr(), x.data_ptr(), w.data_ptr(),
+            w_split.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, wd,
+            patch, n, plan.k_pad,
+            int(out_dtype == torch.bfloat16), plan.bm, plan.bn, plan.bk,
+            plan.stages, plan.grid_n, plan.grid_m, plan.smem,
+            plan.patchify_smem, stream)
     cuda_build.raise_on(err, lib, "patch embed kernel")
     return out

@@ -9,15 +9,16 @@ different on Hopper:
 
   fwd  clip / exact               csrc/fused_attention_fwd.cu (K5's function)
   bwd  normalized / deferred,     csrc/fused_attention_bwd.cu: the landed
-       each clip / exact          backward (its whole-head scheme at this
-                                  shape) and the deferred variant (its split
-                                  scheme), which folds 1/denom into dO's rows
-                                  so the score-sized products run on
-                                  unnormalized e
+       each clip / exact          backward and the deferred variant, which
+                                  folds 1/denom into dO's rows so the
+                                  score-sized products run on unnormalized
+                                  e; at this shape both take the whole-head
+                                  scheme (bwd_plan, bwd_deferred_plan)
 
 Each variant is held against its plain PyTorch version (the forward's
-tolerance, or the backward's per output) and the deferred backward also
-against the normalized one; a disagreement raises. Times are CUDA events
+tolerance, or the backward's per output) and against a second call of
+itself, bit for bit, and the deferred backward also against the
+normalized one; a disagreement raises. Times are CUDA events
 around `--iters` launches, the best of 3 after a warm-up. One JSON line
 closes the output.
 
@@ -25,9 +26,19 @@ Not swept: the reference's `g`, the samples per Pallas program under a
 block-diagonal mask. It is a Mosaic layout knob (sublane alignment, VMEM);
 every g computes the same function, and the CUDA kernels work per
 (sample, head) instead. The history in the reference's docstring (v5e
-times, r3-r5b) is TPU data, not a Hopper figure; its
-deferred backward also computes a wrong dq and dk (its row-sum term lacks
-the 1/denom), so its "defer loses" timed another function than this one.
+times, r3-r5b) is TPU data, not a Hopper figure, and its deferred backward
+computes a wrong dq and dk (its row-sum term lacks the 1/denom).
+
+The sweep's answer on Hopper (NVIDIA H100 80GB HBM3, 700.00 W; CUDA
+events, tools/flash_bench.py --kernels deferred, both kernels on the
+whole-head scheme in one run): deferring loses. The deferred backward
+takes 0.2387-0.2439 ms in both modes against the normalized one's
+0.1735-0.1781 (1.36-1.40x). Its dohn needs denom, so the product dohn
+Vb^T waits for S and its row sums, behind one more pass over dO's
+fragments with an IEEE division per element, where the normalized form
+forms S and dP side by side. Folding 1/denom into dO saves the
+normalization of the L x L scores, which in registers costs a multiply
+per score.
 
 Needs a CUDA device; on CPU tensors the callables below run the plain
 versions (the tests use them so, at a small shape).
@@ -117,53 +128,73 @@ def _fwd_error(out, ref):
     return err.max().item(), ok
 
 
-def sweep(iters: int = 20, seed: int = 0) -> list[dict]:
-    """Every variant at the module shape on the card: its ms, its plain
-    version's ms and its max error against that (and, for the deferred
-    backward, against the normalized kernel). Raises on a disagreement."""
-    x = operands("cuda", seed)
-    fwd_args = (x["q"], x["k"], x["v"], x["bq"], x["bk"], x["bv"])
-    bwd_args = (x["q"], x["k"], x["v"], x["do"], x["bq"], x["bk"], x["bv"])
-    rows = []
-    for exact in (False, True):
-        name = f"fwd {'exact' if exact else 'clip'}"
-        f, ref_f = make_fwd_bias(exact), plain_fwd(exact)
-        err, ok = _fwd_error(f(*fwd_args), ref_f(*fwd_args))
-        rows.append({"name": name, "max_abs_err": err, "ok": ok,
-                     "ms": time_ms(lambda: f(*fwd_args), iters),
-                     "plain_ms": time_ms(lambda: ref_f(*fwd_args),
-                                         max(2, iters // 4))})
-    normalized = {}
+def variants() -> list:
+    """(name, kernel, plain version, backward) of every swept variant, in
+    the sweep's order; arguments(x, backward) gives their operands."""
+    out = [(f"fwd {_mode(exact)}", make_fwd_bias(exact), plain_fwd(exact),
+            False) for exact in (False, True)]
     for defer in (False, True):
         for exact in (False, True):
-            name = (f"bwd {'deferred' if defer else 'normalized'} "
-                    f"{'exact' if exact else 'clip'}")
-            f, ref_f = make_bwd_bias(defer, exact), plain_bwd(defer, exact)
-            grads = f(*bwd_args)
-            errors = ba.bwd_errors(grads, ref_f(*bwd_args), torch.bfloat16)
+            out.append((f"bwd {'deferred' if defer else 'normalized'} "
+                        f"{_mode(exact)}", make_bwd_bias(defer, exact),
+                        plain_bwd(defer, exact), True))
+    return out
+
+
+def arguments(x: dict, backward: bool) -> tuple:
+    """A variant's operands from operands()' dict."""
+    names = ("q", "k", "v", "do") if backward else ("q", "k", "v")
+    return tuple(x[n] for n in names + ("bq", "bk", "bv"))
+
+
+def _mode(exact: bool) -> str:
+    return "exact" if exact else "clip"
+
+
+def sweep(iters: int = 20, seed: int = 0) -> list[dict]:
+    """Every variant at the module shape on the card: its ms, its plain
+    version's ms, its max error against that (and, for the deferred
+    backward, against the normalized kernel) and whether a second call
+    gives the same output bit for bit (no variant uses atomics). Raises on
+    a disagreement."""
+    x = operands("cuda", seed)
+    rows, normalized = [], {}
+    for name, f, ref_f, backward in variants():
+        args = arguments(x, backward)
+        out, again = f(*args), f(*args)
+        repeat = (all(map(torch.equal, out, again)) if backward
+                  else torch.equal(out, again))
+        if not backward:
+            err, ok = _fwd_error(out, ref_f(*args))
+            row = {"name": name, "max_abs_err": err, "ok": ok}
+        else:
+            errors = ba.bwd_errors(out, ref_f(*args), torch.bfloat16)
             row = {"name": name, "max_abs_err": max(e for e, _ in errors),
                    "ok": all(ok for _, ok in errors)}
-            if defer:
+            mode = name.split()[-1]
+            if "deferred" in name:
                 # the same gradient as the normalized kernel's
-                vs = ba.bwd_errors(grads, normalized[exact], torch.bfloat16)
+                vs = ba.bwd_errors(out, normalized[mode], torch.bfloat16)
                 row["vs_normalized_max_abs_err"] = max(e for e, _ in vs)
                 row["ok"] = row["ok"] and all(ok for _, ok in vs)
             else:
-                normalized[exact] = grads
-            row["ms"] = time_ms(lambda: f(*bwd_args), iters)
-            row["plain_ms"] = time_ms(lambda: ref_f(*bwd_args),
-                                      max(2, iters // 4))
-            rows.append(row)
+                normalized[mode] = out
+        row["repeat_identical"] = repeat
+        row["ok"] = row["ok"] and repeat
+        row["ms"] = time_ms(lambda: f(*args), iters)
+        row["plain_ms"] = time_ms(lambda: ref_f(*args), max(2, iters // 4))
+        rows.append(row)
     for row in rows:
         extra = (f" vs normalized {row['vs_normalized_max_abs_err']:.3e}"
                  if "vs_normalized_max_abs_err" in row else "")
         print(f"{row['name']:<24} {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f} ms), max abs err vs plain "
-              f"{row['max_abs_err']:.3e}{extra}", flush=True)
+              f"{row['max_abs_err']:.3e}{extra}, bit-identical on repeat "
+              f"{row['repeat_identical']}", flush=True)
     bad = [row["name"] for row in rows if not row["ok"]]
     if bad:
-        raise RuntimeError(f"variants disagree with their plain versions: "
-                           f"{bad}")
+        raise RuntimeError(f"variants disagree with their plain versions or "
+                           f"across two calls: {bad}")
     return rows
 
 

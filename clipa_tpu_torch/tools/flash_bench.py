@@ -1,14 +1,20 @@
-"""Times the attention kernels of one checkout at the shapes of
-``chip_smoke.py``: the fused forward (K1/K3/K5) at its phase-2
-``FUSED_SHAPES``, the fused backward (K2/K4/K6) at its phase-3
-``BWD_SHAPES`` and the flash kernels (K7 forward, K8 backward) at its
-phase-6 ``FLASH_SHAPES``.
+"""Times the kernels of one checkout at the shapes of ``chip_smoke.py``:
+the fused forward (K1/K3/K5) at its phase-2 ``FUSED_SHAPES``, the fused
+backward (K2/K4/K6) at its phase-3 ``BWD_SHAPES``, the flash kernels (K7
+forward, K8 backward) at its phase-6 ``FLASH_SHAPES``, and on request the
+uint8 patch embed (K9) at its phase-9 ``PATCH_CASES`` and the deferred
+backward (K10's) at ``tools/attn_sweep.py``'s shape, clip and exact.
 
     python clipa_tpu_torch/tools/flash_bench.py [--root DIR] [--plans]
-        [--kernels fused,flash] [--serve]
+        [--kernels fused,flash,patch,deferred] [--serve]
 
-Runs this checkout's ``chip_smoke._kernel_case``, ``_bwd_case`` and
-``_flash_case`` on the ``clipa_tpu_torch`` package under `--root`
+Runs this checkout's ``chip_smoke._kernel_case``, ``_bwd_case``,
+``_flash_case``, ``_patch_embed`` (``patch``: every gate of phase 9, then
+kernel, plain and ``F.conv2d`` times and the host's and each kernel's
+share of a call) and ``_sweep`` (``deferred``: phase 10, the sweep's
+variants against their plain versions and a second call, the deferred
+backward against the normalized one, each timed by events and by device
+time) on the ``clipa_tpu_torch`` package under `--root`
 (default: this checkout): the kernels against their plain versions, the
 outputs twice bit for bit, kernel, plain and SDPA times by CUDA events and
 by device time, and the bounds. So two commits are measured by the same
@@ -42,6 +48,8 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# the kernel sets that --kernels names
+KERNELS = ("fused", "flash", "patch", "deferred")
 
 
 def _chip_smoke():
@@ -139,14 +147,16 @@ def main(argv=None) -> int:
                         "it fuses")
     parser.add_argument("--kernels", default="fused,flash",
                         help="comma-separated: fused (phase 2's and 3's "
-                        "shapes), flash (phase 6's)")
+                        "shapes), flash (phase 6's), patch (phase 9's), "
+                        "deferred (the sweep's shape, clip and exact)")
     parser.add_argument("--serve", action="store_true",
                         help="first measure images/s and texts/s at bucket "
                         "256")
     args = parser.parse_args(argv)
     kernels = set(args.kernels.split(","))
-    if not kernels or kernels - {"fused", "flash"}:
-        parser.error(f"--kernels {args.kernels!r}: fused and/or flash")
+    if not kernels or kernels - set(KERNELS):
+        parser.error(f"--kernels {args.kernels!r}: a comma-separated subset "
+                     f"of {','.join(KERNELS)}")
     import torch
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA device", file=sys.stderr)
@@ -194,6 +204,10 @@ def main(argv=None) -> int:
             case["plan_device_ms"] = _plan_device_ms(
                 cs, fa, b, lq, lk, h, hd, q_scale, gen, iters=20)
         cases.append(case)
+    if "patch" in kernels:
+        cases.append({"name": "patch embed", **cs._patch_embed(gen)})
+    if "deferred" in kernels:
+        cases.append({"name": "attn sweep", **cs._sweep()})
     print(json.dumps({**out, "cases": cases}))
     return 0
 

@@ -213,3 +213,21 @@ def test_sweep_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         attn_sweep.main(["--iters", "1"])
+
+
+def test_variants_run_in_the_sweeps_order_on_their_operands():
+    """variants() names the six rows in the sweep's order (normalized
+    before deferred, whose rows compare against them), and each kernel
+    run on arguments(x, backward) gives its plain version's output (on
+    CPU tensors the wrappers run the plain versions)."""
+    names = [v[0] for v in attn_sweep.variants()]
+    assert names == ["fwd clip", "fwd exact", "bwd normalized clip",
+                     "bwd normalized exact", "bwd deferred clip",
+                     "bwd deferred exact"]
+    x = _inputs(5)
+    for name, f, ref_f, backward in attn_sweep.variants():
+        args = attn_sweep.arguments(x, backward)
+        assert len(args) == (7 if backward else 6)
+        got, want = f(*args), ref_f(*args)
+        got, want = (got, want) if backward else ((got,), (want,))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name

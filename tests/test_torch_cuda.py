@@ -13,7 +13,8 @@ flash forward's LSE; ``bwd_errors`` of either module for the backwards:
 in fp32 from the same operands with TF32 off. The deferred backward is
 held to the backward's tolerance against its plain twin and against the
 normalized kernel; the patch embed to ``patch_embed.errors`` (1e-4 of the
-output's scale for fp32 outputs, one bf16 ulp for bf16 ones).
+output's scale for fp32 outputs, one bf16 ulp for bf16 ones), which its
+two bf16 tensor-core products (the weights' hi and lo parts) meet.
 """
 
 import json
@@ -309,11 +310,12 @@ def test_bwd_wrapper_refuses_what_it_cannot_take(cuda):
 def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
     """Every scheme that bwd_candidates offers (whole-head, each long plan:
     every block split and ring) computes the same function in both modes,
-    and each gives bit-identical outputs over two calls (no atomics); a
-    plan whose sizes are not the kernel's own layout's, whose warps do not
-    fit its strips, whose scheme is unknown, that asks the deferred entry
-    for another scheme than the split one, or the normalized entry for the
-    split one is refused."""
+    and each gives bit-identical outputs over two calls (no atomics); the
+    deferred entry takes the whole-head plan too (its deferred form: the
+    deferred function, twice bit for bit); a plan whose sizes are not the
+    kernel's own layout's, whose warps do not fit its strips, whose scheme
+    is unknown, that asks the deferred entry for the long scheme, or the
+    normalized entry for the split one is refused."""
     q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, True,
                                         1.0, seed=13)
     hd = d // h
@@ -340,6 +342,17 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
             with pytest.raises(RuntimeError, match="launch failed"):
                 block_attention._launch_bwd(q, k, v, do, h, l, biases, False,
                                             plan=p)
+        if plan.scheme == block_attention.BWD_WHOLE:
+            ref = block_attention.attention_plain_bwd(q, k, v, do, h, l,
+                                                      biases, defer=True)
+            first, second = (block_attention._launch_bwd(
+                q, k, v, do, h, l, biases, False, plan=plan,
+                entry=block_attention._BWD_DEFERRED_ENTRY) for _ in "ab")
+            torch.cuda.synchronize()
+            errors = block_attention.bwd_errors(first, ref, torch.bfloat16)
+            assert all(ok for _, ok in errors), (plan, errors)
+            assert all(torch.equal(x, y) for x, y in zip(first, second))
+            continue
         with pytest.raises(RuntimeError, match="launch failed"):
             block_attention._launch_bwd(
                 q, k, v, do, h, l, biases, False, plan=plan,
@@ -688,13 +701,25 @@ def test_tiny_finetune_step_goes_through_the_flash_kernels(cuda):
 @pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", BWD_CASES)
 def test_deferred_bwd_kernel_matches_plain_and_normalized(
         cuda, b, l, d, h, bias, exact, q_scale):
+    """The deferred backward under bwd_deferred_plan at BWD_CASES (the
+    whole-head scheme's deferred form to L = 144, L = 50 among them; the
+    split pair past it, L = 180 among them): within the backward's
+    tolerance of its plain twin and of the normalized kernel, one launch
+    per call, and bit-identical over two calls."""
     q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, bias,
                                         q_scale, seed=5)
+    plan = block_attention.bwd_deferred_plan(l, d // h)
+    assert plan.scheme == (block_attention.BWD_WHOLE if l <= 144
+                           else block_attention.BWD_SPLIT)
     before = block_attention.fused_attention_bwd_deferred.launches
     grads = block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
                                                          biases, exact)
     torch.cuda.synchronize()
     assert block_attention.fused_attention_bwd_deferred.launches == before + 1
+    again = block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
+                                                         biases, exact)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)
+               if x is not None)
     plain = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
                                                 exact, defer=True)
     errors = block_attention.bwd_errors(grads, plain, torch.bfloat16)
@@ -714,11 +739,15 @@ def test_deferred_bwd_refuses_fp32(cuda):
 
 # --- the uint8 patch embed (K9) ---------------------------------------------
 
-# p = 16 at L/16's width, p = 14 at H/14's (K = 588, the K-tail), a batch
-# whose row count is not a multiple of the 128-row tile, and a non-square
-# image.
+# p = 16 at L/16's width, p = 14 at H/14's (K = 588: the k loop pads to
+# 640), a non-square image, Ti/16's width 192 (a half-empty 128-column
+# tile), and width 100 (a multiple of 4, not of 8) at p = 14. No case's row
+# count is a multiple of the GEMM's 192-row tile: (2, 224, 224, 14) has 512
+# rows and (2, 224, 224, 16) 392, so their last row tile is ragged behind
+# whole ones; the others fit in one ragged tile.
 PATCH_CASES = [(3, 112, 112, 16, 1024), (2, 224, 224, 14, 1280),
-               (5, 48, 80, 16, 256)]
+               (5, 48, 80, 16, 256), (2, 224, 224, 16, 192),
+               (3, 56, 70, 14, 100)]
 
 
 def _patch_operands(cuda, b, hh, ww, p, width, seed=0):
@@ -752,6 +781,79 @@ def test_patch_embed_kernel_matches_plain(cuda, b, hh, ww, p, width,
     assert out.dtype == out_dtype
     err, ok = patch_embed.errors(out, ref)
     assert ok, err
+    # no split-K, no atomics: a second call agrees bit for bit
+    assert torch.equal(out, patch_embed.fused_patch_embed(
+        images, kernel, bias, out_dtype=out_dtype, impl="pallas"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [16, 14, 7])
+@pytest.mark.parametrize("offset", [0, 2, 1])
+def test_patch_embed_kernel_every_image_load_width(cuda, p, offset):
+    """The patchify kernel reads each patch-row group's image rows with
+    16-byte loads where they are aligned (offset 0 at p = 16: 96 px rows
+    of 288 bytes), else byte by byte (p = 14's 252-byte rows, or an image
+    that starts `offset` bytes into its buffer), and gathers them into
+    patch rows by byte pairs (p even) or bytes (the GEMM's input); every
+    route within patch_embed.errors of the plain version."""
+    from clipa_tpu_torch.ops import patch_embed
+    images, kernel, bias = _patch_operands(cuda, 2, 4 * p, 6 * p, p, 256,
+                                           seed=1)
+    buf = torch.empty(images.numel() + 8, dtype=torch.uint8, device=cuda)
+    shifted = buf[offset:offset + images.numel()].view(images.shape)
+    shifted.copy_(images)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == offset
+    out = patch_embed.fused_patch_embed(shifted, kernel, bias,
+                                        out_dtype=torch.float32,
+                                        impl="pallas")
+    ref = patch_embed.fused_patch_embed(images, kernel, bias,
+                                        out_dtype=torch.float32, impl="xla")
+    err, ok = patch_embed.errors(out, ref)
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,width", [(14, 100), (16, 1024), (14, 1280)])
+def test_patch_embed_split_kernel_matches_split_weights(cuda, monkeypatch, p,
+                                                        width):
+    """The entry's split kernel writes split_weights' (2, width, k_pad) bf16
+    hi and lo parts bit for bit, zeros past K included (the scratch starts
+    as NaN): a width that leaves a part-filled 32-column tile and K = 588,
+    which leaves a part-filled 32-row tile."""
+    from clipa_tpu_torch.ops import patch_embed
+    images, kernel, _ = _patch_operands(cuda, 2, 2 * p, 3 * p, p, width)
+    w, shift = patch_embed.fold_normalization(kernel)
+    made, real_empty = [], torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        made.append(out.fill_(float("nan")) if out.is_floating_point()
+                    else out)
+        return out
+
+    monkeypatch.setattr(torch, "empty", empty)
+    patch_embed._launch(images, w, shift, p, torch.float32)
+    monkeypatch.undo()
+    split = made[0]
+    assert split.dtype == torch.bfloat16
+    assert torch.equal(split, patch_embed.split_weights(
+        w, split.shape[2]))
+
+
+@pytest.mark.cuda
+def test_patch_embed_entry_refuses_other_plans(cuda):
+    """The C entry takes patch_plan's launch and no other: each field of
+    the plan off by a step is refused (cudaErrorInvalidValue)."""
+    from clipa_tpu_torch.ops import patch_embed
+    images, kernel, bias = _patch_operands(cuda, 2, 32, 32, 16, 128)
+    w, shift = patch_embed.fold_normalization(kernel)
+    plan = patch_embed.patch_plan(8, 128, 16, 32)
+    patch_embed._launch(images, w, shift, 16, torch.bfloat16, plan=plan)
+    for field in plan._fields:
+        bad = plan._replace(**{field: getattr(plan, field) + 16})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            patch_embed._launch(images, w, shift, 16, torch.bfloat16,
+                                plan=bad)
 
 
 @pytest.mark.cuda

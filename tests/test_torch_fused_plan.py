@@ -9,7 +9,8 @@ work item of a persistent kernel, one warp per 16-row strip (the
 whole-head scheme, L <= 144), or two kernels whose strips spread over
 blocks as the forward's do, the other operands through a ring of 128-row
 tiles (the long scheme, past 144), or PR 2's two kernels over 64-row tiles
-(the split scheme: the deferred variant's).
+(the split scheme: the deferred variant's past 144; up to 144 it takes the
+whole-head scheme's deferred form, ``bwd_deferred_plan``).
 Their entry points take the plans' numbers and refuse a shared-memory size
 that is not their layout's (the card tests hold the two together). Here:
 the plans cover every strip once, idle no warp at the image towers'
@@ -179,7 +180,7 @@ def test_bwd_plan_covers_every_strip_once(l, hd):
         else:
             assert p.scheme == block_attention.BWD_LONG
             assert p in block_attention.bwd_long_candidates(l, hd)
-    # the split scheme, the deferred variant's only one, covers every strip
+    # the split scheme, the deferred variant's past 144, covers every strip
     split = block_attention.bwd_split_plan(l, hd)
     assert split.scheme == block_attention.BWD_SPLIT
     assert _bwd_owners(split, l) == [1] * strips
@@ -251,8 +252,9 @@ def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
     then the scale and the mode, and the fp32 twin no plan; the row
     statistics scratch only to the split and long schemes (and the fp32
     twin), the bias-grad partials and dbias only with biases; the deferred
-    entry takes the split plan, and a plan given to _launch_bwd replaces
-    bwd_plan's."""
+    entry takes bwd_deferred_plan's (the whole-head scheme at L = 50, the
+    split pair past 144) and its statistics scratch only with the split
+    pair, and a plan given to _launch_bwd replaces bwd_plan's."""
     seen = []
     monkeypatch.setattr(block_attention, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(block_attention, "bwd_library", lambda: "bwd")
@@ -287,8 +289,12 @@ def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
     block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l, biases,
                                                  exact)
     assert seen[-1][1] == block_attention._BWD_DEFERRED_ENTRY
-    assert seen[-1][2][17:23] == tuple(block_attention.bwd_split_plan(l, hd))
-    assert seen[-1][2][10] is not None   # the split scheme's statistics
+    deferred = block_attention.bwd_deferred_plan(l, hd)
+    assert deferred.scheme == (block_attention.BWD_WHOLE if l <= 144
+                               else block_attention.BWD_SPLIT)
+    assert seen[-1][2][17:23] == tuple(deferred)
+    # the split scheme's statistics; the whole-head scheme keeps them
+    assert (seen[-1][2][10] is None) == (l <= 144)
     for other in block_attention.bwd_candidates(l, hd):
         block_attention._launch_bwd(q, k, v, do, h, l, biases, exact,
                                     plan=other)
@@ -370,3 +376,33 @@ def test_bwd_scratch_follows_the_plan(l, scheme, bias):
                                                          bias, None)
     assert stats.shape == (3, b * l * h) and partial is None
     assert (dbias is None) == (not bias)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_bwd_deferred_plan_is_whole_head_to_144_then_split(hd):
+    """The deferred entry's plan: at every L up to 16 x BWD_MAX_CHUNKS =
+    144 the whole-head scheme, the same launch as the normalized entry's
+    (its deferred form shares the layout), and from 145 to 577 the split
+    pair, never the long scheme; every strip covered once, both kernels'
+    shared memory within an H100 block's 227 KB; pure and cached."""
+    for l in range(1, 578):
+        plan = block_attention.bwd_deferred_plan(l, hd)
+        assert plan is block_attention.bwd_deferred_plan(l, hd)
+        if l <= 16 * block_attention.BWD_MAX_CHUNKS:
+            assert plan.scheme == block_attention.BWD_WHOLE
+            assert plan == block_attention.bwd_plan(l, hd)
+        else:
+            assert plan == block_attention.bwd_split_plan(l, hd)
+        assert _bwd_owners(plan, l) == [1] * -(-l // 16)
+        assert 0 < plan.smem <= flash_attention.SMEM_LIMIT
+        assert 0 <= plan.smem_dkv <= flash_attention.SMEM_LIMIT
+
+
+def test_bwd_deferred_plan_at_the_sweep_shape():
+    """tools/attn_sweep.py's shape (L = 50, hd 64): four warps of the
+    whole-head scheme, one (sample, head) per block, no ring, the block's
+    Q and dO, K and V (then bf16(e) and dsb) and three sets of column sums
+    in 39936 bytes."""
+    plan = block_attention.bwd_deferred_plan(50, 64)
+    assert plan == block_attention.BwdPlan(block_attention.BWD_WHOLE, 4, 1,
+                                           0, 39936, 0)

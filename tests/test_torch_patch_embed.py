@@ -16,6 +16,8 @@ the bias shift a sum of 3p^2 terms in another order (1e-6 of the sum of
 their magnitudes).
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,3 +204,157 @@ def test_kernel_tolerance_helper():
     two_up = (ref * (1 + 2.0 ** -6)).to(torch.bfloat16)
     assert not pe.errors(two_up, ref.to(torch.bfloat16))[1]
     assert not pe.errors(torch.tensor([1.0, float("nan"), 0.5]), ref)[1]
+
+
+# --- the tensor-core route of the CUDA kernel, emulated on the CPU ---------
+
+# chip_smoke.py's PATCH_CASES geometries (side, p, width) at a small batch:
+# L/16 @112, H/14 @224 (K = 588) and Ti/16 @224 (width 192: the JAX
+# package's Pallas gate gives way to XLA there)
+KERNEL_CASES = [(112, 16, 1024), (224, 14, 1280), (224, 16, 192)]
+
+
+def _stem(side, p, width, seed):
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (1, side, side, 3)).astype(np.uint8)
+    kernel = (rng.randn(p, p, 3, width) * 0.02).astype(np.float32)
+    bias = rng.randn(width).astype(np.float32)
+    return images, kernel, bias
+
+
+@pytest.mark.parametrize("side,p,width", KERNEL_CASES)
+def test_split_weights_reconstruct_the_folded_weights(side, p, width):
+    """hi + lo gives the folded fp32 weights to 2^-16 of each (in float64,
+    where their sum is exact); hi alone does not; both are zero past K in
+    the (2, width, k_pad) K-major layout the kernel's TMA reads."""
+    _, kernel, _ = _stem(side, p, width, seed=5)
+    w, _ = pe.fold_normalization(torch.from_numpy(kernel))
+    k = 3 * p * p
+    plan = pe.patch_plan((side // p) ** 2, width, p, side)
+    split = pe.split_weights(w, plan.k_pad)
+    assert split.dtype == torch.bfloat16
+    assert split.shape == (2, width, plan.k_pad) and split.is_contiguous()
+    hi, lo = (x.double().t() for x in split)
+    assert not hi[k:].any() and not lo[k:].any()
+    w64 = w.double()
+    assert ((hi[:k] + lo[:k] - w64).abs() <= 2.0 ** -16 * w64.abs()).all()
+    assert not ((hi[:k] - w64).abs() <= 2.0 ** -16 * w64.abs()).all()
+
+
+def _emulated(images, w, full_bias, p, out_dtype, terms):
+    """The kernel's arithmetic in fp32 on the CPU: the image (exact in bf16)
+    times each bf16 part of the split weights in `terms` (0: hi, 1: lo),
+    summed in fp32 with the bias, rounded once."""
+    k = w.shape[0]
+    split = pe.split_weights(w, -(-k // 64) * 64)
+    zero = torch.zeros_like(full_bias)
+    acc = sum(pe.patch_embed_plain(images, split[t, :, :k].float().t(), zero,
+                                   p, torch.float32) for t in terms)
+    return (acc + full_bias).to(out_dtype)
+
+
+@pytest.mark.parametrize("side,p,width", KERNEL_CASES)
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_hi_plus_lo_meets_the_kernel_tolerance_against_jax(side, p, width,
+                                                           out):
+    """x.hi + x.lo in fp32 is within patch_embed.errors of the JAX
+    package's fused_patch_embed(impl="pallas") (its Pallas kernel in
+    interpret mode, or XLA where its gate gives way) at the three phase-9
+    geometries, in both output types; x.hi alone is not (fp32 outputs:
+    its 2^-9 weight error is some 20 times the tolerance)."""
+    images, kernel, bias = _stem(side, p, width, seed=6)
+    ref = np.array(jax_pe.fused_patch_embed(
+        jnp.asarray(images), jnp.asarray(kernel), bias=jnp.asarray(bias),
+        out_dtype=getattr(jnp, out), impl="pallas").astype(jnp.float32))
+    ref = torch.from_numpy(ref).to(getattr(torch, out))
+    w, shift = pe.fold_normalization(torch.from_numpy(kernel))
+    full = shift + torch.from_numpy(bias)
+    x = torch.from_numpy(images)
+    got = _emulated(x, w, full, p, getattr(torch, out), (0, 1))
+    err, ok = pe.errors(got, ref)
+    assert ok, err
+    if out == "float32":
+        err_hi, ok_hi = pe.errors(_emulated(x, w, full, p, torch.float32,
+                                            (0,)), ref)
+        assert not ok_hi and err_hi > 10 * err
+
+
+@pytest.mark.parametrize("b,side,p,width", [
+    (384, 112, 16, 1024), (256, 224, 14, 1280), (64, 224, 16, 192),
+    (5, 48, 16, 256), (3, 64, 16, 100), (1, 28, 14, 4), (2, 70, 14, 128),
+    (1, 1344, 14, 256), (1, 96, 32, 768), (2, 40, 8, 128)])
+def test_patch_plan_covers_every_tile_once_and_fits(b, side, p, width):
+    """patch_plan's GEMM grid covers each output row and column once (no
+    block wholly past the edge), its k loop reaches K in whole stages, and
+    the shared memory of both kernels (the GEMM's ring, per stage a bf16 A
+    tile and the hi and lo weight tiles and three mbarriers, its ring of
+    four uint8 patch-row tiles with two mbarriers each, 1024 bytes of
+    alignment; the patchify kernel's p image rows of 3 * side bytes,
+    rounded up to 16) fits an H100 block's 227 KB; the plan is pure and
+    cached."""
+    from clipa_tpu_torch.ops.flash_attention import SMEM_LIMIT
+    rows, k = b * (side // p) ** 2, 3 * p * p
+    plan = pe.patch_plan(rows, width, p, side)
+    assert plan is pe.patch_plan(rows, width, p, side)
+    for n, tile, grid in ((rows, plan.bm, plan.grid_m),
+                          (width, plan.bn, plan.grid_n)):
+        owners = [0] * n
+        for t in range(grid):
+            for i in range(t * tile, min((t + 1) * tile, n)):
+                owners[i] += 1
+        assert owners == [1] * n
+        assert (grid - 1) * tile < n
+    assert plan.grid_m <= 65535
+    assert plan.k_pad % plan.bk == 0 and 0 <= plan.k_pad - k < plan.bk
+    stage = (plan.bm + 2 * plan.bn) * plan.bk * 2
+    assert plan.smem == (plan.stages * (stage + 3 * 8)
+                         + 4 * (plan.bm * plan.bk + 2 * 8) + 1024)
+    assert plan.patchify_smem == -(-3 * p * side // 16) * 16
+    assert max(plan.smem, plan.patchify_smem) <= SMEM_LIMIT
+
+
+def test_patch_plan_refuses_rows_past_shared_memory():
+    """The patchify kernel holds one patch-row group's p image rows: past
+    a block's shared memory (p = 14 rows of a 5600 pixel image) there is
+    no plan."""
+    with pytest.raises(ValueError, match="shared memory"):
+        pe.patch_plan(400 ** 2, 128, 14, 5600)
+
+
+def test_kernel_launch_hands_the_entry_the_plan_and_the_split(monkeypatch):
+    """With a stand-in library, _launch hands the C entry the images, a
+    (rows, k_pad) uint8 scratch for the patch rows, the folded fp32
+    weights and a (2, width, k_pad) bf16 scratch for their split, the
+    dimensions, patch_plan's numbers and the output type, and allocates
+    the (rows, width) output."""
+    images, kernel, bias = _operands(14, 256, 28, 42)
+    images = torch.from_numpy(images)
+    w, shift = pe.fold_normalization(torch.from_numpy(kernel))
+    seen, made, real_empty = {}, [], torch.empty
+
+    class Lib:
+        def clipa_patch_embed(self, *args):
+            seen["args"] = args
+            return 0
+
+    monkeypatch.setattr(pe, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(
+        real_empty(*a, **k)) or made[-1])
+    out = pe._launch(images, w, shift, 14, torch.float32)
+    plan = pe.patch_plan(2 * 2 * 3, 256, 14, 42)
+    split, x, _ = made
+    assert out is made[2]
+    assert out.shape == (12, 256) and out.dtype == torch.float32
+    assert split.shape == (2, 256, plan.k_pad)
+    assert split.dtype == torch.bfloat16
+    assert x.shape == (12, plan.k_pad) and x.dtype == torch.uint8
+    assert seen["args"][:6] == (images.data_ptr(), x.data_ptr(),
+                                w.data_ptr(), split.data_ptr(),
+                                shift.data_ptr(), out.data_ptr())
+    assert seen["args"][6:] == (2, 28, 42, 14, 256, plan.k_pad, 0, plan.bm,
+                                plan.bn, plan.bk, plan.stages, plan.grid_n,
+                                plan.grid_m, plan.smem, plan.patchify_smem,
+                                7)

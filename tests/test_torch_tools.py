@@ -305,3 +305,45 @@ def test_laion_rename_and_urls(tmp_path, capsys):
             laion.main(argv)
     with pytest.raises(SystemExit, match="no files match"):
         laion.main(["count", "--pattern", str(tmp_path / "nothing*")])
+
+
+@pytest.mark.parametrize("kernels", ["patch,deferred", "patch", "deferred",
+                                     "fused,flash,patch,deferred"])
+def test_flash_bench_takes_the_kernel_sets_and_needs_a_card(
+        monkeypatch, capsys, kernels):
+    """tools/flash_bench.py --kernels parses the patch embed and deferred
+    backward sets beside fused and flash, then refuses to run without a
+    card (exit 1, nothing timed)."""
+    from clipa_tpu_torch.tools import flash_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_bench.main(["--kernels", kernels]) == 1
+    out = capsys.readouterr()
+    assert "no CUDA device" in out.err and out.out == ""
+
+
+@pytest.mark.parametrize("kernels", ["patch,sweep", "", "conv"])
+def test_flash_bench_refuses_unknown_kernel_sets(kernels):
+    from clipa_tpu_torch.tools import flash_bench
+    with pytest.raises(SystemExit):
+        flash_bench.main(["--kernels", kernels])
+
+
+@pytest.mark.parametrize("name,short", [
+    ("void (anonymous namespace)::patch_gemm_kernel<__nv_bfloat16>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, __nv_bfloat16*, int)",
+     "patch_gemm_kernel<__nv_bfloat16>"),
+    ("void (anonymous namespace)::split_kernel(float const*, "
+     "__nv_bfloat16*, int, int, int)", "split_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::CUDAFunctorOnSelf_add<float>, std::array<char*, 2ul> >("
+     "int, at::native::CUDAFunctorOnSelf_add<float>, "
+     "std::array<char*, 2ul>)",
+     "vectorized_elementwise_kernel<4, CUDAFunctorOnSelf_add<float>, std::ar"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD "),
+])
+def test_chip_smoke_kernel_names_drop_arguments_and_namespaces(name, short):
+    """chip_smoke's per-kernel device breakdown keys each kernel by its
+    name without arguments, return type and namespaces (70 characters at
+    most)."""
+    from clipa_tpu_torch.tools import flash_bench
+    assert flash_bench._chip_smoke()._kernel_name(name) == short
