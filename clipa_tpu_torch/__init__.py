@@ -11,5 +11,8 @@ use); everything else is plain PyTorch and numpy. The port imports nothing
 of ``clipa_tpu``: what it needs of the JAX package's host-only modules
 (the config system and the experiment configs, the WordPiece tokenizer,
 the open_clip model JSON files, the pp ops and data sources, the prompt
-data) it keeps as its own copy.
+data) it keeps as its own copy. A few modules are the port's own, with no
+counterpart under ``clipa_tpu/``: ``ops/cuda_build.py`` (the kernels'
+build) and ``tracing.py`` (named host spans of the training step, the
+optimizer and the embedding service, on the profiler's clock).
 """

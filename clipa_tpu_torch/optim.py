@@ -35,7 +35,9 @@ fp32, and may store the second moment in ``nu_dtype``. Both are here, as one
 function with that one difference.
 
 Parameters and moments live on the parameters' device; updates are fp32
-tensors in the parameters' layout.
+tensors in the parameters' layout. :meth:`Optimizer.update` and
+:meth:`Optimizer.apply` run in the spans ``train.optim.update`` and
+``train.optim.apply`` (``tracing.py``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from clipa_tpu_torch import convert, utils as u
+from clipa_tpu_torch import convert, tracing, utils as u
 from clipa_tpu_torch.config import steps
 
 # --------------------------------------------------------------------------
@@ -289,38 +291,39 @@ class Optimizer:
                                                              torch.Tensor]:
         """One step of the chain: returns {name: fp32 update} (to be added
         to the parameters) and advances the moments and the count."""
-        names = list(self.params)
-        grads = {n: grads[n].float() for n in names}
-        active = [n for n in names if n not in self.frozen]
-        if self.clip:
-            norm = torch.sqrt(
-                self._sqsum(grads, active) if self._sqsum is not None
-                else sum(grads[n].square().sum() for n in active))
-            keep = norm < self.clip
-            for n in active:
-                grads[n] = torch.where(keep, grads[n],
-                                       grads[n] / norm * self.clip)
-        c = self.count + 1   # bias correction in fp32, as optax's
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(c))
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(c))
-        sched = [float(fn(self.count)) for fn in self.schedule_fns]
-        updates = {}
-        for n in names:
-            if n in self.frozen:
-                updates[n] = torch.zeros_like(grads[n])
-                continue
-            x = self._direction(n, grads[n], bc1, bc2)
-            if n in self.wd:
-                x = x + self.params[n].float() * self.wd[n]
-            x = x * self.lr
-            if n in self.lr_mults:
-                x = x * self.lr_mults[n]
-            if n in self.lwd:
-                x = x * self.lwd[n]
-            x = x * sched[self.group[n]]
-            updates[n] = -x
-        self.count = c
-        return updates
+        with tracing.span("train.optim.update"):
+            names = list(self.params)
+            grads = {n: grads[n].float() for n in names}
+            active = [n for n in names if n not in self.frozen]
+            if self.clip:
+                norm = torch.sqrt(
+                    self._sqsum(grads, active) if self._sqsum is not None
+                    else sum(grads[n].square().sum() for n in active))
+                keep = norm < self.clip
+                for n in active:
+                    grads[n] = torch.where(keep, grads[n],
+                                           grads[n] / norm * self.clip)
+            c = self.count + 1   # bias correction in fp32, as optax's
+            bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(c))
+            bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(c))
+            sched = [float(fn(self.count)) for fn in self.schedule_fns]
+            updates = {}
+            for n in names:
+                if n in self.frozen:
+                    updates[n] = torch.zeros_like(grads[n])
+                    continue
+                x = self._direction(n, grads[n], bc1, bc2)
+                if n in self.wd:
+                    x = x + self.params[n].float() * self.wd[n]
+                x = x * self.lr
+                if n in self.lr_mults:
+                    x = x * self.lr_mults[n]
+                if n in self.lwd:
+                    x = x * self.lwd[n]
+                x = x * sched[self.group[n]]
+                updates[n] = -x
+            self.count = c
+            return updates
 
     def state_dict(self) -> dict:
         """{"count": steps taken, "mu": {name: moment}, "nu": {...}}: the
@@ -351,9 +354,10 @@ class Optimizer:
     @torch.no_grad()
     def apply(self, updates: dict[str, torch.Tensor]) -> None:
         """params += updates, in place (optax.apply_updates)."""
-        for n, x in updates.items():
-            p = self.params[n]
-            p.copy_((p.float() + x).to(p.dtype))
+        with tracing.span("train.optim.apply"):
+            for n, x in updates.items():
+                p = self.params[n]
+                p.copy_((p.float() + x).to(p.dtype))
 
 
 def named_parameters(model: Union[nn.Module, dict]) -> dict[str,

@@ -51,7 +51,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from clipa_tpu_torch import utils
+from clipa_tpu_torch import tracing, utils
 
 
 class MemmapWriter:
@@ -217,40 +217,49 @@ class EmbeddingService:
         On CUDA the copy in goes from pinned memory without blocking, the
         launches return before the device finishes, and the result is copied
         back into pinned memory behind an event; :meth:`_run_bucketed` waits
-        on that event only when it drains the chunk.
+        on that event only when it drains the chunk. All of it runs in the
+        span ``serve.stage``, the host copy into pinned memory in
+        ``serve.pin`` (``tracing.py``).
         """
-        x = torch.from_numpy(np.ascontiguousarray(chunk))
-        parts = x.chunk(len(self.devices))
-        out = []
-        for part, device, model in zip(parts, self.devices, self.replicas):
-            if device.type != "cuda":
-                out.append((fn(model, part.to(device)), None))
-                continue
-            with torch.cuda.device(device):
-                part = part.pin_memory().to(device, non_blocking=True)
-                z = fn(model, part)
-                host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
-                host.copy_(z, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            out.append((host, done))
-        return out
+        with tracing.span("serve.stage"):
+            x = torch.from_numpy(np.ascontiguousarray(chunk))
+            parts = x.chunk(len(self.devices))
+            out = []
+            for part, device, model in zip(parts, self.devices,
+                                           self.replicas):
+                if device.type != "cuda":
+                    out.append((fn(model, part.to(device)), None))
+                    continue
+                with torch.cuda.device(device):
+                    with tracing.span("serve.pin"):
+                        part = part.pin_memory()
+                    part = part.to(device, non_blocking=True)
+                    z = fn(model, part)
+                    host = torch.empty(z.shape, dtype=z.dtype,
+                                       pin_memory=True)
+                    host.copy_(z, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                out.append((host, done))
+            return out
 
     def _run_bucketed(self, fn, arrays, writer=None) -> Optional[np.ndarray]:
         """Runs fn over bucket-padded chunks, two dispatches in flight.
 
         With `writer`, rows stream to it and nothing accumulates in RAM;
-        otherwise returns the stacked (N, C) matrix.
+        otherwise returns the stacked (N, C) matrix. The wait on a chunk and
+        its concatenation run in the span ``serve.drain``.
         """
         out = [] if writer is None else None
         pending = collections.deque()  # ((result, event), valid rows)
 
         def drain_one():
             parts, take = pending.popleft()
-            for _, done in parts:
-                if done is not None:
-                    done.synchronize()
-            block = np.concatenate([z.numpy() for z, _ in parts])[:take]
+            with tracing.span("serve.drain"):
+                for _, done in parts:
+                    if done is not None:
+                        done.synchronize()
+                block = np.concatenate([z.numpy() for z, _ in parts])[:take]
             if writer is None:
                 out.append(block)
             else:

@@ -44,6 +44,13 @@ are 0 on the others; with ``config.log_block_norms``, the image tower's
 gradient norms per block (:func:`_block_norms`). Values are 0-d tensors on
 the device (no host sync).
 
+The step's host phases run in spans of ``tracing.py``: ``train.step``
+around all of ``update()``; ``train.forward`` (the normalize and the
+forward; under accumulation, the normalize and pass 1, then each
+microbatch's live forward), ``train.loss``, ``train.backward`` (autograd),
+``train.norms`` (the norm measurements), and the optimizer's
+``train.optim.update`` and ``train.optim.apply``.
+
 :func:`make_predict_fn` is the evaluators' forward: eval mode, no masking,
 no gradients, uint8 images normalized as the step normalizes them.
 
@@ -102,7 +109,7 @@ import numpy as np
 import torch
 
 from clipa_tpu_torch import losses as losses_lib
-from clipa_tpu_torch import optim, utils
+from clipa_tpu_torch import optim, tracing, utils
 from clipa_tpu_torch.models import get_model_module, layers
 from clipa_tpu_torch.ops import infonce, preprocess, ring_infonce
 from clipa_tpu_torch.parallel import collectives
@@ -378,22 +385,28 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
         raise ValueError(f"unknown norm_metrics {norm_metrics!r}")
 
     def loss_and_measurements(zimg, ztxt, extras, teacher_out=None):
-        loss, l_extras = apply_loss(zimg, ztxt, extras, teacher_out)
-        return loss, {
-            "t": extras["t"][0].detach(),
-            "t/parameter": extras["t/parameter"][0].detach().clone(),
-            "nimg": extras["img/norm"].mean().detach(),
-            "ntxt": extras["txt/norm"].mean().detach(),
-            **{k: v.mean().detach() for k, v in l_extras.items()},
-        }
+        with tracing.span("train.loss"):
+            loss, l_extras = apply_loss(zimg, ztxt, extras, teacher_out)
+            return loss, {
+                "t": extras["t"][0].detach(),
+                "t/parameter": extras["t/parameter"][0].detach().clone(),
+                "nimg": extras["img/norm"].mean().detach(),
+                "ntxt": extras["txt/norm"].mean().detach(),
+                **{k: v.mean().detach() for k, v in l_extras.items()},
+            }
 
     def gradients(loss, params, names):
-        found = torch.autograd.grad(loss, [params[n] for n in names],
-                                    allow_unused=True)
-        return {n: torch.zeros_like(params[n]) if g is None else g
-                for n, g in zip(names, found)}
+        with tracing.span("train.backward"):
+            found = torch.autograd.grad(loss, [params[n] for n in names],
+                                        allow_unused=True)
+            return {n: torch.zeros_like(params[n]) if g is None else g
+                    for n, g in zip(names, found)}
 
     def update(state: dict, batch: dict):
+        with tracing.span("train.step"):
+            return _update(state, batch)
+
+    def _update(state: dict, batch: dict):
         params = state["params"]
         shards = state.get("shards")
         # autograd runs over the model's full parameters
@@ -402,59 +415,67 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
         sqsum = (shards.sqsum if shards is not None
                  else lambda tree: _sqsum(tree.values()))
         images, labels = batch["image"], batch["labels"]
-        if normalize_on_device and images.dtype == torch.uint8:
-            images = preprocess.normalize_uint8(images)
+        # single pass: the normalize and the forward; accumulation: the
+        # normalize and pass 1 (every microbatch's features, without
+        # gradients)
+        with tracing.span("train.forward"):
+            if normalize_on_device and images.dtype == torch.uint8:
+                images = preprocess.normalize_uint8(images)
 
-        teacher_out = None
-        if teacher_model is not None:
-            # the frozen teacher: eval mode, no graph, unmasked images
-            teacher_model.eval()
-            with torch.no_grad():
-                t_zimg, t_ztxt, t_extras = teacher_model(images, labels)
-            teacher_out = (t_zimg, t_ztxt, t_extras["t"])
+            teacher_out = None
+            if teacher_model is not None:
+                # the frozen teacher: eval mode, no graph, unmasked images
+                teacher_model.eval()
+                with torch.no_grad():
+                    t_zimg, t_ztxt, t_extras = teacher_model(images, labels)
+                teacher_out = (t_zimg, t_ztxt, t_extras["t"])
 
-        model.train()
+            model.train()
+            if accum_steps <= 1:
+                generator = (mask_generator(config, state["step"],
+                                            images.device)
+                             if mask_ratio > 0 else None)
+                with layers.random_streams(**drop_generators(
+                        config, state["step"], images.device), shard=shard):
+                    zimg, ztxt, extras = model(images, labels,
+                                               mask_ratio=mask_ratio,
+                                               generator=generator)
+            else:
+                if images.shape[0] % accum_steps:
+                    raise ValueError(
+                        f"grad_accum_steps={accum_steps} must divide the "
+                        f"global batch size {images.shape[0]}")
+                mb = images.shape[0] // accum_steps
+                micro = [(images[j * mb:(j + 1) * mb],
+                          labels[j * mb:(j + 1) * mb])
+                         for j in range(accum_steps)]
+
+                def embed(j):
+                    generator = (mask_generator(config, state["step"],
+                                                images.device, j)
+                                 if mask_ratio > 0 else None)
+                    with layers.random_streams(**drop_generators(
+                            config, state["step"], images.device, j),
+                            shard=shard):
+                        return model(*micro[j], mask_ratio=mask_ratio,
+                                     generator=generator)
+
+                with torch.no_grad():
+                    cached = [embed(j)[:2] for j in range(accum_steps)]
+                zi_all = torch.cat([z for z, _ in cached])
+                zt_all = torch.cat([z for _, z in cached])
+                del cached
         if accum_steps <= 1:
-            generator = (mask_generator(config, state["step"], images.device)
-                         if mask_ratio > 0 else None)
-            with layers.random_streams(**drop_generators(
-                    config, state["step"], images.device), shard=shard):
-                zimg, ztxt, extras = model(images, labels,
-                                           mask_ratio=mask_ratio,
-                                           generator=generator)
             loss, measurements = loss_and_measurements(zimg, ztxt, extras,
                                                        teacher_out)
             grads = gradients(loss, full, names)
         else:
-            if images.shape[0] % accum_steps:
-                raise ValueError(
-                    f"grad_accum_steps={accum_steps} must divide the global "
-                    f"batch size {images.shape[0]}")
-            mb = images.shape[0] // accum_steps
-            micro = [(images[j * mb:(j + 1) * mb], labels[j * mb:(j + 1) * mb])
-                     for j in range(accum_steps)]
-
-            def embed(j):
-                generator = (mask_generator(config, state["step"],
-                                            images.device, j)
-                             if mask_ratio > 0 else None)
-                with layers.random_streams(**drop_generators(
-                        config, state["step"], images.device, j),
-                        shard=shard):
-                    return model(*micro[j], mask_ratio=mask_ratio,
-                                 generator=generator)
-
-            # pass 1: every microbatch's features, without gradients
-            with torch.no_grad():
-                cached = [embed(j)[:2] for j in range(accum_steps)]
-            zi_all = torch.cat([z for z, _ in cached])
-            zt_all = torch.cat([z for _, z in cached])
-            del cached
             # pass 2: microbatch j live, against the full batch's negatives
             grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in full.items()}
             for j in range(accum_steps):
-                zimg_j, ztxt_j, extras = embed(j)
+                with tracing.span("train.forward"):
+                    zimg_j, ztxt_j, extras = embed(j)
                 rows = slice(j * mb, (j + 1) * mb)
                 zimg = torch.cat([zi_all[:rows.start], zimg_j,
                                   zi_all[rows.stop:]])
@@ -478,19 +499,19 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
         if mesh is not None:
             measurements.update(collectives.reduce_scalar_mean(
                 {k: v for k, v in measurements.items() if k in _AVERAGED}))
-        if norm_metrics != "never":
-            # `step` is pre-increment; the loop logs this batch as step + 1
-            logged = state["step"] + 1
-            due = (norm_metrics == "always" or logged % log_steps == 0
-                   or logged == 1 or logged == total_steps)
-            zero = torch.zeros((), device=loss.device)
-            with torch.no_grad():
+        with tracing.span("train.norms"), torch.no_grad():
+            if norm_metrics != "never":
+                # `step` is pre-increment; the loop logs this batch as
+                # step + 1
+                logged = state["step"] + 1
+                due = (norm_metrics == "always" or logged % log_steps == 0
+                       or logged == 1 or logged == total_steps)
+                zero = torch.zeros((), device=loss.device)
                 for key, tree in (("l2_grads", grads), ("l2_params", params),
                                   ("l2_updates", updates)):
                     measurements[key] = (torch.sqrt(sqsum(tree))
                                          if due else zero)
-        if measure_block_norms:
-            with torch.no_grad():
+            if measure_block_norms:
                 measurements.update(_block_norms(grads, tx.frozen, sqsum))
         state["step"] += 1
         return state, measurements
