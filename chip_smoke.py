@@ -26,9 +26,9 @@ exported to open_clip checkpoints, loaded back and served behind one
 back, served, captioning and trained, in the step and in the trainer, the
 HF, Swin, relpos and conv towers, the trainer on an NCCL process group of
 one under torchrun with the ring losses and a sharded checkpoint, and the
-towers' int8 matmuls.
+towers' int8 matmuls, and the optimizer's fused Adam kernel.
 
-  1. the card, torch/CUDA versions, and the five kernel sources built from
+  1. the card, torch/CUDA versions, and the six kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
      native host library (clipa_tpu_torch/native: its seconds, its path,
      whether /usr/include/jpeglib.h exists and which libjpeg it links);
@@ -66,7 +66,8 @@ towers' int8 matmuls.
      match a service built on the plain attention path (per-row cosine >=
      0.999); images/s and texts/s at bucket 256;
   5. the training step: one step launches each kernel 24 times (the image
-     layers; the 8-token text tower takes the einsum path); from the same
+     layers; the 8-token text tower takes the einsum path) and the fused
+     Adam kernel once (phase 13's trainer: once a step too); from the same
      state, the kernel path's loss and every parameter's gradient against
      the plain path's (loss within rtol 1e-2, gradient cosine >= 0.99); 20
      steps on one fixed batch with a const schedule at LEARN_LR lower the
@@ -328,7 +329,12 @@ towers' int8 matmuls.
      on one batch lowering the loss below 0.9x its start, 24 + 24 fused
      launches; one step at ``stream="ref3d"`` (attention on 3-D operands)
      against the flat stream (loss rtol 1e-2, cosine >= 0.99), its
-     launches.
+     launches;
+ 24. the fused Adam kernel (``tools/adam_bench.measure``) at the H/14 and
+     L/16 pre-training parameter sets: one step bit for bit against the
+     eager chain from the same state, one launch a step, its device time
+     against its byte bound (24 B per parameter), the chain's device and
+     host time.
 
 Each phase prints its seconds ("phase N: s"), and their sum at the end.
 
@@ -839,6 +845,7 @@ def _training(card):
     from clipa_tpu_torch.configs import clipa_pretrain
     from clipa_tpu_torch import optim
     from clipa_tpu_torch.ops import block_attention as ba
+    from clipa_tpu_torch.ops import fused_adam
     from clipa_tpu_torch.train import step
 
     config = clipa_pretrain.get_config(PRETRAIN)
@@ -888,20 +895,24 @@ def _training(card):
     # the main path: one update step, counters read around it
     ba.fused_attention.launches = 0
     ba.fused_attention_bwd.launches = 0
+    fused_adam.fused_adam_step.launches = 0
     torch.cuda.reset_peak_memory_stats()
     state, meas = update(state, batch)
     torch.cuda.synchronize()
     launches = {"fwd": ba.fused_attention.launches,
-                "bwd": ba.fused_attention_bwd.launches}
+                "bwd": ba.fused_attention_bwd.launches,
+                "adam": fused_adam.fused_adam_step.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"training step: loss {float(meas['training_loss']):.6f}, "
           f"l2_grads {float(meas['l2_grads']):.4f}; kernel launches fwd "
           f"{launches['fwd']} bwd {launches['bwd']} (expected "
-          f"{TRAIN_IMAGE_LAYERS} each); peak device memory {peak_gb:.2f} GiB",
-          flush=True)
-    if launches != {"fwd": TRAIN_IMAGE_LAYERS, "bwd": TRAIN_IMAGE_LAYERS}:
+          f"{TRAIN_IMAGE_LAYERS} each), fused Adam {launches['adam']} "
+          f"(expected 1); peak device memory {peak_gb:.2f} GiB", flush=True)
+    if launches != {"fwd": TRAIN_IMAGE_LAYERS, "bwd": TRAIN_IMAGE_LAYERS,
+                    "adam": 1}:
         raise RuntimeError(f"training step launched the kernels {launches} "
-                           f"times, expected {TRAIN_IMAGE_LAYERS} each")
+                           f"times, expected {TRAIN_IMAGE_LAYERS} attention "
+                           f"launches each way and one fused Adam")
     if not all(bool(torch.isfinite(v)) for v in meas.values()):
         raise RuntimeError(f"non-finite measurements {meas}")
 
@@ -1513,6 +1524,7 @@ def _trainer(card, phase5_rate, keep_dir=None):
     from clipa_tpu_torch.config import load_config
     from clipa_tpu_torch.data import core as data_core
     from clipa_tpu_torch.data import pipeline
+    from clipa_tpu_torch.ops import fused_adam
     from clipa_tpu_torch.train import checkpoint, loop, metrics, step
 
     per_step, stamps = [], []
@@ -1527,6 +1539,7 @@ def _trainer(card, phase5_rate, keep_dir=None):
         argv = [f"--config={path}", f"--workdir={workdir}", "--device=cuda"]
         runs = []
         torch.cuda.reset_peak_memory_stats()
+        fused_adam.fused_adam_step.launches = 0
         with _Patched((step, "make_update_fn", _counting(per_step, stamps))):
             for total in TRAINER_STEPS:
                 t0 = time.perf_counter()
@@ -1534,6 +1547,12 @@ def _trainer(card, phase5_rate, keep_dir=None):
                 runs.append({"final": final,
                              "seconds": time.perf_counter() - t0})
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # one fused Adam launch per step of the two runs
+        adam_launches = fused_adam.fused_adam_step.launches
+        if adam_launches != TRAINER_STEPS[1]:
+            raise RuntimeError(f"the trainer's {TRAINER_STEPS[1]} steps "
+                               f"launched the fused Adam kernel "
+                               f"{adam_launches} times, expected one each")
 
         # metrics.jsonl: steps 1-8 once each, the JAX loop's keys, finite
         rows = _rows(os.path.join(workdir, "metrics.jsonl"))
@@ -1656,6 +1675,7 @@ def _trainer(card, phase5_rate, keep_dir=None):
           f"{peak_gb:.2f} GiB; losses {' '.join(f'{x:.4f}' for x in losses)}",
           flush=True)
     return {"launches": per_step[0], "steps": len(per_step),
+            "adam_launches": adam_launches,
             "pairs_per_s": rates, "phase5_pairs_per_s": phase5_rate,
             "pipeline_batches_per_s": pipeline_rate,
             "first_batch_s": first_batch_s, "checkpoint_bytes": ckpt_bytes,
@@ -4917,6 +4937,59 @@ def _int8(card):
     print(f"phase 23 in {out['seconds']:.2f} s", flush=True)
     return out
 
+# Phase 24: the optimizer's fused Adam kernel (csrc/fused_adam.cu) at the
+# parameter sets of the benchmark's pre-training cells, through
+# tools/adam_bench.measure (fp32 parameters and gradients, the config's
+# moments: mu bf16, nu fp32; the optimizer past its warmup).
+ADAM_CONFIGS = ("clipa_pretrain.py:img=H/14", "clipa_pretrain.py:img=L/16")
+
+
+def _fused_adam(card):
+    """Phase 24: at each of ADAM_CONFIGS, one step of the kernel
+    (``Optimizer.update``) against one of the eager chain
+    (``chain_update``) from the same state, parameters and moments bit for
+    bit; the kernel's device time (torch.profiler, and CUDA events) against
+    its byte bound (24 B per parameter over HBM_BYTES_PER_S), one launch a
+    step; the chain's device and host time."""
+    import torch
+    from clipa_tpu_torch.ops import fused_adam
+    from clipa_tpu_torch.tools import adam_bench
+
+    if adam_bench.HBM_BYTES_PER_S != HBM_BYTES_PER_S:
+        raise RuntimeError("adam_bench's HBM rate is not chip_smoke's")
+    t0 = time.perf_counter()
+    before = fused_adam.fused_adam_step.launches
+    cases = {}
+    for spec in ADAM_CONFIGS:
+        torch.cuda.empty_cache()
+        r = adam_bench.measure(spec, iters=20, seed=SEED)
+        cases[spec] = r
+        chain = r["chain_device_ms"]
+        print(f"{card}: fused Adam at {spec} ({r['leaves']} leaves, "
+              f"{r['params']} parameters): bit for bit the chain "
+              f"{r['check']}; {_fmt(r['kernel_ms'])} ms device time "
+              f"({r['launches_per_step']} launch a step), "
+              f"{r['events_ms']:.4f} ms by events, against its "
+              f"{r['bound_ms']:.4f} ms bound (bytes): "
+              f"{_ratio(r['bound_ms'], r['kernel_ms'], '.1%')} by device "
+              f"time; host {r['kernel_host_ms']:.3f} ms; the chain "
+              f"{_fmt(chain)} ms device ({r['chain_kernels']} kernels), "
+              f"{r['chain_host_ms']:.2f} ms host", flush=True)
+        if not r["check"]:
+            raise RuntimeError(f"fused Adam at {spec} differs from the "
+                               f"chain")
+        if r["launches_per_step"] != 1:
+            raise RuntimeError(f"fused Adam at {spec}: "
+                               f"{r['launches_per_step']} launches a step, "
+                               f"expected 1")
+    torch.cuda.empty_cache()
+    out = {"cases": cases,
+           "launches": fused_adam.fused_adam_step.launches - before,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 24 in {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4928,6 +5001,7 @@ def main() -> int:
     from clipa_tpu_torch import native
     from clipa_tpu_torch.ops import block_attention as ba, cuda_build
     from clipa_tpu_torch.ops import flash_attention as fa
+    from clipa_tpu_torch.ops import fused_adam
     from clipa_tpu_torch.ops import patch_embed as pe
     from clipa_tpu_torch.serving import EmbeddingService
 
@@ -4954,7 +5028,8 @@ def main() -> int:
                "fused_attention_bwd.cu": ba.bwd_library,
                "flash_attention_fwd.cu": fa.fwd_library,
                "flash_attention_bwd.cu": fa.bwd_library,
-               "patch_embed.cu": pe.library}
+               "patch_embed.cu": pe.library,
+               "fused_adam.cu": fused_adam.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(native.load)
@@ -5199,6 +5274,10 @@ def main() -> int:
     # 23. int8: bench_gemm, the quantized steps, the ref3d stream
     int8 = _int8(card)
     lap("23")
+
+    # 24. the optimizer's fused Adam kernel against its chain
+    adam = _fused_adam(card)
+    lap("24")
     print(f"phase seconds: {json.dumps(phase_s)}; total "
           f"{sum(phase_s.values()):.2f} s", flush=True)
 
@@ -5474,6 +5553,33 @@ def main() -> int:
         "redesign": {"plan": sweep["plan"],
                      "parent": "PERF.md section 6, row K10 bwd deferred "
                                "(tools/flash_bench.py --kernels deferred)"},
+    }, {
+        "name": "fused_adam",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/fused_adam.cu",
+        # no Pallas kernel: XLA fuses the JAX package's chain
+        "replaces": None,
+        "fuses": "clipa_tpu/optim.py:143 (scale_by_fused_adam, by XLA)",
+        "launches": (train["launches"]["adam"] + trainer["adam_launches"]
+                     + adam["launches"]),
+        "launches_by_path": {
+            "training_step": train["launches"]["adam"],
+            "trainer_step": trainer["adam_launches"],
+            "adam_bench": adam["launches"]},
+        "bit_for_bit": all(c["check"] for c in adam["cases"].values()),
+        "ms": adam["cases"][ADAM_CONFIGS[0]]["events_ms"],
+        "device_ms": adam["cases"][ADAM_CONFIGS[0]]["kernel_ms"],
+        # the eager chain, the plain version: its kernels' device time
+        "plain_device_ms": adam["cases"][ADAM_CONFIGS[0]]["chain_device_ms"],
+        "bound_ms": adam["cases"][ADAM_CONFIGS[0]]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,   # no one PyTorch call
+        "by_shape": {spec: {
+            "ms": c["events_ms"], "device_ms": c["kernel_ms"],
+            "host_ms": c["kernel_host_ms"],
+            "plain_device_ms": c["chain_device_ms"],
+            "plain_host_ms": c["chain_host_ms"], "bound_ms": c["bound_ms"]}
+            for spec, c in adam["cases"].items()},
     }], "training": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],

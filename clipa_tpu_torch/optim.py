@@ -35,9 +35,25 @@ fp32, and may store the second moment in ``nu_dtype``. Both are here, as one
 function with that one difference.
 
 Parameters and moments live on the parameters' device; updates are fp32
-tensors in the parameters' layout. :meth:`Optimizer.update` and
-:meth:`Optimizer.apply` run in the spans ``train.optim.update`` and
-``train.optim.apply`` (``tracing.py``).
+tensors in the parameters' layout; the moments are updated in place. Two
+routes, chosen by where the parameters are:
+
+  * CPU tensors: :meth:`Optimizer.chain_update`, the chain above per
+    parameter in eager PyTorch (some twenty elementwise ops per leaf),
+    then :meth:`Optimizer.apply` adds the updates;
+  * CUDA tensors: one launch of ``csrc/fused_adam.cu``
+    (``ops/fused_adam.py``) for every unfrozen leaf, the same chain bit for
+    bit, which also adds the updates to the parameters, so
+    :meth:`Optimizer.apply` adds nothing there. It writes the fp32 updates
+    only where ``return_updates`` is set (``make_update_fn`` sets it on the
+    steps whose ``l2_updates`` is due), and raises rather than falling
+    back. The chain stays its plain version, on any device: to run it on
+    CUDA tensors, add its updates with :func:`apply_updates`.
+
+:meth:`Optimizer.update` runs in the span ``train.optim.update``: the
+chain, or the kernel's whole host side (the clip's norm where a clip is
+set, the gradients' pointers, the launch). :meth:`Optimizer.apply` runs in
+``train.optim.apply``, which is empty on the CUDA route (``tracing.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from torch import nn
 
 from clipa_tpu_torch import convert, tracing, utils as u
 from clipa_tpu_torch.config import steps
+from clipa_tpu_torch.ops import fused_adam
 
 # --------------------------------------------------------------------------
 # Learning-rate schedules (clipa_tpu/optim.py:39-140): each decay family is
@@ -267,9 +284,16 @@ class Optimizer:
                        for n, p in params.items() if n not in self.frozen}
             self.nu = {n: torch.zeros_like(p, dtype=nu_dtype)
                        for n, p in params.items() if n not in self.frozen}
+        # Whether update() returns the updates where the kernel runs (it
+        # writes them only when asked; make_update_fn asks on the steps
+        # whose l2_updates is due).
+        self.return_updates = True
+        self._kernel = (fused_adam.AdamTables(self)
+                        if any(p.is_cuda for p in params.values()) else None)
 
     def _direction(self, name: str, g: torch.Tensor, bc1, bc2):
-        """Adam for one tensor: returns the update, stores the moments."""
+        """Adam for one tensor: returns the update, stores the moments (in
+        place, in their own dtypes)."""
         mu0, nu0 = self.mu[name], self.nu[name]
         if self.fused:
             decayed = mu0.float() * self.b1
@@ -282,48 +306,82 @@ class Optimizer:
             nu = (g * g) * (1 - self.b2) + nu0.float() * self.b2
         update = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root)
                                + self.eps)
-        self.mu[name] = mu.to(mu0.dtype)
-        self.nu[name] = nu.to(nu0.dtype)
+        mu0.copy_(mu)
+        nu0.copy_(nu)
         return update
+
+    def _global_norm(self, grads: dict, active: list) -> torch.Tensor:
+        """The clip's global norm of the fp32 `grads` over `active`."""
+        return torch.sqrt(
+            self._sqsum(grads, active) if self._sqsum is not None
+            else sum(grads[n].square().sum() for n in active))
+
+    def _step_scalars(self):
+        """(bias corrections, each schedule's value) of the next step: the
+        corrections in fp32, as optax's, by the incremented count."""
+        c = np.float32(self.count + 1)
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** c)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** c)
+        return bc1, bc2, [float(fn(self.count)) for fn in self.schedule_fns]
 
     @torch.no_grad()
     def update(self, grads: dict[str, torch.Tensor]) -> dict[str,
                                                              torch.Tensor]:
-        """One step of the chain: returns {name: fp32 update} (to be added
-        to the parameters) and advances the moments and the count."""
+        """One step of the chain: advances the moments and the count and
+        returns {name: fp32 update}. CPU parameters take
+        :meth:`chain_update`, and :meth:`apply` adds the updates. CUDA
+        parameters take the kernel (``ops/fused_adam.py``), which adds the
+        updates to the parameters itself: it returns every update where
+        ``return_updates`` is set and {} otherwise."""
         with tracing.span("train.optim.update"):
-            names = list(self.params)
-            grads = {n: grads[n].float() for n in names}
-            active = [n for n in names if n not in self.frozen]
+            if self._kernel is None:
+                return self.chain_update(grads)
+            norm = None
             if self.clip:
-                norm = torch.sqrt(
-                    self._sqsum(grads, active) if self._sqsum is not None
-                    else sum(grads[n].square().sum() for n in active))
-                keep = norm < self.clip
-                for n in active:
-                    grads[n] = torch.where(keep, grads[n],
-                                           grads[n] / norm * self.clip)
-            c = self.count + 1   # bias correction in fp32, as optax's
-            bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(c))
-            bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(c))
-            sched = [float(fn(self.count)) for fn in self.schedule_fns]
-            updates = {}
-            for n in names:
-                if n in self.frozen:
-                    updates[n] = torch.zeros_like(grads[n])
-                    continue
-                x = self._direction(n, grads[n], bc1, bc2)
-                if n in self.wd:
-                    x = x + self.params[n].float() * self.wd[n]
-                x = x * self.lr
-                if n in self.lr_mults:
-                    x = x * self.lr_mults[n]
-                if n in self.lwd:
-                    x = x * self.lwd[n]
-                x = x * sched[self.group[n]]
-                updates[n] = -x
-            self.count = c
-            return updates
+                active = [n for n in self.params if n not in self.frozen]
+                norm = self._global_norm(
+                    {n: grads[n].float() for n in self.params}, active)
+            bc1, bc2, sched = self._step_scalars()
+            updates = fused_adam.fused_adam_step(
+                self._kernel, self, grads, bc1, bc2, sched, norm,
+                self.return_updates)
+            self.count += 1
+            return updates or {}
+
+    @torch.no_grad()
+    def chain_update(self, grads: dict[str, torch.Tensor]) -> dict[
+            str, torch.Tensor]:
+        """The chain per parameter in eager PyTorch, on any device (the
+        kernel's plain version): returns {name: fp32 update} (to be added
+        to the parameters by :meth:`apply`, or by :func:`apply_updates`
+        where the kernel runs) and advances the moments and the count."""
+        names = list(self.params)
+        grads = {n: grads[n].float() for n in names}
+        active = [n for n in names if n not in self.frozen]
+        if self.clip:
+            norm = self._global_norm(grads, active)
+            keep = norm < self.clip
+            for n in active:
+                grads[n] = torch.where(keep, grads[n],
+                                       grads[n] / norm * self.clip)
+        bc1, bc2, sched = self._step_scalars()
+        updates = {}
+        for n in names:
+            if n in self.frozen:
+                updates[n] = torch.zeros_like(grads[n])
+                continue
+            x = self._direction(n, grads[n], bc1, bc2)
+            if n in self.wd:
+                x = x + self.params[n].float() * self.wd[n]
+            x = x * self.lr
+            if n in self.lr_mults:
+                x = x * self.lr_mults[n]
+            if n in self.lwd:
+                x = x * self.lwd[n]
+            x = x * sched[self.group[n]]
+            updates[n] = -x
+        self.count += 1
+        return updates
 
     def state_dict(self) -> dict:
         """{"count": steps taken, "mu": {name: moment}, "nu": {...}}: the
@@ -353,11 +411,20 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, updates: dict[str, torch.Tensor]) -> None:
-        """params += updates, in place (optax.apply_updates)."""
+        """params += updates, in place (optax.apply_updates), where
+        :meth:`update` took the chain; nothing where the kernel runs, since
+        it has added them already."""
         with tracing.span("train.optim.apply"):
-            for n, x in updates.items():
-                p = self.params[n]
-                p.copy_((p.float() + x).to(p.dtype))
+            if self._kernel is None:
+                apply_updates(self.params, updates)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, updates: dict) -> None:
+    """params += updates, in place (optax.apply_updates)."""
+    for n, x in updates.items():
+        p = params[n]
+        p.copy_((p.float() + x).to(p.dtype))
 
 
 def named_parameters(model: Union[nn.Module, dict]) -> dict[str,

@@ -22,8 +22,12 @@ caller's ``torch.profiler.profile``) holds the spans.
 The spans of the port: ``train.step`` (all of ``update()``),
 ``train.forward`` (the normalize and each microbatch's forward),
 ``train.loss``, ``train.backward`` (``torch.autograd.grad``),
-``train.optim.update`` and ``train.optim.apply`` (``optim.Optimizer``),
-``train.norms`` (the gated ``l2_*`` and block norms); ``serve.stage``
+``train.optim.update`` and ``train.optim.apply`` (``optim.Optimizer``: on
+CUDA parameters ``train.optim.update`` holds the fused Adam kernel's host
+side, its launch included, and ``train.optim.apply`` is opened but empty,
+since the kernel adds the updates itself; on CPU parameters the eager
+chain and the add), ``train.norms`` (the gated ``l2_*`` and block norms);
+``serve.stage``
 (``EmbeddingService._dispatch``), ``serve.pin`` (the host copy into
 pinned memory, inside ``serve.stage``) and ``serve.drain`` (the wait on a
 chunk and its concatenation).

@@ -20,7 +20,9 @@ measurements)``:
   ``config.coca_caption_loss_weight`` over labels other than
   ``config.pad_id``, the batch's ``labels`` being the text ids) ->
   autograd, through the attention kernels' backward on a card -> the optax
-  chain of ``optim.py``, applied in place -> the temperature clamp.
+  chain of ``optim.py``, applied in place (on a card one fused Adam launch,
+  which writes the fp32 updates only on the steps whose ``l2_updates`` is
+  due) -> the temperature clamp.
 
 With ``config.grad_accum_steps`` = n > 1 the step is the JAX step's
 two-pass full-batch-negative accumulation (the reference torch trainer's
@@ -487,6 +489,11 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
 
         if shards is not None:
             grads = shards.reduce_gradients(grads)
+        # `step` is pre-increment; the loop logs this batch as step + 1
+        logged = state["step"] + 1
+        due = norm_metrics == "always" or (norm_metrics == "log" and (
+            logged % log_steps == 0 or logged == 1 or logged == total_steps))
+        tx.return_updates = due   # the kernel writes them only when asked
         updates = tx.update(grads)
         tx.apply(updates)
         if temperature_clamp and "t" in params:
@@ -501,11 +508,6 @@ def make_update_fn(model: torch.nn.Module, tx: optim.Optimizer, config,
                 {k: v for k, v in measurements.items() if k in _AVERAGED}))
         with tracing.span("train.norms"), torch.no_grad():
             if norm_metrics != "never":
-                # `step` is pre-increment; the loop logs this batch as
-                # step + 1
-                logged = state["step"] + 1
-                due = (norm_metrics == "always" or logged % log_steps == 0
-                       or logged == 1 or logged == total_steps)
                 zero = torch.zeros((), device=loss.device)
                 for key, tree in (("l2_grads", grads), ("l2_params", params),
                                   ("l2_updates", updates)):

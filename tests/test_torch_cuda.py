@@ -906,3 +906,286 @@ def test_input_pipeline_delivers_the_host_batches_on_the_card(cuda,
             seen = (t.to(torch.int64) * 1).cpu().numpy()
             np.testing.assert_array_equal(seen, want[key], err_msg=key)
     got.close()
+
+
+# The fused Adam kernel (csrc/fused_adam.cu) against the optimizer's chain
+# run eagerly on the same card, bit for bit. Leaves of 1 element, odd
+# lengths, lengths that are no multiple of 4 or 8, more than one chunk
+# (65536) with a ragged tail, and one of more than 2^24 elements; names that
+# hit a frozen group, lr_mults, lwd (Ti/16: 12 blocks) and the wd masks
+# (kernels at 0.2, cls at 0, the rest none).
+ADAM_SHAPES = {
+    "img/embedding/kernel": (4, 4, 3, 8),
+    "img/cls": (1, 1, 8),
+    "img/Transformer/encoderblock_0/LayerNorm_0/scale": (7,),
+    "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel": (9, 13),
+    "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/bias": (13,),
+    "img/Transformer/encoderblock_1/MlpBlock_0/Dense_1/kernel": (4100, 4100),
+    "img/Transformer/encoderblock_11/MlpBlock_0/Dense_1/bias": (2 * 65536
+                                                                + 5,),
+    "img/head/kernel": (8, 4),
+    "txt/Embed_0/embedding": (10, 12),
+    "txt/pos_embedding": (1, 3, 8),
+    "t": (1,),
+}
+# a gradient handed over as a view at an odd offset (the scalar path)
+ADAM_UNALIGNED = "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/bias"
+# gradients handed over as strided views (a conv stem's HWIO weight used
+# as OIHW: its gradient is a permuted view), copied by the wrapper
+ADAM_STRIDED = {"img/embedding/kernel": (3, 2, 1, 0),
+                "img/Transformer/encoderblock_0/MlpBlock_0/Dense_0/kernel":
+                    (1, 0)}
+
+ADAM_CASES = [("scale_by_adam", mu, "float32", clip)
+              for mu in ("bfloat16", "float32")
+              for clip in (None, 0.5, 1e9)] + [
+    ("scale_by_fused_adam", mu, nu, clip)
+    for mu in ("bfloat16", "float32") for nu in ("bfloat16", "float32")
+    for clip in (None, 0.5, 1e9)]
+
+
+def _adam_config(name, mu, nu, clip):
+    from clipa_tpu_torch.config import ConfigDict
+    optax = dict(b1=0.9, b2=0.95, mu_dtype=mu)
+    if name == "scale_by_fused_adam":
+        optax["nu_dtype"] = nu
+    return ConfigDict(
+        lr=1e-2, wd=0.2, optax_name=name, optax=optax, grad_clip_norm=clip,
+        wd_mults=[(".*/kernel$", 1.0), ("img/cls", 0.0)],
+        schedule=[("img/head/.*", None),
+                  ("txt/.*", dict(decay_type="linear", warmup_steps=1)),
+                  (".*", dict(decay_type="cosine"))],
+        lr_mults=[("img/Transformer/encoderblock_0/.*", 2.0)], lwd=0.8,
+        model=ConfigDict(image=ConfigDict(variant="Ti/16")))
+
+
+def _bits(t):
+    ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    return t.contiguous().view(ints)
+
+
+def _assert_same_state(got, want, got_updates=None, want_updates=None):
+    for name, p in want.params.items():
+        assert torch.equal(_bits(got.params[name]), _bits(p)), name
+    for key in ("mu", "nu"):
+        mine = getattr(got, key)
+        for name, m in getattr(want, key).items():
+            assert mine[name].dtype == m.dtype, (key, name)
+            assert torch.equal(_bits(mine[name]), _bits(m)), (key, name)
+    if want_updates is not None:
+        assert set(got_updates) == set(want_updates)
+        for name, x in want_updates.items():
+            assert got_updates[name].dtype == torch.float32, name
+            assert torch.equal(_bits(got_updates[name]), _bits(x)), name
+    assert got.count == want.count
+
+
+def _adam_grads(cuda, gen):
+    grads = {}
+    for name, shape in ADAM_SHAPES.items():
+        g = torch.randn(shape, device=cuda, generator=gen)
+        if name in ADAM_STRIDED:
+            order = ADAM_STRIDED[name]
+            g = g.permute(order).contiguous().permute(order)
+            assert not g.is_contiguous()
+        if name == ADAM_UNALIGNED:
+            g = torch.cat([g.new_zeros(1), g.reshape(-1)])[1:].view(shape)
+        grads[name] = g
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mu,nu,clip", ADAM_CASES)
+def test_fused_adam_matches_the_chain_bit_for_bit(cuda, name, mu, nu, clip):
+    """Three steps of the kernel against three of the eager chain on the
+    same card: parameters, moments and the returned updates bit for bit
+    (updates asked for on steps 1 and 3, not on step 2); then a fresh
+    optimizer loads the kernel's state_dict and one more step of each
+    agrees."""
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.ops import fused_adam
+
+    config = _adam_config(name, mu, nu, clip)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    start = {n: torch.randn(s, device=cuda, generator=gen)
+             for n, s in ADAM_SHAPES.items()}
+    sched_kw = dict(total_steps=10)
+    kernel, _ = optim.make(config, {n: p.clone() for n, p in start.items()},
+                           sched_kw=sched_kw)
+    chain, _ = optim.make(config, {n: p.clone() for n, p in start.items()},
+                          sched_kw=sched_kw)
+    assert kernel.fused == (name == "scale_by_fused_adam")
+    for k in range(3):
+        grads = _adam_grads(cuda, gen)
+        kernel.return_updates = k != 1
+        before = fused_adam.fused_adam_step.launches
+        got = kernel.update(grads)
+        kernel.apply(got)
+        assert fused_adam.fused_adam_step.launches == before + 1
+        want = chain.chain_update(grads)
+        optim.apply_updates(chain.params, want)
+        torch.cuda.synchronize()
+        if k == 1:
+            assert got == {}
+            _assert_same_state(kernel, chain)
+        else:
+            _assert_same_state(kernel, chain, got, want)
+        if clip is not None:   # engaged at 0.5, not at 1e9
+            norm = float(torch.sqrt(sum(g.square().sum()
+                                        for g in grads.values())))
+            assert (norm > clip) == (clip == 0.5)
+    # the frozen head never moved
+    assert torch.equal(kernel.params["img/head/kernel"],
+                       start["img/head/kernel"])
+    resumed, _ = optim.make(config, {n: p.clone() for n, p in
+                                     kernel.params.items()},
+                            sched_kw=sched_kw)
+    resumed.load_state_dict(kernel.state_dict())
+    grads = _adam_grads(cuda, gen)
+    resumed.apply(resumed.update(grads))
+    optim.apply_updates(chain.params, chain.chain_update(grads))
+    torch.cuda.synchronize()
+    _assert_same_state(resumed, chain)
+
+
+@pytest.mark.cuda
+def test_fused_adam_refuses_what_it_cannot_take(cuda):
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.ops import fused_adam
+    config = _adam_config("scale_by_adam", "bfloat16", "float32", None)
+    params = {n: torch.zeros(s, device=cuda) for n, s in ADAM_SHAPES.items()}
+    params["img/embedding/kernel"] = torch.zeros(
+        8, 3, 4, 4, device=cuda).permute(2, 3, 1, 0)
+    with pytest.raises(ValueError, match="not contiguous"):
+        optim.make(config, params, sched_kw=dict(total_steps=10))
+    for dtype in (torch.float64, torch.bfloat16):   # fp32 masters only
+        params["img/embedding/kernel"] = torch.zeros(4, 4, 3, 8, device=cuda,
+                                                     dtype=dtype)
+        with pytest.raises(TypeError, match=str(dtype).split(".")[1]):
+            optim.make(config, params, sched_kw=dict(total_steps=10))
+    params["img/embedding/kernel"] = torch.zeros(4, 4, 3, 8, device=cuda)
+    tx, _ = optim.make(config, params, sched_kw=dict(total_steps=10))
+    mu = tx.mu["txt/pos_embedding"]     # one launch: one dtype per moment
+    tx.mu["txt/pos_embedding"] = mu.float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_adam.AdamTables(tx)
+    tx.mu["txt/pos_embedding"] = mu
+    grads = {n: torch.zeros_like(p) for n, p in params.items()}
+    grads["txt/Embed_0/embedding"] = torch.zeros(12, 10, device=cuda)
+    with pytest.raises(ValueError, match="expected"):
+        tx.update(grads)
+    grads["txt/Embed_0/embedding"] = torch.zeros(10, 12, device=cuda,
+                                                 dtype=torch.float16)
+    with pytest.raises(TypeError, match="takes torch.float32"):
+        tx.update(grads)
+
+
+@pytest.mark.cuda
+def test_training_step_goes_through_the_fused_adam_kernel(cuda):
+    """A small two-towers step on the card makes one fused Adam launch per
+    step, and writes the updates only on the steps whose l2_updates is
+    due (the first and every second here)."""
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.ops import fused_adam
+    from clipa_tpu_torch.train import step
+
+    config = clipa_pretrain.get_config(
+        "img=Ti/16,res=96,token_len=8,batchsize=16")
+    config.model.image.update(depth=2)
+    config.model.text.update(depth=2)
+    config.schedule = [(".*", dict(decay_type="const"))]
+    config.log_training_steps = 2
+    model = step.create_model(config, device=cuda)
+    state = step.init_train_state(
+        model, config, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tx, _ = optim.make(config, model, sched_kw=dict(total_steps=10))
+    update = step.make_update_fn(model, tx, config, total_steps=10)
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (16, 96, 96, 3), dtype=np.uint8)).to(cuda),
+        "labels": torch.from_numpy(rng.randint(
+            0, 32000, (16, 8)).astype(np.int32)).to(cuda)}
+    for k in range(4):
+        before = fused_adam.fused_adam_step.launches
+        state, meas = update(state, batch)
+        torch.cuda.synchronize()
+        assert fused_adam.fused_adam_step.launches == before + 1
+        due = k == 0 or (k + 1) % 2 == 0
+        assert tx.return_updates == due
+        assert (float(meas["l2_updates"]) > 0) == due, k
+
+
+@pytest.mark.cuda
+def test_fused_adam_under_param_shards_on_an_nccl_group(cuda):
+    """make_update_fn over an NCCL mesh of one process with ParamShards and
+    the clip set: reduce_gradients hands the optimizer views into one flat
+    buffer at arbitrary offsets (some not 16-byte aligned: the kernel's
+    scalar path) and the clip takes FSDP's sqsum. One launch per step, and
+    the parameters and moments bit for bit those of the chain run from the
+    same state on the same gradients. (At world 1 FSDP shards no leaf; a
+    shard is a contiguous clone, the layout of any parameter.)"""
+    import socket
+    import torch.distributed as dist
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.configs import clipa_pretrain
+    from clipa_tpu_torch.ops import fused_adam
+    from clipa_tpu_torch.parallel import mesh as mesh_lib
+    from clipa_tpu_torch.train import step
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        config = clipa_pretrain.get_config(
+            "img=Ti/16,res=96,token_len=8,batchsize=16")
+        config.model.image.update(depth=2)
+        config.model.text.update(depth=2)
+        config.schedule = [(".*", dict(decay_type="const"))]
+        config.grad_clip_norm = 1e-3      # engaged: the norm is larger
+        config.temperature_clamp = False  # the step's, not the optimizer's
+        mesh = mesh_lib.create_mesh(1)
+        model = step.create_model(config, device=cuda)
+        state = step.init_train_state(
+            model, config, torch.Generator(device=cuda).manual_seed(0), cuda,
+            mesh=mesh)
+        shards = state["shards"]
+        sched_kw = dict(total_steps=10)
+        tx, _ = optim.make(config, state["params"], sched_kw=sched_kw,
+                           sqsum=shards.sqsum)
+        chain, _ = optim.make(config, {n: p.detach().clone() for n, p in
+                                       state["params"].items()},
+                              sched_kw=sched_kw, sqsum=shards.sqsum)
+        update = step.make_update_fn(model, tx, config, total_steps=10,
+                                     mesh=mesh)
+        seen, unaligned = {}, []
+        kernel_update = tx.update
+
+        def spy(grads):
+            seen.clear()
+            seen.update({n: g.clone() for n, g in grads.items()})
+            unaligned.append(sum(g.data_ptr() % 16 != 0
+                                 for g in grads.values()))
+            return kernel_update(grads)
+
+        tx.update = spy
+        rng = np.random.RandomState(0)
+        batch = {"image": torch.from_numpy(rng.randint(
+            0, 255, (16, 96, 96, 3), dtype=np.uint8)).to(cuda),
+            "labels": torch.from_numpy(rng.randint(
+                0, 32000, (16, 8)).astype(np.int32)).to(cuda)}
+        for _ in range(3):
+            before = fused_adam.fused_adam_step.launches
+            state, _ = update(state, batch)
+            torch.cuda.synchronize()
+            assert fused_adam.fused_adam_step.launches == before + 1
+            norm = torch.sqrt(shards.sqsum(seen))
+            assert float(norm) > config.grad_clip_norm
+            optim.apply_updates(chain.params, chain.chain_update(seen))
+            torch.cuda.synchronize()
+            _assert_same_state(tx, chain)
+        assert min(unaligned) > 0, unaligned
+    finally:
+        dist.destroy_process_group()

@@ -296,18 +296,20 @@ def test_library_path_hashes_the_included_header(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert sources == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
-                       "fused_attention_bwd.cu", "fused_attention_fwd.cu",
-                       "patch_embed.cu"]
-    attention = [s for s in sources if s != "patch_embed.cu"]
+                       "fused_adam.cu", "fused_attention_bwd.cu",
+                       "fused_attention_fwd.cu", "patch_embed.cu"]
+    alone = ["fused_adam.cu", "patch_embed.cu"]   # include no csrc header
+    attention = [s for s in sources if s not in alone]
     before = {s: cuda_build.library_path(s) for s in sources}
     for s in attention:
         assert cuda_build._sources(s) == [s, "attention_common.cuh"]
-    assert cuda_build._sources("patch_embed.cu") == ["patch_embed.cu"]
+    for s in alone:
+        assert cuda_build._sources(s) == [s]
     header = csrc / "attention_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: cuda_build.library_path(s) for s in sources}
     assert all(before[s] != after[s] for s in attention)
-    assert before["patch_embed.cu"] == after["patch_embed.cu"]
+    assert all(before[s] == after[s] for s in alone)
     # a source's own edit moves only its own library
     src = csrc / "flash_attention_fwd.cu"
     src.write_text(src.read_text() + "\n// edited\n")

@@ -313,3 +313,134 @@ def test_lwd_chain_matches_optax_off_the_stem_for_three_steps():
             np.testing.assert_allclose(
                 upd[name].numpy(), np.asarray(j_upd[name]), rtol=1e-5,
                 atol=1e-9, err_msg=f"update {name} step {step}")
+
+
+# --------------------------------------------------------------------------
+# The fused Adam kernel's tables (ops/fused_adam.py): built on the CPU from
+# the same optimizer, held to the chain's own constants. The kernel itself
+# runs on the card only (tests/test_torch_cuda.py).
+# --------------------------------------------------------------------------
+
+def _config_names(spec):
+    """(the port config of `spec`, the JAX flat names of its model, built
+    on the meta device)."""
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.train import step
+    import clipa_tpu_torch
+    import os
+    config = load_config(os.path.join(
+        os.path.dirname(clipa_tpu_torch.__file__), "configs", spec))
+    return config, list(optim.named_parameters(step.create_model(config,
+                                                                 "meta")))
+
+
+@pytest.mark.parametrize("spec,extra", [
+    ("clipa_pretrain.py:img=H/14", {}),
+    ("clipa_finetune.py:img=H/14", dict(
+        lwd=0.85, lr_mults=[("txt/.*", 0.5), ("img/head/.*", 2.0)],
+        schedule=[("txt/Embed_0/.*", None),
+                  ("img/.*", dict(decay_type="cosine", warmup_steps=2)),
+                  (".*", dict(decay_type="const"))])),
+], ids=["pretrain_h14", "finetune_h14_lwd"])
+def test_kernel_leaf_table_is_the_chains_constants(spec, extra):
+    from clipa_tpu_torch.ops import fused_adam
+    config, names = _config_names(spec)
+    config.update(extra)
+    params = {n: torch.zeros(i % 5 + 1) for i, n in enumerate(names)}
+    opt, _ = optim.make(config, params, sched_kw=dict(
+        total_steps=config.total_steps, batch_size=config.input.batch_size))
+    assert opt._kernel is None          # CPU tensors: the chain
+    active = [n for n in names if n not in opt.frozen]
+    assert len(active) == len(names) - (1 if extra else 0)
+    rows = fused_adam.leaf_table(opt, active)
+    assert rows.dtype.itemsize == 64
+    offsets, total = fused_adam.update_offsets(params)
+    assert total == sum(p.numel() for p in params.values())
+    for row, n in zip(rows, active):
+        assert row["p"] == params[n].data_ptr()
+        assert row["mu"] == opt.mu[n].data_ptr()
+        assert row["nu"] == opt.nu[n].data_ptr()
+        assert row["numel"] == params[n].numel()
+        assert row["out"] == offsets[n]
+        assert bool(row["has_wd"]) == (n in opt.wd)
+        assert row["wd"] == np.float32(opt.wd.get(n, 0.0))
+        assert row["lr_mult"] == np.float32(opt.lr_mults.get(n, 1.0))
+        assert row["lwd"] == np.float32(opt.lwd.get(n, 1.0))
+        assert row["group"] == opt.group[n]
+    if extra:   # the masks the case sets, seen through the table
+        assert len(opt.lwd) > 32 and len(opt.lr_mults) > 10
+        assert len({int(g) for g in rows["group"]}) == 2
+        with pytest.raises(ValueError, match="frozen"):
+            fused_adam.leaf_table(opt, names)
+    assert rows["has_wd"].sum() == len(opt.wd) > 100
+
+
+@pytest.mark.parametrize("numels", [[1], [7, 1, 13], [65536], [65537, 3],
+                                    [2 * 65536 + 5, 1, 2 ** 24 + 1]])
+def test_kernel_chunk_table_covers_every_element_once(numels):
+    from clipa_tpu_torch.ops import fused_adam
+    leaves = [3 * i + 1 for i in range(len(numels))]
+    rows = fused_adam.chunk_table(numels, leaves)
+    assert rows.dtype.itemsize == 16
+    assert (rows["len"] >= 1).all() and (rows["len"] <= fused_adam.CHUNK).all()
+    assert (rows["begin"] % 8 == 0).all()
+    for leaf, n in zip(leaves, numels):
+        mine = rows[rows["leaf"] == leaf]
+        starts = np.sort(mine["begin"])
+        ends = np.sort(mine["begin"] + mine["len"])
+        assert starts[0] == 0 and ends[-1] == n
+        np.testing.assert_array_equal(starts[1:], ends[:-1])
+
+
+def test_kernel_step_scalars_are_pytorchs():
+    """The launch's scalars: Python scalars rounded to fp32, the bias
+    corrections as fp32 reciprocals, scale_by_adam's b1 in mu's dtype."""
+    from clipa_tpu_torch.ops import fused_adam
+    params = {n: torch.zeros(s) for n, s in SHAPES.items()}
+    opt, _ = optim.make(_config(), params, sched_kw=dict(total_steps=10))
+    bc1, bc2, sched = opt._step_scalars()
+    args = fused_adam.step_args(opt, torch.bfloat16, bc1, bc2, sched, None,
+                                None)
+    import ctypes
+    assert ctypes.sizeof(args) == 96
+    assert args.b1_mu == 0.8984375                  # bf16(0.9)
+    assert args.b1 == np.float32(0.9)
+    assert args.one_minus_b1 == np.float32(1 - 0.9)
+    assert args.inv_bc1 == np.float32(1) / np.float32(bc1)
+    assert args.inv_bc2 == np.float32(1) / np.float32(bc2)
+    assert args.clip == np.float32(0.5) and args.lr == np.float32(1e-2)
+    assert args.n_groups == len(sched) == 2
+    assert list(args.sched)[:2] == [np.float32(s) for s in sched]
+    assert args.norm is None and args.updates is None
+    assert fused_adam.step_args(opt, torch.float32, bc1, bc2, sched, None,
+                                None).b1_mu == np.float32(0.9)
+    with pytest.raises(ValueError, match="schedules"):
+        fused_adam.step_args(opt, torch.float32, bc1, bc2, [0.0] * 9, None,
+                             None)
+
+
+def test_cpu_tensors_take_the_chain():
+    """On CPU tensors update() is the per-parameter chain: plain updates
+    that apply() adds, no kernel launch, the moments written in place (the
+    tensors the kernel's table would hold); AdamTables refuses them."""
+    from clipa_tpu_torch.ops import fused_adam
+    rng = np.random.RandomState(0)
+    params = {n: torch.from_numpy(rng.randn(*s).astype(np.float32))
+              for n, s in SHAPES.items()}
+    opt, _ = optim.make(_config(), params, sched_kw=dict(total_steps=10))
+    assert opt._kernel is None
+    moments = {n: (opt.mu[n], opt.nu[n]) for n in opt.mu}
+    before = fused_adam.fused_adam_step.launches
+    start = {n: p.clone() for n, p in params.items()}
+    opt.return_updates = False     # only the kernel leaves updates out
+    upd = opt.update({n: torch.ones_like(p) for n, p in params.items()})
+    assert set(upd) == set(params)
+    opt.apply(upd)
+    assert fused_adam.fused_adam_step.launches == before
+    for n, p in params.items():
+        torch.testing.assert_close(p, start[n] + upd[n], rtol=0, atol=0)
+    for n, (mu, nu) in moments.items():
+        assert opt.mu[n] is mu and opt.nu[n] is nu
+        assert bool((nu > 0).all())
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam.AdamTables(opt)
