@@ -16,6 +16,17 @@ Examples:
   --config=.../clipa_pretrain.py:img=L/16,res=112,token_len=8
   # bigG stretch with chunked or sigmoid loss
   --config=.../clipa_pretrain.py:img=G/14,loss=chunked
+  # open_clip's mt5-xl-ViT-H-14: the mT5-XL text tower (port only)
+  --config=.../clipa_pretrain.py:img=H/14,txt=mt5-xl,vocab_path=<mT5 tokenizer dir>
+
+``txt`` (the port's own argument; empty: CLIPA's text transformer of the
+image's size) names an mT5 trunk of ``models/t5_text.py`` (``mt5-base``,
+``mt5-xl``) as the text tower, as ``compat.openclip`` translates
+``mt5-*-ViT-*``: ``text_model="t5_text"``, the ``mlp`` projection, pad id 0,
+the image tower's remat policy. Its captions are the mT5 SentencePiece
+ids of the ``hf_tokenize`` op (`vocab_path`: a local tokenizer directory,
+default the HF cache's ``google/<txt>``), truncated to ``token_len`` with
+the end token kept: syntax sampling is WordPiece's and is not applied.
 """
 
 from clipa_tpu_torch.config import ConfigDict, parse_arg
@@ -27,11 +38,18 @@ def get_config(arg=None):
         arg, img="H/14", res=84, token_len=8, batchsize=65536,
         total_seen=12_800_000_000, data_dir="", vocab_path="",
         text_sampling="syntax", loss="softmax", masked=0.0,
-        runlocal=False)
+        runlocal=False, txt="")
 
     img_name = arg.img
     txt_name = img_name.split("/")[0]
-    vocab_path = arg.vocab_path or common.default_vocab_path()
+    if arg.txt:
+        from clipa_tpu_torch.models.t5_text import T5_ARCHS
+        if arg.txt not in T5_ARCHS:
+            raise ValueError(f"txt={arg.txt!r}: not an mT5 trunk of "
+                             f"models/t5_text.py ({sorted(T5_ARCHS)})")
+        vocab_path = arg.vocab_path or f"google/{arg.txt}"
+    else:
+        vocab_path = arg.vocab_path or common.default_vocab_path()
 
     config = ConfigDict()
     config.seed = 0
@@ -45,12 +63,16 @@ def get_config(arg=None):
     )
     tok_op = {"syntax": "syntax_tokenize", "first": "custom_bert_tokenize",
               "plain": "bert_tokenize"}[arg.text_sampling]
+    tok = (f'{tok_op}(inkey="txt", max_len={arg.token_len}, '
+           f'vocab_path="{vocab_path}")')
+    if arg.txt:
+        tok = (f'hf_tokenize(inkey="txt", max_len={arg.token_len}, '
+               f'tokenizer_path="{vocab_path}")')
     config.input.pp = (
         f'decode_jpeg_and_inception_crop(inkey="jpg", size={arg.res}, '
         f'area_min=40, method="bilinear", antialias=True)|'
         f'simclr_jitter_gray(jitter_strength=0.4)|'
-        f'{tok_op}(inkey="txt", max_len={arg.token_len}, '
-        f'vocab_path="{vocab_path}")|'
+        f'{tok}|'
         f'keep("image", "labels")')
 
     config.model_name = "two_towers"
@@ -58,6 +80,11 @@ def get_config(arg=None):
         img_name, txt_name, pool_type="gap", posemb="sincos2d",
         dtype="bfloat16",
         remat="minimal" if img_name[0] in ("H", "g", "G", "e") else "none")
+    if arg.txt:
+        config.model.text_model = "t5_text"
+        config.model.text = ConfigDict(
+            variant=arg.txt, proj="mlp", pad_id=0,
+            remat_policy=config.model.image.remat_policy)
     config.init_shapes = [(1, arg.res, arg.res, 3), (1, arg.token_len)]
 
     bs = config.input.batch_size
@@ -84,6 +111,11 @@ def get_config(arg=None):
         tokenizer_pp = (f'bert_tokenize(inkey="texts", '
                         f'max_len={arg.token_len}, '
                         f'vocab_path="{vocab_path}", sample_if_multi=False)')
+        if arg.txt:
+            tokenizer_pp = (f'hf_tokenize(inkey="texts", '
+                            f'max_len={arg.token_len}, '
+                            f'tokenizer_path="{vocab_path}", '
+                            f'sample_if_multi=False)')
         config.evals.disclf = common.disclf_eval(
             arg.res, tokenizer_pp, data_dir=arg.data_dir,
             log_steps=2000)

@@ -10,8 +10,21 @@ pool (its count floored at 1) and open_clip's ``mlp`` or ``linear``
 projection.
 
 The attention is the tower's own einsum (the bias rules out the fused
-kernels, as in the JAX tower). The bucketing is the JAX package's, in
-fp32: ``+ 1e-6`` inside the log, truncation to int32.
+kernels, as in the JAX tower): :func:`attention_core`, the scores, bias,
+pad mask, softmax and weighted sum of one block. It runs in the span
+``t5.attention`` (``tracing.py``), in the forward and in remat's
+recompute, and its backward in ``t5.attention.bwd``, opened and closed by
+two identity marks on the core's output and inputs (autograd reaches the
+first before the core's backward and the second after it, so the
+arithmetic is autograd's own). :data:`attention_calls` counts the cores
+run by phase. The bucketing is the JAX package's, in fp32: ``+ 1e-6``
+inside the log, truncation to int32.
+
+``remat_policy`` names the policies of ``layers.Encoder``: "minimal"
+recomputes each block (RMSNorm, attention, RMSNorm, gated feed-forward) in
+the backward and keeps the outputs of its 2D products; any other name but
+"none" recomputes the whole block. Neither changes a number. ``quant``
+runs the blocks' products through the int8 path of ``layers.QuantDense``.
 
 :func:`convert_hf_mt5` maps a ``transformers`` MT5EncoderModel (or an
 MT5Model's encoder) state dict onto the tower, strictly.
@@ -19,14 +32,19 @@ MT5Model's encoder) state dict onto the tower, strictly.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Any, Optional
+import threading
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
+from clipa_tpu_torch import tracing
 from clipa_tpu_torch import utils as u
 from clipa_tpu_torch.models import layers
 
@@ -78,41 +96,138 @@ def relative_position_bucket(rel_pos: torch.Tensor, num_buckets: int = 32,
     return ret + torch.where(n < max_exact, n.to(torch.int32), large)
 
 
-def _dense(d_in: int, d_out: int, init=None) -> layers.QuantDense:
+def _dense(d_in: int, d_out: int, init=None,
+           quant: Optional[str] = None) -> layers.QuantDense:
     """flax ``nn.Dense(use_bias=False)`` (lecun-normal kernel by default)."""
     return layers.QuantDense(d_in, d_out, use_bias=False,
-                             kernel_init=init or layers.lecun_normal())
+                             kernel_init=init or layers.lecun_normal(),
+                             quant=quant)
+
+
+# Attention cores run, by phase (a plain counter: callers reset it or take
+# differences): "forward" (the forward, with or without gradients),
+# "recompute" (remat's replay in the backward), "backward".
+attention_calls = {"forward": 0, "recompute": 0, "backward": 0}
+_replay = threading.local()
+
+
+@contextlib.contextmanager
+def _replaying():
+    """Marks the calling thread's cores as remat's recompute."""
+    previous = getattr(_replay, "on", False)
+    _replay.on = True
+    try:
+        yield
+    finally:
+        _replay.on = previous
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   pos_bias: torch.Tensor, key_mask: Optional[torch.Tensor],
+                   dtype: torch.dtype) -> torch.Tensor:
+    """(b, l, h, d) q, k, v -> (b, l, h, d): unscaled fp32 scores plus the
+    (1, h, l, l) bias, pad keys at ``finfo(float32).min``, fp32 softmax
+    cast to `dtype`, times v."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + pos_bias
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask[:, None, None, :],
+                                    torch.finfo(torch.float32).min)
+    attn = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+class _Mark(torch.autograd.Function):
+    """The identity on its tensors; its backward calls `action` first."""
+
+    @staticmethod
+    def forward(ctx, action: Callable, *xs):
+        ctx.action = action
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.action()
+        return (None, *grads)
+
+
+class _BackwardSpan:
+    """The span ``t5.attention.bwd`` of one core's backward: :meth:`open`
+    runs in the backward of the mark on the core's output, :meth:`close` in
+    that of the mark on its inputs."""
+
+    __slots__ = ("span",)
+
+    def __init__(self):
+        self.span = None
+
+    def open(self) -> None:
+        attention_calls["backward"] += 1
+        self.span = tracing.span("t5.attention.bwd")
+        self.span.__enter__()
+
+    def close(self) -> None:
+        if self.span is not None:
+            self.span.__exit__(None, None, None)
+            self.span = None
 
 
 class T5SelfAttention(nn.Module):
     """T5 self-attention: q . k unscaled (T5 folds the scale into its init),
     plus the position bias, pad keys at ``finfo(float32).min``, fp32
-    softmax; no projection biases."""
+    softmax; no projection biases. The core is :func:`attention_core`, in
+    the spans of the module docstring."""
 
-    def __init__(self, width: int, num_heads: int, head_dim: int):
+    def __init__(self, width: int, num_heads: int, head_dim: int,
+                 quant: Optional[str] = None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         inner = num_heads * head_dim
-        self.q, self.k, self.v = (_dense(width, inner) for _ in range(3))
-        self.o = _dense(inner, width)
+        self.q, self.k, self.v = (_dense(width, inner, quant=quant)
+                                  for _ in range(3))
+        self.o = _dense(inner, width, quant=quant)
 
     def forward(self, x: torch.Tensor, pos_bias: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, l, _ = x.shape
         q, k, v = (p(x).reshape(b, l, self.num_heads, self.head_dim)
                    for p in (self.q, self.k, self.v))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + pos_bias
-        if key_mask is not None:
-            scores = scores.masked_fill(~key_mask[:, None, None, :],
-                                        torch.finfo(torch.float32).min)
-        attn = torch.softmax(scores, dim=-1).to(x.dtype)
-        y = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        marked = torch.is_grad_enabled()
+        if marked:
+            bwd = _BackwardSpan()
+            q, k, v = _Mark.apply(bwd.close, q, k, v)
+        attention_calls["recompute" if getattr(_replay, "on", False)
+                        else "forward"] += 1
+        with tracing.span("t5.attention"):
+            y = attention_core(q, k, v, pos_bias, key_mask, x.dtype)
+        if marked:
+            (y,) = _Mark.apply(bwd.open, y)
         return self.o(y.reshape(b, l, -1))
+
+
+def _rematted(block: Callable, x: torch.Tensor, pos_bias: torch.Tensor,
+              keep: torch.Tensor, context_fn) -> torch.Tensor:
+    """`block` under non-reentrant checkpoint (``layers._rematted``): the
+    forward draws from the live random streams, the recompute from their
+    replay, with its cores counted as "recompute"."""
+    states = layers._stream_states()
+    forward_done = False
+
+    def run(x, pos_bias):
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return block(x, pos_bias, keep)
+        with layers.random_streams(**layers._replayed(states)), \
+                _replaying():
+            return block(x, pos_bias, keep)
+
+    return checkpoint.checkpoint(run, x, pos_bias, use_reentrant=False,
+                                 context_fn=context_fn)
 
 
 class _Model(nn.Module):
     """`context_length` (the trainer's) is unused: the bias covers any
-    length."""
+    length. `remat_policy` and `quant`: the module docstring."""
 
     fp32_params = ("relative_attention_bias",)
 
@@ -124,12 +239,15 @@ class _Model(nn.Module):
                  dropout: float = 0.0, proj: Optional[str] = "mlp",
                  ln_eps: float = 1e-6, dtype: Any = None,
                  attn_impl: str = "auto",
-                 context_length: Optional[int] = None):
+                 context_length: Optional[int] = None,
+                 remat_policy: Optional[str] = "none",
+                 quant: Optional[str] = None):
         super().__init__()
         del attn_impl, context_length
         self.dtype = u.resolve_dtype(dtype) or torch.float32
         self.pad_id = pad_id
         self.depth = depth
+        self.remat_policy = remat_policy
         self.rel_buckets, self.rel_max_distance = rel_buckets, rel_max_distance
         self.num_classes = num_classes
         self.word_embeddings = nn.Embedding(vocab_size, width)
@@ -139,13 +257,16 @@ class _Model(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}_ln0",
                             RMSNorm(width, ln_eps, self.dtype))
-            self.add_module(f"block_{i}_attn",
-                            T5SelfAttention(width, num_heads, head_dim))
+            self.add_module(f"block_{i}_attn", T5SelfAttention(
+                width, num_heads, head_dim, quant))
             self.add_module(f"block_{i}_ln1",
                             RMSNorm(width, ln_eps, self.dtype))
-            self.add_module(f"block_{i}_wi0", _dense(width, mlp_dim))
-            self.add_module(f"block_{i}_wi1", _dense(width, mlp_dim))
-            self.add_module(f"block_{i}_wo", _dense(mlp_dim, width))
+            self.add_module(f"block_{i}_wi0",
+                            _dense(width, mlp_dim, quant=quant))
+            self.add_module(f"block_{i}_wi1",
+                            _dense(width, mlp_dim, quant=quant))
+            self.add_module(f"block_{i}_wo",
+                            _dense(mlp_dim, width, quant=quant))
         self.final_norm = RMSNorm(width, ln_eps, self.dtype)
         self.proj_fc = self.head = None
         if num_classes:
@@ -168,6 +289,17 @@ class _Model(nn.Module):
         bias = self.relative_attention_bias.float()[buckets]   # (L, L, H)
         return bias.permute(2, 0, 1)[None]
 
+    def block(self, i: int, x: torch.Tensor, pos_bias: torch.Tensor,
+              keep: torch.Tensor) -> torch.Tensor:
+        """Block `i` over the (n, l, width) stream."""
+        ln0, attn, ln1, wi0, wi1, wo = (
+            getattr(self, f"block_{i}_{name}")
+            for name in ("ln0", "attn", "ln1", "wi0", "wi1", "wo"))
+        x = x + self.dropout(attn(ln0(x), pos_bias, keep))
+        y = ln1(x)
+        y = F.gelu(wi0(y), approximate="tanh") * wi1(y)
+        return x + self.dropout(wo(y))
+
     def forward(self, text: torch.Tensor):
         """text: (n, l) int ids, `pad_id` for padding. Returns the fp32
         (n, C) embedding and a dict of intermediates (``encoded``: the
@@ -176,14 +308,16 @@ class _Model(nn.Module):
         keep = text != self.pad_id
         x = self.word_embeddings(text).to(self.dtype)
         pos_bias = self.position_bias(text.shape[1], text.device)
+        remat = (self.remat_policy not in (None, "none")
+                 and torch.is_grad_enabled())
+        context_fn = (layers._minimal_remat if self.remat_policy == "minimal"
+                      else checkpoint.noop_context_fn)
         for i in range(self.depth):
-            ln0, attn, ln1, wi0, wi1, wo = (
-                getattr(self, f"block_{i}_{name}")
-                for name in ("ln0", "attn", "ln1", "wi0", "wi1", "wo"))
-            x = x + self.dropout(attn(ln0(x), pos_bias, keep))
-            y = ln1(x)
-            y = F.gelu(wi0(y), approximate="tanh") * wi1(y)
-            x = x + self.dropout(wo(y))
+            if remat:
+                x = _rematted(functools.partial(self.block, i), x, pos_bias,
+                              keep, context_fn)
+            else:
+                x = self.block(i, x, pos_bias, keep)
         x = self.final_norm(x)
         out["encoded"] = x
 

@@ -89,6 +89,28 @@ def get_bert_tokenize(vocab_path: str, max_len: int,
     return _op
 
 
+@Registry.register("preprocess_ops.hf_tokenize")
+@InKeyOutKey(indefault="texts", outdefault="labels", with_data=True)
+def get_hf_tokenize(tokenizer_path: str, max_len: int,
+                    sample_if_multi: bool = True):
+    """A HuggingFace tokenizer's ids (``transformers.AutoTokenizer`` of a
+    local directory or a name in the local HF cache, imported when the op
+    is built: the mT5 towers' SentencePiece), truncated to `max_len` with
+    the tokenizer's own end token kept, padded with its pad id to
+    `max_len`, int32. The port's own op, for the mT5 text towers
+    (``configs/clipa_pretrain.py``'s ``txt``)."""
+    from transformers import AutoTokenizer
+    tok = AutoTokenizer.from_pretrained(tokenizer_path)
+
+    def _op(labels, sample=None):
+        txt = _pick_caption(labels, sample_if_multi, _rng_of(sample))
+        enc = tok(txt, padding="max_length", truncation=True,
+                  max_length=max_len)
+        return np.asarray(enc["input_ids"], np.int32)
+
+    return _op
+
+
 @Registry.register("preprocess_ops.custom_bert_tokenize")
 @InKeyOutKey(indefault="texts", outdefault="labels", with_data=True)
 def get_custom_bert_tokenize(vocab_path: str, max_len: int,

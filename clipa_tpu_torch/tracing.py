@@ -27,7 +27,12 @@ CUDA parameters ``train.optim.update`` holds the fused Adam kernel's host
 side, its launch included, and ``train.optim.apply`` is opened but empty,
 since the kernel adds the updates itself; on CPU parameters the eager
 chain and the add), ``train.norms`` (the gated ``l2_*`` and block norms);
-``serve.stage``
+``t5.attention`` (``models/t5_text.py``: one block's attention core, the
+scores, position bias, pad mask, softmax and weighted sum, in the forward
+and again in remat's recompute) and ``t5.attention.bwd`` (that core's
+backward, opened and closed from autograd's thread by two identity marks),
+beside the tower's counter ``t5_text.attention_calls`` (cores by phase:
+"forward", "recompute", "backward"); ``serve.stage``
 (``EmbeddingService._dispatch``), ``serve.pin`` (the host copy into
 pinned memory, inside ``serve.stage``) and ``serve.drain`` (the wait on a
 chunk and its concatenation).

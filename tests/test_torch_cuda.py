@@ -18,6 +18,7 @@ two bf16 tensor-core products (the weights' hi and lo parts) meet.
 """
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -1078,6 +1079,69 @@ def test_fused_adam_refuses_what_it_cannot_take(cuda):
                                                  dtype=torch.float16)
     with pytest.raises(TypeError, match="takes torch.float32"):
         tx.update(grads)
+
+
+# A leaf table past 2^31 elements (2.149e9, mT5-XL's 512M-element ids
+# table among them, as in the mt5-xl-ViT-H-14 step): its chunk table's
+# offsets and the updates buffer's leaf offsets pass what 32 bits hold.
+ADAM_LARGE_SHAPES = {
+    "txt/word_embeddings/embedding": (250112, 2048),
+    "txt/block_0_wi0/kernel": (262144, 2048),
+    "txt/block_0_wi1/kernel": (262144, 2048),
+    "txt/block_0_wo/kernel": (262144, 2048),
+    "img/Transformer/encoderblock_3/MlpBlock_0/Dense_0/kernel": (65536, 400),
+    "img/Transformer/encoderblock_3/MlpBlock_0/Dense_0/bias": (2 * 65536
+                                                               + 5,),
+    "txt/final_norm/scale": (7,),
+    "t": (1,),
+}
+
+
+def _seeded(shape, cuda, *key):
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1)[0])
+    return torch.randn(shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(seed))
+
+
+@pytest.mark.cuda
+def test_fused_adam_matches_the_chain_past_2_to_the_31_elements(cuda):
+    """Two steps of the kernel over the whole table (one launch each, the
+    updates written) against the eager chain run leaf by leaf from the
+    same seeded parameters and gradients (no clip, so no leaf depends on
+    another): parameters, moments and updates bit for bit. Needs some 40
+    GB of the card."""
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.ops import fused_adam
+    config = _adam_config("scale_by_adam", "bfloat16", "float32", None)
+    names = list(ADAM_LARGE_SHAPES)
+    assert sum(math.prod(s) for s in ADAM_LARGE_SHAPES.values()) > 2 ** 31
+    sched_kw = dict(total_steps=10)
+    kernel, _ = optim.make(config, {
+        n: _seeded(s, cuda, i) for i, (n, s) in
+        enumerate(ADAM_LARGE_SHAPES.items())}, sched_kw=sched_kw)
+    got = []
+    for k in range(2):
+        grads = {n: _seeded(ADAM_LARGE_SHAPES[n], cuda, 100 + k, i)
+                 for i, n in enumerate(names)}
+        kernel.return_updates = True
+        before = fused_adam.fused_adam_step.launches
+        got.append(kernel.update(grads))
+        assert fused_adam.fused_adam_step.launches == before + 1
+        del grads
+    torch.cuda.synchronize()
+    for i, (n, s) in enumerate(ADAM_LARGE_SHAPES.items()):
+        chain, _ = optim.make(config, {n: _seeded(s, cuda, i)},
+                              sched_kw=sched_kw)
+        for k in range(2):
+            want = chain.chain_update({n: _seeded(s, cuda, 100 + k, i)})
+            optim.apply_updates(chain.params, want)
+            assert torch.equal(_bits(got[k][n]), _bits(want[n])), (n, k)
+            del want
+        assert torch.equal(_bits(kernel.params[n]), _bits(chain.params[n])), n
+        for key in ("mu", "nu"):
+            assert torch.equal(_bits(getattr(kernel, key)[n]),
+                               _bits(getattr(chain, key)[n])), (key, n)
+        del chain
 
 
 @pytest.mark.cuda

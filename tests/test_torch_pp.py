@@ -231,18 +231,22 @@ OP_CASES = {
                      'inkey="image", outkey="aug")'],
 }
 SPECS = [(name, spec) for name, specs in OP_CASES.items() for spec in specs]
+# the port's own ops, which the JAX package lacks (tested apart:
+# hf_tokenize in tests/test_torch_mt5_clip.py)
+PORT_ONLY = {"hf_tokenize"}
 
 
 def test_every_registered_op_has_a_case():
     ported = {k.split(".", 1)[1] for k in registry.Registry._registry
               if k.startswith("preprocess_ops.")}
-    assert ported == set(OP_CASES)
+    assert ported == set(OP_CASES) | PORT_ONLY
     jax_ops = {k.split(".", 1)[1]: fn.__module__
                for k, fn in jax_registry.Registry._registry.items()
                if k.startswith("preprocess_ops.")}
     # every JAX op is ported (the AutoAugment/RandAugment modules' ops last)
     assert {m for n, m in jax_ops.items() if n not in ported} == set()
-    assert ported == set(jax_ops)
+    assert ported == set(jax_ops) | PORT_ONLY
+    assert not PORT_ONLY & set(jax_ops)
 
 
 @pytest.mark.parametrize("name,spec", SPECS)

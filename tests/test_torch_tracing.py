@@ -158,3 +158,83 @@ def test_a_served_request_records_a_stage_and_a_drain_per_chunk(tmp_path):
     assert len(tracing.recent("serve.stage")) == 3     # 4 + 4 + 2 (padded)
     assert len(tracing.recent("serve.drain")) == 3
     assert tracing.recent("serve.pin") == []    # no pinned copy on the CPU
+
+
+def _tiny_t5(remat):
+    from clipa_tpu_torch.models import layers, t5_text
+    model = t5_text.Model(16, width=32, depth=2, num_heads=4, head_dim=8,
+                          mlp_dim=48, vocab_size=50, remat_policy=remat)
+    layers.init_parameters(model, torch.Generator().manual_seed(0))
+    ids = torch.randint(2, 50, (3, 6), generator=torch.Generator()
+                        .manual_seed(1))
+    ids[:, 4:] = 0
+    return model, ids
+
+
+@pytest.mark.parametrize("remat", ["none", "minimal"])
+def test_the_t5_attention_spans_record_without_a_profiler(monkeypatch,
+                                                           remat):
+    """The T5 tower's cores: one ``t5.attention`` sample per block in the
+    forward and one more per block in remat's recompute, one
+    ``t5.attention.bwd`` per block, none entering a range."""
+    monkeypatch.setattr(autograd_profiler, "record_function", _refuse)
+    model, ids = _tiny_t5(remat)
+    z, _ = model(ids)
+    z.square().sum().backward()
+    fwd = tracing.recent("t5.attention")
+    bwd = tracing.recent("t5.attention.bwd")
+    assert len(fwd) == (2 if remat == "none" else 4) and len(bwd) == 2
+    assert not any(s.profiled for s in fwd + bwd)
+    # each backward span starts after the forward's cores ended
+    assert min(s.start_ns for s in bwd) >= fwd[1].start_ns + fwd[1].duration_ns
+
+
+def test_the_t5_backward_span_holds_its_cores_backward():
+    """Under the CPU profiler each core's softmax backward lies inside a
+    ``t5.attention.bwd`` range, and the bias add's and the pad mask's too."""
+    model, ids = _tiny_t5("minimal")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        z, _ = model(ids)
+        z.square().sum().backward()
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "t5.attention.bwd"]
+    inner = [e.time_range for e in events if e.name.startswith(
+        "autograd::engine::evaluate_function: ") and any(
+        k in e.name for k in ("SoftmaxBackward", "MaskedFillBackward"))]
+    assert len(spans) == 2 and len(inner) == 4
+    for t in inner:
+        assert any(s.start <= t.start and t.end <= s.end for s in spans), t
+    assert len([e for e in events if e.name == "t5.attention"]) == 4
+
+
+@pytest.mark.cuda
+def test_the_t5_attention_ranges_reach_the_device_timeline():
+    """On the card, under a profiler, ``t5.attention`` (forward and
+    recompute) and ``t5.attention.bwd`` are mirrored onto the device
+    timeline over the kernels they launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, ids = _tiny_t5("minimal")
+    model.cuda()
+    ids = ids.cuda()
+    z, _ = model(ids)      # warm-up outside the trace
+    z.square().sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        z, _ = model(ids)
+        z.square().sum().backward()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    mirrored = [e for e in prof.events() if e.device_type == cuda
+                and e.is_user_annotation]
+    names = [e.name for e in mirrored]
+    assert names.count("t5.attention") == 4, names
+    assert names.count("t5.attention.bwd") == 2, names
+    kernels = [e.time_range for e in prof.events() if e.device_type == cuda
+               and not e.is_user_annotation]
+    for e in mirrored:
+        if e.name.startswith("t5.attention"):
+            r = e.time_range
+            assert any(r.start <= k.start and k.end <= r.end
+                       for k in kernels), e.name
