@@ -28,7 +28,7 @@ HF, Swin, relpos and conv towers, the trainer on an NCCL process group of
 one under torchrun with the ring losses and a sharded checkpoint, and the
 towers' int8 matmuls, and the optimizer's fused Adam kernel.
 
-  1. the card, torch/CUDA versions, and the six kernel sources built from
+  1. the card, torch/CUDA versions, and the seven kernel sources built from
      clipa_tpu_torch/csrc, one nvcc per source, in parallel with g++ on the
      native host library (clipa_tpu_torch/native: its seconds, its path,
      whether /usr/include/jpeglib.h exists and which libjpeg it links);
@@ -64,7 +64,9 @@ towers' int8 matmuls, and the optimizer's fused Adam kernel.
      batches; shapes, finite values, unit norms; the forward kernel's launch
      count equals 32 (image layers) per image chunk; the images' embeddings
      match a service built on the plain attention path (per-row cosine >=
-     0.999); images/s and texts/s at bucket 256;
+     0.999); the LayerNorm kernels' forward launches equal the towers'
+     LayerNorm calls (``layer_norm.launches`` set to 0 before, read after;
+     no backward); images/s and texts/s at bucket 256;
   5. the training step: one step launches each kernel 24 times (the image
      layers; the 8-token text tower takes the einsum path) and the fused
      Adam kernel once (phase 13's trainer: once a step too); from the same
@@ -334,7 +336,19 @@ towers' int8 matmuls, and the optimizer's fused Adam kernel.
      L/16 pre-training parameter sets: one step bit for bit against the
      eager chain from the same state, one launch a step, its device time
      against its byte bound (24 B per parameter), the chain's device and
-     host time.
+     host time;
+ 25. the LayerNorm kernels (``tools/layer_norm_bench.measure``) at the main
+     path's shapes (37888, 46080 and 65792 rows x 1280, 8192 x 1024), on
+     two seeds: the forward within one bf16 ulp of the cast chain beyond
+     the floor the two sums' orders allow and within half an ulp of the
+     float64 value beyond the kernel's own fp32 error bound, dx within one
+     ulp of its row's scale, dweight and dbias within 1e-5, two backwards
+     bit for bit, one launch each way; device time against the byte bound
+     (4 and 6 bytes an element), the chain's and the plain version's, and
+     the host's microseconds a call. Phases 4, 5 and 12 set
+     ``layer_norm.launches`` to 0 before their main-path run and check it
+     against the LayerNorm calls they count: one forward launch a call,
+     remat's recomputes included, one backward launch a module a step.
 
 Each phase prints its seconds ("phase N: s"), and their sum at the end.
 
@@ -838,6 +852,45 @@ def _steps_per_s(update, state, batch, steps):
     return steps / (time.perf_counter() - t0)
 
 
+def _ln_census(roots, run):
+    """Runs run() with ops/layer_norm's launches set to 0 and every
+    layers.LayerNorm under the modules `roots` counted by a forward
+    pre-hook: (run()'s result, {"calls", "modules" (those called),
+    "launches"})."""
+    import torch
+    from clipa_tpu_torch.models import layers
+    from clipa_tpu_torch.ops import layer_norm as ln
+    calls, hooks = {}, []
+    norms = {id(m): m for root in roots for m in root.modules()
+             if isinstance(m, layers.LayerNorm)}
+    for key, m in norms.items():
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args, key=key: calls.__setitem__(
+                key, calls.get(key, 0) + 1)))
+    ln.layer_norm.launches = {"forward": 0, "backward": 0}
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, {"calls": sum(calls.values()), "modules": len(calls),
+                 "launches": dict(ln.layer_norm.launches)}
+
+
+def _check_ln(what, census, backward):
+    """Raises unless the LayerNorm kernels ran once a LayerNorm call
+    forward and, where `backward`, once a module backward."""
+    want = {"forward": census["calls"],
+            "backward": census["modules"] if backward else 0}
+    print(f"{what}: {census['calls']} LayerNorm calls in "
+          f"{census['modules']} modules; layer_norm launches "
+          f"{census['launches']} (expected {want})", flush=True)
+    if census["launches"] != want or not census["calls"]:
+        raise RuntimeError(f"{what}: the LayerNorm kernels launched "
+                           f"{census['launches']}, expected {want}")
+
+
 def _training(card):
     """Phase 5: the CLIPA pre-training step at the bench shape."""
     import numpy as np
@@ -897,8 +950,9 @@ def _training(card):
     ba.fused_attention_bwd.launches = 0
     fused_adam.fused_adam_step.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    state, meas = update(state, batch)
-    torch.cuda.synchronize()
+    (state, meas), ln_census = _ln_census([model],
+                                          lambda: update(state, batch))
+    _check_ln("training step", ln_census, backward=True)
     launches = {"fwd": ba.fused_attention.launches,
                 "bwd": ba.fused_attention_bwd.launches,
                 "adam": fused_adam.fused_adam_step.launches}
@@ -948,7 +1002,7 @@ def _training(card):
                            f"its start: {curve}")
     return {"launches": launches, "pairs_per_s": rates, "peak_gb": peak_gb,
             "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
-            "model": model}
+            "model": model, "ln_census": ln_census}
 
 
 def _print_compare(what, loss_a, loss_b, cmp, loss_rtol):
@@ -1407,8 +1461,9 @@ def _finetune_h14(card, spec):
     # the main path: one update step, counters read around it
     reset()
     torch.cuda.reset_peak_memory_stats()
-    state, meas = update(state, batch)
-    torch.cuda.synchronize()
+    (state, meas), ln_census = _ln_census([model],
+                                          lambda: update(state, batch))
+    _check_ln(f"H/14 fine-tune step ({spec})", ln_census, backward=True)
     launches = read()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"H/14 fine-tune step: loss {float(meas['training_loss']):.6f}; "
@@ -1426,7 +1481,7 @@ def _finetune_h14(card, spec):
     print(f"{card}: H/14 fine-tune pairs/s at B={batch_size}, L={tokens} "
           f"(auto route) {rate:.2f}", flush=True)
     return {"tokens": tokens, "launches": launches, "pairs_per_s": rate,
-            "peak_gb": peak_gb,
+            "peak_gb": peak_gb, "ln_census": ln_census,
             "loss_rel": cmp["loss_rel"], "min_cosine": cmp["min_cosine"],
             "plan": list(plan)}
 
@@ -4990,6 +5045,74 @@ def _fused_adam(card):
     return out
 
 
+# Phase 25: the LayerNorm kernels (csrc/layer_norm.cu) at the main path's
+# shapes (rows x width: H/14 @84, @224 masked and served, the text tower)
+# through tools/layer_norm_bench.measure, timed on the first seed.
+LN_SHAPES = ((37888, 1280), (46080, 1280), (65792, 1280), (8192, 1024))
+LN_SEEDS = (SEED, SEED + 1)
+
+
+def _layer_norm(card):
+    """Phase 25: at each of LN_SHAPES and LN_SEEDS, the kernels against the
+    cast chain and the float64 LayerNorm (``y_ulps`` <= 1, ``y_exact_ulps``
+    <= 0.5, ``dx_ulps`` <= 1, ``dw_rel`` and ``db_rel`` <= 1e-5, two
+    backwards bit for bit, one launch each way); on the first seed device
+    time against the byte bound, the chain's and the plain version's, and
+    the host's time a call."""
+    import torch
+    from clipa_tpu_torch.tools import layer_norm_bench
+
+    if layer_norm_bench.HBM_BYTES_PER_S != HBM_BYTES_PER_S:
+        raise RuntimeError("layer_norm_bench's HBM rate is not chip_smoke's")
+    t0 = time.perf_counter()
+    cases, launches = [], {"forward": 0, "backward": 0}
+    for rows, d in LN_SHAPES:
+        for i, seed in enumerate(LN_SEEDS):
+            torch.cuda.empty_cache()
+            r = layer_norm_bench.measure(rows, d, iters=20, seed=seed,
+                                         timed=not i)
+            cases.append(r)
+            for k in launches:
+                launches[k] += r["launches"][k]
+            timing = ""
+            if not i:
+                timing = (
+                    f"; device fwd {_fmt(r['kernel_fwd_ms'])} ms, bwd "
+                    f"{_fmt(r['kernel_bwd_ms'])} ms against the bound "
+                    f"{r['bound_fwd_ms']:.4f} / {r['bound_bwd_ms']:.4f} ms: "
+                    f"{_ratio(r['bound_fwd_ms'], r['kernel_fwd_ms'], '.1%')}"
+                    f" / "
+                    f"{_ratio(r['bound_bwd_ms'], r['kernel_bwd_ms'], '.1%')};"
+                    f" the chain {_fmt(r['chain_fwd_ms'])} / "
+                    f"{_fmt(r['chain_bwd_ms'])} ms, the plain version "
+                    f"{_fmt(r['plain_fwd_ms'])} / {_fmt(r['plain_bwd_ms'])} "
+                    f"ms; host us a call fwd {r['host_fwd_us']:.1f} bwd "
+                    f"{r['host_bwd_us']:.1f} no-grad "
+                    f"{r['host_nograd_fwd_us']:.1f} (chain "
+                    f"{r['chain_host_fwd_us']:.1f} / "
+                    f"{r['chain_host_bwd_us']:.1f} / "
+                    f"{r['chain_host_nograd_fwd_us']:.1f})")
+            print(f"{card}: layer_norm at {rows} x {d}, seed {seed}: y "
+                  f"{r['y_ulps']:.4f} ulps beyond the floor, "
+                  f"{r['y_exact_ulps']:.4f} from float64 beyond the bound, "
+                  f"{r['y_raw_ulps']:.1f} raw at {r['y_raw_at']}; dx "
+                  f"{r['dx_ulps']:.4f} ulps; dw {r['dw_rel']:.3g} db "
+                  f"{r['db_rel']:.3g}; backward bit for bit "
+                  f"{r['bwd_bitwise']}; launches {r['launches']}{timing}",
+                  flush=True)
+            if not (r["y_ulps"] <= 1 and r["y_exact_ulps"] <= 0.5
+                    and r["dx_ulps"] <= 1 and r["dw_rel"] <= 1e-5
+                    and r["db_rel"] <= 1e-5 and r["bwd_bitwise"]
+                    and r["launches"] == {"forward": 1, "backward": 1}):
+                raise RuntimeError(f"layer_norm at {rows} x {d}, seed "
+                                   f"{seed}: {r}")
+    torch.cuda.empty_cache()
+    out = {"cases": cases, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 25 in {out['seconds']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5002,6 +5125,7 @@ def main() -> int:
     from clipa_tpu_torch.ops import block_attention as ba, cuda_build
     from clipa_tpu_torch.ops import flash_attention as fa
     from clipa_tpu_torch.ops import fused_adam
+    from clipa_tpu_torch.ops import layer_norm as ln
     from clipa_tpu_torch.ops import patch_embed as pe
     from clipa_tpu_torch.serving import EmbeddingService
 
@@ -5029,7 +5153,8 @@ def main() -> int:
                "flash_attention_fwd.cu": fa.fwd_library,
                "flash_attention_bwd.cu": fa.bwd_library,
                "patch_embed.cu": pe.library,
-               "fused_adam.cu": fused_adam.library}
+               "fused_adam.cu": fused_adam.library,
+               "layer_norm.cu": ln.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(native.load)
@@ -5128,9 +5253,11 @@ def main() -> int:
 
     ba.fused_attention.launches = 0
     t0 = time.perf_counter()
-    z_images = [svc.embed_images(r) for r in requests]
-    z_texts = [svc.embed_texts(captions[:7]), svc.embed_texts(captions)]
+    (z_images, z_texts), serve_ln = _ln_census([svc.clip.model], lambda: (
+        [svc.embed_images(r) for r in requests],
+        [svc.embed_texts(captions[:7]), svc.embed_texts(captions)]))
     served_s = time.perf_counter() - t0
+    _check_ln("service", serve_ln, backward=False)
     launches = ba.fused_attention.launches
     print(f"served {sum(len(r) for r in requests)} images in {chunks} "
           f"chunks and {7 + len(captions)} texts in {served_s:.2f} s; "
@@ -5278,6 +5405,18 @@ def main() -> int:
     # 24. the optimizer's fused Adam kernel against its chain
     adam = _fused_adam(card)
     lap("24")
+
+    # 25. the LayerNorm kernels
+    ln_phase = _layer_norm(card)
+    ln_main = next(c for c in ln_phase["cases"]
+                   if (c["rows"], c["width"]) == LN_SHAPES[2]
+                   and "kernel_fwd_ms" in c)
+    ln_by_path = {"serving": serve_ln,
+                  "training_step": train["ln_census"],
+                  "h14_finetune_step_224": h14["ln_census"],
+                  "h14_finetune_step_336": h14_336["ln_census"],
+                  "layer_norm_bench": ln_phase}
+    lap("25")
     print(f"phase seconds: {json.dumps(phase_s)}; total "
           f"{sum(phase_s.values()):.2f} s", flush=True)
 
@@ -5580,6 +5719,42 @@ def main() -> int:
             "plain_device_ms": c["chain_device_ms"],
             "plain_host_ms": c["chain_host_ms"], "bound_ms": c["bound_ms"]}
             for spec, c in adam["cases"].items()},
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "clipa_tpu_torch/csrc/layer_norm.cu",
+        # no Pallas kernel: XLA fuses the JAX package's LayerNorm
+        "replaces": None,
+        "fuses": "clipa_tpu/models/layers.py:276,293 (flax nn.LayerNorm, "
+                 "by XLA)",
+        "launches": sum(sum(c["launches"].values())
+                        for c in ln_by_path.values()),
+        "launches_by_path": {k: c["launches"] for k, c in ln_by_path.items()},
+        "layer_norm_calls_by_path": {k: c["calls"]
+                                     for k, c in ln_by_path.items()
+                                     if "calls" in c},
+        "y_ulps": max(c["y_ulps"] for c in ln_phase["cases"]),
+        "y_exact_ulps": max(c["y_exact_ulps"] for c in ln_phase["cases"]),
+        "dx_ulps": max(c["dx_ulps"] for c in ln_phase["cases"]),
+        "ms": ln_main["kernel_fwd_events_ms"],
+        "device_ms": ln_main["kernel_fwd_ms"],
+        "bwd_device_ms": ln_main["kernel_bwd_ms"],
+        "plain_device_ms": ln_main["plain_fwd_ms"],
+        # the cast chain layers.LayerNorm runs off the kernels' route
+        "chain_device_ms": ln_main["chain_fwd_ms"],
+        "bound_ms": ln_main["bound_fwd_ms"],
+        "bwd_bound_ms": ln_main["bound_bwd_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,   # no one PyTorch call: bf16 in, fp32 statistics
+        "by_shape": {f"{c['rows']}x{c['width']}": {
+            k: c[k] for k in (
+                "kernel_fwd_ms", "kernel_bwd_ms", "kernel_fwd_events_ms",
+                "kernel_bwd_events_ms", "bound_fwd_ms", "bound_bwd_ms",
+                "chain_fwd_ms", "chain_bwd_ms", "plain_fwd_ms",
+                "plain_bwd_ms", "host_fwd_us", "host_bwd_us",
+                "host_nograd_fwd_us", "chain_host_fwd_us",
+                "chain_host_bwd_us", "chain_host_nograd_fwd_us")}
+            for c in ln_phase["cases"] if "kernel_fwd_ms" in c},
     }], "training": {
         "config": f"clipa_tpu_torch/configs/clipa_pretrain.py:{PRETRAIN}",
         "pairs_per_s": train["pairs_per_s"],

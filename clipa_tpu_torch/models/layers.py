@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint
 
+from clipa_tpu_torch.ops import layer_norm as layer_norm_op
 from clipa_tpu_torch.ops.attention import multi_head_attention
 from clipa_tpu_torch.ops.quantization import MODES as QUANT_MODES
 from clipa_tpu_torch.ops.quantization import quant_dot
@@ -150,9 +151,14 @@ def _cast(x: Optional[torch.Tensor], dtype: torch.dtype):
 class LayerNorm(nn.LayerNorm):
     """flax LayerNorm semantics: statistics and affine in fp32 (float64 for
     a float64 input, with float64 parameters); the output takes the input's
-    dtype."""
+    dtype. A bf16 CUDA input with fp32 parameters of a width the kernels
+    take goes through ``ops/layer_norm.py``'s kernels (the same arithmetic
+    in one pass each way); every other input through the cast, fp32
+    ``layer_norm``, cast chain."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if layer_norm_op.takes(x, self.weight, self.bias):
+            return layer_norm_op.run(x, self.weight, self.bias, self.eps)
         stats = torch.promote_types(x.dtype, torch.float32)
         return F.layer_norm(x.to(stats), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(x.dtype)

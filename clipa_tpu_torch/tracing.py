@@ -32,7 +32,9 @@ scores, position bias, pad mask, softmax and weighted sum, in the forward
 and again in remat's recompute) and ``t5.attention.bwd`` (that core's
 backward, opened and closed from autograd's thread by two identity marks),
 beside the tower's counter ``t5_text.attention_calls`` (cores by phase:
-"forward", "recompute", "backward"); ``serve.stage``
+"forward", "recompute", "backward"), and the LayerNorm kernels' counter
+``ops/layer_norm.layer_norm.launches`` (launches by phase: "forward", remat's
+recomputes included, and "backward"); ``serve.stage``
 (``EmbeddingService._dispatch``), ``serve.pin`` (the host copy into
 pinned memory, inside ``serve.stage``) and ``serve.drain`` (the wait on a
 chunk and its concatenation).

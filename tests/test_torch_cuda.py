@@ -1253,3 +1253,260 @@ def test_fused_adam_under_param_shards_on_an_nccl_group(cuda):
         assert min(unaligned) > 0, unaligned
     finally:
         dist.destroy_process_group()
+
+
+# --- the LayerNorm kernels (csrc/layer_norm.cu) -----------------------------
+# Held against the cast chain layers.LayerNorm runs for every other input
+# (cast to fp32, fp32 layer_norm, cast back; autograd's backward of it) and
+# against the float64 LayerNorm of the same bf16 input: the output within
+# one bf16 ulp of the chain's beyond the floor that the two sums' orders
+# allow (tools/layer_norm_bench.forward_floor: the kernel's own stated fp32
+# error bound plus the chain's measured distance from float64), and within
+# half an ulp of the float64 value beyond the kernel's bound (its one
+# rounding); dx within one bf16 ulp of its row's scale, dweight and dbias
+# within 1e-5 of theirs. The main path's shapes: H/14 @84 (1024 x 37 rows),
+# @224 masked (256 x 180) and served (256 x 257), each 1280 wide, and the
+# text tower's 256 x 32 x 1024, on three seeds of two input distributions
+# (this file's, whose rows' spreads run from 0.3 to 3.3, and the bench's);
+# then widths across both layouts (a warp a row to 2048, a block a row past
+# it), ragged in the warp's last step, with row counts that leave blocks
+# part full.
+LN_MAIN_SHAPES = [(37888, 1280), (46080, 1280), (65792, 1280), (8192, 1024)]
+LN_WIDTH_SHAPES = [(1001, 8), (333, 96), (515, 384), (77, 640), (64, 768),
+                   (129, 1408), (31, 1664), (45, 2048), (19, 2056),
+                   (130, 3072), (64, 4096), (7, 8192)]
+
+
+def _ln_operands(cuda, rows, d, seed=0, dist="spread"):
+    """(x, weight, bias, dy): `dist` "spread" draws each row's spread from
+    0.3 to 3.3 about an offset; "bench" is tools/layer_norm_bench's."""
+    if dist == "bench":
+        from clipa_tpu_torch.tools import layer_norm_bench
+        x, dy, w, b = layer_norm_bench.operands(rows, d, seed, cuda)
+        return x, w, b, dy
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(rows, d, device=cuda, generator=gen)
+         * torch.rand(rows, 1, device=cuda, generator=gen).mul(3).add(0.3)
+         + torch.randn(rows, 1, device=cuda, generator=gen)).bfloat16()
+    w = 1 + 0.3 * torch.randn(d, device=cuda, generator=gen)
+    b = 0.2 * torch.randn(d, device=cuda, generator=gen)
+    dy = torch.randn(rows, d, device=cuda, generator=gen).bfloat16()
+    return x, w, b, dy
+
+
+def _ln_grads(fn, x, w, b, dy):
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    y = fn(x, w, b)
+    return (y.detach(), *torch.autograd.grad(y, (x, w, b), dy))
+
+
+def _ln_chain(x, w, b, eps=1e-6):
+    return torch.nn.functional.layer_norm(x.float(), x.shape[-1:], w, b,
+                                          eps).to(x.dtype)
+
+
+def _ln_check(cuda, rows, d, seed=None, dist="spread"):
+    from clipa_tpu_torch.ops import layer_norm as ln
+    from clipa_tpu_torch.tools import layer_norm_bench as lnb
+    x, w, b, dy = _ln_operands(cuda, rows, d,
+                               rows + d if seed is None else seed, dist)
+    want = _ln_grads(_ln_chain, x, w, b, dy)
+    before = dict(ln.layer_norm.launches)
+    got = _ln_grads(lambda *a: ln.layer_norm(*a, 1e-6), x, w, b, dy)
+    again = _ln_grads(lambda *a: ln.layer_norm(*a, 1e-6), x, w, b, dy)
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches == {"forward": before["forward"] + 2,
+                                      "backward": before["backward"] + 2}
+    y, dx, dw, db = got
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert dw.dtype == db.dtype == torch.float32
+    with torch.no_grad():
+        chain32 = torch.nn.functional.layer_norm(x.float(), (d,), w, b,
+                                                 1e-6)
+        fwd = lnb.forward_ulps(y, chain32, x, w, b, 1e-6)
+    assert fwd["y_ulps"] <= 1 and fwd["y_exact_ulps"] <= 0.5, fwd
+    assert lnb.dx_ulps(dx, want[1]) <= 1
+    for g, ref in ((dw, want[2]), (db, want[3])):
+        err = float((g - ref).abs().max()) / float(ref.abs().max())
+        assert err <= 1e-5, err
+    for a, c in zip(got, again):
+        assert torch.equal(_bits(a), _bits(c))
+    # without autograd: the forward alone, no statistics, the same output
+    with torch.no_grad():
+        assert torch.equal(ln.layer_norm(x, w, b, 1e-6), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dist", ["spread", "bench"])
+@pytest.mark.parametrize("rows,d", LN_MAIN_SHAPES)
+def test_layer_norm_kernels_match_the_cast_chain(cuda, rows, d, dist, seed):
+    """The kernels at the main path's shapes against the chain and the
+    float64 LayerNorm; two backward calls bit for bit."""
+    _ln_check(cuda, rows, d, seed, dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", LN_WIDTH_SHAPES)
+def test_layer_norm_kernels_take_every_width(cuda, rows, d):
+    """Widths of every tower (ConvNeXt, Swin, ViT-g and bigG, the patch
+    merges) and the layouts' edges against the chain; 3-D input and a
+    strided one too."""
+    from clipa_tpu_torch.ops import layer_norm as ln
+    _ln_check(cuda, rows, d)
+    x, w, b, dy = _ln_operands(cuda, 2 * rows, d, seed=d)
+    x3 = x.view(2, rows, d)
+    assert torch.equal(ln.layer_norm(x3, w, b, 1e-6),
+                       ln.layer_norm(x, w, b, 1e-6).view(2, rows, d))
+    xt = x.view(rows, 2, d).transpose(0, 1)
+    assert torch.equal(ln.layer_norm(xt, w, b, 1e-6),
+                       ln.layer_norm(xt.contiguous(), w, b, 1e-6))
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernels_on_no_rows(cuda):
+    """An empty batch: an empty output, zero parameter gradients, no
+    launch."""
+    from clipa_tpu_torch.ops import layer_norm as ln
+    x, w, b, dy = _ln_operands(cuda, 0, 64)
+    before = dict(ln.layer_norm.launches)
+    y, dx, dw, db = _ln_grads(lambda *a: ln.layer_norm(*a, 1e-6), x, w, b,
+                              dy)
+    assert y.shape == dx.shape == (0, 64)
+    assert not dw.any() and not db.any()
+    assert ln.layer_norm.launches == before
+
+
+@pytest.mark.cuda
+def test_layer_norm_wrapper_refuses_what_it_cannot_take(cuda):
+    from clipa_tpu_torch.ops import layer_norm as ln
+    x, w, b, _ = _ln_operands(cuda, 4, 64)
+    refused = "layer_norm kernels take a bf16 CUDA x"
+    with pytest.raises(ValueError, match=refused):
+        ln.layer_norm(x.float(), w, b, 1e-6)
+    with pytest.raises(ValueError, match=refused):
+        ln.layer_norm(x, w.bfloat16(), b, 1e-6)
+    with pytest.raises(ValueError, match=refused):
+        ln.layer_norm(x[:, :60], w[:60], b[:60], 1e-6)
+    with pytest.raises(ValueError, match="weight torch.float32 .64,. on cpu"):
+        ln.layer_norm(x, w.cpu(), b, 1e-6)
+    with pytest.raises(ValueError, match=refused):
+        ln.layer_norm(x.cpu(), w.cpu(), b.cpu(), 1e-6)
+
+
+def _layer_norm_census(model, run):
+    """Runs `run()` with a count of every layers.LayerNorm module's calls
+    and of the cast chain's fp32 layer_norm calls: (calls by module name,
+    every module's name, the chain's calls, the kernels' launches)."""
+    from clipa_tpu_torch.models import layers
+    from clipa_tpu_torch.ops import layer_norm as ln
+    calls, chain = {}, []
+    norms = [name for name, m in model.named_modules()
+             if isinstance(m, layers.LayerNorm)]
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: calls.__setitem__(
+            name, calls.get(name, 0) + 1))
+        for name, m in model.named_modules() if name in norms]
+    plain_layer_norm = torch.nn.functional.layer_norm
+
+    def spy(*args, **kwargs):
+        chain.append(args[0].dtype)
+        return plain_layer_norm(*args, **kwargs)
+
+    ln.layer_norm.launches = {"forward": 0, "backward": 0}
+    torch.nn.functional.layer_norm = spy
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        torch.nn.functional.layer_norm = plain_layer_norm
+        for h in hooks:
+            h.remove()
+    return calls, norms, chain, dict(ln.layer_norm.launches)
+
+
+# Every training cell's route at a small batch: (port config, image blocks
+# whose encoder recomputes them under remat "minimal")
+LN_CELL_STEPS = [
+    ("clipa_pretrain.py:img=H/14,res=84,token_len=8,batchsize=8", 32),
+    ("clipa_finetune.py:img=H/14,res=224,token_len=32,mask_ratio=0.3,"
+     "batchsize=8", 32),
+    ("clipa_finetune.py:img=H/14,res=336,token_len=32,mask_ratio=0.4,"
+     "batchsize=4", 32),
+    ("clipa_pretrain.py:img=L/16,res=112,token_len=8,batchsize=8", 0),
+    ("clipa_pretrain.py:img=H/14,res=84,token_len=32,batchsize=4,"
+     "txt=mt5-xl", 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,rematted_blocks", LN_CELL_STEPS)
+def test_cell_steps_run_every_layer_norm_through_the_kernels(
+        cuda, spec, rematted_blocks):
+    """Two steps of each training cell's config (the H/14 pre-training,
+    unmask-tuning at 224 and 336 px, L/16 pre-training and the mT5 model's
+    image tower): the forward kernel runs once per LayerNorm call, remat's
+    recomputes included (each rematted block's two norms twice), the
+    backward once per LayerNorm module, and the cast chain's fp32
+    layer_norm never (the mT5 tower's norms are RMSNorms, not this
+    layer)."""
+    import clipa_tpu_torch
+    import os
+    from clipa_tpu_torch import optim
+    from clipa_tpu_torch.config import load_config
+    from clipa_tpu_torch.train import step
+
+    config = load_config(os.path.join(
+        os.path.dirname(clipa_tpu_torch.__file__), "configs", spec))
+    config.schedule = [(".*", dict(decay_type="const"))]
+    model = step.create_model(config, device=cuda)
+    state = step.init_train_state(
+        model, config, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tx, _ = optim.make(config, model, sched_kw=dict(total_steps=10))
+    update = step.make_update_fn(model, tx, config, total_steps=10)
+    b, res = config.input.batch_size, config.init_shapes[0][1]
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(
+        0, 255, (b, res, res, 3), dtype=np.uint8)).to(cuda),
+        "labels": torch.from_numpy(rng.randint(
+            2, 32000, (b, config.init_shapes[1][1])).astype(
+                np.int32)).to(cuda)}
+    out = {}
+    for _ in range(2):
+        def one_step():
+            out["state"], out["meas"] = update(out.get("state", state),
+                                               batch)
+        calls, norms, chain, launches = _layer_norm_census(model, one_step)
+        assert not chain, chain
+        assert norms and set(calls) == set(norms)
+        rematted = [n for n in norms if ".encoderblock_" in n and (
+            model.get_submodule(n.split(".encoderblock_")[0]).remat_policy
+            not in (None, "none"))]
+        assert len(rematted) == 2 * rematted_blocks
+        assert all(calls[n] == (2 if n in rematted else 1) for n in norms)
+        assert launches == {"forward": sum(calls.values()),
+                            "backward": len(norms)}
+        assert all(bool(torch.isfinite(v)) for v in out["meas"].values())
+
+
+@pytest.mark.cuda
+def test_service_runs_every_layer_norm_through_the_kernels(cuda):
+    """The embedding cell's route (ViT-H-14-CL32-GAP-BigVision in bf16,
+    chunks of 256 at 224 px): one forward launch per LayerNorm call, no
+    backward, the cast chain never; the embeddings within the cosine the
+    fused attention's service test holds against the plain path."""
+    from clipa_tpu_torch.ops import layer_norm as ln
+    svc = EmbeddingService("ViT-H-14-CL32-GAP-BigVision", None,
+                           image_size=224, precision="bfloat16",
+                           num_workers=0, device=cuda)
+    imgs = np.random.RandomState(3).randint(0, 256, (300, 224, 224, 3),
+                                            np.uint8)
+    out = {}
+    calls, norms, chain, launches = _layer_norm_census(
+        svc.clip.model.img, lambda: out.setdefault(
+            "z", svc.embed_images(imgs)))
+    assert not chain, chain
+    assert set(calls) == set(norms) and len(norms) == 2 * 32 + 1
+    assert all(c == 2 for c in calls.values())        # chunks of 256 and 44
+    assert launches == {"forward": sum(calls.values()), "backward": 0}
+    assert np.isfinite(out["z"]).all() and out["z"].shape == (300, 1024)

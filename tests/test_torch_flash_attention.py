@@ -297,8 +297,10 @@ def test_library_path_hashes_the_included_header(tmp_path, monkeypatch):
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert sources == ["flash_attention_bwd.cu", "flash_attention_fwd.cu",
                        "fused_adam.cu", "fused_attention_bwd.cu",
-                       "fused_attention_fwd.cu", "patch_embed.cu"]
-    alone = ["fused_adam.cu", "patch_embed.cu"]   # include no csrc header
+                       "fused_attention_fwd.cu", "layer_norm.cu",
+                       "patch_embed.cu"]
+    # include no csrc header
+    alone = ["fused_adam.cu", "layer_norm.cu", "patch_embed.cu"]
     attention = [s for s in sources if s not in alone]
     before = {s: cuda_build.library_path(s) for s in sources}
     for s in attention:
