@@ -35,13 +35,13 @@ towers' int8 matmuls, and the optimizer's fused Adam kernel.
   2. the forward kernel against its plain PyTorch version (fp32 from the
      same operands, TF32 off) at the serving shapes: H/14 @224, L/16 @112,
      the unbiased flat form, clip and exact mode past the clip (logits >>
-     70), the fp32 twin at H/14 @224; then at FUSED_SHAPES, the three
-     main-path shapes (bucket 256 at H/14, the pretrain step's B=384 L=50,
-     the fine-tune `auto` route's B=128 L=138), the exact form without
-     biases at bucket 256 and the H/14 unmask-tuning stages (B=64 L=180,
-     B=16 L=346); per case errors, the output of two calls bit for
-     bit, kernel and plain times by CUDA events, and SDPA's where it
-     computes the same function (exact mode without biases); at
+     70); then at FUSED_SHAPES, the three main-path shapes (bucket 256 at
+     H/14, the pretrain step's B=384 L=50, the fine-tune `auto` route's
+     B=128 L=138), the exact form without biases at bucket 256 and the
+     H/14 unmask-tuning stages (B=64 L=180, B=16 L=346); per case
+     errors, the output of two calls bit for bit, kernel and plain times
+     by CUDA events, and SDPA's where it computes the same function
+     (exact mode without biases); at
      FUSED_SHAPES also the kernel's and SDPA's device times (torch.profiler;
      "not measured" where the profiler returns no whole session) and the
      kernel's share of the bound (at the small shapes the event times are
@@ -58,8 +58,7 @@ towers' int8 matmuls, and the optimizer's fused Adam kernel.
      for the exact form, SDPA's backward beside it; then clip mode past the
      clip with and without bias (the clip-grad mask bites: the share of
      scores at or past the clip is printed; device time too), H/14 @224
-     and L=577 (the long scheme), exact mode past the clip, and the fp32
-     twin;
+     and L=577 (the long scheme), and exact mode past the clip;
   4. the service: requests of 5, 64 and 300 uint8 images and two caption
      batches; shapes, finite values, unit norms; the forward kernel's launch
      count equals 32 (image layers) per image chunk; the images' embeddings
@@ -480,7 +479,8 @@ BWD_SHAPES = (("L/16 @112", 384, 50, 1024, 16, True, False),
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the peak
-# of their type (bf16 on the tensor cores; fp32 twins on the fp32 units).
+# of their type (bf16 on the tensor cores; the flash kernels' fp32 twins on
+# the fp32 units).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -596,8 +596,7 @@ def _ratio(a, b, spec):
     return "not measured" if a is None or b is None else format(a / b, spec)
 
 
-def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None,
-                 device=False):
+def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, device=False):
     """Phase 2: the fused forward against its plain version at one shape:
     errors, the output of two calls bit for bit, kernel and plain times by
     CUDA events, the bound, SDPA's time where it computes the same function
@@ -605,7 +604,7 @@ def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None,
     the kernel's and SDPA's device times (torch.profiler)."""
     import torch
     from clipa_tpu_torch.ops import block_attention as ba
-    dtype = dtype or torch.bfloat16
+    dtype = torch.bfloat16
 
     def mk(*shape, scale=1.0):
         return (torch.randn(*shape, device="cuda", generator=gen)
@@ -623,7 +622,7 @@ def _kernel_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None,
     torch.cuda.synchronize()
     ref = ba.attention_plain(q, k, v, h, l, biases, exact)
     err = (out.float() - ref.float()).abs()
-    atol, rtol = ba.tolerance(dtype)
+    atol, rtol = ba.KERNEL_ATOL, ba.KERNEL_RTOL
     limit = atol + rtol * ref.float().abs()
     # q, k, v, out (and the three biases) once each; 4 L^2 hd products per
     # head and sample
@@ -688,8 +687,7 @@ def _clipped_share(q, k, h, l, biases):
     return (s.abs() >= ba._EXP_CLIP).float().mean().item()
 
 
-def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10,
-              device=False):
+def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, iters=10, device=False):
     """Phase 3: the fused backward against its plain version at one shape:
     errors, the outputs of two calls bit for bit, kernel and plain times by
     CUDA events, the bound, and with `device` (the timed BWD_SHAPES and the
@@ -697,7 +695,7 @@ def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10,
     mode without biases), SDPA's backward by events and device time."""
     import torch
     from clipa_tpu_torch.ops import block_attention as ba
-    dtype = dtype or torch.bfloat16
+    dtype = torch.bfloat16
 
     def mk(*shape, scale=1.0):
         return (torch.randn(*shape, device="cuda", generator=gen)
@@ -716,7 +714,7 @@ def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10,
                  if x is not None)
     torch.cuda.synchronize()
     ref = ba.attention_plain_bwd(q, k, v, do, h, l, biases, exact)
-    errors = ba.bwd_errors(grads, ref, dtype)
+    errors = ba.bwd_errors(grads, ref)
     names = ("dq", "dk", "dv", "dbq", "dbk", "dbv")[:len(errors)]
     e = q.element_size()
     res = {
@@ -758,7 +756,7 @@ def _bwd_case(b, l, d, h, bias, exact, q_scale, gen, dtype=None, iters=10,
                      f"{_ratio(bound, res['device_ms'], '.1%')} of the bound")
     errs = " ".join(f"{n} {x:.3e}" for n, x in res["errors"].items())
     print(f"bwd kernel vs plain {res['shape']}: max abs err {errs} "
-          f"(tolerance rtol {ba.bwd_tolerance(dtype)} of each output's "
+          f"(tolerance rtol {ba.BWD_RTOL} of each output's "
           f"scale); bit-identical on repeat {repeat}; scores past the clip "
           f"{res['clipped_share']:.4f}; kernel {res['ms']:.4f} ms plain "
           f"{res['plain_ms']:.4f} ms{library}; bound {bound:.4f} ms "
@@ -5184,8 +5182,6 @@ def main() -> int:
         (2, 40, 256, 4, False, False, 40.0),    # ... without bias
         (2, 40, 256, 4, False, True, 40.0),     # exact mode, logits >> 70
     )]
-    cases.append(_kernel_case(8, 257, 1280, 16, True, False, 1.0, gen=gen,
-                              dtype=torch.float32))  # fp32 twin
     by_shape = {name: _kernel_case(*shape, 1.0, gen=gen, device=True)
                 for name, *shape in FUSED_SHAPES}
     main_case = by_shape["bucket 256"]
@@ -5227,8 +5223,6 @@ def main() -> int:
             (2, 577, 1024, 16, False, False, 1.0),  # L = 577, no bias (K4)
             (2, 40, 256, 4, True, True, 40.0),      # exact mode, logits >> 70
         )]
-    bwd_cases.append(_bwd_case(8, 257, 1280, 16, True, False, 1.0, gen=gen,
-                               dtype=torch.float32, iters=2))  # fp32 twin
     for c in past_clip:
         if c["clipped_share"] <= 0.0:
             raise RuntimeError(f"no score passed the clip at {c['shape']}")

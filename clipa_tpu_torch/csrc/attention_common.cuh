@@ -27,15 +27,6 @@ __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // D += A.B for one 16x8x16 tile: A 16x16 row-major, B 16x8 column-major.
 __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
@@ -44,63 +35,6 @@ __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[nt] (16 x 8 per n-tile, kN n-tiles) = A . B^T: A the warp's 16 rows
-// at `a_rows`, B the 8 * kN rows at `b_rows`, contracted over the head dim.
-template <int kHdp, int kN>
-__device__ __forceinline__ void warp_scores(float acc[kN][4],
-                                            const bf16* a_rows,
-                                            const bf16* b_rows) {
-  constexpr int kStride = kHdp + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kN; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int kc = 0; kc < kHdp / 16; ++kc) {
-    const bf16* ar = a_rows + g * kStride + kc * 16 + 2 * t;
-    uint32_t a[4];
-    a[0] = load_u32(ar);
-    a[1] = load_u32(ar + 8 * kStride);
-    a[2] = load_u32(ar + 8);
-    a[3] = load_u32(ar + 8 * kStride + 8);
-#pragma unroll
-    for (int nt = 0; nt < kN; ++nt) {
-      const bf16* br = b_rows + (nt * 8 + g) * kStride + kc * 16 + 2 * t;
-      mma_16816(acc[nt], a, load_u32(br), load_u32(br + 8));
-    }
-  }
-}
-
-// out[nt] += X . M: X the warp's 16 x (16 * kK) fp32 tile `x` (the layout
-// of warp_scores with kN = 2 * kK, rounded to bf16 here), M the 16 * kK
-// rows at `m_rows`, contracted over those rows.
-template <int kHdp, int kK>
-__device__ __forceinline__ void warp_accumulate(float out[kHdp / 8][4],
-                                                float x[2 * kK][4],
-                                                const bf16* m_rows) {
-  constexpr int kStride = kHdp + 8;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kK; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_floats(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_floats(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_floats(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_floats(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const bf16* mr = m_rows + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-    for (int nt = 0; nt < kHdp / 8; ++nt) {
-      const bf16* p = mr + nt * 8;
-      const uint32_t b0 = pack_bf16(p[0], p[kStride]);
-      const uint32_t b1 = pack_bf16(p[8 * kStride], p[9 * kStride]);
-      mma_16816(out[nt], a, b0, b1);
-    }
-  }
 }
 
 // Block-wide sum (or max) of one value per thread, in a fixed order;

@@ -1,5 +1,4 @@
-// Fused multi-head self-attention backward for Hopper (sm_90a), bf16 or fp32
-// in/out (one entry point per operand type).
+// Fused multi-head self-attention backward for Hopper (sm_90a), bf16 in/out.
 //
 // Replaces the three Pallas TPU backward kernels of
 // clipa_tpu/ops/block_attention.py with one kernel family over flat
@@ -36,7 +35,7 @@
 // sits between them; at L = 138 the whole-head block (9 warps, 136 KB of
 // shared memory) fits once per SM.
 //
-// Three schemes; ops/block_attention.py bwd_plan picks one per shape:
+// Two schemes; ops/block_attention.py bwd_plan picks one per shape:
 //   whole-head (L <= 16 kMaxChunks = 144: the pretrain shapes and the
 //   fine-tune `auto` route's L = 138): persistent blocks of one warp per
 //   16-row chunk of L, each (sample, head) an item.
@@ -69,14 +68,13 @@
 //   336 px tower): S and dP of a 16-query strip over every key no longer
 //   fit in registers, nor bf16(P) and dsb beside the operands in shared
 //   memory, so a dq kernel and a dk/dv kernel share the row statistics
-//   through device memory, as in the split scheme, but built as the fused
-//   forward is: one warp per 16-row strip, the strips of a (sample, head)
-//   spread over `blocks` blocks of `warps` warps (bwd_plan ranks the
-//   splits as fwd_plan does, then by blocks resident per SM: L = 180 at hd
-//   80 two blocks of 6 warps, L = 346 two of 11), the streamed operands
-//   through a cp.async ring of
-//   `stages` 128-row tiles that holds every row where it fits (L = 180 and
-//   346 at hd 80: no refill barrier), else two stages;
+//   through device memory, built as the fused forward is: one warp per
+//   16-row strip, the strips of a (sample, head) spread over `blocks`
+//   blocks of `warps` warps (bwd_plan ranks the splits as fwd_plan does,
+//   then by blocks resident per SM: L = 180 at hd 80 two blocks of 6
+//   warps, L = 346 two of 11), the streamed operands through a cp.async
+//   ring of `stages` 128-row tiles that holds every row where it fits
+//   (L = 180 and 346 at hd 80: no refill barrier), else two stages;
 //     1. dq kernel: the block's Q and dO strips, K and V through the ring,
 //        each thread biasing the chunks it copied (RowSlice, bf16x2, one
 //        rounding). Sweep A, per 16-key chunk: S and dP through ldmatrix
@@ -97,58 +95,45 @@
 //     3. bias grads: each block's fp32 column sums of its strips (the warps
 //        in order) as one partial per (sample, block); the second pass
 //        sums them in a fixed order.
-//   9 products, as in the split scheme, but nothing past L is loaded or
-//   computed (16-row strips, 16-key chunks: L = 180 pads to 192, not 256),
-//   no tile is copied or biased more than once per block, and every
-//   fragment comes through ldmatrix. It replaces the split pair on the
-//   normalized entry. Its bound at the H/14 fine-tune shapes (D = 1280, 16
-//   heads of 80; q, k, v, dO in and dq, dk, dv out once each): B = 64,
-//   L = 180: 0.0616 ms by bytes; B = 16, L = 346: 0.0296 ms. Latency and
+//   9 products; nothing past L is loaded or computed (16-row strips, 16-key
+//   chunks: L = 180 pads to 192, not 256), no tile is copied or biased more
+//   than once per block, and every fragment comes through ldmatrix. Its
+//   bound at the H/14 fine-tune shapes (D = 1280, 16 heads of 80; q, k, v,
+//   dO in and dq, dk, dv out once each): B = 64, L = 180: 0.0616 ms by
+//   bytes; B = 16, L = 346: 0.0296 ms. Latency and
 //   instruction issue hold it back, as at the pretrain shapes: three warps
 //   per SM sub-partition, each product's accumulation a chain of 5
 //   dependent mma at hd 80; the two-chunk step of sweeps A and B doubles
 //   the independent chains (8-9% faster at both shapes, measured in turns).
-//   split (the deferred entry past L = 144 alone, where the
-//   whole-head scheme does not fit; no caller reaches it, tools/
-//   attn_sweep.py's only shape is L = 50, and the normalized entry refuses
-//   the scheme): one block per (sample, head, 64-row tile), 4 warps,
-//   synchronous tile loads:
-//     1. dq kernel: sweep A over the key tiles accumulates the row sum r of
-//        exp (with the online row max m in exact mode); sweep A2 the
-//        deferred u (below); sweep B recomputes s and dp and accumulates dq
-//        in registers. It writes (m, r, delta) per (row, head) to scratch;
-//     2. dk/dv kernel: per key tile, sweeps the q-tiles with those
-//        statistics and accumulates dK and dV in fp32 registers;
-//     3. bias grads: each block writes the fp32 column sums of its tile;
-//        the second pass sums those partials per column in a fixed order.
 // Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate); a wgmma
 // tile's 64 rows would be mostly padding at L = 37 or 50.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py --kernels
-// fused, device time, this design and the previous one, the split pair, in
-// turns in one run): B = 384, L = 50, D = 1024 (L/16 @112, bias, clip)
-// 0.1642-0.1646 ms, 50% of its bound, against 0.7069-0.7115; B = 256,
-// L = 37, D = 1280 (H/14 @84) 0.1017-0.1019 against 0.4594-0.4615; B =
-// 128, L = 138 (fine-tune `auto`) 0.2553 against 1.3008-1.3078; the exact
-// form without bias at L = 50 0.1261-0.1273 against 0.4577-0.4594 and
-// SDPA's backward 0.3471-0.3478. The biases (their adds, the column sums,
-// the second pass) are most of the gap between the biased clip form's
-// 0.164 ms at L = 50 and the unbiased exact form's 0.127.
+// fused, device time, this design and the previous one, a dq and a dk/dv
+// kernel over 64-row tiles with synchronous loads, in turns in one run): B =
+// 384, L = 50, D = 1024 (L/16 @112, bias, clip) 0.1642-0.1646 ms, 50% of its
+// bound, against 0.7069-0.7115; B = 256, L = 37, D = 1280 (H/14 @84)
+// 0.1017-0.1019 against 0.4594-0.4615; B = 128, L = 138 (fine-tune `auto`)
+// 0.2553 against 1.3008-1.3078; the exact form without bias at L = 50
+// 0.1261-0.1273 against 0.4577-0.4594 and SDPA's backward 0.3471-0.3478. The
+// biases (their adds, the column sums, the second pass) are most of the gap
+// between the biased clip form's 0.164 ms at L = 50 and the unbiased exact
+// form's 0.127.
 // The long scheme (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py
-// --kernels fused, device time, against the split pair in one run, then
-// against its own variants in turns): B = 64, L = 180 (bias, clip)
-// 0.3806-0.3872 ms, 16% of the bound, against the split pair's
-// 0.9131-0.9181; B = 16, L = 346 0.2807-0.2840, 10.5%, against
-// 0.7696-0.7733; the exact form without bias 0.2964-0.2981 at L = 180 and
-// 0.2439-0.2466 at L = 346 against SDPA's backward 0.2736-0.2759 and
-// 0.1549-0.1584 (1.08x, 1.57x). Other shapes in PERF.md section 6.
+// --kernels fused, device time, against that 64-row-tile pair in one run,
+// then against its own variants in turns): B = 64, L = 180 (bias, clip)
+// 0.3806-0.3872 ms, 16% of the bound, against the pair's 0.9131-0.9181; B =
+// 16, L = 346 0.2807-0.2840, 10.5%, against 0.7696-0.7733; the exact form
+// without bias 0.2964-0.2981 at L = 180 and 0.2439-0.2466 at L = 346 against
+// SDPA's backward 0.2736-0.2759 and 0.1549-0.1584 (1.08x, 1.57x). Other
+// shapes in PERF.md section 6.
 //
-// fp32 operands (configs/smoke.py trains in fp32, as the Pallas kernels
-// take fp32 operands) run scalar twins: one block per (sample, head, row),
-// fp32 FMA throughout, no TF32, nothing rounded to a narrower type. They are
-// written to be right, not fast.
+// bf16 operands only: the wrapper refuses others. fp32 attention on the card
+// takes the flash kernels' fp32 twins (ops/attention.py, impl "auto"); a
+// scalar fp32 pair of kernels here took 15 times the plain version's time
+// (B = 8, L = 257: PERF.md section 6).
 //
-// Deferred normalization (entry clipa_fused_attention_bwd_deferred, bf16
-// only): the backward variant that clipa_tpu/tools/attn_sweep.py:76
+// Deferred normalization (entry clipa_fused_attention_bwd_deferred): the
+// backward variant that clipa_tpu/tools/attn_sweep.py:76
 // make_bwd_bias(g, defer=True) times, computing the same gradients with the
 // softmax's 1/denom folded into dO's rows so the score-sized products run on
 // unnormalized e:
@@ -160,30 +145,26 @@
 // The reference's kernel drops the row-sum term's 1/denom (its
 // ds = e * (dphat - rowsum(dphat * e))): its dq and dk are wrong, its dv
 // right; this variant computes the gradient. The held-against plain twin is
-// attention_plain_bwd(..., defer=True). ops/block_attention.py
-// bwd_deferred_plan picks the scheme:
-//   whole-head (L <= 144; the sweep's L = 50): the kernel above with
-//   kDefer. Per warp and 16-row query strip, in registers: S = Qb Kb^T over
-//   every key, e and denom (quad shuffles); then per 16-column chunk of the
-//   head dim dO's A fragment through ldmatrix, divided by its row's denom
-//   (IEEE, one rounding) into dohn, written back over the strip's dO rows
-//   (only this warp reads them before the barrier) and multiplied into
-//   dphat = dohn Vb^T; u = rowsum(dphat e) / denom, ds, dsb and dQ = dsb Kb
-//   as in the normalized form. After the barrier bf16(e) and dsb replace K
-//   and V, and dV = bf16(e)^T dohn, dK = dsb^T Qb per key strip. 5
-//   products, as the normalized form; no statistics leave the block.
-//   Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py
-//   --kernels deferred, in turns with the split pair it replaced at this
-//   L): B = 384, L = 50, D = 1024, bias, 0.2413-0.2430 ms (clip) and
-//   0.2387-0.2439 (exact) by CUDA events, against 0.6791-0.6839 and
-//   0.6382-0.6472; 1.36-1.40x the normalized form's 0.1735-0.1781 in the
-//   same run: dohn needs denom, so dphat = dohn Vb^T waits for S and its
-//   row sums, behind a pass over dO's fragments with an IEEE division per
-//   element, where the normalized form forms S and dP side by side.
-//   split (past 144): the dq kernel needs denom before it can form dohn, so
-//   it sweeps the key tiles three times (denom; then rowsum(dphat * e);
-//   then dq); the dk/dv kernel scales its dO tiles by the stored 1/denom
-//   as it loads them.
+// attention_plain_bwd(..., defer=True). It takes the whole-head scheme alone
+// (L <= 144; the sweep's L = 50; ops/block_attention.py bwd_deferred_plan
+// refuses longer sequences): the kernel above with kDefer. Per warp and
+// 16-row query strip, in registers: S = Qb Kb^T over every key, e and denom
+// (quad shuffles); then per 16-column chunk of the head dim dO's A fragment
+// through ldmatrix, divided by its row's denom (IEEE, one rounding) into
+// dohn, written back over the strip's dO rows (only this warp reads them
+// before the barrier) and multiplied into dphat = dohn Vb^T; u =
+// rowsum(dphat e) / denom, ds, dsb and dQ = dsb Kb as in the normalized
+// form. After the barrier bf16(e) and dsb replace K and V, and dV =
+// bf16(e)^T dohn, dK = dsb^T Qb per key strip. 5 products, as the normalized
+// form; no statistics leave the block.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/flash_bench.py --kernels
+// deferred, in turns with the 64-row-tile pair it replaced at this L): B =
+// 384, L = 50, D = 1024, bias, 0.2413-0.2430 ms (clip) and 0.2387-0.2439
+// (exact) by CUDA events, against 0.6791-0.6839 and 0.6382-0.6472;
+// 1.36-1.40x the normalized form's 0.1735-0.1781 in the same run: dohn needs
+// denom, so dphat = dohn Vb^T waits for S and its row sums, behind a pass
+// over dO's fragments with an IEEE division per element, where the
+// normalized form forms S and dP side by side.
 
 #include <math.h>
 
@@ -193,73 +174,11 @@ using namespace attn;
 
 namespace {
 
-constexpr int kWarps = 4;           // split scheme: warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = kWarps * 16;  // rows per block tile, 16 per warp
 constexpr int kMaxChunks = 9;       // whole-head: L <= 16 kMaxChunks
 constexpr float kExpClip = 70.f;    // block_attention._EXP_CLIP
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClipLog2 = kExpClip * kLog2e;
 constexpr float kNegInf = -1e30f;
-
-// The split scheme's shared memory per block: four 64-row tiles, then the
-// fp32 column sums of each warp and (the deferred variant's) 64 row
-// denominators (dq kernel) or the three row statistics (dk/dv kernel).
-__host__ __device__ constexpr int split_smem_dq(int hdp) {
-  return 4 * kTile * (hdp + 8) * (int)sizeof(bf16) +
-         (kWarps * hdp + kTile) * (int)sizeof(float);
-}
-__host__ __device__ constexpr int split_smem_dkv(int hdp) {
-  return 4 * kTile * (hdp + 8) * (int)sizeof(bf16) +
-         (3 * kTile + kWarps * hdp) * (int)sizeof(float);
-}
-
-// Copies rows [row0, row0 + 64) of one head's columns into shared memory
-// (row stride kHdp + 8), adding the bias in fp32 with one rounding. Rows at
-// or past `seq` and columns at or past `hd` are written as zeros.
-template <int kHdp>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          const bf16* bias, int row0, int seq,
-                                          int hd, int ld) {
-  constexpr int kChunks = kHdp / 8;  // 16-byte chunks per row
-  constexpr int kStride = kHdp + 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq && c < hd) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-      if (bias != nullptr) {
-        const uint4 bval = *reinterpret_cast<const uint4*>(bias + c);
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&val);
-        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&bval);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 xf = __bfloat1622float2(x[j]);
-          const float2 yf = __bfloat1622float2(y[j]);
-          x[j] = __floats2bfloat162_rn(xf.x + yf.x, xf.y + yf.y);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
-
-// Divides the rows of a 64-row tile in shared memory by den[row] (IEEE
-// division, one rounding to bf16): dO -> dohn of the deferred variant.
-template <int kHdp>
-__device__ __forceinline__ void scale_rows(bf16* tile, const float* den) {
-  constexpr int kStride = kHdp + 8;
-  constexpr int kPairs = kHdp / 2;
-  for (int i = threadIdx.x; i < kTile * kPairs; i += kThreads) {
-    const int r = i / kPairs;
-    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(
-        tile + r * kStride + 2 * (i % kPairs));
-    const float2 f = __bfloat1622float2(*x);
-    *x = __floats2bfloat162_rn(__fdiv_rn(f.x, den[r]),
-                               __fdiv_rn(f.y, den[r]));
-  }
-}
 
 // The whole-head scheme's shared memory for its item, in bf16 elements:
 // Q and dO, then a region that holds K and V in phase 1 and bf16(P) and
@@ -313,322 +232,6 @@ __device__ __forceinline__ void store_frags(bf16* dst, const uint32_t a[kNc][4],
     *reinterpret_cast<uint32_t*>(d + c * 16 + 8) = a[c][2];
     *reinterpret_cast<uint32_t*>(d + 8 * stride + c * 16 + 8) = a[c][3];
   }
-}
-
-// Writes the warp tiles `acc` (16 rows per warp, rows tile0 + ...) of one
-// head to `dst` in bf16 (rows < seq, columns < hd) and, with `partial`, the
-// fp32 column sums of the whole 64-row block tile to partial[0, hd) through
-// `colsum` (kWarps * kHdp floats of shared memory).
-template <int kHdp>
-__device__ __forceinline__ void store_tile(float acc[kHdp / 8][4],
-                                           bf16* dst, float* partial,
-                                           float* colsum, int tile0, int seq,
-                                           int hd, int ld) {
-  const int row0 = tile0 + threadIdx.x / 32 * 16;
-  store_strip<kHdp>(acc, dst, row0, seq, hd, ld, 1.f);
-  if (partial == nullptr) return;
-  warp_colsum<kHdp>(acc, colsum + threadIdx.x / 32 * kHdp, row0, seq);
-  __syncthreads();
-  for (int c = threadIdx.x; c < hd; c += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += colsum[w * kHdp + c];
-    partial[c] = s;
-  }
-}
-
-// Kernel 1 of the split scheme (the deferred variant): dq and the softmax
-// statistics, one block per (q-tile, head, sample). stats: m, r, delta,
-// each (batch * seq * num_heads) fp32 indexed (sample * num_heads + head) *
-// seq + row, with delta = rowsum(dphat * e) / r.
-template <int kHdp>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const bf16* __restrict__ bq,
-                        const bf16* __restrict__ bk,
-                        const bf16* __restrict__ bv, bf16* __restrict__ dq,
-                        float* __restrict__ stats,
-                        float* __restrict__ partial, int seq, int num_heads,
-                        int hd, float scale, int exact, int n_stats) {
-  constexpr int kStride = kHdp + 8;
-  constexpr int kNt = kHdp / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kTile * kStride;
-  bf16* sk = sdo + kTile * kStride;
-  bf16* sv = sk + kTile * kStride;
-  float* colsum = reinterpret_cast<float*>(sv + kTile * kStride);
-  float* s_den = colsum + kWarps * kHdp;  // denom per tile row
-
-  const int h = blockIdx.y;
-  const int d_model = num_heads * hd;
-  const size_t base = (size_t)blockIdx.z * seq * d_model + (size_t)h * hd;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bool active = q0 + warp * 16 < seq;
-  const bf16* bkh = bk ? bk + h * hd : nullptr;
-  const bf16* bvh = bv ? bv + h * hd : nullptr;
-
-  load_tile<kHdp>(sq, q + base, bq ? bq + h * hd : nullptr, q0, seq, hd,
-                  d_model);
-  load_tile<kHdp>(sdo, dout + base, nullptr, q0, seq, hd, d_model);
-  const bf16* sqw = sq + warp * 16 * kStride;
-  const bf16* sdow = sdo + warp * 16 * kStride;
-
-  // Sweep A: r per row (g, g + 8 of this thread), partial over this
-  // thread's key columns until the quad reduction; the row max is
-  // quad-reduced per tile so all four threads of a row agree on it. (u
-  // needs dohn, hence r, first.)
-  float row_max[2] = {exact ? -INFINITY : 0.f, exact ? -INFINITY : 0.f};
-  float row_sum[2] = {0.f, 0.f};
-  float row_u[2] = {0.f, 0.f};
-  float s[kTile / 8][4], dp[kTile / 8][4];
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-    __syncthreads();
-    if (!active) continue;
-    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-    if (exact) {
-      float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + nt * 8 + 2 * t + (i & 1);
-          s[nt][i] = key < seq ? s[nt][i] * scale : -INFINITY;
-          tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[nt][i]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        tile_max[r] = fmaxf(tile_max[r],
-                            __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-        tile_max[r] = fmaxf(tile_max[r],
-                            __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-        const float m_new = fmaxf(row_max[r], tile_max[r]);
-        const float alpha = __expf(row_max[r] - m_new);
-        row_max[r] = m_new;
-        row_sum[r] *= alpha;
-      }
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          row_sum[i >> 1] += __expf(s[nt][i] - row_max[i >> 1]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + nt * 8 + 2 * t + (i & 1);
-          const float x = fminf(fmaxf(s[nt][i] * scale, -kExpClip), kExpClip);
-          row_sum[i >> 1] += key < seq ? __expf(x) : 0.f;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-  }
-  // dO -> dohn = bf16(dO / r) in place (rows past seq divide by 1), then
-  // sweep A2: u = rowsum(dphat * e) with dphat = dohn . V.
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int lr = warp * 16 + g + 8 * r;
-      s_den[lr] = q0 + lr < seq ? row_sum[r] : 1.f;
-    }
-  }
-  __syncthreads();
-  scale_rows<kHdp>(sdo, s_den);
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-    load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
-    __syncthreads();
-    if (!active) continue;
-    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + nt * 8 + 2 * t + (i & 1);
-        const float x = s[nt][i] * scale;
-        const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-        if (key < seq) {
-          row_u[i >> 1] += __expf(xe - row_max[i >> 1]) * dp[nt][i];
-        }
-      }
-    }
-  }
-  float delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_u[r] += __shfl_xor_sync(0xffffffffu, row_u[r], 1);
-    row_u[r] += __shfl_xor_sync(0xffffffffu, row_u[r], 2);
-    delta[r] = row_u[r] / row_sum[r];
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (active && t == 0 && row < seq) {
-      const size_t at =
-          ((size_t)blockIdx.z * num_heads + h) * seq + row;
-      stats[at] = row_max[r];
-      stats[n_stats + at] = row_sum[r];
-      stats[2 * (size_t)n_stats + at] = delta[r];
-    }
-  }
-
-  // Sweep B: ds per score, then dq += bf16(ds * scale) . K.
-  float acc[kNt][4];
-#pragma unroll
-  for (int nt = 0; nt < kNt; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<kHdp>(sk, k + base, bkh, k0, seq, hd, d_model);
-    load_tile<kHdp>(sv, v + base, bvh, k0, seq, hd, d_model);
-    __syncthreads();
-    if (!active) continue;
-    warp_scores<kHdp, kTile / 8>(s, sqw, sk);
-    warp_scores<kHdp, kTile / 8>(dp, sdow, sv);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int key = k0 + nt * 8 + 2 * t + (i & 1);
-        const float x = s[nt][i] * scale;
-        float ds = 0.f;
-        if (key < seq) {
-          const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          const float e = __expf(xe - row_max[r]);
-          ds = e * (dp[nt][i] - delta[r]);
-          if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
-        }
-        s[nt][i] = ds * scale;
-      }
-    }
-    warp_accumulate<kHdp, kTile / 16>(acc, s, sk);
-  }
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  store_tile<kHdp>(acc, dq + base, partial ? partial +
-                   ((size_t)blockIdx.z * n_tiles + blockIdx.x) * d_model +
-                   h * hd : nullptr, colsum, q0, seq, hd, d_model);
-}
-
-// Kernel 2 of the split scheme: dk and dv, one block per (key tile, head,
-// sample), sweeping the q-tiles with kernel 1's statistics. The warp's 16
-// key rows are the rows of the transposed score tile s^T (keys x queries).
-// dO tiles scaled to dohn as they arrive; p is the unnormalized e.
-template <int kHdp>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const bf16* __restrict__ bq,
-                         const bf16* __restrict__ bk,
-                         const bf16* __restrict__ bv, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv,
-                         const float* __restrict__ stats,
-                         float* __restrict__ partial_k,
-                         float* __restrict__ partial_v, int seq,
-                         int num_heads, int hd, float scale, int exact,
-                         int n_stats) {
-  constexpr int kStride = kHdp + 8;
-  constexpr int kNt = kHdp / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kTile * kStride;
-  bf16* sq = sv + kTile * kStride;
-  bf16* sdo = sq + kTile * kStride;
-  float* s_max = reinterpret_cast<float*>(sdo + kTile * kStride);
-  float* s_sum = s_max + kTile;
-  float* s_delta = s_sum + kTile;
-  float* colsum = s_delta + kTile;
-
-  const int h = blockIdx.y;
-  const int d_model = num_heads * hd;
-  const size_t base = (size_t)blockIdx.z * seq * d_model + (size_t)h * hd;
-  const size_t stat0 = ((size_t)blockIdx.z * num_heads + h) * seq;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bool active = k0 + warp * 16 < seq;
-  const bf16* bqh = bq ? bq + h * hd : nullptr;
-
-  load_tile<kHdp>(sk, k + base, bk ? bk + h * hd : nullptr, k0, seq, hd,
-                  d_model);
-  load_tile<kHdp>(sv, v + base, bv ? bv + h * hd : nullptr, k0, seq, hd,
-                  d_model);
-  const bf16* skw = sk + warp * 16 * kStride;
-  const bf16* svw = sv + warp * 16 * kStride;
-  const bool key_ok[2] = {k0 + warp * 16 + g < seq,
-                          k0 + warp * 16 + g + 8 < seq};
-
-  float dk_acc[kNt][4], dv_acc[kNt][4];
-#pragma unroll
-  for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
-  }
-  float st[kTile / 8][4], dpt[kTile / 8][4];
-  for (int q0 = 0; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile<kHdp>(sq, q + base, bqh, q0, seq, hd, d_model);
-    load_tile<kHdp>(sdo, dout + base, nullptr, q0, seq, hd, d_model);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = q0 + i < seq;
-      s_max[i] = ok ? stats[stat0 + q0 + i] : 0.f;
-      s_sum[i] = ok ? stats[n_stats + stat0 + q0 + i] : 1.f;
-      s_delta[i] = ok ? stats[2 * (size_t)n_stats + stat0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    scale_rows<kHdp>(sdo, s_sum);
-    __syncthreads();
-    if (!active) continue;
-    warp_scores<kHdp, kTile / 8>(st, skw, sq);
-    warp_scores<kHdp, kTile / 8>(dpt, svw, sdo);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + 2 * t + (i & 1);  // query row within tile
-        const float x = st[nt][i] * scale;
-        float p = 0.f, ds = 0.f;
-        if (key_ok[i >> 1] && q0 + col < seq) {
-          const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-          p = __expf(xe - s_max[col]);
-          ds = p * (dpt[nt][i] - s_delta[col]);
-          if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
-        }
-        st[nt][i] = p;
-        dpt[nt][i] = ds * scale;
-      }
-    }
-    warp_accumulate<kHdp, kTile / 16>(dv_acc, st, sdo);
-    warp_accumulate<kHdp, kTile / 16>(dk_acc, dpt, sq);
-  }
-  __syncthreads();
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  const size_t part =
-      ((size_t)blockIdx.z * n_tiles + blockIdx.x) * d_model + h * hd;
-  store_tile<kHdp>(dk_acc, dk + base, partial_k ? partial_k + part : nullptr,
-                   colsum, k0, seq, hd, d_model);
-  __syncthreads();
-  store_tile<kHdp>(dv_acc, dv + base, partial_v ? partial_v + part : nullptr,
-                   colsum, k0, seq, hd, d_model);
 }
 
 // The whole-head scheme: persistent blocks of kNc warps (one per 16-row
@@ -1476,21 +1079,14 @@ attention_bwd_long_dkv_kernel(const bf16* __restrict__ q,
 
 // out[y * width + c] = sum over p < n of src_y[p * width + c] in fp32 and a
 // fixed order (kSumGroups interleaved runs of rows, then the runs in
-// order), rounded once to the output type: the bias grads from the
-// per-sample or per-tile partials (bf16) or from the fp32 dq/dk/dv
-// themselves (fp32 twin). blockIdx.y selects q, k or v.
+// order), rounded once to bf16: the bias grads from the per-sample or
+// per-block partials. blockIdx.y selects q, k or v.
 constexpr int kSumCols = 32, kSumGroups = 32;
 
-__device__ __forceinline__ void store_sum(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_sum(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kSumCols * kSumGroups)
 column_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ c, int n, int width,
-                  T* __restrict__ out) {
+                  bf16* __restrict__ out) {
   __shared__ float runs[kSumGroups][kSumCols];
   const int cx = threadIdx.x % kSumCols, gy = threadIdx.x / kSumCols;
   const int col = blockIdx.x * kSumCols + cx;
@@ -1506,63 +1102,16 @@ column_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
     float r = 0.f;
 #pragma unroll
     for (int i = 0; i < kSumGroups; ++i) r += runs[i][cx];
-    store_sum(out + blockIdx.y * width + col, r);
+    out[blockIdx.y * width + col] = __float2bfloat16_rn(r);
   }
 }
 
-template <typename T>
 int column_sums(const float* a, const float* b, const float* c, int n,
-                int width, T* out, cudaStream_t stream) {
+                int width, bf16* out, cudaStream_t stream) {
   const dim3 grid((width + kSumCols - 1) / kSumCols, 3);
-  column_sum_kernel<T><<<grid, kSumCols * kSumGroups, 0, stream>>>(
+  column_sum_kernel<<<grid, kSumCols * kSumGroups, 0, stream>>>(
       a, b, c, n, width, out);
   return (int)cudaGetLastError();
-}
-
-// The split scheme: the dq kernel, the dk/dv kernel, then the bias grads
-// from their per-tile partials. The plan's sizes must be these layouts':
-// kWarps warps, one block per 64-row tile, no ring.
-template <int kHdp>
-int launch_split(const bf16* q, const bf16* k, const bf16* v,
-                 const bf16* dout, const bf16* bq, const bf16* bk,
-                 const bf16* bv, bf16* dq, bf16* dk, bf16* dv, float* stats,
-                 float* partial, bf16* dbias, int batch, int seq,
-                 int num_heads, int hd, int warps, int blocks, int stages,
-                 int smem_dq, int smem_dkv, float scale, int exact,
-                 cudaStream_t stream) {
-  if (stats == nullptr || warps != kWarps ||
-      blocks != (seq + kTile - 1) / kTile || stages != 0 ||
-      smem_dq != split_smem_dq(kHdp) || smem_dkv != split_smem_dkv(kHdp)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<kHdp>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kHdp>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (seq + kTile - 1) / kTile;
-  const int n_stats = batch * num_heads * seq;
-  const size_t part_size = (size_t)batch * n_tiles * num_heads * hd;
-  float* pq = partial;
-  float* pk = partial ? partial + part_size : nullptr;
-  float* pv = partial ? partial + 2 * part_size : nullptr;
-  const dim3 grid(n_tiles, num_heads, batch);
-  attention_bwd_dq_kernel<kHdp><<<grid, kThreads, smem_dq, stream>>>(
-      q, k, v, dout, bq, bk, bv, dq, stats, pq, seq, num_heads, hd, scale,
-      exact, n_stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<kHdp><<<grid, kThreads, smem_dkv, stream>>>(
-      q, k, v, dout, bq, bk, bv, dk, dv, stats, pk, pv, seq, num_heads, hd,
-      scale, exact, n_stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (partial == nullptr) return 0;
-  return column_sums(pq, pk, pv, batch * n_tiles, num_heads * hd, dbias,
-                     stream);
 }
 
 // The whole-head scheme at kNc chunks: the persistent grid (as many blocks
@@ -1681,189 +1230,26 @@ int launch_long(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                      stream);
 }
 
-// ---------------------------------------------------------------------------
-// fp32 twins: one block per (row, head, sample), thread-per-key (or query)
-// scalar dot products, chunks of 128 columns staged in shared memory.
-// ---------------------------------------------------------------------------
+// The plan's schemes (ops/block_attention.py BWD_WHOLE, BWD_LONG).
+constexpr int kWhole = 1, kLong = 2;
 
-constexpr int kF32Threads = 128;
-constexpr int kF32MaxHd = 128;
-
-// dq of one query row and its statistics.
-__global__ void __launch_bounds__(kF32Threads)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ bq,
-                            const float* __restrict__ bk,
-                            const float* __restrict__ bv,
-                            float* __restrict__ dq, float* __restrict__ stats,
-                            int seq, int num_heads, int hd, float scale,
-                            int exact, int n_stats) {
-  __shared__ float sq[kF32MaxHd], sdo[kF32MaxHd], sds[kF32Threads];
-  __shared__ float scratch[kF32Threads / 32];
-  const int row = blockIdx.x, h = blockIdx.y;
-  const int d_model = num_heads * hd;
-  const size_t base = (size_t)blockIdx.z * seq * d_model + (size_t)h * hd;
-  const int tid = threadIdx.x;
-  const float* bkh = bk ? bk + h * hd : nullptr;
-  const float* bvh = bv ? bv + h * hd : nullptr;
-  for (int c = tid; c < hd; c += kF32Threads) {
-    sq[c] = q[base + (size_t)row * d_model + c] + (bq ? bq[h * hd + c] : 0.f);
-    sdo[c] = dout[base + (size_t)row * d_model + c];
-  }
-  __syncthreads();
-
-  // s and dp of key j, the scaled score in x, dp returned.
-  auto score = [&](int j, float* x) {
-    const size_t at = base + (size_t)j * d_model;
-    float s = 0.f, dp = 0.f;
-    for (int c = 0; c < hd; ++c) {
-      s = fmaf(sq[c], k[at + c] + (bkh ? bkh[c] : 0.f), s);
-      dp = fmaf(sdo[c], v[at + c] + (bvh ? bvh[c] : 0.f), dp);
-    }
-    *x = s * scale;
-    return dp;
-  };
-
-  float m = 0.f;
-  if (exact) {
-    float local = -INFINITY;
-    for (int j = tid; j < seq; j += kF32Threads) {
-      float x;
-      score(j, &x);
-      local = fmaxf(local, x);
-    }
-    m = block_reduce<kF32Threads>(local, true, scratch);
-  }
-  float sum = 0.f, u = 0.f;
-  for (int j = tid; j < seq; j += kF32Threads) {
-    float x;
-    const float dp = score(j, &x);
-    const float e =
-        expf((exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip)) - m);
-    sum += e;
-    u += e * dp;
-  }
-  sum = block_reduce<kF32Threads>(sum, false, scratch);
-  u = block_reduce<kF32Threads>(u, false, scratch);
-  const float delta = u / sum;
-
-  float acc = 0.f;  // dq[c] for c = tid (hd <= 128 = threads)
-  for (int j0 = 0; j0 < seq; j0 += kF32Threads) {
-    const int j = j0 + tid;
-    float ds = 0.f;
-    if (j < seq) {
-      float x;
-      const float dp = score(j, &x);
-      const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-      const float p = expf(xe - m) / sum;
-      ds = p * (dp - delta);
-      if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
-    }
-    __syncthreads();  // previous chunk consumed
-    sds[tid] = ds * scale;
-    __syncthreads();
-    if (tid < hd) {
-      const int n = min(kF32Threads, seq - j0);
-      for (int jj = 0; jj < n; ++jj) {
-        const size_t at = base + (size_t)(j0 + jj) * d_model + tid;
-        acc = fmaf(sds[jj], k[at] + (bkh ? bkh[tid] : 0.f), acc);
-      }
-    }
-  }
-  if (tid < hd) dq[base + (size_t)row * d_model + tid] = acc;
-  if (tid == 0) {
-    const size_t at = ((size_t)blockIdx.z * num_heads + h) * seq + row;
-    stats[at] = m;
-    stats[n_stats + at] = sum;
-    stats[2 * (size_t)n_stats + at] = delta;
-  }
-}
-
-// dk and dv of one key row, sweeping the query rows.
-__global__ void __launch_bounds__(kF32Threads)
-attention_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ bq,
-                             const float* __restrict__ bk,
-                             const float* __restrict__ bv,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             const float* __restrict__ stats, int seq,
-                             int num_heads, int hd, float scale, int exact,
-                             int n_stats) {
-  __shared__ float sk[kF32MaxHd], sv[kF32MaxHd];
-  __shared__ float sp[kF32Threads], sds[kF32Threads];
-  const int key = blockIdx.x, h = blockIdx.y;
-  const int d_model = num_heads * hd;
-  const size_t base = (size_t)blockIdx.z * seq * d_model + (size_t)h * hd;
-  const size_t stat0 = ((size_t)blockIdx.z * num_heads + h) * seq;
-  const int tid = threadIdx.x;
-  const float* bqh = bq ? bq + h * hd : nullptr;
-  for (int c = tid; c < hd; c += kF32Threads) {
-    sk[c] = k[base + (size_t)key * d_model + c] + (bk ? bk[h * hd + c] : 0.f);
-    sv[c] = v[base + (size_t)key * d_model + c] + (bv ? bv[h * hd + c] : 0.f);
-  }
-  float dk_acc = 0.f, dv_acc = 0.f;
-  for (int i0 = 0; i0 < seq; i0 += kF32Threads) {
-    __syncthreads();  // sk/sv written; previous chunk consumed
-    const int i = i0 + tid;
-    float p = 0.f, ds = 0.f;
-    if (i < seq) {
-      const size_t at = base + (size_t)i * d_model;
-      float s = 0.f, dp = 0.f;
-      for (int c = 0; c < hd; ++c) {
-        s = fmaf(q[at + c] + (bqh ? bqh[c] : 0.f), sk[c], s);
-        dp = fmaf(dout[at + c], sv[c], dp);
-      }
-      const float x = s * scale;
-      const float xe = exact ? x : fminf(fmaxf(x, -kExpClip), kExpClip);
-      p = expf(xe - stats[stat0 + i]) / stats[n_stats + stat0 + i];
-      ds = p * (dp - stats[2 * (size_t)n_stats + stat0 + i]);
-      if (!exact && fabsf(x) >= kExpClip) ds = 0.f;
-    }
-    sp[tid] = p;
-    sds[tid] = ds * scale;
-    __syncthreads();
-    if (tid < hd) {
-      const int n = min(kF32Threads, seq - i0);
-      for (int ii = 0; ii < n; ++ii) {
-        const size_t at = base + (size_t)(i0 + ii) * d_model + tid;
-        dk_acc = fmaf(sds[ii], q[at] + (bqh ? bqh[tid] : 0.f), dk_acc);
-        dv_acc = fmaf(sp[ii], dout[at], dv_acc);
-      }
-    }
-  }
-  if (tid < hd) {
-    dk[base + (size_t)key * d_model + tid] = dk_acc;
-    dv[base + (size_t)key * d_model + tid] = dv_acc;
-  }
-}
-
-// The plan's schemes (ops/block_attention.py BWD_SPLIT, BWD_WHOLE,
-// BWD_LONG).
-constexpr int kSplit = 0, kWhole = 1, kLong = 2;
-
-// The bf16 entries' body: kDefer selects the entry. The normalized one
-// takes the whole-head and long schemes, the deferred one the whole-head
-// scheme (its deferred form) and the split scheme.
+// The entries' body: kDefer selects the entry. The normalized one takes
+// the whole-head and long schemes, the deferred one the whole-head scheme
+// (its deferred form) alone.
 template <bool kDefer>
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const void* bq, const void* bk, const void* bv, void* dq,
-                void* dk, void* dv, void* stats, void* partial, void* dbias,
-                int batch, int seq, int num_heads, int head_dim, int scheme,
-                int warps, int blocks, int stages, int smem, int smem_dkv,
-                float scale, int exact, void* stream) {
+int launch_entry(const void* q, const void* k, const void* v,
+                 const void* dout, const void* bq, const void* bk,
+                 const void* bv, void* dq, void* dk, void* dv, void* stats,
+                 void* partial, void* dbias, int batch, int seq,
+                 int num_heads, int head_dim, int scheme, int warps,
+                 int blocks, int stages, int smem, int smem_dkv, float scale,
+                 int exact, void* stream) {
   if (bad_shape(batch, seq, num_heads, head_dim) ||
       (bq == nullptr) != (bk == nullptr) ||
       (bq == nullptr) != (bv == nullptr) ||
       (bq != nullptr) != (partial != nullptr) ||
       (partial != nullptr) != (dbias != nullptr) ||
-      (kDefer ? scheme != kWhole && scheme != kSplit
-              : scheme != kWhole && scheme != kLong)) {
+      (kDefer ? scheme != kWhole : scheme != kWhole && scheme != kLong)) {
     return (int)cudaErrorInvalidValue;
   }
   const bf16* q_ = static_cast<const bf16*>(q);
@@ -1889,16 +1275,10 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                                        stages, smem, smem_dkv, scale, exact, \
                                        s);                                   \
     }                                                                        \
-    if (scheme == kLong) {                                                   \
-      return launch_long<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_, \
-                              st_, pa_, db_, batch, seq, num_heads,          \
-                              head_dim, warps, blocks, stages, smem,         \
-                              smem_dkv, scale, exact, s);                    \
-    }                                                                        \
-    return launch_split<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_,  \
-                             st_, pa_, db_, batch, seq, num_heads, head_dim, \
-                             warps, blocks, stages, smem, smem_dkv, scale,   \
-                             exact, s)
+    return launch_long<HDP>(q_, k_, v_, do_, bq_, bk_, bv_, dq_, dk_, dv_,   \
+                            st_, pa_, db_, batch, seq, num_heads, head_dim,  \
+                            warps, blocks, stages, smem, smem_dkv, scale,    \
+                            exact, s)
   switch (round16(head_dim)) {
     CLIPA_LAUNCH(16);
     CLIPA_LAUNCH(32);
@@ -1926,11 +1306,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 //   scheme 2 (long): `blocks` blocks of `warps` warps per (sample, head),
 //     a ring of `stages` 128-row tiles, `smem` and `smem_dkv` the dq and
 //     dk/dv kernels' bytes; stats: 2 * batch * seq * num_heads fp32
-//     scratch (lse2, delta);
-//   scheme 0 (split: the deferred entry's past L = 144, which the
-//     normalized entry refuses): `warps` 4, `blocks` ceil(seq / 64),
-//     stages 0, `smem` and `smem_dkv` the dq and dk/dv kernels' bytes;
-//     stats: 3 * batch * seq * num_heads fp32 scratch (m, r, delta).
+//     scratch (lse2, delta).
 // Each size must be its kernel's for that plan. With biases, partial
 // (3 * batch * blocks * num_heads * head_dim fp32 scratch) and dbias
 // (3 * num_heads * head_dim bf16: dbq, dbk, dbv, each the fp32 column sum
@@ -1943,16 +1319,15 @@ extern "C" int clipa_fused_attention_bwd(
     int num_heads, int head_dim, int scheme, int warps, int blocks,
     int stages, int smem, int smem_dkv, float scale, int exact,
     void* stream) {
-  return launch_bf16<false>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
-                            partial, dbias, batch, seq, num_heads, head_dim,
-                            scheme, warps, blocks, stages, smem, smem_dkv,
-                            scale, exact, stream);
+  return launch_entry<false>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
+                             partial, dbias, batch, seq, num_heads, head_dim,
+                             scheme, warps, blocks, stages, smem, smem_dkv,
+                             scale, exact, stream);
 }
 
-// The deferred-normalization variant: the same arguments, limits and
-// outputs; scheme 1 (the whole-head scheme's deferred form, L <= 16
-// kMaxChunks) or scheme 0 (the split pair, which it alone takes), the long
-// scheme refused (bf16 only; see the header).
+// The deferred-normalization variant (see the header): the same arguments,
+// limits and outputs, scheme 1 only (the whole-head scheme's deferred form,
+// L <= 16 kMaxChunks).
 extern "C" int clipa_fused_attention_bwd_deferred(
     const void* q, const void* k, const void* v, const void* dout,
     const void* bq, const void* bk, const void* bv, void* dq, void* dk,
@@ -1960,52 +1335,10 @@ extern "C" int clipa_fused_attention_bwd_deferred(
     int num_heads, int head_dim, int scheme, int warps, int blocks,
     int stages, int smem, int smem_dkv, float scale, int exact,
     void* stream) {
-  return launch_bf16<true>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
-                           partial, dbias, batch, seq, num_heads, head_dim,
-                           scheme, warps, blocks, stages, smem, smem_dkv,
-                           scale, exact, stream);
-}
-
-// The fp32 twin: the same arguments but the plan, the same limits, fp32
-// tensors (4-byte aligned suffices); `partial` is not used (the bias grads
-// are the column sums of the fp32 dq/dk/dv), `dbias` is set iff the biases
-// are.
-extern "C" int clipa_fused_attention_bwd_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* bq, const void* bk, const void* bv, void* dq, void* dk,
-    void* dv, void* stats, void* partial, void* dbias, int batch, int seq,
-    int num_heads, int head_dim, float scale, int exact, void* stream) {
-  (void)partial;
-  if (bad_shape(batch, seq, num_heads, head_dim) ||
-      (bq != nullptr) != (dbias != nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const float* q_ = static_cast<const float*>(q);
-  const float* k_ = static_cast<const float*>(k);
-  const float* v_ = static_cast<const float*>(v);
-  const float* do_ = static_cast<const float*>(dout);
-  const float* bq_ = static_cast<const float*>(bq);
-  const float* bk_ = static_cast<const float*>(bk);
-  const float* bv_ = static_cast<const float*>(bv);
-  float* dq_ = static_cast<float*>(dq);
-  float* dk_ = static_cast<float*>(dk);
-  float* dv_ = static_cast<float*>(dv);
-  float* st_ = static_cast<float*>(stats);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_stats = batch * num_heads * seq;
-  const dim3 grid(seq, num_heads, batch);
-  attention_bwd_dq_f32_kernel<<<grid, kF32Threads, 0, s>>>(
-      q_, k_, v_, do_, bq_, bk_, bv_, dq_, st_, seq, num_heads, head_dim,
-      scale, exact, n_stats);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_f32_kernel<<<grid, kF32Threads, 0, s>>>(
-      q_, k_, v_, do_, bq_, bk_, bv_, dk_, dv_, st_, seq, num_heads,
-      head_dim, scale, exact, n_stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dbias == nullptr) return (int)err;
-  return column_sums(dq_, dk_, dv_, batch * seq, num_heads * head_dim,
-                     static_cast<float*>(dbias), s);
+  return launch_entry<true>(q, k, v, dout, bq, bk, bv, dq, dk, dv, stats,
+                            partial, dbias, batch, seq, num_heads, head_dim,
+                            scheme, warps, blocks, stages, smem, smem_dkv,
+                            scale, exact, stream);
 }
 
 extern "C" const char* clipa_cuda_error_string(int err) {

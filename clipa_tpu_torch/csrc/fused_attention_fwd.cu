@@ -1,5 +1,4 @@
-// Fused multi-head self-attention forward for Hopper (sm_90a), bf16 or fp32
-// in/out (one entry point per operand type).
+// Fused multi-head self-attention forward for Hopper (sm_90a), bf16 in/out.
 //
 // Replaces three Pallas TPU kernels of clipa_tpu/ops/block_attention.py with
 // one kernel over flat (B*L, D) rows, row i belonging to sample i // L:
@@ -78,14 +77,10 @@
 // that keep the most warps busy (L = 50: 4 x 1 0.0855 against 2 x 2
 // 0.0962). Other shapes in PERF.md section 6.
 //
-// fp32 operands (the service at precision float32, as the Pallas kernels
-// take fp32 operands) run a second, scalar kernel: the same function with
-// fp32 FMA for both products, no TF32 and no rounding of E. Block = 128
-// threads over 16 query rows; K/V tiles of 32 rows and the 16x32 score tile
-// sit in shared memory. It is written to be right, not fast: serving runs
-// bf16. It takes no launch plan.
-
-#include <math.h>
+// bf16 operands only: the wrapper refuses others. fp32 attention on the card
+// (the service at precision float32) takes the flash kernels' fp32 twins
+// (ops/attention.py, impl "auto"); a scalar fp32 kernel here took twice the
+// plain version's time (B = 8, L = 257: PERF.md section 6).
 
 #include "attention_common.cuh"
 
@@ -374,154 +369,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* bq,
   return (int)cudaGetLastError();
 }
 
-constexpr int kF32Threads = 128;
-constexpr int kF32Rows = 16;    // query rows per block
-constexpr int kF32Keys = 32;    // key rows per shared-memory tile
-constexpr int kF32MaxHd = 128;
-constexpr int kF32PerThread = kF32Rows * kF32MaxHd / kF32Threads;
-
-// The same function on fp32 operands, scalar FMA throughout. Thread i owns
-// outputs i, i + 128, ... of the block's (16, hd) output tile.
-__global__ void __launch_bounds__(kF32Threads)
-fused_attention_fwd_f32_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ bq,
-                               const float* __restrict__ bk,
-                               const float* __restrict__ bv,
-                               float* __restrict__ out, int seq,
-                               int num_heads, int hd, float scale,
-                               int exact) {
-  // +1 on the row strides: the score loop reads sk down a column.
-  __shared__ float sq[kF32Rows][kF32MaxHd + 1];
-  __shared__ float sk[kF32Keys][kF32MaxHd + 1];
-  __shared__ float sv[kF32Keys][kF32MaxHd];
-  __shared__ float sp[kF32Rows][kF32Keys + 1];
-  __shared__ float row_max[kF32Rows], row_sum[kF32Rows], row_alpha[kF32Rows];
-
-  const int h = blockIdx.y;
-  const int d_model = num_heads * hd;
-  const size_t base = (size_t)blockIdx.z * seq * d_model + (size_t)h * hd;
-  const int q0 = blockIdx.x * kF32Rows;
-  const int tid = threadIdx.x;
-  const float* bqh = bq ? bq + h * hd : nullptr;
-  const float* bkh = bk ? bk + h * hd : nullptr;
-  const float* bvh = bv ? bv + h * hd : nullptr;
-
-  for (int i = tid; i < kF32Rows * hd; i += kF32Threads) {
-    const int r = i / hd, c = i % hd;
-    float x = 0.f;
-    if (q0 + r < seq) {
-      x = q[base + (size_t)(q0 + r) * d_model + c];
-      if (bqh) x += bqh[c];
-    }
-    sq[r][c] = x;
-  }
-  if (tid < kF32Rows) {
-    row_max[tid] = -INFINITY;
-    row_sum[tid] = 0.f;
-  }
-  float acc[kF32PerThread];
-#pragma unroll
-  for (int i = 0; i < kF32PerThread; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < seq; k0 += kF32Keys) {
-    __syncthreads();  // sq and the row stats written; previous tile consumed
-    for (int i = tid; i < kF32Keys * hd; i += kF32Threads) {
-      const int r = i / hd, c = i % hd;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < seq) {
-        const size_t at = base + (size_t)(k0 + r) * d_model + c;
-        kx = k[at];
-        vx = v[at];
-        if (bkh) kx += bkh[c];
-        if (bvh) vx += bvh[c];
-      }
-      sk[r][c] = kx;
-      sv[r][c] = vx;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32Rows * kF32Keys; i += kF32Threads) {
-      const int r = i / kF32Keys, c = i % kF32Keys;
-      float s = 0.f;
-      for (int j = 0; j < hd; ++j) s = fmaf(sq[r][j], sk[c][j], s);
-      sp[r][c] = s * scale;
-    }
-    __syncthreads();
-    if (tid < kF32Rows) {
-      const int r = tid;
-      const int n = min(kF32Keys, seq - k0);
-      float m = row_max[r], alpha = 1.f;
-      if (exact) {
-        float m_new = m;
-        for (int c = 0; c < n; ++c) m_new = fmaxf(m_new, sp[r][c]);
-        alpha = expf(m - m_new);
-        m = m_new;
-        row_max[r] = m;
-      }
-      float sum = 0.f;
-      for (int c = 0; c < kF32Keys; ++c) {
-        const float s = sp[r][c];
-        const float e =
-            c >= n ? 0.f
-                   : expf(exact ? s - m
-                                : fminf(fmaxf(s, -kExpClip), kExpClip));
-        sp[r][c] = e;
-        sum += e;
-      }
-      row_sum[r] = row_sum[r] * alpha + sum;
-      row_alpha[r] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kF32PerThread; ++i) {
-      const int j = tid + i * kF32Threads;
-      if (j < kF32Rows * hd) {
-        const int r = j / hd, c = j % hd;
-        float a = acc[i] * row_alpha[r];
-        for (int key = 0; key < kF32Keys; ++key) {
-          a = fmaf(sp[r][key], sv[key][c], a);
-        }
-        acc[i] = a;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kF32PerThread; ++i) {
-    const int j = tid + i * kF32Threads;
-    if (j < kF32Rows * hd) {
-      const int r = j / hd, c = j % hd;
-      if (q0 + r < seq) {
-        out[base + (size_t)(q0 + r) * d_model + c] = acc[i] / row_sum[r];
-      }
-    }
-  }
-}
-
 }  // namespace
-
-// The fp32 twin of clipa_fused_attention_fwd: the same arguments but the
-// plan, the same limits, fp32 tensors (4-byte aligned suffices).
-extern "C" int clipa_fused_attention_fwd_f32(const void* q, const void* k,
-                                             const void* v, const void* bq,
-                                             const void* bk, const void* bv,
-                                             void* out, int batch, int seq,
-                                             int num_heads, int head_dim,
-                                             float scale, int exact,
-                                             void* stream) {
-  if (bad_shape(batch, seq, num_heads, head_dim)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((seq + kF32Rows - 1) / kF32Rows, num_heads, batch);
-  fused_attention_fwd_f32_kernel<<<grid, kF32Threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bq),
-      static_cast<const float*>(bk), static_cast<const float*>(bv),
-      static_cast<float*>(out), seq, num_heads, head_dim, scale, exact);
-  return (int)cudaGetLastError();
-}
 
 // q/k/v/out: (batch * seq, num_heads * head_dim) bf16, contiguous, 16-byte
 // aligned; bq/bk/bv: (num_heads * head_dim,) bf16, 16-byte aligned, or all

@@ -5,7 +5,8 @@ packed (B, L, D) or flat (B*L, D) operands, as the JAX version does;
 :func:`dot_product_attention` split (B, L, H, hd) ones.
 
 Dispatch (``impl="auto"``) is keyed on the shapes and the mask, as in the
-JAX package; the device decides only what a kernel path runs:
+JAX package; the device decides what a kernel path runs, and for fp32 on
+the card which kernels (``fused`` below):
   * ``pallas`` -- the tiled flash attention (ops/flash_attention.py), where
                   the JAX package takes it: unmasked, L >= 1024, head dim <=
                   128, and the JAX fused kernel's forward VMEM plan fails
@@ -13,9 +14,13 @@ JAX package; the device decides only what a kernel path runs:
                   L = 1025) or the attention is cross;
   * ``fused``  -- unmasked self-attention with L >= 33 and a head dim the
                   kernel takes: the fused CUDA kernels (forward and
-                  backward) for a CUDA tensor, their plain versions for a
-                  CPU tensor (ops/block_attention.py). Covers every CLIPA
-                  image tower (50/138/257/577 tokens);
+                  backward) for a bf16 CUDA tensor, their plain versions for
+                  a CPU tensor (ops/block_attention.py). Covers every CLIPA
+                  image tower (50/138/257/577 tokens). The fused kernels
+                  take bf16 only: an fp32 CUDA tensor (the service at
+                  precision float32) takes ``pallas`` instead, whose
+                  kernels have fp32 twins (the exact softmax: the same
+                  function while no score passes the clip's +-70);
   * ``einsum`` -- einsum + fp32 softmax with ``finfo.min`` masking, autograd
                   gradients: masked attention and short sequences, including
                   the 8- and 32-token text towers (the JAX version's ``xla``
@@ -129,6 +134,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "auto":
         impl = _auto(q.shape[0] // seq_len, seq_len, d, num_heads, mask,
                      q.shape == k.shape)
+        if impl == "fused" and q.is_cuda and q.dtype == torch.float32:
+            impl = "pallas"
 
     if impl in ("fused", "fused_exact", "plain"):
         # An explicit fused choice must not drop a mask; the wrapper raises

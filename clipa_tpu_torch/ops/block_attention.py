@@ -8,20 +8,23 @@ so do the three backwards (``_bwd_kernel``, ``_bwd2d_kernel``,
 each direction: ``csrc/fused_attention_fwd.cu`` (:func:`fused_attention`)
 and ``csrc/fused_attention_bwd.cu`` (:func:`fused_attention_bwd`). The TPU
 kernels' VMEM plans, sample groups and block-diagonal masks suited Mosaic
-only. The bf16 forward spreads the 16-row query strips of a (sample, head)
-over the blocks of :func:`fwd_plan`; the bf16 backward takes the scheme of
-:func:`bwd_plan`: one (sample, head) per work item of a persistent kernel
-up to L = 16 * BWD_MAX_CHUNKS, else the long scheme, two kernels whose
-16-row strips spread over blocks as the forward's do, the other operands
-streaming through a ring. The deferred variant takes the whole-head
-scheme's deferred form up to the same L, the split pair past it
-(:func:`bwd_deferred_plan`). bf16 operands go through the tensor cores;
-fp32 operands (the service at precision float32, the fp32 smoke configs)
-through scalar fp32 twins in the same sources.
+only. The kernels take bf16 operands, through the tensor cores. The
+forward spreads the 16-row query strips of a (sample, head) over the
+blocks of :func:`fwd_plan`; the backward takes one of two schemes
+(:func:`bwd_plan`): one (sample, head) per work item of a persistent
+kernel up to L = 16 * BWD_MAX_CHUNKS, else the long scheme, two kernels
+whose 16-row strips spread over blocks as the forward's do, the other
+operands streaming through a ring. The deferred variant takes the
+whole-head scheme's deferred form, and no longer L
+(:func:`bwd_deferred_plan`).
 
 :class:`FusedAttentionFn` ties the two directions into autograd, on every
-device: the kernels for CUDA tensors, the plain versions for CPU tensors
-and for ``plain=True``.
+device: the kernels for CUDA tensors, the plain versions for CPU tensors and
+for ``plain=True``. On the card the kernels take bf16 operands and refuse
+any other dtype (TypeError). fp32 attention on the card (the service at
+precision float32) is routed by ``ops/attention.py``'s ``auto`` to the
+flash kernels' fp32 twins: a scalar fp32 twin here lost to the plain
+version on the card (PERF.md section 6) and was removed.
 
 :func:`attention_plain` and :func:`attention_plain_bwd` are the same
 functions in plain PyTorch: what the wrappers run for a tensor on the CPU
@@ -43,7 +46,7 @@ reproduce the Pallas math, not autograd's:
 :func:`fused_attention_bwd_deferred` is the backward variant that
 ``clipa_tpu/tools/attn_sweep.py`` times beside the landed one: the same
 gradients with the softmax's 1/denom folded into dO's rows
-(``attention_plain_bwd(..., defer=True)``; bf16 kernel only).
+(``attention_plain_bwd(..., defer=True)``).
 """
 
 from __future__ import annotations
@@ -68,58 +71,43 @@ _EXP_CLIP = 70.0
 MAX_HEAD_DIM = 128
 
 # Forward kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.
-# bf16 operands: both round E to bf16 and the output to bf16, so what remains
-# is the fp32 summation order, the hardware exp, and in exact mode the online
-# row max (E rounded against the running max, not the final one). Each moves
-# an output by well under one bf16 ulp before the last rounding, which can
-# then land one ulp (2^-8 relative) apart.
+# Both round E to bf16 and the output to bf16, so what remains is the fp32
+# summation order, the hardware exp, and in exact mode the online row max
+# (E rounded against the running max, not the final one). Each moves an
+# output by well under one bf16 ulp before the last rounding, which can then
+# land one ulp (2^-8 relative) apart.
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 1e-2
-# fp32 operands: nothing is rounded to a narrower type, so only the fp32
-# summation order and exp's last bits differ (a few fp32 ulps over <= 577
-# keys); the same 2e-5 the plain version is held to against Pallas.
-KERNEL_F32_ATOL = 2e-5
-KERNEL_F32_RTOL = 2e-5
 
 # Backward kernel vs plain backward, per output x in (dq, dk, dv, dbq, dbk,
 # dbv): |kernel - plain| <= BWD_RTOL * (|plain| + max|plain|). Gradients are
 # sums of terms of either sign, so an element can be far smaller than its
-# terms; the absolute part is scaled by the tensor's largest element. bf16:
-# dS*scale and P are rounded to bf16 in both, and an fp32 difference of a
-# few ulps (summation order, hardware exp) can round one of them to the
-# neighbouring bf16 value; the outputs are then rounded to bf16 once more:
-# about one bf16 ulp (2^-8) of the largest term. fp32: summation order only.
+# terms; the absolute part is scaled by the tensor's largest element. dS*scale
+# and P are rounded to bf16 in both, and an fp32 difference of a few ulps
+# (summation order, hardware exp) can round one of them to the neighbouring
+# bf16 value; the outputs are then rounded to bf16 once more: about one bf16
+# ulp (2^-8) of the largest term.
 BWD_RTOL = 1e-2
-BWD_F32_RTOL = 2e-5
 
-# Operand dtype -> the C entry points of the two sources.
-_ENTRY = {torch.bfloat16: "clipa_fused_attention_fwd",
-          torch.float32: "clipa_fused_attention_fwd_f32"}
-_BWD_ENTRY = {torch.bfloat16: "clipa_fused_attention_bwd",
-              torch.float32: "clipa_fused_attention_bwd_f32"}
-# The deferred-normalization variant of the bf16 backward (same arguments).
+# The C entry points of the two sources.
+_ENTRY = "clipa_fused_attention_fwd"
+_BWD_ENTRY = "clipa_fused_attention_bwd"
+# The deferred-normalization variant of the backward (same arguments).
 _BWD_DEFERRED_ENTRY = "clipa_fused_attention_bwd_deferred"
 
 _SOURCE = "fused_attention_fwd.cu"
 _BWD_SOURCE = "fused_attention_bwd.cu"
 
-# The bf16 backward's schemes (BwdPlan.scheme; csrc/fused_attention_bwd.cu
-# kSplit, kWhole, kLong).
-BWD_SPLIT, BWD_WHOLE, BWD_LONG = 0, 1, 2
-# The split scheme: rows per tile (one block per tile) and warps per block
-# (kTile, kWarps).
-_BWD_TILE = 64
-_BWD_SPLIT_WARPS = 4
+# The backward's schemes (BwdPlan.scheme; csrc/fused_attention_bwd.cu kWhole,
+# kLong).
+BWD_WHOLE, BWD_LONG = 1, 2
 # The whole-head scheme's largest sequence, in 16-row chunks (kMaxChunks).
 BWD_MAX_CHUNKS = 9
 # The long scheme's ring tiles and deepest ring (kRingTile, kMaxStages).
 BWD_RING_TILE = 128
 BWD_MAX_STAGES = 8
-# fp32 row statistics per (row, head) that each scheme's dk/dv kernel reads
-# (split: m, r, delta; long: lse2, delta; whole-head: none).
-_BWD_STAT_ROWS = {BWD_SPLIT: 3, BWD_WHOLE: 0, BWD_LONG: 2}
 
-# The bf16 forward's key tiles, and the deepest ring its launcher takes
+# The forward's key tiles, and the deepest ring its launcher takes
 # (csrc/fused_attention_fwd.cu kBlockK, kMaxStages).
 FWD_BLOCK_K = 128
 FWD_MAX_STAGES = 8
@@ -132,7 +120,7 @@ def _ring_rows(seq_len: int, stages: int) -> int:
 
 
 def fwd_candidates(seq_len: int, hd: int) -> list[KernelPlan]:
-    """The bf16 forward's launches that fwd_plan weighs, as KernelPlans
+    """The forward's launches that fwd_plan weighs, as KernelPlans
     (warps, blocks, smem, stages). For each block width up to
     _max_warps(hd), the fewest blocks of it over the ceil(L / 16) query
     strips of a (sample, head) (so no warp idles where the strips divide
@@ -157,7 +145,7 @@ def fwd_candidates(seq_len: int, hd: int) -> list[KernelPlan]:
 
 @functools.lru_cache(maxsize=None)
 def fwd_plan(seq_len: int, hd: int) -> KernelPlan:
-    """The bf16 forward's launch at one shape (a pure function, cached),
+    """The forward's launch at one shape (a pure function, cached),
     whose numbers the CUDA entry point takes and checks against its own
     layout: of fwd_candidates, the one that keeps the most warps with a
     strip resident on an SM (the kernel's launch bound lets the register
@@ -176,16 +164,13 @@ def fwd_plan(seq_len: int, hd: int) -> KernelPlan:
 
 
 class BwdPlan(NamedTuple):
-    """The bf16 backward's launch, as the C entry takes it. `scheme`
-    BWD_WHOLE: one persistent kernel whose blocks hold one (sample, head)
-    item in shared memory, `warps` one per 16-row chunk of L, `blocks` 1,
-    `stages` 0, `smem` its bytes per block, `smem_dkv` 0. BWD_LONG: a dq
-    kernel and a dk/dv kernel, each `blocks` blocks of `warps` warps per
-    (sample, head) over the 16-row strips, the other operands through a
-    ring of `stages` 128-row tiles, `smem` and `smem_dkv` their bytes per
-    block. BWD_SPLIT: PR 2's dq and dk/dv kernels, `warps` 4 per 64-row
-    tile, `blocks` the tiles, `stages` 0: the deferred variant's past the
-    whole-head scheme's L, which the normalized entry refuses."""
+    """The backward's launch, as the C entry takes it. `scheme` BWD_WHOLE:
+    one persistent kernel whose blocks hold one (sample, head) item in
+    shared memory, `warps` one per 16-row chunk of L, `blocks` 1, `stages`
+    0, `smem` its bytes per block, `smem_dkv` 0. BWD_LONG: a dq kernel and
+    a dk/dv kernel, each `blocks` blocks of `warps` warps per (sample,
+    head) over the 16-row strips, the other operands through a ring of
+    `stages` 128-row tiles, `smem` and `smem_dkv` their bytes per block."""
     scheme: int
     warps: int
     blocks: int
@@ -201,18 +186,6 @@ def _whole_smem(seq_len: int, hd: int) -> int:
     lp, hdp = _round16(seq_len), _round16(hd)
     stage = 2 * lp * (hdp + 8) + 2 * lp * max(hdp + 8, lp + 8)
     return stage * 2 + 3 * (lp // 16) * hdp * 4
-
-
-def bwd_split_plan(seq_len: int, hd: int) -> BwdPlan:
-    """The split scheme's launch: per block four 64-row bf16 tiles, the
-    warps' fp32 column sums and 64 fp32 row values (dq kernel) or three
-    row statistics (dk/dv kernel). The deferred variant's past the
-    whole-head scheme's L (bwd_deferred_plan)."""
-    hdp = _round16(hd)
-    tiles = 4 * _BWD_TILE * (hdp + 8) * 2
-    return BwdPlan(BWD_SPLIT, _BWD_SPLIT_WARPS, -(-seq_len // _BWD_TILE), 0,
-                   tiles + (_BWD_SPLIT_WARPS * hdp + _BWD_TILE) * 4,
-                   tiles + (3 * _BWD_TILE + _BWD_SPLIT_WARPS * hdp) * 4)
 
 
 def _long_smem(seq_len: int, hd: int, warps: int,
@@ -252,7 +225,7 @@ def bwd_long_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
 
 
 def bwd_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
-    """The bf16 (normalized) backward's launches at one shape: the
+    """The (normalized) backward's launches at one shape: the
     whole-head scheme, where L has at most BWD_MAX_CHUNKS 16-row chunks and
     the block fits in shared memory, then the long scheme's."""
     chunks = _round16(seq_len) // 16
@@ -264,7 +237,7 @@ def bwd_candidates(seq_len: int, hd: int) -> list[BwdPlan]:
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(seq_len: int, hd: int) -> BwdPlan:
-    """The bf16 backward's launch at one shape (a pure function, cached),
+    """The backward's launch at one shape (a pure function, cached),
     whose numbers the CUDA entry point takes and checks against its own
     layouts: the whole-head scheme wherever bwd_candidates offers it (it
     forms S and dP once, the long scheme three times), else of the long
@@ -296,37 +269,26 @@ def bwd_plan(seq_len: int, hd: int) -> BwdPlan:
 def bwd_deferred_plan(seq_len: int, hd: int) -> BwdPlan:
     """The deferred backward's launch at one shape (a pure function,
     cached), whose numbers its CUDA entry point takes and checks: the
-    whole-head scheme's deferred form wherever bwd_candidates offers the
-    whole-head scheme (L <= 16 * BWD_MAX_CHUNKS: S formed once, e and its
-    row sums in registers), else the split pair. The entry refuses the
-    long scheme."""
+    whole-head scheme's deferred form (S formed once, e and its row sums in
+    registers), where bwd_candidates offers the whole-head scheme (L <= 16
+    * BWD_MAX_CHUNKS). Raises past that: the entry takes no other scheme
+    (its callers run at L = 50)."""
     first = bwd_candidates(seq_len, hd)[:1]
-    if first and first[0].scheme == BWD_WHOLE:
-        return first[0]
-    return bwd_split_plan(seq_len, hd)
+    if not first or first[0].scheme != BWD_WHOLE:
+        raise ValueError(f"the deferred backward takes L <= "
+                         f"{16 * BWD_MAX_CHUNKS} (the whole-head scheme), "
+                         f"got L = {seq_len} at head_dim {hd}")
+    return first[0]
 
 
-def tolerance(dtype: torch.dtype) -> tuple[float, float]:
-    """(atol, rtol) of the forward kernel against :func:`attention_plain`."""
-    if dtype == torch.float32:
-        return KERNEL_F32_ATOL, KERNEL_F32_RTOL
-    return KERNEL_ATOL, KERNEL_RTOL
-
-
-def bwd_tolerance(dtype: torch.dtype) -> float:
-    """rtol of the backward kernel against :func:`attention_plain_bwd`:
-    |kernel - plain| <= rtol * (|plain| + scale), per output."""
-    return BWD_F32_RTOL if dtype == torch.float32 else BWD_RTOL
-
-
-def bwd_errors(grads, ref, dtype: torch.dtype) -> list[tuple[float, bool]]:
-    """(max abs error, within tolerance) of each present output of a
+def bwd_errors(grads, ref) -> list[tuple[float, bool]]:
+    """(max abs error, within BWD_RTOL) of each present output of a
     backward against the reference `ref` (same order: dq, dk, dv, dbq, dbk,
-    dbv). The scale of dq/dk/dv is the tensor's largest element; a bias
-    grad is a column sum over B*L rows (dbk is 0 in exact arithmetic: the
-    rows of dS sum to 0), so its scale is the largest column sum of
-    magnitudes of the matching reference grad."""
-    rtol = bwd_tolerance(dtype)
+    dbv): |grad - ref| <= BWD_RTOL * (|ref| + scale). The scale of dq/dk/dv
+    is the tensor's largest element; a bias grad is a column sum over B*L
+    rows (dbk is 0 in exact arithmetic: the rows of dS sum to 0), so its
+    scale is the largest column sum of magnitudes of the matching reference
+    grad."""
     out = []
     for i, (g, r) in enumerate(zip(grads, ref)):
         if r is None:
@@ -338,7 +300,7 @@ def bwd_errors(grads, ref, dtype: torch.dtype) -> list[tuple[float, bool]]:
             scale = ref[i - 3].float().abs().sum(dim=0).max()
         err = (g - r).abs()
         ok = bool(torch.isfinite(g).all()
-                  and (err <= rtol * (r.abs() + scale)).all())
+                  and (err <= BWD_RTOL * (r.abs() + scale)).all())
         out.append((err.max().item(), ok))
     return out
 
@@ -461,7 +423,7 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _uses_kernel(x: torch.Tensor) -> bool:
-    """Whether a tensor on x's device goes to the CUDA kernel (True) or to
+    """Whether a tensor on x's device goes to the CUDA kernels (True) or to
     the plain version (False, CPU tensors); any other device raises."""
     if x.device.type == "cpu":
         return False
@@ -511,11 +473,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     exact: bool = False, plain: bool = False) -> torch.Tensor:
     """Multi-head self-attention over flat (B*L, D) rows, differentiable.
 
-    On a CUDA tensor this launches the CUDA kernels (bf16 or fp32 operands)
-    in both directions; on a CPU tensor, or with `plain`, it runs the plain
-    versions. On either device it raises on a shape the kernel does not
-    take. `biases`: optional (bq, bk, bv), each (D,), added inside the
-    kernel. `exact` selects the row-max softmax.
+    On a CUDA tensor this launches the CUDA kernels in both directions
+    (bf16 operands; any other dtype raises TypeError); on a CPU tensor, or
+    with `plain`, it runs the plain versions. On either device it raises on
+    a shape the kernel does not take. `biases`: optional (bq, bk, bv), each
+    (D,), added inside the kernel. `exact` selects the row-max softmax.
     """
     _check_shapes(q, k, v, num_heads, seq_len, biases)
     bq, bk, bv = biases if biases is not None else (None, None, None)
@@ -534,9 +496,9 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         exact: bool = False):
     """The backward of :func:`fused_attention`: (dq, dk, dv, dbq, dbk, dbv).
 
-    On a CUDA tensor this launches ``csrc/fused_attention_bwd.cu``; on a CPU
-    tensor it runs :func:`attention_plain_bwd`. The bias grads are None
-    without biases.
+    On a CUDA tensor this launches ``csrc/fused_attention_bwd.cu`` (bf16
+    operands); on a CPU tensor it runs :func:`attention_plain_bwd`. The
+    bias grads are None without biases.
     """
     _check_shapes(q, k, v, num_heads, seq_len, biases, do)
     if not _uses_kernel(q):
@@ -560,18 +522,15 @@ def fused_attention_bwd_deferred(q: torch.Tensor, k: torch.Tensor,
     (dq, dk, dv, dbq, dbk, dbv).
 
     On a CUDA tensor this launches the deferred entry of
-    ``csrc/fused_attention_bwd.cu`` under :func:`bwd_deferred_plan` (bf16
-    operands only: the fp32 scalar twin has no deferred form and this
-    raises); on a CPU tensor it runs
-    ``attention_plain_bwd(..., defer=True)``.
+    ``csrc/fused_attention_bwd.cu`` under :func:`bwd_deferred_plan`, which
+    raises past L = 16 * BWD_MAX_CHUNKS (bf16 operands, as the other
+    entries). On a CPU tensor it runs ``attention_plain_bwd(...,
+    defer=True)``, at every L.
     """
     _check_shapes(q, k, v, num_heads, seq_len, biases, do)
     if not _uses_kernel(q):
         return attention_plain_bwd(q, k, v, do, num_heads, seq_len, biases,
                                    exact, defer=True)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the deferred backward kernel takes bfloat16 "
-                        f"operands, got {q.dtype}")
     grads = _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact,
                         entry=_BWD_DEFERRED_ENTRY)
     fused_attention_bwd_deferred.launches += 1
@@ -608,11 +567,16 @@ def _check_shapes(q, k, v, num_heads, seq_len, biases, do=None) -> None:
 
 
 def _check_memory(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
+    """Refuses an operand the entry points cannot read: on another device,
+    of any dtype but bf16 (the one place the kernels' dtype is checked),
+    strided or misaligned."""
     if x.device != like.device:
         raise ValueError(f"{name} on {x.device}, expected {like.device}")
-    if x.dtype not in _ENTRY or x.dtype != like.dtype:
-        raise TypeError(f"{name} is {x.dtype}; the CUDA kernel takes q, k, "
-                        f"v and biases all bfloat16 or all float32")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} is {x.dtype}; the CUDA kernels take q, k, "
+                        f"v, do and biases all bfloat16 (fp32 attention on "
+                        f"the card: impl 'auto' or 'pallas', the flash "
+                        f"kernels)")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16:
@@ -628,42 +592,25 @@ def _bias_pointers(biases, like) -> list:
     return ptrs
 
 
-def _args(n_ptrs: int, n_ints: int = 4) -> list:
+def _args(n_ptrs: int, n_ints: int) -> list:
     """An entry's argument types: (n_ptrs pointers, batch, seq, num_heads,
     head_dim, [plan ints], scale, exact, stream)."""
     return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _library(source: str, entries: dict, n_ptrs: int) -> ctypes.CDLL:
-    """Loads `source`, typing its entries as _args(n_ptrs)."""
-    return cuda_build.load_entries(source, entries.values(), _args(n_ptrs))
-
-
 def fwd_library() -> ctypes.CDLL:
-    """The forward's library: the fp32 twin typed as _args(7), the bf16
-    entry with the plan's four ints (warps, blocks, smem, stages) after
-    the dimensions."""
-    lib = _library(_SOURCE, {torch.float32: _ENTRY[torch.float32]}, 7)
-    bf16 = getattr(lib, _ENTRY[torch.bfloat16])
-    if bf16.argtypes is None:
-        bf16.restype = ctypes.c_int
-        bf16.argtypes = _args(7, 8)
-    return lib
+    """The forward's library: its entry with the plan's four ints (warps,
+    blocks, smem, stages) after the dimensions."""
+    return cuda_build.load_entries(_SOURCE, [_ENTRY], _args(7, 8))
 
 
 def bwd_library() -> ctypes.CDLL:
-    """The backward's library: the fp32 twin typed as _args(13), the bf16
-    entries (normalized and deferred) with the plan's six ints (scheme,
-    warps, blocks, stages, smem, smem_dkv) after the dimensions."""
-    lib = _library(_BWD_SOURCE, {torch.float32: _BWD_ENTRY[torch.float32]},
-                   13)
-    for entry in (_BWD_ENTRY[torch.bfloat16], _BWD_DEFERRED_ENTRY):
-        fn = getattr(lib, entry)
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = _args(13, 10)
-    return lib
+    """The backward's library: its entries (normalized and deferred) with
+    the plan's six ints (scheme, warps, blocks, stages, smem, smem_dkv)
+    after the dimensions."""
+    return cuda_build.load_entries(
+        _BWD_SOURCE, [_BWD_ENTRY, _BWD_DEFERRED_ENTRY], _args(13, 10))
 
 
 def _call(lib: ctypes.CDLL, entry: str, like: torch.Tensor, what: str,
@@ -678,74 +625,64 @@ def _call(lib: ctypes.CDLL, entry: str, like: torch.Tensor, what: str,
 
 def _launch(q, k, v, num_heads, seq_len, biases, exact,
             plan: Optional[KernelPlan] = None):
-    """Runs the forward kernel. `plan`: the bf16 kernel's launch, fwd_plan's
-    by default (tools/flash_bench.py times the others)."""
+    """Runs the forward kernel. `plan`: its launch, fwd_plan's by default
+    (tools/flash_bench.py times the others)."""
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_memory(name, x, q)
     ptrs = _bias_pointers(biases, q)
     hd = d // num_heads
     out = torch.empty_like(q)
-    args = ()   # the fp32 twin takes no plan
-    if q.dtype == torch.bfloat16:
-        args = tuple(plan or fwd_plan(seq_len, hd))
-    _call(fwd_library(), _ENTRY[q.dtype], q, "fused attention kernel",
+    _call(fwd_library(), _ENTRY, q, "fused attention kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
-          rows // seq_len, seq_len, num_heads, hd, *args, hd ** -0.5,
-          int(bool(exact)))
+          rows // seq_len, seq_len, num_heads, hd,
+          *(plan or fwd_plan(seq_len, hd)), hd ** -0.5, int(bool(exact)))
     return out
 
 
 def _bwd_scratch(q: torch.Tensor, num_heads: int, seq_len: int, bias: bool,
-                 plan: Optional[BwdPlan]):
+                 plan: BwdPlan):
     """The backward's scratch and bias-grad output: (stats, partial,
-    dbias), each None where the launch takes none. `plan`: the bf16
-    launch, None for the fp32 twin. stats: the fp32 row statistics per
-    (row, head) that the scheme's dk/dv kernel reads (the fp32 twin: the
-    softmax max, sum and rowsum(dP*P)); partial: with biases on the bf16
-    kernels, the fp32 column sums of dq, dk and dv per (sample, block)
-    before rounding; dbias: with biases, their fp32 column sums rounded
-    once to the biases' type."""
+    dbias), each None where the launch takes none. stats: the long
+    scheme's two fp32 row statistics per (row, head), lse2 and delta, that
+    its dk/dv kernel reads; partial: with biases, the fp32 column sums of
+    dq, dk and dv per (sample, block) before rounding; dbias: with biases,
+    their fp32 column sums rounded once to the biases' type."""
     rows, d = q.shape
-    # a scheme the wrapper does not know gets the most; the entry refuses it
-    n_stats = 3 if plan is None else _BWD_STAT_ROWS.get(plan.scheme, 3)
     stats = partial = dbias = None
-    if n_stats:
-        stats = torch.empty((n_stats, rows * num_heads), dtype=torch.float32,
+    if plan.scheme == BWD_LONG:
+        stats = torch.empty((2, rows * num_heads), dtype=torch.float32,
                             device=q.device)
     if bias:
         dbias = torch.empty((3, d), dtype=q.dtype, device=q.device)
-        if plan is not None:
-            partial = torch.empty((3, rows // seq_len * plan.blocks, d),
-                                  dtype=torch.float32, device=q.device)
+        partial = torch.empty((3, rows // seq_len * plan.blocks, d),
+                              dtype=torch.float32, device=q.device)
     return stats, partial, dbias
 
 
-def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact, entry=None,
-                plan: Optional[BwdPlan] = None):
-    """Runs the backward kernels. `plan`: the bf16 kernels' launch,
-    bwd_plan's by default (the deferred entry: bwd_deferred_plan's;
-    tools/flash_bench.py times the others)."""
+def _launch_bwd(q, k, v, do, num_heads, seq_len, biases, exact,
+                entry: str = _BWD_ENTRY, plan: Optional[BwdPlan] = None):
+    """Runs the backward kernels. `plan`: their launch, bwd_plan's by
+    default (the deferred entry: bwd_deferred_plan's; tools/flash_bench.py
+    times the others)."""
     rows, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_memory(name, x, q)
     ptrs = _bias_pointers(biases, q)
     batch, hd = rows // seq_len, d // num_heads
-    if q.dtype != torch.bfloat16:
-        plan = None   # the fp32 twin takes no plan
-    elif plan is None:
+    if plan is None:
         plan = (bwd_deferred_plan(seq_len, hd)
                 if entry == _BWD_DEFERRED_ENTRY else bwd_plan(seq_len, hd))
     grads = torch.empty((3, rows, d), dtype=q.dtype, device=q.device)
     stats, partial, dbias = _bwd_scratch(q, num_heads, seq_len,
                                          biases is not None, plan)
-    _call(bwd_library(), entry or _BWD_ENTRY[q.dtype], q,
+    _call(bwd_library(), entry, q,
           "fused attention backward kernel",
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *ptrs,
           grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
           *(None if x is None else x.data_ptr()
             for x in (stats, partial, dbias)),
-          batch, seq_len, num_heads, hd, *(plan or ()), hd ** -0.5,
+          batch, seq_len, num_heads, hd, *plan, hd ** -0.5,
           int(bool(exact)))
     if dbias is None:
         return (*grads.unbind(0), None, None, None)

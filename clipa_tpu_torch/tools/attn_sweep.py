@@ -121,10 +121,9 @@ def time_ms(fn, iters: int) -> float:
 
 
 def _fwd_error(out, ref):
-    atol, rtol = ba.tolerance(ref.dtype)
     err = (out.float() - ref.float()).abs()
-    ok = bool(torch.isfinite(out).all()
-              and (err <= atol + rtol * ref.float().abs()).all())
+    ok = bool(torch.isfinite(out).all() and (
+        err <= ba.KERNEL_ATOL + ba.KERNEL_RTOL * ref.float().abs()).all())
     return err.max().item(), ok
 
 
@@ -168,13 +167,13 @@ def sweep(iters: int = 20, seed: int = 0) -> list[dict]:
             err, ok = _fwd_error(out, ref_f(*args))
             row = {"name": name, "max_abs_err": err, "ok": ok}
         else:
-            errors = ba.bwd_errors(out, ref_f(*args), torch.bfloat16)
+            errors = ba.bwd_errors(out, ref_f(*args))
             row = {"name": name, "max_abs_err": max(e for e, _ in errors),
                    "ok": all(ok for _, ok in errors)}
             mode = name.split()[-1]
             if "deferred" in name:
                 # the same gradient as the normalized kernel's
-                vs = ba.bwd_errors(out, normalized[mode], torch.bfloat16)
+                vs = ba.bwd_errors(out, normalized[mode])
                 row["vs_normalized_max_abs_err"] = max(e for e, _ in vs)
                 row["ok"] = row["ok"] and all(ok for _, ok in vs)
             else:

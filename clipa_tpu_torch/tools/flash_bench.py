@@ -26,8 +26,7 @@ each root. The last line is one JSON object: the card and the cases.
 the fused forward under every plan of ``block_attention.fwd_candidates``
 (each split and ring, in the case's mode), of the fused backward under
 every plan of ``block_attention.bwd_candidates`` (the whole-head scheme
-where it is offered, every plan of the long scheme, and the split
-scheme), and of the flash
+where it is offered, every plan of the long scheme), and of the flash
 forward under every split of ``fwd_candidates`` and, where ``launch_plan``
 fuses the backward, of the split backward (``bwd_split_plan``): the
 measurements behind the plans' choices (for a root whose package has

@@ -7,8 +7,8 @@ and its ``pl`` with a namespace whose ``pallas_call`` interprets. Nothing in
 ``clipa_tpu`` changes. The port's sweep callables run their plain versions
 on CPU tensors. Inputs are bf16 from numpy seeds, the same in both.
 
-Tolerances are the port's kernel tolerances (``block_attention.tolerance``
-for the forward, ``bwd_errors`` for the backward): both packages compute in
+Tolerances are the port's kernel tolerances (``block_attention.KERNEL_ATOL``
+and ``KERNEL_RTOL`` for the forward, ``bwd_errors`` for the backward): both packages compute in
 fp32 from the same bf16 operands and round the same intermediates to bf16,
 so only summation order and exp's last bits differ. Against float64
 autodiff of the clipped-softmax attention the same rtol (1e-2 of each
@@ -121,7 +121,7 @@ def _autodiff(x, exact=False):
 
 
 def _within(grads, ref):
-    errors = ba.bwd_errors(grads, ref, torch.bfloat16)
+    errors = ba.bwd_errors(grads, ref)
     return [e for e, _ in errors], all(ok for _, ok in errors)
 
 
@@ -130,7 +130,7 @@ def test_forward_clip_and_exact_match_jax(jax_sweep):
     args = [x[n] for n in ("q", "k", "v", "bq", "bk", "bv")]
     got = attn_sweep.make_fwd_bias(exact=False)(*args)
     want = _jax_fwd(jax_sweep, x)
-    atol, rtol = ba.tolerance(torch.bfloat16)
+    atol, rtol = ba.KERNEL_ATOL, ba.KERNEL_RTOL
     assert ((got.float() - want.float()).abs()
             <= atol + rtol * want.float().abs()).all()
     # no score reaches the clip at this scale: exact and clip agree
@@ -166,7 +166,7 @@ def test_reference_deferred_backward_is_wrong(jax_sweep):
     x = _inputs(2)
     norm = _jax_bwd(jax_sweep, x, defer=False)
     ref_deferred = _jax_bwd(jax_sweep, x, defer=True)
-    errors = ba.bwd_errors(ref_deferred, norm, torch.bfloat16)
+    errors = ba.bwd_errors(ref_deferred, norm)
     assert errors[2][1] and errors[5][1]              # dv, dbv right
     dq_gap = (ref_deferred[0].float() - norm[0].float()).abs().max()
     assert dq_gap > 10 * norm[0].float().abs().max()

@@ -5,16 +5,20 @@ one. The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The tolerances are the kernels' stated ones (``block_attention.tolerance``
-and ``flash_attention.tolerance`` for the forwards: about one bf16 ulp for
-bf16 operands, 2e-5 for fp32 ones, and ``flash_attention.LSE_ATOL`` on the
-flash forward's LSE; ``bwd_errors`` of either module for the backwards:
-1e-2 resp. 2e-5 of each gradient's scale), the reference the plain versions
-in fp32 from the same operands with TF32 off. The deferred backward is
-held to the backward's tolerance against its plain twin and against the
-normalized kernel; the patch embed to ``patch_embed.errors`` (1e-4 of the
-output's scale for fp32 outputs, one bf16 ulp for bf16 ones), which its
-two bf16 tensor-core products (the weights' hi and lo parts) meet.
+The tolerances are the kernels' stated ones (``block_attention.KERNEL_ATOL``
+and ``KERNEL_RTOL``, and ``flash_attention.tolerance``, for the forwards:
+about one bf16 ulp for bf16 operands, 2e-5 for the flash kernels' fp32
+ones, and ``flash_attention.LSE_ATOL`` on the flash forward's LSE;
+``bwd_errors`` of either module for the backwards: 1e-2 resp. 2e-5 of each
+gradient's scale), the reference the plain versions in fp32 from the same
+operands with TF32 off. The fused kernels take bf16 only and refuse fp32
+operands; ``auto`` sends fp32 attention on the card to the flash kernels,
+held there to the flash fp32 tolerances against the fused path's plain
+versions. The deferred backward is held to the backward's tolerance
+against its plain twin and against the normalized kernel; the patch embed
+to ``patch_embed.errors`` (1e-4 of the output's scale for fp32 outputs,
+one bf16 ulp for bf16 ones), which its two bf16 tensor-core products (the
+weights' hi and lo parts) meet.
 """
 
 import json
@@ -24,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from clipa_tpu_torch.ops import block_attention, flash_attention
+from clipa_tpu_torch.ops import attention, block_attention, flash_attention
 from clipa_tpu_torch.serving import EmbeddingService
 
 
@@ -45,9 +49,8 @@ def cuda():
 # ring that holds every key up to 272 rows, the two-stage ring at 577), in
 # clip mode with bias and exact mode without; and head dims 8 ... 128 at
 # L = 257 (three key tiles, the last one ragged; hd 8, 40 and 88 are padded
-# to the next multiple of 16), in both modes, with and without bias. Each
-# in bf16 (the tensor-core kernel) and in fp32 (its scalar twin, the
-# service at precision float32).
+# to the next multiple of 16), in both modes, with and without bias (bf16:
+# the kernels take no other dtype).
 CASES = [
     (8, 257, 1280, 16, True, False, 1.0),
     (8, 50, 1024, 16, True, False, 1.0),
@@ -76,11 +79,9 @@ CASES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", CASES)
-def test_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale,
-                              dtype):
+def test_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale):
+    dtype = torch.bfloat16
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def mk(*shape, scale=1.0):
@@ -92,12 +93,12 @@ def test_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale,
     before = block_attention.fused_attention.launches
     out = block_attention.fused_attention(q, k, v, h, l, biases, exact)
     torch.cuda.synchronize()
-    assert block_attention.fused_attention.launches == before + 1
     assert out.dtype == dtype
     ref = block_attention.attention_plain(q, k, v, h, l, biases, exact)
-    atol, rtol = block_attention.tolerance(dtype)
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
-                               rtol=rtol)
+    assert block_attention.fused_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=block_attention.KERNEL_ATOL,
+                               rtol=block_attention.KERNEL_RTOL)
 
 
 @pytest.mark.cuda
@@ -130,7 +131,7 @@ def test_kernel_other_plans_match_plain(cuda, b, l, d, h):
                .to(torch.bfloat16) for _ in range(3))
     biases = tuple(torch.randn(d, device=cuda, generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
-    atol, rtol = block_attention.tolerance(torch.bfloat16)
+    atol, rtol = block_attention.KERNEL_ATOL, block_attention.KERNEL_RTOL
     hd = d // h
     for exact in (False, True):
         ref = block_attention.attention_plain(q, k, v, h, l, biases, exact)
@@ -152,8 +153,10 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda):
     x = torch.zeros(2 * 40, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bfloat16"):
         block_attention.fused_attention(x.half(), x.half(), x.half(), 4, 40)
-    with pytest.raises(TypeError, match="all float32"):
+    with pytest.raises(TypeError, match="all bfloat16"):
         block_attention.fused_attention(x.float(), x, x, 4, 40)
+    with pytest.raises(TypeError, match="all bfloat16"):
+        block_attention.fused_attention(x, x, x.float(), 4, 40)
     with pytest.raises(ValueError, match="head_dim"):
         block_attention.fused_attention(x[:, :60], x[:, :60], x[:, :60],
                                         5, 40)
@@ -189,10 +192,15 @@ def test_service_goes_through_the_kernel(cuda, tmp_path, precision):
     imgs = np.random.RandomState(6).randint(0, 256, (11, 48, 48, 3),
                                             np.uint8)
     block_attention.fused_attention.launches = 0
+    flash_attention.flash_attention.launches = 0
     z = svc.embed_images(imgs)                  # chunks of 8 and 4
-    assert block_attention.fused_attention.launches == 2 * 2
+    # 2 layers x 2 chunks; fp32 on the card takes the flash kernels
+    fused, flash = (4, 0) if precision == "bfloat16" else (0, 4)
+    assert block_attention.fused_attention.launches == fused
+    assert flash_attention.flash_attention.launches == flash
     zp = plain.embed_images(imgs)
-    assert block_attention.fused_attention.launches == 2 * 2
+    assert block_attention.fused_attention.launches == fused
+    assert flash_attention.flash_attention.launches == flash
     assert np.isfinite(z).all() and z.shape == (11, 32)
     if precision == "float32":   # the CPU parity tolerance on unit rows
         np.testing.assert_allclose(z, zp, atol=1e-4, rtol=0)
@@ -259,26 +267,22 @@ def _bwd_operands(cuda, dtype, b, l, d, bias, q_scale, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", BWD_CASES)
-def test_bwd_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale,
-                                  dtype):
-    if dtype == torch.float32 and b * l > 4096:
-        b = max(1, 4096 // l)   # the scalar fp32 twin is slow; same tiles
-    q, k, v, do, biases = _bwd_operands(cuda, dtype, b, l, d, bias, q_scale)
+def test_bwd_kernel_matches_plain(cuda, b, l, d, h, bias, exact, q_scale):
+    q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, bias,
+                                        q_scale)
     before = block_attention.fused_attention_bwd.launches
     grads = block_attention.fused_attention_bwd(q, k, v, do, h, l, biases,
                                                 exact)
     torch.cuda.synchronize()
-    assert block_attention.fused_attention_bwd.launches == before + 1
     ref = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
                                               exact)
     for g, r in zip(grads, ref):
         assert (g is None) == (r is None)
         if g is not None:
             assert g.dtype == r.dtype and g.shape == r.shape
-    errors = block_attention.bwd_errors(grads, ref, dtype)
+    assert block_attention.fused_attention_bwd.launches == before + 1
+    errors = block_attention.bwd_errors(grads, ref)
     assert len(errors) == (6 if bias else 3)
     assert all(ok for _, ok in errors), errors
 
@@ -289,8 +293,10 @@ def test_bwd_wrapper_refuses_what_it_cannot_take(cuda):
     bwd = block_attention.fused_attention_bwd
     with pytest.raises(TypeError, match="bfloat16"):
         bwd(x, x, x, x.half(), 4, 40)
-    with pytest.raises(TypeError, match="all float32"):
+    with pytest.raises(TypeError, match="all bfloat16"):
         bwd(x.float(), x.float(), x.float(), x, 4, 40)
+    with pytest.raises(TypeError, match="all bfloat16"):
+        bwd(x.float(), x.float(), x.float(), x.float(), 4, 40)
     with pytest.raises(ValueError, match="do has shape"):
         bwd(x, x, x, x[:40], 4, 40)
     with pytest.raises(ValueError, match="head_dim"):
@@ -315,8 +321,8 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
     deferred entry takes the whole-head plan too (its deferred form: the
     deferred function, twice bit for bit); a plan whose sizes are not the
     kernel's own layout's, whose warps do not fit its strips, whose scheme
-    is unknown, that asks the deferred entry for the long scheme, or the
-    normalized entry for the split one is refused."""
+    is unknown (0 or 3), or that asks the deferred entry for the long
+    scheme is refused."""
     q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, True,
                                         1.0, seed=13)
     hd = d // h
@@ -329,13 +335,13 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
             second = block_attention._launch_bwd(q, k, v, do, h, l, biases,
                                                  exact, plan=plan)
             torch.cuda.synchronize()
-            errors = block_attention.bwd_errors(first, ref, torch.bfloat16)
+            errors = block_attention.bwd_errors(first, ref)
             assert all(ok for _, ok in errors), (plan, errors)
             assert all(torch.equal(x, y) for x, y in zip(first, second)), plan
     for plan in block_attention.bwd_candidates(l, hd):
         bad = [plan._replace(smem=plan.smem + 16),
                plan._replace(warps=plan.warps + 1),
-               plan._replace(scheme=3)]
+               plan._replace(scheme=0), plan._replace(scheme=3)]
         if plan.scheme == block_attention.BWD_LONG:
             bad += [plan._replace(smem_dkv=plan.smem_dkv + 16),
                     plan._replace(stages=block_attention.BWD_MAX_STAGES + 1)]
@@ -350,7 +356,7 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
                 q, k, v, do, h, l, biases, False, plan=plan,
                 entry=block_attention._BWD_DEFERRED_ENTRY) for _ in "ab")
             torch.cuda.synchronize()
-            errors = block_attention.bwd_errors(first, ref, torch.bfloat16)
+            errors = block_attention.bwd_errors(first, ref)
             assert all(ok for _, ok in errors), (plan, errors)
             assert all(torch.equal(x, y) for x, y in zip(first, second))
             continue
@@ -358,10 +364,6 @@ def test_bwd_every_plan_matches_plain_and_repeats(cuda, b, l, d, h):
             block_attention._launch_bwd(
                 q, k, v, do, h, l, biases, False, plan=plan,
                 entry=block_attention._BWD_DEFERRED_ENTRY)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        block_attention._launch_bwd(
-            q, k, v, do, h, l, biases, False,
-            plan=block_attention.bwd_split_plan(l, hd))
 
 
 @pytest.mark.cuda
@@ -389,16 +391,13 @@ def test_bwd_bias_add_is_one_rounding(cuda, b, l, d, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("bias", [True, False])
-def test_gradients_through_the_kernels_equal_the_plain_path(cuda, dtype,
-                                                            bias):
+def test_gradients_through_the_kernels_equal_the_plain_path(cuda, bias):
     """FusedAttentionFn on the card: the kernel path's gradients reach q, k,
     v and the biases and match the plain path's (the same autograd.Function
     with plain=True)."""
     b, l, d, h = 16, 50, 256, 4
-    ops = _bwd_operands(cuda, dtype, b, l, d, bias, 1.0, seed=3)
+    ops = _bwd_operands(cuda, torch.bfloat16, b, l, d, bias, 1.0, seed=3)
     do = ops[3]
     leaves = [x for x in (*ops[:3], *(ops[4] or ()))]
 
@@ -419,8 +418,58 @@ def test_gradients_through_the_kernels_equal_the_plain_path(cuda, dtype,
     assert all(g is not None for g in kernel)
     padded = plain[:3] + (plain[3:] if bias else [None] * 3)
     errors = block_attention.bwd_errors(kernel + [None] * (6 - len(kernel)),
-                                        padded, dtype)
+                                        padded)
     assert all(ok for _, ok in errors), errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+def test_fp32_attention_on_the_card_takes_the_flash_kernels(cuda, bias):
+    """The fused kernels take bf16 only: on fp32 CUDA operands the three
+    fused entries raise TypeError and launch nothing. `auto` sends such
+    attention (H/14 @224) to the flash kernels' fp32 twins, one launch each
+    way, whose output and gradients, bias grads included, agree with the
+    fused path's plain versions within the flash fp32 tolerances."""
+    b, l, d, h = 8, 257, 1280, 16
+    q, k, v, do, biases = _bwd_operands(cuda, torch.float32, b, l, d, bias,
+                                        1.0, seed=7)
+    fused = (block_attention.fused_attention,
+             block_attention.fused_attention_bwd,
+             block_attention.fused_attention_bwd_deferred)
+    before = [f.launches for f in fused]
+    with pytest.raises(TypeError, match="all bfloat16"):
+        block_attention.fused_attention(q, k, v, h, l, biases)
+    for bwd in fused[1:]:
+        with pytest.raises(TypeError, match="all bfloat16"):
+            bwd(q, k, v, do, h, l, biases)
+
+    def run(impl):
+        xs = [x.detach().clone().requires_grad_()
+              for x in (q, k, v, *(biases or ()))]
+        out = attention.multi_head_attention(
+            *xs[:3], h, impl=impl, seq_len=l,
+            qkv_biases=tuple(xs[3:]) if bias else None)
+        (out * do).sum().backward()
+        return out.detach(), [x.grad for x in xs]
+
+    flash0 = (flash_attention.flash_attention.launches,
+              flash_attention.flash_attention_bwd.launches)
+    out, grads = run("auto")
+    assert (flash_attention.flash_attention.launches,
+            flash_attention.flash_attention_bwd.launches) == (
+                flash0[0] + 1, flash0[1] + 1)
+    assert [f.launches for f in fused] == before
+    ref, ref_grads = run("plain")
+    atol, rtol = flash_attention.tolerance(torch.float32)
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    errors = flash_attention.bwd_errors(grads[:3], ref_grads[:3],
+                                        torch.float32)
+    assert all(ok for _, ok in errors), errors
+    for g, r, x in zip(grads[3:], ref_grads[3:], ref_grads[:3]):
+        # a bias grad is a column sum: scaled by the column sums of |dx|
+        scale = x.abs().sum(dim=0)
+        assert ((g - r).abs() <= flash_attention.BWD_F32_RTOL
+                * (r.abs() + scale)).all()
 
 
 @pytest.mark.cuda
@@ -702,17 +751,22 @@ def test_tiny_finetune_step_goes_through_the_flash_kernels(cuda):
 @pytest.mark.parametrize("b,l,d,h,bias,exact,q_scale", BWD_CASES)
 def test_deferred_bwd_kernel_matches_plain_and_normalized(
         cuda, b, l, d, h, bias, exact, q_scale):
-    """The deferred backward under bwd_deferred_plan at BWD_CASES (the
-    whole-head scheme's deferred form to L = 144, L = 50 among them; the
-    split pair past it, L = 180 among them): within the backward's
-    tolerance of its plain twin and of the normalized kernel, one launch
-    per call, and bit-identical over two calls."""
+    """The deferred backward under bwd_deferred_plan at BWD_CASES up to
+    L = 144 (the whole-head scheme's deferred form, L = 50 among them):
+    within the backward's tolerance of its plain twin and of the normalized
+    kernel, one launch per call, and bit-identical over two calls. Past
+    L = 144 (L = 180 among them) it is refused before any launch."""
     q, k, v, do, biases = _bwd_operands(cuda, torch.bfloat16, b, l, d, bias,
                                         q_scale, seed=5)
-    plan = block_attention.bwd_deferred_plan(l, d // h)
-    assert plan.scheme == (block_attention.BWD_WHOLE if l <= 144
-                           else block_attention.BWD_SPLIT)
     before = block_attention.fused_attention_bwd_deferred.launches
+    if l > 144:
+        with pytest.raises(ValueError, match="deferred backward takes"):
+            block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
+                                                         biases, exact)
+        assert block_attention.fused_attention_bwd_deferred.launches == before
+        return
+    plan = block_attention.bwd_deferred_plan(l, d // h)
+    assert plan.scheme == block_attention.BWD_WHOLE
     grads = block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
                                                          biases, exact)
     torch.cuda.synchronize()
@@ -723,11 +777,11 @@ def test_deferred_bwd_kernel_matches_plain_and_normalized(
                if x is not None)
     plain = block_attention.attention_plain_bwd(q, k, v, do, h, l, biases,
                                                 exact, defer=True)
-    errors = block_attention.bwd_errors(grads, plain, torch.bfloat16)
+    errors = block_attention.bwd_errors(grads, plain)
     assert all(ok for _, ok in errors), errors
     normalized = block_attention.fused_attention_bwd(q, k, v, do, h, l,
                                                      biases, exact)
-    errors = block_attention.bwd_errors(grads, normalized, torch.bfloat16)
+    errors = block_attention.bwd_errors(grads, normalized)
     assert all(ok for _, ok in errors), errors
 
 

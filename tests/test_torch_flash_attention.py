@@ -210,6 +210,41 @@ def test_auto_route_matches_the_jax_plan():
     assert attention._auto(2, 1025, 16 * 136, 16, None, True) == "einsum"
 
 
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that says it is on CUDA: the route runs without a
+    card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype,card,impl,want", [
+    (torch.bfloat16, True, "auto", "fused"),
+    (torch.float32, True, "auto", "pallas"),
+    (torch.float32, False, "auto", "fused"),
+    (torch.float32, True, "fused", "fused"),
+])
+def test_auto_sends_fp32_on_the_card_to_the_flash_kernels(
+        monkeypatch, dtype, card, impl, want):
+    """The fused kernels take bf16 only: where `auto` takes them, fp32 CUDA
+    operands go to the flash kernels (their fp32 twins) instead. CPU
+    operands and an explicit choice keep their route (the fused wrapper
+    refuses fp32 on the card itself)."""
+    seen = []
+    monkeypatch.setattr(attention.block_attention, "fused_attention",
+                        lambda q, *a, **kw: seen.append("fused") or q)
+    monkeypatch.setattr(flash_attention, "flash_attention",
+                        lambda q, *a, **kw: seen.append("pallas") or q)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 50, 256, generator=gen).to(dtype)
+               for _ in range(3))
+    if card:
+        q, k, v = (x.as_subclass(_FakeCuda) for x in (q, k, v))
+    out = attention.multi_head_attention(q, k, v, 4, impl=impl)
+    assert seen == [want] and out.shape == q.shape
+
+
 @pytest.mark.parametrize("impl,lq", [("auto", 40), ("auto", 1024),
                                      ("pallas", 40), ("pallas_plain", 40),
                                      ("einsum", 40)])

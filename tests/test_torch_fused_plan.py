@@ -1,21 +1,21 @@
 """The fused attention's launch plans (``block_attention.fwd_plan`` and
 ``bwd_plan``), on the CPU.
 
-The bf16 forward (``csrc/fused_attention_fwd.cu``) spreads the 16-row query
+The forward (``csrc/fused_attention_fwd.cu``) spreads the 16-row query
 strips of each (sample, head) over ``blocks`` blocks of ``warps`` warps and
-streams K and V through a ring of ``stages`` 128-key tiles; the bf16
-backward (``csrc/fused_attention_bwd.cu``) takes one (sample, head) per
-work item of a persistent kernel, one warp per 16-row strip (the
-whole-head scheme, L <= 144), or two kernels whose strips spread over
-blocks as the forward's do, the other operands through a ring of 128-row
-tiles (the long scheme, past 144), or PR 2's two kernels over 64-row tiles
-(the split scheme: the deferred variant's past 144; up to 144 it takes the
-whole-head scheme's deferred form, ``bwd_deferred_plan``).
+streams K and V through a ring of ``stages`` 128-key tiles; the backward
+(``csrc/fused_attention_bwd.cu``) takes one (sample, head) per work item of
+a persistent kernel, one warp per 16-row strip (the whole-head scheme,
+L <= 144), or two kernels whose strips spread over blocks as the forward's
+do, the other operands through a ring of 128-row tiles (the long scheme,
+past 144); the deferred variant takes the whole-head scheme's deferred
+form and no longer L (``bwd_deferred_plan``). The kernels take bf16
+operands and refuse any other dtype before a launch.
 Their entry points take the plans' numbers and refuse a shared-memory size
 that is not their layout's (the card tests hold the two together). Here:
 the plans cover every strip once, idle no warp at the image towers'
 lengths where the strips allow it, fit an H100 block's shared memory, and
-reach the entry points through the wrappers.
+reach the entry points through the wrappers (fp32 operands none).
 """
 
 import pytest
@@ -94,10 +94,11 @@ def test_fwd_plan_fits_shared_memory(hd):
 @pytest.mark.parametrize("bias,exact", [(True, False), (False, True)])
 def test_plan_reaches_the_entry_point(monkeypatch, dtype, bias, exact):
     """With stand-in launches (the entry point recorded, not called), the
-    public wrapper on the kernel branch hands the bf16 entry fwd_plan's
-    (warps, blocks, smem, stages) after the dimensions, then the scale and
-    the mode, and the fp32 twin no plan; a plan given to _launch replaces
-    fwd_plan's."""
+    public wrapper on the kernel branch hands the entry fwd_plan's (warps,
+    blocks, smem, stages) after the dimensions, then the scale and the
+    mode, and a plan given to _launch replaces fwd_plan's; fp32 operands
+    are refused there (TypeError) before they reach the entry, and count
+    no launch."""
     seen = []
     monkeypatch.setattr(block_attention, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(block_attention, "fwd_library", lambda: "fwd")
@@ -106,32 +107,39 @@ def test_plan_reaches_the_entry_point(monkeypatch, dtype, bias, exact):
                         seen.append((lib, entry, args)))
     b, l, h, hd = 2, 257, 4, 80
     d = h * hd
-    q, k, v = (torch.zeros(b * l, d, dtype=dtype) for _ in range(3))
-    biases = tuple(torch.zeros(d, dtype=dtype) for _ in range(3)) \
-        if bias else None
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b * l, d, generator=gen).to(dtype)
+               for _ in range(3))
+    biases = tuple(torch.randn(d, generator=gen).to(dtype)
+                   for _ in range(3)) if bias else None
     before = block_attention.fused_attention.launches
+    if dtype == torch.float32:
+        with pytest.raises(TypeError, match="q is torch.float32; the CUDA "
+                           "kernels take q, k, v, do and biases all bfloat16"):
+            block_attention.fused_attention(q, k, v, h, l, biases, exact)
+        assert seen == []
+        assert block_attention.fused_attention.launches == before
+        return
     out = block_attention.fused_attention(q, k, v, h, l, biases, exact)
     assert block_attention.fused_attention.launches == before + 1
     ((lib, entry, args),) = seen
-    assert (lib, entry) == ("fwd", block_attention._ENTRY[dtype])
+    assert (lib, entry) == ("fwd", block_attention._ENTRY)
     ptrs = [None] * 3 if biases is None else [x.data_ptr() for x in biases]
     assert list(args[:7]) == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               *ptrs, out.data_ptr()]
-    plan = tuple(block_attention.fwd_plan(l, hd)) \
-        if dtype == torch.bfloat16 else ()
+    plan = tuple(block_attention.fwd_plan(l, hd))
     assert args[7:] == (b, l, h, hd, *plan, hd ** -0.5, int(exact))
-    if dtype == torch.bfloat16:
-        other = block_attention.fwd_candidates(l, hd)[0]
-        assert other != block_attention.fwd_plan(l, hd)
-        block_attention._launch(q, k, v, h, l, biases, exact, plan=other)
-        assert seen[-1][2][11:15] == tuple(other)
+    other = block_attention.fwd_candidates(l, hd)[0]
+    assert other != block_attention.fwd_plan(l, hd)
+    block_attention._launch(q, k, v, h, l, biases, exact, plan=other)
+    assert seen[-1][2][11:15] == tuple(other)
 
 
 # --- the backward's launch plan (block_attention.bwd_plan) -----------------
 
 # the pretrain lengths (L/16 @112: 50; H/14 @84: 37), the fine-tune `auto`
 # route's 138, the H/14 fine-tune lengths (180 at 224 px, mask 0.3; 346 at
-# 336 px, mask 0.4), the serving lengths, and the 16-row chunk, 64-row tile,
+# 336 px, mask 0.4), the serving lengths, and the 16-row chunk, 64-row,
 # 144-row scheme and 128-row ring-tile boundaries around them
 BWD_LENGTHS = [15, 16, 17, 33, 37, 48, 49, 50, 63, 64, 65, 138, 257, 577,
                144, 145, 180, 256, 346, 385]
@@ -142,26 +150,19 @@ def _bwd_owners(plan, seq_len):
     whole-head scheme's warp w owns query strip w (phase 1) and key strip w
     (phase 2) of its item; the long scheme's block x of `blocks`, warp w,
     owns strip strip_range(...).x + w while below its end (dq kernel over
-    query strips, dk/dv kernel over key strips alike); the split scheme's
-    block x of ceil(L / 64), warp w, owns strip 4 x + w where that is below
-    ceil(L / 16)."""
+    query strips, dk/dv kernel over key strips alike)."""
     strips = -(-seq_len // 16)
     owners = [0] * strips
     if plan.scheme == block_attention.BWD_WHOLE:
         for w in range(plan.warps):
             owners[w] += 1
-    elif plan.scheme == block_attention.BWD_LONG:
+    else:
+        assert plan.scheme == block_attention.BWD_LONG
         for bx in range(plan.blocks):
             first, end = flash_attention.strip_range(strips, plan.blocks, bx)
             assert 1 <= end - first <= plan.warps
             for s in range(first, end):
                 owners[s] += 1
-    else:
-        assert plan.blocks == -(-seq_len // 64)
-        for x in range(plan.blocks):
-            for w in range(plan.warps):
-                if 4 * x + w < strips:
-                    owners[4 * x + w] += 1
     return owners
 
 
@@ -180,10 +181,6 @@ def test_bwd_plan_covers_every_strip_once(l, hd):
         else:
             assert p.scheme == block_attention.BWD_LONG
             assert p in block_attention.bwd_long_candidates(l, hd)
-    # the split scheme, the deferred variant's past 144, covers every strip
-    split = block_attention.bwd_split_plan(l, hd)
-    assert split.scheme == block_attention.BWD_SPLIT
-    assert _bwd_owners(split, l) == [1] * strips
     # the whole-head scheme wherever it is offered, else the long scheme
     first = block_attention.bwd_candidates(l, hd)[0]
     if first.scheme == block_attention.BWD_WHOLE:
@@ -217,19 +214,13 @@ def test_bwd_plan_at_the_main_path_lengths():
 
 @pytest.mark.parametrize("hd", range(8, 129, 8))
 def test_bwd_plan_fits_shared_memory(hd):
-    """Every candidate at every length from 1 to 577, and the deferred
-    variant's split plan, stays within an H100 block's 227 KB; the
-    whole-head block (round16(L) rows of Q, dO and (K and V, then P and
-    dsb), then the warps' column sums) is offered at every length of at
-    most BWD_MAX_CHUNKS chunks and grows with L; the split scheme's size
-    does not depend on L."""
-    split = block_attention.bwd_split_plan(1, hd)
+    """Every candidate at every length from 1 to 577 stays within an H100
+    block's 227 KB; the whole-head block (round16(L) rows of Q, dO and (K
+    and V, then P and dsb), then the warps' column sums) is offered at
+    every length of at most BWD_MAX_CHUNKS chunks and grows with L."""
     last = 0
     for l in range(1, 578):
         cands = block_attention.bwd_candidates(l, hd)
-        other = block_attention.bwd_split_plan(l, hd)
-        assert (other.smem, other.smem_dkv) == (split.smem, split.smem_dkv)
-        cands = cands + [other]
         whole = [p for p in cands if p.scheme == block_attention.BWD_WHOLE]
         fits = -(-l // 16) <= block_attention.BWD_MAX_CHUNKS
         assert len(whole) == int(fits), (l, hd)
@@ -247,14 +238,15 @@ def test_bwd_plan_fits_shared_memory(hd):
 def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
                                           exact):
     """With stand-in launches (the entry point recorded, not called), the
-    public backward on the kernel branch hands the bf16 entry bwd_plan's
+    public backward on the kernel branch hands the entry bwd_plan's
     (scheme, warps, blocks, stages, smem, smem_dkv) after the dimensions,
-    then the scale and the mode, and the fp32 twin no plan; the row
-    statistics scratch only to the split and long schemes (and the fp32
-    twin), the bias-grad partials and dbias only with biases; the deferred
-    entry takes bwd_deferred_plan's (the whole-head scheme at L = 50, the
-    split pair past 144) and its statistics scratch only with the split
-    pair, and a plan given to _launch_bwd replaces bwd_plan's."""
+    then the scale and the mode; the row statistics scratch
+    only to the long scheme, the bias-grad partials and dbias only with
+    biases; the deferred entry takes bwd_deferred_plan's (the whole-head
+    scheme at L = 50, no statistics) and refuses L past 144 before any
+    launch, and a plan given to _launch_bwd replaces bwd_plan's. fp32
+    operands are refused by both entries (TypeError) before they reach
+    one, and count no launch."""
     seen = []
     monkeypatch.setattr(block_attention, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(block_attention, "bwd_library", lambda: "bwd")
@@ -263,14 +255,30 @@ def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
                         seen.append((lib, entry, args)))
     b, h, hd = 2, 4, 64
     d = h * hd
-    q, k, v, do = (torch.zeros(b * l, d, dtype=dtype) for _ in range(4))
-    biases = tuple(torch.zeros(d, dtype=dtype) for _ in range(3)) \
-        if bias else None
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(b * l, d, generator=gen).to(dtype)
+                   for _ in range(4))
+    biases = tuple(torch.randn(d, generator=gen).to(dtype)
+                   for _ in range(3)) if bias else None
     before = block_attention.fused_attention_bwd.launches
-    block_attention.fused_attention_bwd(q, k, v, do, h, l, biases, exact)
+    deferred0 = block_attention.fused_attention_bwd_deferred.launches
+    if dtype == torch.float32:
+        for bwd in (block_attention.fused_attention_bwd,
+                    block_attention.fused_attention_bwd_deferred):
+            with pytest.raises(TypeError, match="q is torch.float32; the "
+                               "CUDA kernels take q, k, v, do and biases all "
+                               "bfloat16"):
+                bwd(q, k, v, do, h, l, biases, exact)
+        assert seen == []
+        assert block_attention.fused_attention_bwd.launches == before
+        assert block_attention.fused_attention_bwd_deferred.launches == \
+            deferred0
+        return
+    grads = block_attention.fused_attention_bwd(q, k, v, do, h, l, biases,
+                                                exact)
     assert block_attention.fused_attention_bwd.launches == before + 1
     ((lib, entry, args),) = seen
-    assert (lib, entry) == ("bwd", block_attention._BWD_ENTRY[dtype])
+    assert (lib, entry) == ("bwd", block_attention._BWD_ENTRY)
     ptrs = [None] * 3 if biases is None else [x.data_ptr() for x in biases]
     assert list(args[:7]) == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               do.data_ptr(), *ptrs]
@@ -278,23 +286,27 @@ def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
     plan = block_attention.bwd_plan(l, hd)
     assert plan.scheme == (block_attention.BWD_WHOLE if l <= 144
                            else block_attention.BWD_LONG)
-    assert (stats is not None) == (dtype == torch.float32
-                                   or plan.scheme != block_attention.BWD_WHOLE)
-    assert (partial is not None) == (bias and dtype == torch.bfloat16)
+    assert (stats is not None) == (plan.scheme == block_attention.BWD_LONG)
+    assert (partial is not None) == bias
     assert (dbias is not None) == bias
-    want = tuple(plan) if dtype == torch.bfloat16 else ()
-    assert args[13:] == (b, l, h, hd, *want, hd ** -0.5, int(exact))
-    if dtype == torch.float32:
-        return
-    block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l, biases,
-                                                 exact)
-    assert seen[-1][1] == block_attention._BWD_DEFERRED_ENTRY
-    deferred = block_attention.bwd_deferred_plan(l, hd)
-    assert deferred.scheme == (block_attention.BWD_WHOLE if l <= 144
-                               else block_attention.BWD_SPLIT)
-    assert seen[-1][2][17:23] == tuple(deferred)
-    # the split scheme's statistics; the whole-head scheme keeps them
-    assert (seen[-1][2][10] is None) == (l <= 144)
+    assert args[13:] == (b, l, h, hd, *plan, hd ** -0.5, int(exact))
+    if l > 144:
+        with pytest.raises(ValueError, match="deferred backward takes"):
+            block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
+                                                         biases, exact)
+        assert len(seen) == 1
+        assert block_attention.fused_attention_bwd_deferred.launches == \
+            deferred0
+    else:
+        block_attention.fused_attention_bwd_deferred(q, k, v, do, h, l,
+                                                     biases, exact)
+        assert seen[-1][1] == block_attention._BWD_DEFERRED_ENTRY
+        deferred = block_attention.bwd_deferred_plan(l, hd)
+        assert deferred == plan
+        assert seen[-1][2][17:23] == tuple(deferred)
+        assert seen[-1][2][10] is None   # the whole-head scheme: no stats
+        assert block_attention.fused_attention_bwd_deferred.launches == \
+            deferred0 + 1
     for other in block_attention.bwd_candidates(l, hd):
         block_attention._launch_bwd(q, k, v, do, h, l, biases, exact,
                                     plan=other)
@@ -307,8 +319,7 @@ def test_bwd_plan_reaches_the_entry_point(monkeypatch, dtype, l, bias,
 def test_bwd_plan_takes_the_long_scheme_past_144(hd):
     """bwd_plan gives the whole-head scheme at every L up to 16 x
     BWD_MAX_CHUNKS = 144 and the long scheme at every L from 145 to 577 (the
-    longest CLIPA image tower: H/14 and L/14 at 336 px unmasked); PR 2's
-    split pair is never the plan (it stays for the deferred entry)."""
+    longest CLIPA image tower: H/14 and L/14 at 336 px unmasked)."""
     for l in range(1, 578):
         plan = block_attention.bwd_plan(l, hd)
         want = (block_attention.BWD_WHOLE if l <= 16 * block_attention
@@ -347,22 +358,20 @@ def test_bwd_long_plans_cover_every_strip_once_and_fit(hd):
             assert max(p.smem, p.smem_dkv) <= flash_attention.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("l,scheme", [(50, 1), (180, 2), (346, 2), (257, 0)])
+@pytest.mark.parametrize("l,scheme", [(50, 1), (180, 2), (346, 2), (144, 1)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_bwd_scratch_follows_the_plan(l, scheme, bias):
     """The scratch the wrapper hands the entry point: the long scheme's
     dk/dv kernel reads two fp32 statistics per (row, head) (lse2, delta),
-    the split scheme's three (m, r, delta), the whole-head scheme none;
-    with biases, one fp32 partial column sum of each of dq, dk and dv per
-    (sample, block) of the plan, and the three bias grads; the fp32 twin
-    (no plan) the three statistics and no partials."""
+    the whole-head scheme none (L = 144: its last length); with biases, one
+    fp32 partial column sum of each of dq, dk and dv per (sample, block) of
+    the plan, and the three bias grads."""
     b, h, hd = 3, 4, 80
     q = torch.zeros(b * l, h * hd, dtype=torch.bfloat16)
-    plan = (block_attention.bwd_split_plan(l, hd) if scheme == 0
-            else block_attention.bwd_plan(l, hd))
+    plan = block_attention.bwd_plan(l, hd)
     assert plan.scheme == scheme
     stats, partial, dbias = block_attention._bwd_scratch(q, h, l, bias, plan)
-    n_stats = {0: 3, 1: 0, 2: 2}[scheme]
+    n_stats = {1: 0, 2: 2}[scheme]
     assert (stats is None) == (n_stats == 0)
     if stats is not None:
         assert stats.shape == (n_stats, b * l * h)
@@ -372,30 +381,27 @@ def test_bwd_scratch_follows_the_plan(l, scheme, bias):
         assert partial.shape == (3, b * plan.blocks, h * hd)
         assert partial.dtype == torch.float32
         assert dbias.shape == (3, h * hd) and dbias.dtype == q.dtype
-    stats, partial, dbias = block_attention._bwd_scratch(q.float(), h, l,
-                                                         bias, None)
-    assert stats.shape == (3, b * l * h) and partial is None
-    assert (dbias is None) == (not bias)
 
 
 @pytest.mark.parametrize("hd", range(8, 129, 8))
-def test_bwd_deferred_plan_is_whole_head_to_144_then_split(hd):
+def test_bwd_deferred_plan_is_whole_head_to_144_then_refused(hd):
     """The deferred entry's plan: at every L up to 16 x BWD_MAX_CHUNKS =
     144 the whole-head scheme, the same launch as the normalized entry's
-    (its deferred form shares the layout), and from 145 to 577 the split
-    pair, never the long scheme; every strip covered once, both kernels'
-    shared memory within an H100 block's 227 KB; pure and cached."""
+    (its deferred form shares the layout), every strip covered once, within
+    an H100 block's 227 KB; pure and cached. From 145 to 577 it raises:
+    the entry takes no other scheme."""
     for l in range(1, 578):
+        if l > 16 * block_attention.BWD_MAX_CHUNKS:
+            with pytest.raises(ValueError, match=f"got L = {l} "):
+                block_attention.bwd_deferred_plan(l, hd)
+            continue
         plan = block_attention.bwd_deferred_plan(l, hd)
         assert plan is block_attention.bwd_deferred_plan(l, hd)
-        if l <= 16 * block_attention.BWD_MAX_CHUNKS:
-            assert plan.scheme == block_attention.BWD_WHOLE
-            assert plan == block_attention.bwd_plan(l, hd)
-        else:
-            assert plan == block_attention.bwd_split_plan(l, hd)
+        assert plan.scheme == block_attention.BWD_WHOLE
+        assert plan == block_attention.bwd_plan(l, hd)
         assert _bwd_owners(plan, l) == [1] * -(-l // 16)
         assert 0 < plan.smem <= flash_attention.SMEM_LIMIT
-        assert 0 <= plan.smem_dkv <= flash_attention.SMEM_LIMIT
+        assert plan.smem_dkv == 0
 
 
 def test_bwd_deferred_plan_at_the_sweep_shape():
